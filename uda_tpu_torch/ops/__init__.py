@@ -1,0 +1,1 @@
+"""Device sort/merge operations of the port (see uda_tpu_torch/__init__.py)."""
