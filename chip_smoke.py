@@ -10,24 +10,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``uda_tpu_torch/csrc`` compiled with ``nvcc``;
-3. kernels: K2/K1 through ``sort_lanes`` at 8 and 32 rows (``two_phase``
-   off and on) and K3/K4 through ``sort_lanes_folded4``, at 2^20 records
-   with tiles 1024 and 4096, on keys with duplicates, words >= 2^31 and
-   all-0xFFFFFFFF keys; every launch held byte for byte against its plain
-   PyTorch version on the same input, and the result against PyTorch's
-   stable sort;
+3. kernels: K2/K1 (with K1's partition kernel) through ``sort_lanes`` at 8
+   and 32 rows (``two_phase`` off and on) and K3/K4 through
+   ``sort_lanes_folded4``, at 2^20 records with tiles 1024 and 4096, on
+   keys with duplicates, words >= 2^31 and all-0xFFFFFFFF keys; K2/K1 at
+   the edges of their design (tile 128, n == tile, 1, 7 and 30 key words
+   at 4, 8 and 32 rows, all-equal, all-0xFFFFFFFF and high keys); K5
+   (``take_lanes``) at the probe's three shapes; every launch held byte
+   for byte against its plain PyTorch version on the same input, and each
+   cascade against PyTorch's stable sort;
 4. main path: ``single_chip_sort`` of 100,000,000 TeraSort records
    (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``, padded to 2^27
-   inside) with ``path="auto"``, which resolves to ``keys8`` (K2 + K1), then
-   the same records through ``keys8f`` (K3 + K4); each checked for order,
-   multiset checksum and byte identity with the stable-sort yardstick,
-   with the launches of every kernel counted;
+   inside) with ``path="auto"``, which resolves to ``keys8`` (K2, K1 and
+   its partition kernel), then the same records through ``keys8f`` (K3 +
+   K4); each checked for order, multiset checksum and byte identity with
+   the stable-sort yardstick, with the launches of every kernel counted;
 5. engines: all eight engines on 2^22 records give the same bytes, and
    ``bench_step`` runs 2 rounds of ``keys8``;
-6. times, with CUDA events at the main path's shapes: each kernel (K1 and
-   K4 per pass and summed over the cascade), its plain version, PyTorch's
-   stable sort computing the same function, its bound, the cascades and
-   the whole-sort yardstick;
+6. times, with CUDA events at the main path's shapes: each kernel (K1,
+   its partition kernel and K4 per pass and summed over the cascade; K5 on
+   the keys8 matrix by the main path's permutation), its plain version,
+   PyTorch's call computing the same function, its bound, the cascades
+   and the whole-sort yardstick;
 7. profile: device time by kernel and the device's idle share over one
    main-path call (``torch.profiler``).
 
@@ -46,7 +50,7 @@ import torch
 
 from uda_tpu_torch.device import generator
 from uda_tpu_torch.models import terasort
-from uda_tpu_torch.ops import _build, pallas_fold, pallas_sort
+from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
 from uda_tpu_torch.ops import sort as sort_ops
 from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
 
@@ -64,6 +68,11 @@ KERNELS = {
     "merge_pass": dict(
         id="K1", route="cuda", source="uda_tpu_torch/csrc/lanes_sort.cu",
         replaces="uda_tpu/ops/pallas_sort.py:310"),
+    # K1's partition kernel: the window table of K1's launcher; its time
+    # is also inside K1's, which is timed through the wrapper
+    "merge_partition": dict(
+        id="K1", route="cuda", source="uda_tpu_torch/csrc/lanes_sort.cu",
+        replaces="uda_tpu/ops/pallas_sort.py:210"),
     "tile_sort": dict(
         id="K2", route="cuda", source="uda_tpu_torch/csrc/lanes_sort.cu",
         replaces="uda_tpu/ops/pallas_sort.py:133"),
@@ -73,7 +82,27 @@ KERNELS = {
     "merge_pass_folded": dict(
         id="K4", route="cuda", source="uda_tpu_torch/csrc/lanes_fold.cu",
         replaces="uda_tpu/ops/pallas_fold.py:135"),
+    "take_lanes": dict(
+        id="K5", route="cuda", source="uda_tpu_torch/csrc/lane_gather.cu",
+        replaces="scripts/probe_gather.py:62"),
 }
+MAIN_PATH = ("tile_sort", "merge_pass", "merge_partition")
+# K2/K1 at the edges of their design: rows, key words, tie-break row, n,
+# tile and the kind of keys (test_words)
+EDGE_CASES = [
+    (8, 3, 7, 1 << 12, 128, "mixed"),      # first pass: width clamps to 256
+    (8, 3, 7, 1024, 1024, "mixed"),        # n == tile: no merge pass
+    (4, 1, 3, 1 << 13, 256, "mixed"),
+    (8, 1, 7, 1 << 13, 128, "mixed"),
+    (8, 7, 7, 1 << 13, 512, "mixed"),
+    (32, 7, 31, 1 << 12, 256, "mixed"),
+    (32, 30, 31, 1 << 12, 128, "mixed"),
+    (8, 3, 7, 1 << 13, 128, "equal"),      # order from the arrival index
+    (4, 3, 3, 1 << 13, 1024, "ones"),      # all-0xFFFFFFFF keys
+    (32, 30, 31, 1 << 11, 128, "equal"),
+    (8, 2, 7, 1 << 14, 8192, "high"),      # words >= 2^31, largest tile
+]
+PROBE_SHAPES = ((32, 2048), (8, 2048), (8, 512))  # scripts/probe_gather.py
 _ALL_ONES = 0xFFFFFFFF
 
 
@@ -141,10 +170,12 @@ def phase_build() -> float:
 
 
 # ---------------------------------------------------------------- phase 3
-def test_words(gen: torch.Generator, rows: int, n: int,
-               num_keys: int) -> torch.Tensor:
+def test_words(gen: torch.Generator, rows: int, n: int, num_keys: int,
+               kind: str = "mixed") -> torch.Tensor:
     """Random uint32[rows, n] whose key rows mix random words with a small
-    alphabet (duplicates, words >= 2^31, all-0xFFFFFFFF keys)."""
+    alphabet (duplicates, words >= 2^31, all-0xFFFFFFFF keys); ``kind``
+    "equal" makes every key the same, "ones" all-0xFFFFFFFF and "high"
+    sets the top bit of every key word."""
     dev = gen.device
     x = torch.randint(-(1 << 31), 1 << 31, (rows, n), dtype=torch.int32,
                       generator=gen, device=dev).view(torch.uint32)
@@ -154,6 +185,12 @@ def test_words(gen: torch.Generator, rows: int, n: int,
                          device=dev)
     small = torch.rand((1, n), generator=gen, device=dev) < 0.5
     keys = torch.where(small, alphabet[pick], _as_i64(x[:num_keys]))
+    if kind == "equal":
+        keys = torch.full_like(keys, 0x80000001)
+    elif kind == "ones":
+        keys = torch.full_like(keys, _ALL_ONES)
+    elif kind == "high":
+        keys = keys | 0x80000000
     i32(x)[:num_keys] = i32(words_of(keys))
     return x
 
@@ -192,6 +229,10 @@ def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
     y = first(x, tile, *args)
     errs[names[0]] = max_abs_err(y, first_plain(x, tile, *args))
     for lvl in range((x.shape[1] // tile).bit_length() - 1):
+        if not folded:
+            errs["merge_partition"] = max(errs.get("merge_partition", 0),
+                                          check_partition(y, tile << lvl,
+                                                          num_keys, tb_row))
         z = step(y, tile << lvl, tile, *args)
         errs[names[1]] = max(errs[names[1]],
                              max_abs_err(z, step_plain(y, tile << lvl, tile,
@@ -203,8 +244,35 @@ def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
     return errs
 
 
+def check_partition(y: torch.Tensor, run_len: int, num_keys: int,
+                    tb_row: int) -> int:
+    """K1's partition kernel against its plain version (merge_splits) at
+    the block width the merge kernel takes; the largest error."""
+    rows, n = y.shape
+    width = pallas_sort.merge_pass_width(rows, num_keys, n, run_len)
+    require(n % width == 0 and width <= 2 * run_len,
+            f"merge width {width} at n={n} run_len={run_len}")
+    got = pallas_sort.merge_partition(y, run_len, width, num_keys, tb_row)
+    want = pallas_sort.merge_partition_plain(y, run_len, width, num_keys,
+                                             tb_row)
+    return max_abs_err(got, want)
+
+
+def check_take_lanes(gen: torch.Generator, rows: int, n: int) -> int:
+    """K5 against its plain version on random words and a permutation."""
+    dev = gen.device
+    x = torch.randint(-(1 << 31), 1 << 31, (rows, n), dtype=torch.int32,
+                      generator=gen, device=dev).view(torch.uint32)
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    got = lane_gather.take_lanes(x, perm)
+    require(same(got, sort_ops.take_cols(x, perm.long())),
+            f"take_lanes [{rows}, {n}] differs from x[:, perm]")
+    return max_abs_err(got, lane_gather.take_lanes_plain(x, perm))
+
+
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
-                  tiles=KERNEL_TILES) -> dict:
+                  tiles=KERNEL_TILES, edges=EDGE_CASES,
+                  probe_shapes=PROBE_SHAPES) -> dict:
     gen = generator(SEED + 1, dev)
     worst: dict = {}
     for tile in tiles:
@@ -230,6 +298,20 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
             log(f"[kernels] rows={rows} keys={nk} tile={tile} n={n}: "
                 f"max_abs_err against the plain versions {errs} "
                 f"(tolerance 0); public cascade equal to the stable sort")
+    for rows, nk, tb, n_edge, tile, kind in edges:
+        x = test_words(gen, rows, n_edge, nk, kind)
+        errs = check_cascade(x, nk, tb, tile, False)
+        for name, err in errs.items():
+            worst[name] = max(worst.get(name, 0), err)
+        log(f"[kernels] edge rows={rows} keys={nk} tile={tile} n={n_edge} "
+            f"{kind} keys: max_abs_err {errs} (tolerance 0); cascade equal "
+            f"to the stable sort")
+    for rows, n_probe in probe_shapes:
+        err = check_take_lanes(gen, rows, n_probe)
+        worst["take_lanes"] = max(worst.get("take_lanes", 0), err)
+        log(f"[kernels] K5 take_lanes [{rows}, {n_probe}]: max_abs_err "
+            f"{err} (tolerance 0); equal to x[:, perm]")
+    torch.cuda.synchronize()
     require(all(v == 0 for v in worst.values()),
             f"kernel differs from its plain version: {worst}")
     return worst
@@ -274,7 +356,7 @@ def phase_main(dev: torch.device, n: int = N_MAIN) -> tuple:
     auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
     require(auto == "keys8", f'"auto" resolved to {auto!r}, not keys8')
     reference = yardstick(words)
-    runs = [run_path(words, "auto", ("tile_sort", "merge_pass"), reference),
+    runs = [run_path(words, "auto", MAIN_PATH, reference),
             run_path(words, "keys8f",
                      ("tile_sort_folded", "merge_pass_folded"), reference)]
     return words, runs
@@ -324,6 +406,17 @@ def library_sort(x: torch.Tensor, seg: int, num_keys: int,
     return out
 
 
+def partition_work(m: int, run_len: int, width: int) -> tuple:
+    """Bytes and compares K1's partition kernel needs on one pass: per
+    block boundary a binary search over the diagonal's range, each step
+    reading one word of two records (more only on equal words), and one
+    4-byte split written. Returns (bytes, compares)."""
+    steps = sum((min(d, run_len) - max(0, d - run_len)).bit_length()
+                for d in range(0, 2 * run_len, width))
+    steps *= m // (2 * run_len)
+    return 4 * (m // width) + 2 * 4 * steps, steps
+
+
 def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
                  reps: int) -> dict:
     """Time each kernel of one cascade at ``mat``'s shape, its plain
@@ -354,8 +447,23 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     per_pass = []
     errs = 0
     plain_total = library_total = 0.0
+    part = {"ms": 0.0, "per_pass_ms": [], "plain_ms": 0.0, "bytes": 0,
+            "ops": 0, "max_abs_err": 0, "library_ms": None}
     for lvl in range((m // tile).bit_length() - 1):
         L = tile << lvl
+        if not folded:
+            width = pallas_sort.merge_pass_width(rows, nk, m, L)
+            part["per_pass_ms"].append(time_ms(
+                lambda: pallas_sort.merge_partition(y, L, width, nk, tb),
+                reps))
+            part["plain_ms"] += time_ms(
+                lambda: pallas_sort.merge_partition_plain(y, L, width, nk,
+                                                          tb), 1, warmup=0)
+            part["max_abs_err"] = max(part["max_abs_err"],
+                                      check_partition(y, L, nk, tb))
+            nbytes, steps = partition_work(m, L, width)
+            part["bytes"] += nbytes
+            part["ops"] += steps
         per_pass.append(time_ms(lambda: step(y, L, tile, *args, out=spare),
                                 reps))
         plain_total += time_ms(lambda: step_plain(y, L, tile, *args), 1,
@@ -375,6 +483,33 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
         "ops": len(per_pass) * m * words_compared,
         "max_abs_err": errs,
     }
+    if not folded:
+        part["ms"] = sum(part["per_pass_ms"])
+        res["merge_partition"] = part
+    torch.cuda.synchronize()
+    return res
+
+
+def time_take_lanes(mat: torch.Tensor, perm: torch.Tensor,
+                    reps: int) -> dict:
+    """K5 on the keys8 matrix by the main path's sort permutation, its
+    plain version and torch indexing ``x[:, perm]``."""
+    rows, m = mat.shape
+    perm64 = perm.long()
+    got = lane_gather.take_lanes(mat, perm)
+    res = {
+        "ms": time_ms(lambda: lane_gather.take_lanes(mat, perm), reps),
+        "plain_ms": time_ms(lambda: lane_gather.take_lanes_plain(mat, perm),
+                            1),
+        "library_ms": time_ms(lambda: i32(mat)[:, perm64], reps),
+        # every input word and perm read once, every output word written
+        "bytes": (2 * rows * m + m) * 4,
+        "ops": 0,
+        "max_abs_err": max_abs_err(got, lane_gather.take_lanes_plain(mat,
+                                                                     perm)),
+    }
+    require(same(got, sort_ops.take_cols(mat, perm64)),
+            "take_lanes differs from x[:, perm] at the main path's shape")
     torch.cuda.synchronize()
     return res
 
@@ -389,15 +524,19 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
     mat4 = u32(torch.cat([i32(keyr), i32(keyr).new_zeros((1, m))]))
     times = time_cascade(mat8, tile, False, reps)
     times.update(time_cascade(mat4, tile, True, reps))
-    del mat8, mat4
+    _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile)
+    times["take_lanes"] = time_take_lanes(mat8, perm, reps)
+    del mat8, mat4, perm
     require(all(t["max_abs_err"] == 0 for t in times.values()),
             "a kernel differs from its plain version at the main path's "
             "shapes")
     for name, t in times.items():
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"])
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.3f} ms")
         log(f"[times] {KERNELS[name]['id']} {name} at m={m} tile={tile}: "
-            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, torch.sort "
-            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+            f"{lib}, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops), "
             f"max_abs_err {t['max_abs_err']} (tolerance 0)")
         if "per_pass_ms" in t:
@@ -483,7 +622,8 @@ def main() -> int:
         kernels.append({
             "name": f"{meta['id']} {name}", "route": meta["route"],
             "source": meta["source"], "replaces": meta["replaces"],
-            "launches": launches[name], "max_abs_err": t["max_abs_err"],
+            "launches": launches.get(name, 0),
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

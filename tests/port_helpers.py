@@ -29,6 +29,23 @@ def words(seed: int, rows: int, n: int, num_keys: int) -> np.ndarray:
     return x
 
 
+def edge_words(seed: int, rows: int, n: int, num_keys: int,
+               kind: str) -> np.ndarray:
+    """:func:`words` with key rows of one kind: "mixed" (as words),
+    "equal" (every key the same, so the arrival index orders them),
+    "ones" (all-0xFFFFFFFF keys) or "high" (every key word >= 2^31)."""
+    x = words(seed, rows, n, num_keys)
+    if kind == "equal":
+        x[:num_keys] = np.uint32(0x80000001)
+    elif kind == "ones":
+        x[:num_keys] = np.uint32(0xFFFFFFFF)
+    elif kind == "high":
+        x[:num_keys] |= np.uint32(0x80000000)
+    elif kind != "mixed":
+        raise ValueError(kind)
+    return x
+
+
 def records(seed: int, n: int) -> np.ndarray:
     """uint32[n, 26] TeraSort-shaped records with duplicated keys and some
     all-0xFFFFFFFF keys (word 2's pad bytes zeroed except there)."""

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from port_helpers import cuda_device, oracle, records, words  # noqa: F401
+from chip_smoke import EDGE_CASES
+from port_helpers import (cuda_device, edge_words, oracle,  # noqa: F401
+                          records, words)
 from uda_tpu_torch import interop
 from uda_tpu_torch.models import terasort as tts
-from uda_tpu_torch.ops import _build, pallas_fold, pallas_sort
+from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
 from uda_tpu_torch.ops import sort as tsort
 
 pytestmark = pytest.mark.gpu
@@ -38,7 +40,13 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
 def test_k2_k1_match_plain(cuda_device, rows, nk, tb, tile):
     """K2 and every K1 pass against their plain versions."""
     x_np = words(rows + nk, rows, 1 << 15, nk)
-    x = _on_card(x_np, cuda_device)
+    y = _k2_k1_cascade(_on_card(x_np, cuda_device), nk, tb, tile)
+    np.testing.assert_array_equal(interop.words_to_numpy(y),
+                                  oracle(x_np, nk, tb))
+
+
+def _k2_k1_cascade(x, nk, tb, tile):
+    """K2 and every K1 pass against their plain versions; the result."""
     y = pallas_sort.tile_sort(x, tile, nk, tb)
     assert _same(y, pallas_sort.tile_sort_plain(x, tile, nk, tb))
     run = tile
@@ -46,8 +54,53 @@ def test_k2_k1_match_plain(cuda_device, rows, nk, tb, tile):
         z = pallas_sort.merge_pass(y, run, tile, nk, tb)
         assert _same(z, pallas_sort.merge_pass_plain(y, run, tile, nk, tb))
         y, run = z, 2 * run
+    return y
+
+
+@pytest.mark.parametrize("rows,nk,tb,n,tile,kind",
+                         EDGE_CASES + [(32, 3, 31, 1 << 13, 4096, "mixed")])
+def test_k2_k1_edges_match_plain(cuda_device, rows, nk, tb, n, tile, kind):
+    """The redesigned K2 and K1 at the edges of their block widths, key
+    counts and key values, against their plain versions and numpy."""
+    x_np = edge_words(n + nk, rows, n, nk, kind)
+    y = _k2_k1_cascade(_on_card(x_np, cuda_device), nk, tb, tile)
     np.testing.assert_array_equal(interop.words_to_numpy(y),
                                   oracle(x_np, nk, tb))
+
+
+@pytest.mark.parametrize("rows,nk,tb,tile", [(8, 3, 7, 128), (32, 30, 31, 128),
+                                             (4, 1, 3, 1024)])
+def test_merge_partition_matches_merge_splits(cuda_device, rows, nk, tb,
+                                              tile):
+    """K1's partition kernel against the plain version's merge_splits, on
+    every pass of a cascade."""
+    x = _on_card(edge_words(rows, rows, 1 << 13, nk, "mixed"), cuda_device)
+    y = pallas_sort.tile_sort(x, tile, nk, tb)
+    run = tile
+    while run < x.shape[1]:
+        width = pallas_sort.merge_pass_width(rows, nk, x.shape[1], run)
+        assert width <= 2 * run and x.shape[1] % width == 0
+        got = pallas_sort.merge_partition(y, run, width, nk, tb)
+        keys = [tsort._as_i64(y[r]) for r in [*range(nk), tb]]
+        want = pallas_sort.merge_splits(keys, y.shape[1], run, width)[1]
+        assert torch.equal(got.to(torch.int64), want)
+        y = pallas_sort.merge_pass(y, run, tile, nk, tb)
+        run *= 2
+
+
+@pytest.mark.parametrize("rows,n", [(32, 2048), (8, 2048), (8, 512)])
+def test_take_lanes_matches_plain(cuda_device, rows, n):
+    """K5 at the probe's three shapes, against the plain version and the
+    probe's own oracle ``x[:, perm]``."""
+    rng = np.random.default_rng(rows + n)
+    x_np = rng.integers(0, 2**32, size=(rows, n), dtype=np.uint32)
+    perm_np = rng.permutation(n).astype(np.int32)
+    x = _on_card(x_np, cuda_device)
+    perm = torch.from_numpy(perm_np).to(cuda_device)
+    got = lane_gather.take_lanes(x, perm)
+    assert _same(got, lane_gather.take_lanes_plain(x, perm))
+    np.testing.assert_array_equal(interop.words_to_numpy(got),
+                                  x_np[:, perm_np])
 
 
 @pytest.mark.parametrize("nk,tile", [(3, 1024), (1, 256), (2, 4096)])
@@ -85,6 +138,7 @@ def test_launch_counts(cuda_device):
     pallas_fold.sort_lanes_folded(x, 3, tile=1024)
     torch.cuda.synchronize()
     assert dict(_build.launches) == {"tile_sort": 1, "merge_pass": 4,
+                                     "merge_partition": 4,
                                      "tile_sort_folded": 1,
                                      "merge_pass_folded": 4}
 

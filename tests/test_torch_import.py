@@ -16,7 +16,7 @@ import torch
 import chip_smoke
 from uda_tpu_torch import device as tdevice
 from uda_tpu_torch.models import terasort as tts
-from uda_tpu_torch.ops import _build, pallas_fold, pallas_sort
+from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "uda_tpu_torch").rglob("*.py")) + [
@@ -95,6 +95,9 @@ def test_chip_smoke_fails_alone(tmp_path):
     lambda x: pallas_sort.merge_pass(x, 128, 128, 3, 7),
     lambda x: pallas_fold.tile_sort_folded(x[:4], 256, 3),
     lambda x: pallas_fold.merge_pass_folded(x[:4], 256, 256, 3),
+    lambda x: pallas_sort.merge_partition(x, 128, 256, 3, 7),
+    lambda x: lane_gather.take_lanes(
+        x, torch.empty(512, dtype=torch.int32, device="meta")),
 ])
 def test_wrappers_take_no_plain_path_off_the_cpu(call):
     """A wrapper runs its plain version only for a CPU tensor; any other
@@ -119,7 +122,8 @@ def test_build_all_builds_each_source_once(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc", lambda: _fake_nvcc(tmp_path, True))
     _build.build_all()
     built = sorted(p.name for p in (tmp_path / "build").iterdir())
-    assert [b.split("-")[0] for b in built] == ["liblanes_fold",
+    assert [b.split("-")[0] for b in built] == ["liblane_gather",
+                                                "liblanes_fold",
                                                 "liblanes_sort"]
     assert all(b.endswith(".so") for b in built)
     monkeypatch.setattr(_build, "nvcc", lambda: _fake_nvcc(tmp_path, False))
@@ -139,4 +143,5 @@ def test_launch_counter_counts_only_kernel_launches():
     x = torch.from_numpy(np.arange(1024, dtype=np.uint32).reshape(4, 256))
     pallas_sort.sort_lanes(x, 1, tb_row=3, tile=128)
     pallas_fold.sort_lanes_folded4(x, 1, tile=256)
+    lane_gather.take_lanes(x, torch.arange(255, -1, -1, dtype=torch.int32))
     assert sum(_build.launches.values()) == 0   # plain versions on the CPU

@@ -79,17 +79,12 @@ def test_one_merge_pass_matches_jax():
                                                  tb).numpy(), want)
 
 
-@pytest.mark.parametrize("n,tile,run_len", [(2048, 128, 128),
-                                             (2048, 128, 512),
-                                             (4096, 256, 2048)])
-def test_merge_splits_match_jax_pass_splits(n, tile, run_len):
-    """The port's vectorised merge-path split equals the reference's
-    (_pass_splits, thr_a = run_len - i0) on the final pass, where every
-    output tile ascends."""
-    nk, tb = 2, 7
-    x = words(n + run_len, 8, n, nk)
+def _final_pass_input(n: int, run_len: int, seed: int, nk: int, tb: int):
+    """8-row records in sorted runs of ``run_len`` (tie-break row = arrival
+    index): ascending for the port, and as the reference stores them on
+    its final pass (every second run descending)."""
+    x = words(seed, 8, n, nk)
     x[tb] = np.arange(n, dtype=np.uint32)
-    # runs of run_len, sorted; the reference stores the B run descending
     asc = x.copy()
     ref = x.copy()
     for base in range(0, n, run_len):
@@ -98,6 +93,18 @@ def test_merge_splits_match_jax_pass_splits(n, tile, run_len):
         asc[:, base:base + run_len] = run
         desc = (base // run_len) % 2 == 1
         ref[:, base:base + run_len] = run[:, ::-1] if desc else run
+    return asc, ref
+
+
+@pytest.mark.parametrize("n,tile,run_len", [(2048, 128, 128),
+                                             (2048, 128, 512),
+                                             (4096, 256, 2048)])
+def test_merge_splits_match_jax_pass_splits(n, tile, run_len):
+    """The port's vectorised merge-path split equals the reference's
+    (_pass_splits, thr_a = run_len - i0) on the final pass, where every
+    output tile ascends."""
+    nk, tb = 2, 7
+    asc, ref = _final_pass_input(n, run_len, n + run_len, nk, tb)
     spl = np.asarray(jps._pass_splits(jnp.asarray(ref), run_len, True, tile,
                                       nk, tb))
     keys = [torch.from_numpy(asc[r]).to(torch.int64) for r in (0, 1, tb)]
@@ -105,6 +112,22 @@ def test_merge_splits_match_jax_pass_splits(n, tile, run_len):
     np.testing.assert_array_equal(i0.numpy(), run_len - spl[:, 2])
     assert (i0 + j0).tolist() == [(t * tile) % (2 * run_len)
                                   for t in range(n // tile)]
+
+
+@pytest.mark.parametrize("n,run_len,width", [(2048, 128, 256),
+                                             (2048, 512, 256),
+                                             (4096, 1024, 2048)])
+def test_merge_partition_matches_jax_pass_splits(n, run_len, width):
+    """K1's partition at a block width other than the tile (its plain
+    version on the CPU) equals the reference's _pass_splits with that
+    width as its tile, on the final pass."""
+    nk, tb = 2, 7
+    asc, ref = _final_pass_input(n, run_len, n + width, nk, tb)
+    spl = np.asarray(jps._pass_splits(jnp.asarray(ref), run_len, True, width,
+                                      nk, tb))
+    got = tps.merge_partition(torch.from_numpy(asc), run_len, width, nk, tb)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), run_len - spl[:, 2])
 
 
 def test_layout_helpers():

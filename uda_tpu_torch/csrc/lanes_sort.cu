@@ -1,29 +1,55 @@
-// K2 (tile sort) and K1 (merge pass) of the lanes-layout sort cascade, for
-// Hopper (sm_90a), bound to Python through a plain C interface (ctypes).
+// K2 (tile sort) and K1 (merge pass, with its partition kernel) of the
+// lanes-layout sort cascade, for Hopper (sm_90a), bound to Python through a
+// plain C interface (ctypes).
 //
 // Replaces:
 //   K2  uda_tpu/ops/pallas_sort.py::_tile_sort_kernel   (launcher _tile_sort)
-//   K1  uda_tpu/ops/pallas_sort.py::_merge_pass_kernel  (launcher _merge_pass,
-//       window table _pass_splits, which each block now computes for itself)
+//   K1  uda_tpu/ops/pallas_sort.py::_merge_pass_kernel  (launcher _merge_pass)
+//       and its window table _pass_splits, which merge_partition_kernel
+//       computes on the card, one thread per block boundary
 //
 // Layout: uint32[rows, n], row-major. Row r holds word r of every record;
 // record i is column i. Rows [0, nk) are the key words, row tb_row is the
 // stability tie-break (the global arrival index, written by K2), every other
-// row is payload. All offsets are size_t: a 32-row call at n = 2^27 holds
-// 2^32 words, past any int index.
+// row is payload. All global offsets are size_t: a 32-row call at n = 2^27
+// holds 2^32 words, past any int index.
 //
 // Order: (key words..., tie-break), each word compared as UNSIGNED 32-bit.
 // The tie-break makes every record distinct, so both kernels reproduce the
-// stable order exactly and have one correct output.
+// stable order exactly and have one correct output; ties that remain (only
+// in inputs with repeated tie-break words) go to the first run.
 //
-// What bounds them: bytes. Each launch reads the whole [rows, n] array and
-// writes it once; the compare work is a few integer operations per byte.
-// Design against that: every run is kept ascending between passes (the TPU
-// kernels alternate tile directions and mask windows with +inf only to suit
-// their bitonic networks; no such device is needed here), key words are
-// sorted or merged in shared memory, and every other row moves ONCE per
-// launch, by the sorted source index, with coalesced writes. So the 32-row
-// `two_phase=True` and `False` cascades are the same kernel on this card.
+// Compared words live in shared memory packed two to a 64-bit word, most
+// significant first (word 2q in the high half of u64 q, word 2q+1 in the low
+// half, zero past the last), as P "planes" of u64, one element per record.
+// A compare is P 64-bit compares with an early exit, and almost always ends
+// at plane 0. Plane element k sits at k + k/16: a warp reading records at a
+// power-of-two stride up to 16 then touches distinct banks.
+//
+// What bounds them: bytes. A launch must read every row once and write it
+// once; the compares are a few integer operations per byte. The TPU
+// kernels' devices (alternating tile directions, +inf window masks, cyclic
+// lane rolls) suit a bitonic network and are not carried over: every run
+// stays ascending between passes.
+//
+// K2 (tile_sort_kernel): its bytes are one read and one write of every
+//   row, but a sorting network in shared memory makes it compute- and
+//   barrier-bound (a bitonic network needs 55 barriered stages at tile
+//   1024). So it is a block merge sort with the data in registers (the
+//   pattern of CUB's BlockMergeSort, written here): each thread sorts V
+//   records in registers with no barrier, then log2(tile / V) merge-path
+//   rounds in shared memory, two barriers each; every row is written once,
+//   coalesced. The rounds, not the bytes, still set its pace.
+// K1 (merge_pass_kernel with merge_partition_kernel): bound by bytes, and
+//   by latency where a block waits for its split or its window. The
+//   partition kernel finds every block's merge-path split in parallel, so
+//   a block knows both of its ends before it starts; it then loads exactly
+//   its output width of records from the two runs, every row once (payload
+//   rows by cp.async, coalesced), merges in shared memory (each thread one
+//   binary search and V records merged serially from register heads) and
+//   writes every row once, coalesced. The block width comes from the
+//   shared-memory budget (3 blocks per SM), never spans two run pairs, and
+//   does not change the output.
 
 #include <cstddef>
 #include <cstdint>
@@ -31,164 +57,425 @@
 
 namespace {
 
-// s[w * stride + a] < s[w * stride + b] lexicographically over nw words.
-__device__ __forceinline__ bool smem_lt(const uint32_t* s, int stride, int a,
-                                        const uint32_t* t, int b, int nw) {
-  for (int w = 0; w < nw; ++w) {
-    const uint32_t u = s[w * stride + a];
-    const uint32_t v = t[w * stride + b];
+// ------------------------------------------------------------------ shared
+
+// Plane index of record k (one pad element per 16).
+__device__ __forceinline__ int sk64(int k) { return k + (k >> 4); }
+// Index of uint16 element k (two pad elements per 64).
+__device__ __forceinline__ int sk16(int k) { return k + ((k >> 6) << 1); }
+
+__device__ __forceinline__ int half_shift(int w) { return (w & 1) ? 0 : 32; }
+
+// Packed compared words of record c: key words from rows [0, nk) and `tbv`
+// as word nk.
+template <int P>
+__device__ __forceinline__ void pack_rec(uint64_t (&rec)[P],
+                                         const uint32_t* __restrict__ x,
+                                         size_t n, int nk, size_t c,
+                                         uint32_t tbv) {
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int w0 = 2 * q;
+    const int w1 = 2 * q + 1;
+    const uint32_t hi = w0 < nk ? __ldg(x + (size_t)w0 * n + c)
+                                : (w0 == nk ? tbv : 0u);
+    const uint32_t lo = w1 < nk ? __ldg(x + (size_t)w1 * n + c)
+                                : (w1 == nk ? tbv : 0u);
+    rec[q] = ((uint64_t)hi << 32) | lo;
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void load_rec(uint64_t (&rec)[P],
+                                         const uint64_t* s, int ps, int k) {
+#pragma unroll
+  for (int q = 0; q < P; ++q) rec[q] = s[q * ps + sk64(k)];
+}
+
+template <int P>
+__device__ __forceinline__ void store_rec(uint64_t* s, int ps, int k,
+                                          const uint64_t (&rec)[P]) {
+#pragma unroll
+  for (int q = 0; q < P; ++q) s[q * ps + sk64(k)] = rec[q];
+}
+
+template <int P>
+__device__ __forceinline__ bool rec_lt(const uint64_t (&a)[P],
+                                       const uint64_t (&b)[P]) {
+#pragma unroll
+  for (int q = 0; q < P; ++q)
+    if (a[q] != b[q]) return a[q] < b[q];
+  return false;
+}
+
+// Record a < record b, both in shared memory; reads past plane 0 only on
+// equal high words.
+template <int P>
+__device__ __forceinline__ bool smem_lt(const uint64_t* s, int ps, int a,
+                                        int b) {
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const uint64_t u = s[q * ps + sk64(a)];
+    const uint64_t v = s[q * ps + sk64(b)];
     if (u != v) return u < v;
   }
   return false;
 }
 
 // Record a < record b in global memory, by (key rows, tie-break row).
-__device__ __forceinline__ bool global_lt(const uint32_t* x, size_t n, int nk,
-                                          int tb_row, size_t a, size_t b) {
+__device__ __forceinline__ bool global_lt(const uint32_t* __restrict__ x,
+                                          size_t n, int nk, int tb_row,
+                                          size_t a, size_t b) {
   for (int w = 0; w < nk; ++w) {
-    const uint32_t u = x[(size_t)w * n + a];
-    const uint32_t v = x[(size_t)w * n + b];
+    const uint32_t u = __ldg(x + (size_t)w * n + a);
+    const uint32_t v = __ldg(x + (size_t)w * n + b);
     if (u != v) return u < v;
   }
-  return x[(size_t)tb_row * n + a] < x[(size_t)tb_row * n + b];
+  return __ldg(x + (size_t)tb_row * n + a) < __ldg(x + (size_t)tb_row * n + b);
 }
 
-// K2: one block per tile of `tile` records. Shared memory holds the nk key
-// words and the local arrival index of every record of the tile
-// ((nk + 1) * tile words); a bitonic network sorts them ascending; then every
-// row of the tile is written once in sorted order.
-__global__ void tile_sort_kernel(const uint32_t* __restrict__ x,
-                                 uint32_t* __restrict__ out, size_t n,
-                                 int rows, int nk, int tb_row, int tile) {
-  extern __shared__ uint32_t sm[];
-  const int nw = nk + 1;
-  uint32_t* pos = sm + (size_t)nk * tile;  // local arrival index
-  const size_t base = (size_t)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    for (int w = 0; w < nk; ++w) sm[w * tile + i] = x[(size_t)w * n + base + i];
-    pos[i] = (uint32_t)i;
-  }
-  __syncthreads();
-  const int half = tile >> 1;
-  for (int k = 2; k <= tile; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        const int i = 2 * p - (p & (j - 1));  // bit j of i is clear
-        const int l = i + j;
-        const bool asc = (i & k) == 0;  // k == tile: every block ascends
-        if (smem_lt(sm, tile, l, sm, i, nw) == asc) {
-          for (int w = 0; w < nw; ++w) {
-            const uint32_t t = sm[w * tile + i];
-            sm[w * tile + i] = sm[w * tile + l];
-            sm[w * tile + l] = t;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const uint32_t src = pos[i];
-    for (int r = 0; r < rows; ++r) {
-      uint32_t v;
-      if (r < nk) {
-        v = sm[r * tile + i];
-      } else if (r == tb_row) {
-        v = (uint32_t)(base + src);
-      } else {
-        v = x[(size_t)r * n + base + src];
-      }
-      out[(size_t)r * n + base + i] = v;
-    }
-  }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-// K1: one block per output tile of one pass, which merges adjacent ascending
-// runs of length run_len into ascending runs of 2 * run_len.
-//
-// 1. Thread 0 finds the tile's merge-path split by binary search over the two
-//    input runs in global memory: i0 = the number of A records among the
-//    first d merged records of the pair (ties go to A; with distinct
-//    (key, arrival) pairs there are none).
-// 2. The block loads A[i0, i0 + tile) and B[j0, j0 + tile), clipped at the
-//    run ends, keys and tie-break only, into shared memory.
-// 3. Every window record finds its rank in the output tile as its own
-//    position plus the number of records of the other window below it
-//    (binary search in shared memory); ranks below `tile` record their source
-//    column.
-// 4. Every row of the tile is written once, gathered by source column.
-__global__ void merge_pass_kernel(const uint32_t* __restrict__ x,
-                                  uint32_t* __restrict__ out, size_t n,
-                                  int rows, int nk, int tb_row, int tile,
-                                  size_t run_len) {
-  extern __shared__ uint32_t sm[];
-  __shared__ size_t s_i0;
-  const int nw = nk + 1;
-  uint32_t* sa = sm;                        // [nw][tile] A window
-  uint32_t* sb = sa + (size_t)nw * tile;    // [nw][tile] B window
-  uint32_t* src = sb + (size_t)nw * tile;   // [tile] source column
-  const size_t L = run_len;
-  const size_t out0 = (size_t)blockIdx.x * tile;
-  const size_t a_base = out0 / (2 * L) * (2 * L);
-  const size_t b_base = a_base + L;
-  const size_t d = out0 - a_base;  // the tile's diagonal within its pair
-  if (threadIdx.x == 0) {
-    size_t lo = d > L ? d - L : 0;
-    size_t hi = d < L ? d : L;
-    while (lo < hi) {
-      const size_t mid = (lo + hi + 1) / 2;  // candidate: A records taken
-      const size_t j = d - mid;              // B records taken (< L)
-      if (!global_lt(x, n, nk, tb_row, b_base + j, a_base + mid - 1)) {
-        lo = mid;
-      } else {
-        hi = mid - 1;
-      }
-    }
-    s_i0 = lo;
-  }
-  __syncthreads();
-  const size_t i0 = s_i0;
-  const size_t j0 = d - i0;
-  const int a_len = (int)(L - i0 < (size_t)tile ? L - i0 : (size_t)tile);
-  const int b_len = (int)(L - j0 < (size_t)tile ? L - j0 : (size_t)tile);
-  for (int w = 0; w < nw; ++w) {
-    const size_t row = (size_t)(w < nk ? w : tb_row) * n;
-    for (int i = threadIdx.x; i < a_len; i += blockDim.x)
-      sa[w * tile + i] = x[row + a_base + i0 + i];
-    for (int i = threadIdx.x; i < b_len; i += blockDim.x)
-      sb[w * tile + i] = x[row + b_base + j0 + i];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < a_len + b_len; i += blockDim.x) {
-    const bool from_a = i < a_len;
-    const int p = from_a ? i : i - a_len;
-    const uint32_t* self = from_a ? sa : sb;
-    const uint32_t* other = from_a ? sb : sa;
-    int lo = 0;
-    int hi = from_a ? b_len : a_len;
-    while (lo < hi) {  // count of `other` records below self[p]
-      const int mid = (lo + hi) >> 1;
-      if (smem_lt(other, tile, mid, self, p, nw)) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    const int rank = p + lo;
-    if (rank < tile)
-      src[rank] = (uint32_t)((from_a ? a_base + i0 : b_base + j0) + p);
-  }
-  __syncthreads();
-  for (int r = 0; r < rows; ++r) {
-    const size_t row = (size_t)r * n;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x)
-      out[row + out0 + i] = x[row + src[i]];
-  }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Number of u64 planes for nk key words plus the tie-break: ceil((nk+1)/2),
+// rounded up to an instantiated count (zero planes compare equal).
+int planes_of(int nk) {
+  const int p = (nk + 2) / 2;
+  return p <= 4 ? p : (p <= 8 ? 8 : 16);
 }
 
 int set_smem(const void* kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// ---------------------------------------------------------------------- K2
+
+// Records per thread (V) and the most threads a block may have (LB) for P
+// planes: V * P u64 stay in registers, and LB bounds the registers the
+// compiler may take so every tile the shared memory admits can launch.
+template <int P> struct K2Cfg;
+template <> struct K2Cfg<1> { static constexpr int V = 16, LB = 1024; };
+template <> struct K2Cfg<2> { static constexpr int V = 8, LB = 1024; };
+template <> struct K2Cfg<3> { static constexpr int V = 8, LB = 1024; };
+template <> struct K2Cfg<4> { static constexpr int V = 8, LB = 512; };
+template <> struct K2Cfg<8> { static constexpr int V = 4, LB = 512; };
+template <> struct K2Cfg<16> { static constexpr int V = 4, LB = 256; };
+
+size_t tile_sort_smem(int nk, int tile) {
+  return (size_t)planes_of(nk) * (tile + tile / 16) * sizeof(uint64_t);
+}
+
+// K2: one block of tile / V threads per tile of `tile` records.
+// 1. Coalesced load of the key rows into the planes; word nk is the local
+//    arrival index, which also names each record's source column.
+// 2. Each thread sorts its V consecutive records in registers (odd-even
+//    transposition network, no barrier).
+// 3. Rounds: sorted runs of `width` merge pairwise into runs of 2 * width.
+//    Each thread writes its V records back, then finds where its V outputs
+//    start in its run pair (merge-path binary search in shared memory) and
+//    merges them serially from two register heads.
+// 4. Every row of the tile is written once, coalesced: key rows from the
+//    planes, the tie-break as base + local index, payload rows gathered by
+//    the local index within the tile's span.
+template <int P>
+__global__ void __launch_bounds__(K2Cfg<P>::LB)
+    tile_sort_kernel(const uint32_t* __restrict__ x,
+                     uint32_t* __restrict__ out, size_t n, int rows, int nk,
+                     int tb_row, int tile) {
+  constexpr int V = K2Cfg<P>::V;
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  uint64_t* s = reinterpret_cast<uint64_t*>(sm_raw);
+  const int ps = tile + (tile >> 4);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;  // == tile / V
+  const size_t base = (size_t)blockIdx.x * tile;
+
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int k = tid + j * nt;
+    uint64_t rec[P];
+    pack_rec<P>(rec, x, n, nk, base + k, (uint32_t)k);
+    store_rec<P>(s, ps, k, rec);
+  }
+  __syncthreads();
+
+  uint64_t r[V][P];
+#pragma unroll
+  for (int v = 0; v < V; ++v) load_rec<P>(r[v], s, ps, tid * V + v);
+#pragma unroll
+  for (int p = 0; p < V; ++p) {
+#pragma unroll
+    for (int i = p & 1; i + 1 < V; i += 2) {
+      if (rec_lt<P>(r[i + 1], r[i])) {
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const uint64_t t = r[i][q];
+          r[i][q] = r[i + 1][q];
+          r[i + 1][q] = t;
+        }
+      }
+    }
+  }
+
+  for (int width = V; width < tile; width <<= 1) {
+    __syncthreads();  // every thread has read the previous layout
+#pragma unroll
+    for (int v = 0; v < V; ++v) store_rec<P>(s, ps, tid * V + v, r[v]);
+    __syncthreads();
+    const int g = tid * V;
+    const int d = g & (2 * width - 1);  // diagonal within the run pair
+    const int a0 = g - d;
+    const int b0 = a0 + width;
+    int lo = d > width ? d - width : 0;
+    int hi = d < width ? d : width;
+    while (lo < hi) {  // largest i with A[i-1] <= B[d-i]
+      const int mid = (lo + hi + 1) >> 1;
+      if (!smem_lt<P>(s, ps, b0 + d - mid, a0 + mid - 1)) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    int ia = lo;
+    int ib = d - lo;
+    uint64_t ha[P], hb[P];
+    if (ia < width) load_rec<P>(ha, s, ps, a0 + ia);
+    if (ib < width) load_rec<P>(hb, s, ps, b0 + ib);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool take_a = ib >= width || (ia < width && !rec_lt<P>(hb, ha));
+#pragma unroll
+      for (int q = 0; q < P; ++q) r[v][q] = take_a ? ha[q] : hb[q];
+      if (take_a) {
+        if (++ia < width) load_rec<P>(ha, s, ps, a0 + ia);
+      } else {
+        if (++ib < width) load_rec<P>(hb, s, ps, b0 + ib);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < V; ++v) store_rec<P>(s, ps, tid * V + v, r[v]);
+  __syncthreads();
+
+  const uint64_t* idx_plane = s + (nk >> 1) * ps;
+  const int idx_shift = half_shift(nk);
+  for (int row = 0; row < rows; ++row) {
+    uint32_t* o = out + (size_t)row * n + base;
+    if (row < nk) {
+      const uint64_t* plane = s + (row >> 1) * ps;
+      const int sh = half_shift(row);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int k = tid + j * nt;
+        o[k] = (uint32_t)(plane[sk64(k)] >> sh);
+      }
+    } else if (row == tb_row) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int k = tid + j * nt;
+        o[k] = (uint32_t)(base + (uint32_t)(idx_plane[sk64(k)] >> idx_shift));
+      }
+    } else {
+      const uint32_t* xr = x + (size_t)row * n + base;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int k = tid + j * nt;
+        o[k] = __ldg(xr + (uint32_t)(idx_plane[sk64(k)] >> idx_shift));
+      }
+    }
+  }
+}
+
+template <int P>
+int launch_tile_sort(const uint32_t* x, uint32_t* out, size_t n, int rows,
+                     int nk, int tb_row, int tile, cudaStream_t stream) {
+  const int threads = tile / K2Cfg<P>::V;
+  if (threads > K2Cfg<P>::LB || threads * K2Cfg<P>::V != tile)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = tile_sort_smem(nk, tile);
+  const int err = set_smem((const void*)tile_sort_kernel<P>, smem);
+  if (err) return err;
+  tile_sort_kernel<P><<<(unsigned)(n / tile), threads, smem, stream>>>(
+      x, out, n, rows, nk, tb_row, tile);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------- K1
+
+constexpr int K1_V = 8;                  // outputs per thread
+constexpr int K1_MAX_WIDTH = 4096;       // records per block, at most
+constexpr size_t K1_SMEM_BUDGET = 74 * 1024;  // 3 blocks per SM
+
+size_t merge_pass_smem(int rows, int nk, int width) {
+  const size_t planes = (size_t)planes_of(nk) * (width + width / 16) * 8;
+  const size_t payload = (size_t)(rows - nk - 1) * width * 4;
+  const size_t src = (size_t)(width + width / 32 + 2) * 2;
+  return planes + payload + src;
+}
+
+// The partition: for every block boundary b (output column b * width), the
+// merge-path split of its run pair's diagonal d: i0 = the number of A-run
+// records among the pair's first d merged records, ties to A. One thread
+// per boundary, a binary search in global memory; the same search and tie
+// rule as the plain version's merge_splits.
+__global__ void merge_partition_kernel(const uint32_t* __restrict__ x,
+                                       uint32_t* __restrict__ splits,
+                                       size_t n, int nk, int tb_row,
+                                       int width, size_t run_len,
+                                       size_t blocks) {
+  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= blocks) return;
+  const size_t L = run_len;
+  const size_t out0 = b * width;
+  const size_t a_base = out0 / (2 * L) * (2 * L);
+  const size_t b_base = a_base + L;
+  const size_t d = out0 - a_base;
+  size_t lo = d > L ? d - L : 0;
+  size_t hi = d < L ? d : L;
+  while (lo < hi) {
+    const size_t mid = (lo + hi + 1) / 2;  // candidate: A records taken
+    if (!global_lt(x, n, nk, tb_row, b_base + d - mid, a_base + mid - 1)) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  splits[b] = (uint32_t)lo;
+}
+
+// K1: one block of width / K1_V threads per `width` output records of one
+// pass, which merges adjacent ascending runs of run_len into ascending runs
+// of 2 * run_len. The block's ends come from the partition: it merges
+// A[i0, i1) with B[j0, j1), i1 - i0 + j1 - j0 = width.
+// 1. Load: payload rows by cp.async into row-major shared memory, compared
+//    words packed into the planes; window position k < na is A[i0 + k],
+//    k >= na is B[j0 + k - na]. Every word is read once, coalesced.
+// 2. Merge: thread t owns outputs [t V, t V + V): one binary search for its
+//    diagonal, then V serial steps from register heads, recording each
+//    output's window position.
+// 3. Store: every row written once, coalesced, from shared memory.
+template <int P>
+__global__ void __launch_bounds__(K1_MAX_WIDTH / K1_V)
+    merge_pass_kernel(const uint32_t* __restrict__ x,
+                      uint32_t* __restrict__ out,
+                      const uint32_t* __restrict__ splits, size_t n,
+                      int rows, int nk, int tb_row, int width,
+                      size_t run_len) {
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  const int W = width;
+  const int ps = W + (W >> 4);
+  const int npay = rows - nk - 1;
+  uint64_t* s = reinterpret_cast<uint64_t*>(sm_raw);
+  uint32_t* pay = reinterpret_cast<uint32_t*>(s + (size_t)P * ps);
+  uint16_t* src = reinterpret_cast<uint16_t*>(pay + (size_t)npay * W);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;  // == W / K1_V
+  const size_t L = run_len;
+  const size_t out0 = (size_t)blockIdx.x * W;
+  const size_t a_base = out0 / (2 * L) * (2 * L);
+  const size_t d0 = out0 - a_base;
+  const size_t i0 = splits[blockIdx.x];
+  const size_t i1 = d0 + W == 2 * L ? L : splits[blockIdx.x + 1];
+  const int na = (int)(i1 - i0);
+  const int nb = W - na;
+  const size_t a_col = a_base + i0;                   // column of k = 0
+  const size_t b_col = a_base + L + (d0 - i0) - na;   // + k for k >= na
+
+  for (int p = 0; p < npay; ++p) {
+    const int row = p < tb_row - nk ? nk + p : nk + 1 + p;
+    const uint32_t* xr = x + (size_t)row * n;
+    uint32_t* dst = pay + (size_t)p * W;
+#pragma unroll
+    for (int j = 0; j < K1_V; ++j) {
+      const int k = tid + j * nt;
+      cp_async4(dst + k, xr + (k < na ? a_col : b_col) + k);
+    }
+  }
+  const uint32_t* xtb = x + (size_t)tb_row * n;
+#pragma unroll
+  for (int j = 0; j < K1_V; ++j) {
+    const int k = tid + j * nt;
+    const size_t c = (k < na ? a_col : b_col) + k;
+    uint64_t rec[P];
+    pack_rec<P>(rec, x, n, nk, c, __ldg(xtb + c));
+    store_rec<P>(s, ps, k, rec);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int d = tid * K1_V;
+  int lo = d > nb ? d - nb : 0;
+  int hi = d < na ? d : na;
+  while (lo < hi) {  // largest i with A[i-1] <= B[d-i]: ties go to A
+    const int mid = (lo + hi + 1) >> 1;
+    if (!smem_lt<P>(s, ps, na + d - mid, mid - 1)) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  int ia = lo;
+  int ib = d - lo;
+  uint64_t ha[P], hb[P];
+  if (ia < na) load_rec<P>(ha, s, ps, ia);
+  if (ib < nb) load_rec<P>(hb, s, ps, na + ib);
+#pragma unroll
+  for (int v = 0; v < K1_V; ++v) {
+    const bool take_a = ib >= nb || (ia < na && !rec_lt<P>(hb, ha));
+    if (take_a) {
+      src[sk16(d + v)] = (uint16_t)ia;
+      if (++ia < na) load_rec<P>(ha, s, ps, ia);
+    } else {
+      src[sk16(d + v)] = (uint16_t)(na + ib);
+      if (++ib < nb) load_rec<P>(hb, s, ps, na + ib);
+    }
+  }
+  __syncthreads();
+
+  int from[K1_V];
+#pragma unroll
+  for (int j = 0; j < K1_V; ++j) from[j] = src[sk16(tid + j * nt)];
+  for (int row = 0; row < rows; ++row) {
+    uint32_t* o = out + (size_t)row * n + out0;
+    if (row < nk || row == tb_row) {
+      const int w = row < nk ? row : nk;
+      const uint64_t* plane = s + (w >> 1) * ps;
+      const int sh = half_shift(w);
+#pragma unroll
+      for (int j = 0; j < K1_V; ++j)
+        o[tid + j * nt] = (uint32_t)(plane[sk64(from[j])] >> sh);
+    } else {
+      const uint32_t* pr = pay + (size_t)(row < tb_row ? row - nk
+                                                       : row - nk - 1) * W;
+#pragma unroll
+      for (int j = 0; j < K1_V; ++j) o[tid + j * nt] = pr[from[j]];
+    }
+  }
+}
+
+template <int P>
+int launch_merge_pass(const uint32_t* x, uint32_t* out,
+                      const uint32_t* splits, size_t n, int rows, int nk,
+                      int tb_row, int width, size_t run_len,
+                      cudaStream_t stream) {
+  const size_t smem = merge_pass_smem(rows, nk, width);
+  const int err = set_smem((const void*)merge_pass_kernel<P>, smem);
+  if (err) return err;
+  merge_pass_kernel<P><<<(unsigned)(n / width), width / K1_V, smem,
+                         stream>>>(x, out, splits, n, rows, nk, tb_row,
+                                   width, run_len);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -199,39 +486,73 @@ const char* uda_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Shared memory bytes one block of each kernel asks for.
+// Shared memory bytes one block of K2 asks for.
 size_t uda_tile_sort_smem(int nk, int tile) {
-  return (size_t)(nk + 1) * tile * sizeof(uint32_t);
+  return tile_sort_smem(nk, tile);
 }
 
-size_t uda_merge_pass_smem(int nk, int tile) {
-  return (size_t)(2 * (nk + 1) + 1) * tile * sizeof(uint32_t);
+// Shared memory bytes one block of K1 asks for at `width` records.
+size_t uda_merge_pass_smem(int rows, int nk, int width) {
+  return merge_pass_smem(rows, nk, width);
+}
+
+// K1's block width for one pass: the largest power of two up to
+// K1_MAX_WIDTH that divides n and 2 * run_len and whose shared memory fits
+// the budget (at least K1_V).
+int uda_merge_pass_width(int rows, int nk, size_t n, size_t run_len) {
+  size_t w = K1_MAX_WIDTH;
+  while (w > (size_t)K1_V &&
+         (n % w || (2 * run_len) % w ||
+          merge_pass_smem(rows, nk, (int)w) > K1_SMEM_BUDGET))
+    w >>= 1;
+  return (int)w;
 }
 
 // Every launcher returns cudaGetLastError() after its launch (0 = success).
 int uda_tile_sort(const void* x, void* out, size_t n, int rows, int nk,
                   int tb_row, int tile, void* stream) {
-  const size_t smem = uda_tile_sort_smem(nk, tile);
-  int err = set_smem((const void*)tile_sort_kernel, smem);
-  if (err) return err;
-  const int threads = tile / 2 < 1024 ? tile / 2 : 1024;
-  tile_sort_kernel<<<(unsigned)(n / tile), threads, smem,
-                     (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)out, n, rows, nk, tb_row, tile);
+  const uint32_t* xi = (const uint32_t*)x;
+  uint32_t* o = (uint32_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (planes_of(nk)) {
+    case 1: return launch_tile_sort<1>(xi, o, n, rows, nk, tb_row, tile, st);
+    case 2: return launch_tile_sort<2>(xi, o, n, rows, nk, tb_row, tile, st);
+    case 3: return launch_tile_sort<3>(xi, o, n, rows, nk, tb_row, tile, st);
+    case 4: return launch_tile_sort<4>(xi, o, n, rows, nk, tb_row, tile, st);
+    case 8: return launch_tile_sort<8>(xi, o, n, rows, nk, tb_row, tile, st);
+    default:
+      return launch_tile_sort<16>(xi, o, n, rows, nk, tb_row, tile, st);
+  }
+}
+
+int uda_merge_partition(const void* x, void* splits, size_t n, int nk,
+                        int tb_row, int width, size_t run_len,
+                        void* stream) {
+  const size_t blocks = n / width;
+  const int threads = 256;
+  merge_partition_kernel<<<(unsigned)((blocks + threads - 1) / threads),
+                           threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (uint32_t*)splits, n, nk, tb_row, width, run_len,
+      blocks);
   return (int)cudaGetLastError();
 }
 
-int uda_merge_pass(const void* x, void* out, size_t n, int rows, int nk,
-                   int tb_row, int tile, size_t run_len, void* stream) {
-  const size_t smem = uda_merge_pass_smem(nk, tile);
-  int err = set_smem((const void*)merge_pass_kernel, smem);
-  if (err) return err;
-  const int threads = tile < 512 ? tile : 512;
-  merge_pass_kernel<<<(unsigned)(n / tile), threads, smem,
-                      (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)out, n, rows, nk, tb_row, tile,
-      run_len);
-  return (int)cudaGetLastError();
+int uda_merge_pass(const void* x, void* out, const void* splits, size_t n,
+                   int rows, int nk, int tb_row, int width, size_t run_len,
+                   void* stream) {
+  const uint32_t* xi = (const uint32_t*)x;
+  uint32_t* o = (uint32_t*)out;
+  const uint32_t* sp = (const uint32_t*)splits;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (planes_of(nk)) {
+    case 1: return launch_merge_pass<1>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
+    case 2: return launch_merge_pass<2>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
+    case 3: return launch_merge_pass<3>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
+    case 4: return launch_merge_pass<4>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
+    case 8: return launch_merge_pass<8>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
+    default:
+      return launch_merge_pass<16>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
+  }
 }
 
 }  // extern "C"

@@ -10,11 +10,14 @@ are payload.
 ``sort_lanes`` is one tile sort (kernel K2, ``tile_sort``) and
 ``log2(n / tile)`` merge passes (kernel K1, ``merge_pass``), which the host
 runs in a loop, swapping two buffers. The kernels are CUDA C++
-(``uda_tpu_torch/csrc/lanes_sort.cu``). Each wrapper launches its kernel on
-a CUDA tensor and runs its plain PyTorch version, same decomposition, on a
-CPU tensor: per-tile sorts, and per pass one merge-path split per output
-tile found by a vectorised binary search (the reference's
-``_pass_splits``), then the tile merged from its two windows.
+(``uda_tpu_torch/csrc/lanes_sort.cu``); a merge pass is two launches, the
+partition kernel (``merge_partition``, every block's merge-path split) and
+the merge kernel. Each wrapper launches its kernel on a CUDA tensor and
+runs its plain PyTorch version on a CPU tensor: per-tile sorts, and per
+pass one merge-path split per output tile found by a vectorised binary
+search (the reference's ``_pass_splits``), then the tile merged from its
+two windows. The merge kernel's blocks need not be ``tile`` wide: a pass
+is a function of ``run_len`` alone.
 
 The TPU kernels alternate tile directions, mask windows with +inf and roll
 lanes to suit their bitonic networks; those are TPU devices, not
@@ -34,7 +37,9 @@ from uda_tpu_torch.ops.sort import (_as_i64, fill_words, i32,
 
 __all__ = ["ROWS", "TB_ROW_DEFAULT", "sort_lanes", "rows_to_lanes",
            "lanes_to_rows", "keys8_sort_perm", "pad_pow2", "tile_sort",
-           "tile_sort_plain", "merge_pass", "merge_pass_plain"]
+           "tile_sort_plain", "merge_pass", "merge_pass_plain",
+           "merge_partition", "merge_partition_plain", "merge_pass_width",
+           "merge_splits"]
 
 ROWS = 32               # row count of the full lanes layout
 TB_ROW_DEFAULT = 31     # default tie-break row (last)
@@ -45,11 +50,16 @@ _C = ctypes
 _SIGNATURES = {
     "uda_tile_sort": ([_C.c_void_p, _C.c_void_p, _C.c_size_t, _C.c_int,
                        _C.c_int, _C.c_int, _C.c_int, _C.c_void_p], _C.c_int),
-    "uda_merge_pass": ([_C.c_void_p, _C.c_void_p, _C.c_size_t, _C.c_int,
-                        _C.c_int, _C.c_int, _C.c_int, _C.c_size_t,
+    "uda_merge_partition": ([_C.c_void_p, _C.c_void_p, _C.c_size_t,
+                             _C.c_int, _C.c_int, _C.c_int, _C.c_size_t,
+                             _C.c_void_p], _C.c_int),
+    "uda_merge_pass": ([_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_size_t,
+                        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_size_t,
                         _C.c_void_p], _C.c_int),
     "uda_tile_sort_smem": ([_C.c_int, _C.c_int], _C.c_size_t),
-    "uda_merge_pass_smem": ([_C.c_int, _C.c_int], _C.c_size_t),
+    "uda_merge_pass_smem": ([_C.c_int, _C.c_int, _C.c_int], _C.c_size_t),
+    "uda_merge_pass_width": ([_C.c_int, _C.c_int, _C.c_size_t, _C.c_size_t],
+                             _C.c_int),
 }
 
 
@@ -117,7 +127,8 @@ def merge_splits(keys: list, n: int, run_len: int, tile: int):
     the pair's records merged before the tile. A vectorised binary search
     over all tiles at once (the reference's ``_pass_splits``); ``keys``
     are the int64 key rows plus the tie-break row, so ties go to A by
-    arrival order. K1 computes the same split per block."""
+    arrival order. K1's partition kernel computes the same split per
+    block of its own width (:func:`merge_partition`)."""
     L = run_len
     out0 = torch.arange(0, n, tile, device=keys[0].device)
     a_base = out0 // (2 * L) * (2 * L)
@@ -174,7 +185,7 @@ def tile_sort(x: torch.Tensor, tile: int, num_keys: int,
     rows, n = _build.cuda_words(x).shape
     lib = _lib()
     _build.check_smem(lib.uda_tile_sort_smem(num_keys, tile), x.device,
-                "tile_sort")
+                      "tile_sort")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _build.launch(lib, "uda_tile_sort", x.data_ptr(), out.data_ptr(), n,
@@ -183,13 +194,52 @@ def tile_sort(x: torch.Tensor, tile: int, num_keys: int,
     return out
 
 
+def merge_pass_width(rows: int, num_keys: int, n: int, run_len: int) -> int:
+    """K1's block width on the card for one pass: records per block, a
+    power of two that divides ``n`` and ``2 * run_len`` and whose shared
+    memory fits three blocks per SM. The output does not depend on it."""
+    return _lib().uda_merge_pass_width(rows, num_keys, n, run_len)
+
+
+def merge_partition_plain(x: torch.Tensor, run_len: int, width: int,
+                          num_keys: int, tb_row: int) -> torch.Tensor:
+    """Plain version of K1's partition kernel: the A-run split ``i0`` of
+    every block of ``width`` output records (int32)."""
+    keys = [_as_i64(x[r]) for r in [*range(num_keys), tb_row]]
+    return merge_splits(keys, x.shape[1], run_len, width)[1].to(torch.int32)
+
+
+def merge_partition(x: torch.Tensor, run_len: int, width: int,
+                    num_keys: int, tb_row: int) -> torch.Tensor:
+    """K1's partition kernel (replaces the window table
+    ``uda_tpu/ops/pallas_sort.py::_pass_splits``): per block of ``width``
+    output records of one pass, the number of A-run records merged before
+    it, one thread per block boundary. The kernel on a CUDA tensor,
+    :func:`merge_partition_plain` on a CPU one."""
+    if x.device.type == "cpu":
+        return merge_partition_plain(x, run_len, width, num_keys, tb_row)
+    rows, n = _build.cuda_words(x).shape
+    if width <= 0 or n % width:
+        raise ValueError(f"width={width} must divide n={n}")
+    lib = _lib()
+    splits = torch.empty(n // width, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch(lib, "uda_merge_partition", x.data_ptr(),
+                      splits.data_ptr(), n, num_keys, tb_row, width, run_len,
+                      _build.stream_of(x))
+    _build.launches["merge_partition"] += 1
+    return splits
+
+
 def merge_pass(x: torch.Tensor, run_len: int, tile: int, num_keys: int,
                tb_row: int, out: "torch.Tensor | None" = None
                ) -> torch.Tensor:
     """K1 (replaces ``uda_tpu/ops/pallas_sort.py::_merge_pass_kernel`` and
-    its window table ``_pass_splits``): the kernel on a CUDA tensor,
-    :func:`merge_pass_plain` on a CPU one; the result goes into ``out``
-    when given."""
+    its window table ``_pass_splits``): the partition kernel and the merge
+    kernel on a CUDA tensor, :func:`merge_pass_plain` on a CPU one; the
+    result goes into ``out`` when given. On the card the blocks are
+    :func:`merge_pass_width` records wide whatever ``tile`` is: the pass
+    depends only on ``run_len``."""
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype
                             or out.data_ptr() == x.data_ptr()):
         raise ValueError("merge_pass needs a separate output like x")
@@ -198,13 +248,15 @@ def merge_pass(x: torch.Tensor, run_len: int, tile: int, num_keys: int,
         return res if out is None else u32(i32(out).copy_(i32(res)))
     rows, n = _build.cuda_words(x).shape
     lib = _lib()
-    _build.check_smem(lib.uda_merge_pass_smem(num_keys, tile), x.device,
-                "merge_pass")
+    width = merge_pass_width(rows, num_keys, n, run_len)
+    _build.check_smem(lib.uda_merge_pass_smem(rows, num_keys, width),
+                      x.device, "merge_pass")
+    splits = merge_partition(x, run_len, width, num_keys, tb_row)
     out = torch.empty_like(x) if out is None else _build.cuda_words(out)
     with torch.cuda.device(x.device):
         _build.launch(lib, "uda_merge_pass", x.data_ptr(), out.data_ptr(),
-                      n, rows, num_keys, tb_row, tile, run_len,
-                      _build.stream_of(x))
+                      splits.data_ptr(), n, rows, num_keys, tb_row, width,
+                      run_len, _build.stream_of(x))
     _build.launches["merge_pass"] += 1
     return out
 
