@@ -15,7 +15,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``sort_lanes_folded4``, at 2^20 records with tiles 1024 and 4096, on
    keys with duplicates, words >= 2^31 and all-0xFFFFFFFF keys; K2/K1 at
    the edges of their design (tile 128, n == tile, 1, 7 and 30 key words
-   at 4, 8 and 32 rows, all-equal, all-0xFFFFFFFF and high keys); K5
+   at 4, 8 and 32 rows, all-equal, all-0xFFFFFFFF and high keys, tiles
+   wider than one K2 block takes); K5
    (``take_lanes``) at the probe's three shapes; every launch held byte
    for byte against its plain PyTorch version on the same input, and each
    cascade against PyTorch's stable sort;
@@ -41,13 +42,16 @@ contract line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
+from uda_tpu_torch import interop
 from uda_tpu_torch.device import generator
 from uda_tpu_torch.models import terasort
 from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
@@ -88,7 +92,7 @@ KERNELS = {
 }
 MAIN_PATH = ("tile_sort", "merge_pass", "merge_partition")
 # K2/K1 at the edges of their design: rows, key words, tie-break row, n,
-# tile and the kind of keys (test_words)
+# tile and the kind of keys (lanes_words)
 EDGE_CASES = [
     (8, 3, 7, 1 << 12, 128, "mixed"),      # first pass: width clamps to 256
     (8, 3, 7, 1024, 1024, "mixed"),        # n == tile: no merge pass
@@ -100,7 +104,10 @@ EDGE_CASES = [
     (8, 3, 7, 1 << 13, 128, "equal"),      # order from the arrival index
     (4, 3, 3, 1 << 13, 1024, "ones"),      # all-0xFFFFFFFF keys
     (32, 30, 31, 1 << 11, 128, "equal"),
-    (8, 2, 7, 1 << 14, 8192, "high"),      # words >= 2^31, largest tile
+    (8, 2, 7, 1 << 14, 8192, "high"),      # words >= 2^31
+    # tiles wider than one K2 block takes: sub-tiles merged by K1
+    (8, 2, 7, 1 << 15, 16384, "high"),
+    (8, 6, 7, 1 << 14, 8192, "mixed"),
 ]
 PROBE_SHAPES = ((32, 2048), (8, 2048), (8, 512))  # scripts/probe_gather.py
 _ALL_ONES = 0xFFFFFFFF
@@ -170,28 +177,27 @@ def phase_build() -> float:
 
 
 # ---------------------------------------------------------------- phase 3
-def test_words(gen: torch.Generator, rows: int, n: int, num_keys: int,
-               kind: str = "mixed") -> torch.Tensor:
-    """Random uint32[rows, n] whose key rows mix random words with a small
-    alphabet (duplicates, words >= 2^31, all-0xFFFFFFFF keys); ``kind``
-    "equal" makes every key the same, "ones" all-0xFFFFFFFF and "high"
-    sets the top bit of every key word."""
-    dev = gen.device
-    x = torch.randint(-(1 << 31), 1 << 31, (rows, n), dtype=torch.int32,
-                      generator=gen, device=dev).view(torch.uint32)
-    alphabet = torch.tensor([0, 1, 0x7FFFFFFF, 0x80000000, _ALL_ONES],
-                            dtype=torch.int64, device=dev)
-    pick = torch.randint(0, len(alphabet), (num_keys, n), generator=gen,
-                         device=dev)
-    small = torch.rand((1, n), generator=gen, device=dev) < 0.5
-    keys = torch.where(small, alphabet[pick], _as_i64(x[:num_keys]))
+def lanes_words(seed: int, rows: int, n: int, num_keys: int,
+                kind: str = "mixed") -> np.ndarray:
+    """uint32[rows, n] records in the lanes layout: random payload, key rows
+    mixing random words with a small alphabet (duplicates, words >= 2^31,
+    all-0xFFFFFFFF keys). Another ``kind`` sets every key word: "equal" (one
+    value, so the arrival index orders them), "ones" (all-0xFFFFFFFF) or
+    "high" (top bit set). The port's tests draw their inputs here too."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2**32, size=(rows, n), dtype=np.uint32)
+    alphabet = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
+    small = rng.random(n) < 0.6
+    x[:num_keys, small] = rng.choice(alphabet, size=(num_keys, small.sum()))
+    x[:num_keys, rng.random(n) < 0.05] = np.uint32(_ALL_ONES)
     if kind == "equal":
-        keys = torch.full_like(keys, 0x80000001)
+        x[:num_keys] = np.uint32(0x80000001)
     elif kind == "ones":
-        keys = torch.full_like(keys, _ALL_ONES)
+        x[:num_keys] = np.uint32(_ALL_ONES)
     elif kind == "high":
-        keys = keys | 0x80000000
-    i32(x)[:num_keys] = i32(words_of(keys))
+        x[:num_keys] |= np.uint32(0x80000000)
+    elif kind != "mixed":
+        raise ValueError(kind)
     return x
 
 
@@ -274,11 +280,13 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   probe_shapes=PROBE_SHAPES) -> dict:
     gen = generator(SEED + 1, dev)
+    seeds = itertools.count(SEED + 1)
     worst: dict = {}
     for tile in tiles:
         cases = [(8, 3, 7, False), (32, 3, 31, False), (4, 3, 3, True)]
         for rows, nk, tb, folded in cases:
-            x = test_words(gen, rows, n, nk)
+            x = interop.words_from_numpy(
+                lanes_words(next(seeds), rows, n, nk), dev)
             errs = check_cascade(x, nk, tb, tile, folded)
             for name, err in errs.items():
                 worst[name] = max(worst.get(name, 0), err)
@@ -299,7 +307,8 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                 f"max_abs_err against the plain versions {errs} "
                 f"(tolerance 0); public cascade equal to the stable sort")
     for rows, nk, tb, n_edge, tile, kind in edges:
-        x = test_words(gen, rows, n_edge, nk, kind)
+        x = interop.words_from_numpy(
+            lanes_words(next(seeds), rows, n_edge, nk, kind), dev)
         errs = check_cascade(x, nk, tb, tile, False)
         for name, err in errs.items():
             worst[name] = max(worst.get(name, 0), err)
@@ -318,10 +327,12 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
 
 
 # ---------------------------------------------------------------- phase 4
-def run_path(words: torch.Tensor, path: str, kernels: tuple,
+def run_path(words: torch.Tensor, path: str, own: tuple,
              reference: torch.Tensor) -> dict:
     """One drive of single_chip_sort with the launch counts reset just
-    before and read just after; checks order, checksum and bytes."""
+    before and read just after, for every kernel; each of the path's
+    ``own`` kernels must have launched. Checks order, checksum and
+    bytes."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -329,10 +340,10 @@ def run_path(words: torch.Tensor, path: str, kernels: tuple,
     out = terasort.single_chip_sort(words, path=path, device=words.device)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {k: _build.launches[k] for k in kernels}
+    counts = {k: _build.launches[k] for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    require(all(counts.values()), f"{path}: a kernel never launched "
-                                  f"{counts}")
+    require(all(counts[k] for k in own), f"{path}: a kernel of {own} never "
+                                         f"launched {counts}")
     require(out.shape == words.shape and out.dtype == torch.uint32,
             f"{path}: output {out.dtype} {tuple(out.shape)}")
     terasort.validate_sorted(out, words)
@@ -341,7 +352,7 @@ def run_path(words: torch.Tensor, path: str, kernels: tuple,
     log(f"[main] {path}: n={words.shape[0]} {secs:.3f} s (first call, host "
         f"clock), launches {counts}, peak {peak / 2**30:.2f} GiB; sorted, "
         f"checksum equal, equal to the yardstick")
-    return {"path": path, "seconds": secs, "launches": counts,
+    return {"path": path, "own": own, "seconds": secs, "launches": counts,
             "peak_bytes": peak}
 
 
@@ -613,16 +624,16 @@ def main() -> int:
     phase_engines(dev)
     timed = phase_times(words)
     phase_profile(words)
-    launches = {}
-    for run in runs:
-        launches.update(run["launches"])
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
+        # the count from the run of the path the kernel belongs to; a kernel
+        # on no path (K5) reads its count from the main path's run
+        run = next((r for r in runs if name in r["own"]), runs[0])
         kernels.append({
             "name": f"{meta['id']} {name}", "route": meta["route"],
             "source": meta["source"], "replaces": meta["replaces"],
-            "launches": launches.get(name, 0),
+            "launches": run["launches"][name],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

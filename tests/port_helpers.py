@@ -1,12 +1,16 @@
 """Shared inputs and the card fixture of the port's tests
 (tests/test_torch_*.py).
 
+Lanes-layout records (``words``) come from ``chip_smoke.lanes_words``, the
+generator of the on-card smoke run, so both draw the same kinds of keys.
 Whether there is a card is decided inside the ``cuda_device`` fixture,
 never at import, so every pytest-xdist worker collects the same tests."""
 
 import numpy as np
 import pytest
 import torch
+
+from chip_smoke import lanes_words as words
 
 
 @pytest.fixture
@@ -15,35 +19,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
-
-
-def words(seed: int, rows: int, n: int, num_keys: int) -> np.ndarray:
-    """uint32[rows, n]: random payload; key rows mixing random words with
-    a small alphabet (duplicates, words >= 2^31, all-0xFFFFFFFF keys)."""
-    rng = np.random.default_rng(seed)
-    x = rng.integers(0, 2**32, size=(rows, n), dtype=np.uint32)
-    alphabet = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
-    small = rng.random(n) < 0.6
-    x[:num_keys, small] = rng.choice(alphabet, size=(num_keys, small.sum()))
-    x[:num_keys, rng.random(n) < 0.05] = np.uint32(0xFFFFFFFF)
-    return x
-
-
-def edge_words(seed: int, rows: int, n: int, num_keys: int,
-               kind: str) -> np.ndarray:
-    """:func:`words` with key rows of one kind: "mixed" (as words),
-    "equal" (every key the same, so the arrival index orders them),
-    "ones" (all-0xFFFFFFFF keys) or "high" (every key word >= 2^31)."""
-    x = words(seed, rows, n, num_keys)
-    if kind == "equal":
-        x[:num_keys] = np.uint32(0x80000001)
-    elif kind == "ones":
-        x[:num_keys] = np.uint32(0xFFFFFFFF)
-    elif kind == "high":
-        x[:num_keys] |= np.uint32(0x80000000)
-    elif kind != "mixed":
-        raise ValueError(kind)
-    return x
 
 
 def records(seed: int, n: int) -> np.ndarray:

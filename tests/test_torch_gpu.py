@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from chip_smoke import EDGE_CASES
-from port_helpers import (cuda_device, edge_words, oracle,  # noqa: F401
-                          records, words)
+from port_helpers import (cuda_device, oracle, records,  # noqa: F401
+                          words)
 from uda_tpu_torch import interop
 from uda_tpu_torch.models import terasort as tts
 from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
@@ -61,8 +61,9 @@ def _k2_k1_cascade(x, nk, tb, tile):
                          EDGE_CASES + [(32, 3, 31, 1 << 13, 4096, "mixed")])
 def test_k2_k1_edges_match_plain(cuda_device, rows, nk, tb, n, tile, kind):
     """The redesigned K2 and K1 at the edges of their block widths, key
-    counts and key values, against their plain versions and numpy."""
-    x_np = edge_words(n + nk, rows, n, nk, kind)
+    counts and key values, and at tiles wider than one K2 block takes,
+    against their plain versions and numpy."""
+    x_np = words(n + nk, rows, n, nk, kind)
     y = _k2_k1_cascade(_on_card(x_np, cuda_device), nk, tb, tile)
     np.testing.assert_array_equal(interop.words_to_numpy(y),
                                   oracle(x_np, nk, tb))
@@ -74,7 +75,7 @@ def test_merge_partition_matches_merge_splits(cuda_device, rows, nk, tb,
                                               tile):
     """K1's partition kernel against the plain version's merge_splits, on
     every pass of a cascade."""
-    x = _on_card(edge_words(rows, rows, 1 << 13, nk, "mixed"), cuda_device)
+    x = _on_card(words(rows, rows, 1 << 13, nk), cuda_device)
     y = pallas_sort.tile_sort(x, tile, nk, tb)
     run = tile
     while run < x.shape[1]:
@@ -147,7 +148,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = _on_card(words(2, 8, 1 << 14, 3), cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         pallas_sort.tile_sort(x[:, ::2], 1024, 3, 7)
-    with pytest.raises(ValueError, match="shared memory"):
-        pallas_sort.tile_sort(x, 1 << 14, 7, 7)
+    with pytest.raises(ValueError, match="power of two"):
+        pallas_sort.tile_sort(x, 384, 3, 7)
     with pytest.raises(ValueError, match="4 rows"):
         pallas_fold.tile_sort_folded(x, 1024, 3)
+    wide = _on_card(words(2, 40, 1 << 10, 32), cuda_device)
+    with pytest.raises(ValueError, match="1 to 31 key words"):
+        pallas_sort.tile_sort(wide, 1024, 32, 39)
+    with pytest.raises(ValueError, match="1 to 31 key words"):
+        pallas_sort.merge_pass(wide, 512, 512, 32, 39)
+    with pytest.raises(IndexError, match=r"\[0, 8\)"):
+        lane_gather.take_lanes(x[:, :8].contiguous(),
+                               torch.tensor([0, 1, 2, 8, 4, 5, 6, 7],
+                                            dtype=torch.int32,
+                                            device=cuda_device))
+
+
+@pytest.mark.parametrize("nk,tile", [(2, 16384), (7, 16384), (30, 4096)])
+def test_k2_takes_a_tile_wider_than_a_block(cuda_device, nk, tile):
+    """A tile past one K2 block (its registers and shared memory) sorts as
+    sub-tiles merged by K1: one K2 launch and a K1 pass per doubling, equal
+    to the plain version at the tile."""
+    x = _on_card(words(nk, 32, 1 << 15, nk), cuda_device)
+    _build.reset_launches()
+    y = pallas_sort.tile_sort(x, tile, nk, 31)
+    torch.cuda.synchronize()
+    assert _build.launches["tile_sort"] == 1
+    assert _build.launches["merge_pass"] >= 1
+    assert _same(y, pallas_sort.tile_sort_plain(x, tile, nk, 31))

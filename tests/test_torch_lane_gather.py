@@ -80,6 +80,18 @@ def test_take_lanes_refuses_a_bad_perm(perm, match):
         lane_gather.take_lanes(x, perm)
 
 
+@pytest.mark.parametrize("bad", [-1, 8, 1 << 20])
+def test_take_lanes_refuses_an_index_out_of_range(bad):
+    """An index outside [0, n) is refused, not wrapped or read past x."""
+    x = torch.zeros((4, 8), dtype=torch.uint32)
+    perm = torch.arange(8, dtype=torch.int32)
+    perm[3] = bad
+    with pytest.raises(IndexError, match=r"\[0, 8\)"):
+        lane_gather.take_lanes(x, perm)
+    with pytest.raises(IndexError, match=r"\[0, 8\)"):
+        lane_gather.take_lanes_plain(x, perm)
+
+
 def test_take_lanes_counts_no_launch_on_the_cpu():
     _build.reset_launches()
     x, perm = _probe_inputs(8, 512)

@@ -39,7 +39,10 @@
 //   pattern of CUB's BlockMergeSort, written here): each thread sorts V
 //   records in registers with no barrier, then log2(tile / V) merge-path
 //   rounds in shared memory, two barriers each; every row is written once,
-//   coalesced. The rounds, not the bytes, still set its pace.
+//   coalesced. The rounds, not the bytes, still set its pace. One block
+//   takes tiles up to uda_tile_sort_max_tile (its threads' registers and
+//   its shared memory); the wrapper sorts a wider tile as such sub-tiles
+//   merged by K1, which orders by the same (keys, arrival index).
 // K1 (merge_pass_kernel with merge_partition_kernel): bound by bytes, and
 //   by latency where a block waits for its split or its window. The
 //   partition kernel finds every block's merge-path split in parallel, so
@@ -147,10 +150,27 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Number of u64 planes for nk key words plus the tie-break: ceil((nk+1)/2),
-// rounded up to an instantiated count (zero planes compare equal).
+// rounded up to an instantiated count (zero planes compare equal); 0 for a
+// key count the kernels do not take (outside 1..31).
 int planes_of(int nk) {
   const int p = (nk + 2) / 2;
+  if (nk < 1 || p > 16) return 0;
   return p <= 4 ? p : (p <= 8 ? 8 : 16);
+}
+
+// F<planes_of(nk)>::run(a...), or `none` for a key count no kernel takes:
+// the one place a launcher or a query picks its instantiation.
+template <template <int> class F, typename R, typename... A>
+R dispatch_planes(int nk, R none, A... a) {
+  switch (planes_of(nk)) {
+    case 1: return F<1>::run(a...);
+    case 2: return F<2>::run(a...);
+    case 3: return F<3>::run(a...);
+    case 4: return F<4>::run(a...);
+    case 8: return F<8>::run(a...);
+    case 16: return F<16>::run(a...);
+    default: return none;
+  }
 }
 
 int set_smem(const void* kernel, size_t smem) {
@@ -297,19 +317,31 @@ __global__ void __launch_bounds__(K2Cfg<P>::LB)
   }
 }
 
-template <int P>
-int launch_tile_sort(const uint32_t* x, uint32_t* out, size_t n, int rows,
-                     int nk, int tb_row, int tile, cudaStream_t stream) {
-  const int threads = tile / K2Cfg<P>::V;
-  if (threads > K2Cfg<P>::LB || threads * K2Cfg<P>::V != tile)
-    return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = tile_sort_smem(nk, tile);
-  const int err = set_smem((const void*)tile_sort_kernel<P>, smem);
-  if (err) return err;
-  tile_sort_kernel<P><<<(unsigned)(n / tile), threads, smem, stream>>>(
-      x, out, n, rows, nk, tb_row, tile);
-  return (int)cudaGetLastError();
-}
+template <int P> struct TileSortLaunch {
+  static int run(const uint32_t* x, uint32_t* out, size_t n, int rows,
+                 int nk, int tb_row, int tile, cudaStream_t stream) {
+    const int threads = tile / K2Cfg<P>::V;
+    if (threads > K2Cfg<P>::LB || threads * K2Cfg<P>::V != tile)
+      return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = tile_sort_smem(nk, tile);
+    const int err = set_smem((const void*)tile_sort_kernel<P>, smem);
+    if (err) return err;
+    tile_sort_kernel<P><<<(unsigned)(n / tile), threads, smem, stream>>>(
+        x, out, n, rows, nk, tb_row, tile);
+    return (int)cudaGetLastError();
+  }
+};
+
+// The widest power-of-two tile one K2 block takes: at most LB threads of V
+// records, and its shared memory within smem_limit.
+template <int P> struct TileSortMaxTile {
+  static int run(int nk, size_t smem_limit) {
+    int tile = K2Cfg<P>::LB * K2Cfg<P>::V;
+    while (tile > K2Cfg<P>::V && tile_sort_smem(nk, tile) > smem_limit)
+      tile >>= 1;
+    return tile;
+  }
+};
 
 // ---------------------------------------------------------------------- K1
 
@@ -464,19 +496,19 @@ __global__ void __launch_bounds__(K1_MAX_WIDTH / K1_V)
   }
 }
 
-template <int P>
-int launch_merge_pass(const uint32_t* x, uint32_t* out,
-                      const uint32_t* splits, size_t n, int rows, int nk,
-                      int tb_row, int width, size_t run_len,
-                      cudaStream_t stream) {
-  const size_t smem = merge_pass_smem(rows, nk, width);
-  const int err = set_smem((const void*)merge_pass_kernel<P>, smem);
-  if (err) return err;
-  merge_pass_kernel<P><<<(unsigned)(n / width), width / K1_V, smem,
-                         stream>>>(x, out, splits, n, rows, nk, tb_row,
-                                   width, run_len);
-  return (int)cudaGetLastError();
-}
+template <int P> struct MergePassLaunch {
+  static int run(const uint32_t* x, uint32_t* out, const uint32_t* splits,
+                 size_t n, int rows, int nk, int tb_row, int width,
+                 size_t run_len, cudaStream_t stream) {
+    const size_t smem = merge_pass_smem(rows, nk, width);
+    const int err = set_smem((const void*)merge_pass_kernel<P>, smem);
+    if (err) return err;
+    merge_pass_kernel<P><<<(unsigned)(n / width), width / K1_V, smem,
+                           stream>>>(x, out, splits, n, rows, nk, tb_row,
+                                     width, run_len);
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -486,20 +518,22 @@ const char* uda_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Shared memory bytes one block of K2 asks for.
-size_t uda_tile_sort_smem(int nk, int tile) {
-  return tile_sort_smem(nk, tile);
-}
-
 // Shared memory bytes one block of K1 asks for at `width` records.
 size_t uda_merge_pass_smem(int rows, int nk, int width) {
   return merge_pass_smem(rows, nk, width);
 }
 
+// The widest power-of-two tile one K2 block takes for nk key words with
+// smem_limit bytes of shared memory; 0 for a key count K2 does not take.
+int uda_tile_sort_max_tile(int nk, size_t smem_limit) {
+  return dispatch_planes<TileSortMaxTile>(nk, 0, nk, smem_limit);
+}
+
 // K1's block width for one pass: the largest power of two up to
 // K1_MAX_WIDTH that divides n and 2 * run_len and whose shared memory fits
-// the budget (at least K1_V).
+// the budget (at least K1_V); 0 for a key count K1 does not take.
 int uda_merge_pass_width(int rows, int nk, size_t n, size_t run_len) {
+  if (!planes_of(nk)) return 0;
   size_t w = K1_MAX_WIDTH;
   while (w > (size_t)K1_V &&
          (n % w || (2 * run_len) % w ||
@@ -511,18 +545,9 @@ int uda_merge_pass_width(int rows, int nk, size_t n, size_t run_len) {
 // Every launcher returns cudaGetLastError() after its launch (0 = success).
 int uda_tile_sort(const void* x, void* out, size_t n, int rows, int nk,
                   int tb_row, int tile, void* stream) {
-  const uint32_t* xi = (const uint32_t*)x;
-  uint32_t* o = (uint32_t*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (planes_of(nk)) {
-    case 1: return launch_tile_sort<1>(xi, o, n, rows, nk, tb_row, tile, st);
-    case 2: return launch_tile_sort<2>(xi, o, n, rows, nk, tb_row, tile, st);
-    case 3: return launch_tile_sort<3>(xi, o, n, rows, nk, tb_row, tile, st);
-    case 4: return launch_tile_sort<4>(xi, o, n, rows, nk, tb_row, tile, st);
-    case 8: return launch_tile_sort<8>(xi, o, n, rows, nk, tb_row, tile, st);
-    default:
-      return launch_tile_sort<16>(xi, o, n, rows, nk, tb_row, tile, st);
-  }
+  return dispatch_planes<TileSortLaunch>(
+      nk, (int)cudaErrorInvalidValue, (const uint32_t*)x, (uint32_t*)out, n,
+      rows, nk, tb_row, tile, (cudaStream_t)stream);
 }
 
 int uda_merge_partition(const void* x, void* splits, size_t n, int nk,
@@ -540,19 +565,10 @@ int uda_merge_partition(const void* x, void* splits, size_t n, int nk,
 int uda_merge_pass(const void* x, void* out, const void* splits, size_t n,
                    int rows, int nk, int tb_row, int width, size_t run_len,
                    void* stream) {
-  const uint32_t* xi = (const uint32_t*)x;
-  uint32_t* o = (uint32_t*)out;
-  const uint32_t* sp = (const uint32_t*)splits;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (planes_of(nk)) {
-    case 1: return launch_merge_pass<1>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
-    case 2: return launch_merge_pass<2>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
-    case 3: return launch_merge_pass<3>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
-    case 4: return launch_merge_pass<4>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
-    case 8: return launch_merge_pass<8>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
-    default:
-      return launch_merge_pass<16>(xi, o, sp, n, rows, nk, tb_row, width, run_len, st);
-  }
+  return dispatch_planes<MergePassLaunch>(
+      nk, (int)cudaErrorInvalidValue, (const uint32_t*)x, (uint32_t*)out,
+      (const uint32_t*)splits, n, rows, nk, tb_row, width, run_len,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["launches", "reset_launches", "build_all", "library", "launch",
-           "cuda_words", "check_smem", "stream_of"]
+           "cuda_words", "smem_limit", "check_smem", "stream_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -158,12 +158,17 @@ def cuda_words(x: torch.Tensor, rows: "int | None" = None) -> torch.Tensor:
     return x
 
 
+def smem_limit(device: torch.device) -> int:
+    """Bytes of dynamic shared memory one block may have on ``device`` (a
+    margin is kept for the kernels' static shared variables)."""
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin", 232448)) - 64
+
+
 def check_smem(need: int, device: torch.device, what: str) -> None:
     """Raise unless one block of ``what`` may have ``need`` bytes of
-    dynamic shared memory on ``device`` (a margin is kept for the kernels'
-    static shared variables)."""
-    props = torch.cuda.get_device_properties(device)
-    limit = int(getattr(props, "shared_memory_per_block_optin", 232448)) - 64
+    dynamic shared memory on ``device``."""
+    limit = smem_limit(device)
     if need > limit:
         raise ValueError(f"{what} needs {need} bytes of shared memory per "
                          f"block, over the card's {limit}: use a smaller "

@@ -33,6 +33,11 @@ def _check(x: torch.Tensor, perm: torch.Tensor) -> None:
                          f"{perm.dtype} {tuple(perm.shape)}")
     if perm.device != x.device:
         raise ValueError(f"perm on {perm.device}, x on {x.device}")
+    # the kernel reads x where perm points, unchecked: refuse an index
+    # outside [0, n) on either device (one host sync; K5 is on no hot path)
+    n = x.shape[-1]
+    if n and (int(perm.min()) < 0 or int(perm.max()) >= n):
+        raise IndexError(f"perm values must lie in [0, {n})")
 
 
 def take_lanes_plain(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "uda_merge_pass": ([_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_size_t,
                         _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_size_t,
                         _C.c_void_p], _C.c_int),
-    "uda_tile_sort_smem": ([_C.c_int, _C.c_int], _C.c_size_t),
+    "uda_tile_sort_max_tile": ([_C.c_int, _C.c_size_t], _C.c_int),
     "uda_merge_pass_smem": ([_C.c_int, _C.c_int, _C.c_int], _C.c_size_t),
     "uda_merge_pass_width": ([_C.c_int, _C.c_int, _C.c_size_t, _C.c_size_t],
                              _C.c_int),
@@ -179,25 +179,42 @@ def merge_pass_plain(x: torch.Tensor, run_len: int, tile: int,
 def tile_sort(x: torch.Tensor, tile: int, num_keys: int,
               tb_row: int) -> torch.Tensor:
     """K2 (replaces ``uda_tpu/ops/pallas_sort.py::_tile_sort_kernel``):
-    the kernel on a CUDA tensor, :func:`tile_sort_plain` on a CPU one."""
+    the kernel on a CUDA tensor, :func:`tile_sort_plain` on a CPU one.
+
+    On the card a block sorts at most ``uda_tile_sort_max_tile`` records
+    (its registers and shared memory, fewer for more key words); a wider
+    tile is sorted as such sub-tiles and then merged by K1's passes, which
+    order by (keys, arrival index) as the tile's stable sort does."""
     if x.device.type == "cpu":
         return tile_sort_plain(x, tile, num_keys, tb_row)
     rows, n = _build.cuda_words(x).shape
+    if tile < _LANE or tile & (tile - 1) or n % tile:
+        raise ValueError(f"tile={tile} must be a power of two >= {_LANE} "
+                         f"that divides n={n}")
     lib = _lib()
-    _build.check_smem(lib.uda_tile_sort_smem(num_keys, tile), x.device,
-                      "tile_sort")
+    sub = lib.uda_tile_sort_max_tile(num_keys, _build.smem_limit(x.device))
+    if not sub:
+        raise ValueError(f"tile_sort takes 1 to 31 key words, got "
+                         f"{num_keys}")
+    sub = min(tile, sub)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _build.launch(lib, "uda_tile_sort", x.data_ptr(), out.data_ptr(), n,
-                      rows, num_keys, tb_row, tile, _build.stream_of(x))
+                      rows, num_keys, tb_row, sub, _build.stream_of(x))
     _build.launches["tile_sort"] += 1
+    spare = None
+    while sub < tile:
+        spare = merge_pass(out, sub, sub, num_keys, tb_row, out=spare)
+        out, spare = spare, out
+        sub *= 2
     return out
 
 
 def merge_pass_width(rows: int, num_keys: int, n: int, run_len: int) -> int:
     """K1's block width on the card for one pass: records per block, a
     power of two that divides ``n`` and ``2 * run_len`` and whose shared
-    memory fits three blocks per SM. The output does not depend on it."""
+    memory fits three blocks per SM (0 for a key count K1 does not take).
+    The output does not depend on it."""
     return _lib().uda_merge_pass_width(rows, num_keys, n, run_len)
 
 
@@ -249,6 +266,9 @@ def merge_pass(x: torch.Tensor, run_len: int, tile: int, num_keys: int,
     rows, n = _build.cuda_words(x).shape
     lib = _lib()
     width = merge_pass_width(rows, num_keys, n, run_len)
+    if not width:
+        raise ValueError(f"merge_pass takes 1 to 31 key words, got "
+                         f"{num_keys}")
     _build.check_smem(lib.uda_merge_pass_smem(rows, num_keys, width),
                       x.device, "merge_pass")
     splits = merge_partition(x, run_len, width, num_keys, tb_row)
