@@ -10,31 +10,37 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``uda_tpu_torch/csrc`` compiled with ``nvcc``;
-3. kernels: K2/K1 (with K1's partition kernel) through ``sort_lanes`` at 8
-   and 32 rows (``two_phase`` off and on) and K3/K4 through
-   ``sort_lanes_folded4``, at 2^20 records with tiles 1024 and 4096, on
-   keys with duplicates, words >= 2^31 and all-0xFFFFFFFF keys; K2/K1 at
-   the edges of their design (tile 128, n == tile, 1, 7 and 30 key words
-   at 4, 8 and 32 rows, all-equal, all-0xFFFFFFFF and high keys, tiles
-   wider than one K2 block takes); K5
-   (``take_lanes``) at the probe's three shapes; every launch held byte
-   for byte against its plain PyTorch version on the same input, and each
-   cascade against PyTorch's stable sort;
+3. kernels: K2/K1 (with the partition kernel) through ``sort_lanes`` at 8
+   and 32 rows (``two_phase`` off and on) and K3/K4 (with the partition
+   kernel at K4's width) through ``sort_lanes_folded4``, at 2^20 records
+   with tiles 1024 and 4096, on keys with duplicates, words >= 2^31 and
+   all-0xFFFFFFFF keys; K2/K1 at the edges of their design (tile 128,
+   n == tile, 1, 7 and 30 key words at 4, 8 and 32 rows, all-equal,
+   all-0xFFFFFFFF and high keys, tiles wider than one K2 block takes);
+   K3/K4 at theirs (tile 256, n == tile, 1, 2 and 3 key words, the same
+   kinds of keys, tiles 8192 and 16384, past one K3 block) and K4 on runs
+   that hold equal records; K5 (``take_lanes``) at the probe's three
+   shapes; every launch held byte for byte against its plain PyTorch
+   version on the same input, and each cascade against PyTorch's stable
+   sort;
 4. main path: ``single_chip_sort`` of 100,000,000 TeraSort records
    (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``, padded to 2^27
    inside) with ``path="auto"``, which resolves to ``keys8`` (K2, K1 and
-   its partition kernel), then the same records through ``keys8f`` (K3 +
-   K4); each checked for order, multiset checksum and byte identity with
-   the stable-sort yardstick, with the launches of every kernel counted;
+   the partition kernel), then the same records through ``keys8f`` (K3,
+   K4 and the partition kernel); each checked for order, multiset
+   checksum and byte identity with the stable-sort yardstick, with the
+   launches of every kernel counted;
 5. engines: all eight engines on 2^22 records give the same bytes, and
    ``bench_step`` runs 2 rounds of ``keys8``;
-6. times, with CUDA events at the main path's shapes: each kernel (K1,
-   its partition kernel and K4 per pass and summed over the cascade; K5 on
-   the keys8 matrix by the main path's permutation), its plain version,
-   PyTorch's call computing the same function, its bound, the cascades
-   and the whole-sort yardstick;
+6. times, with CUDA events at the main path's shapes: each kernel (K1, K4
+   and the partition kernel at each one's width per pass and summed over
+   the cascade; K5 on the keys8 matrix by the main path's permutation),
+   its plain version, PyTorch's call computing the same function, its
+   bound, the cascades and the whole-sort yardstick; and A/Bs, in turns,
+   of K3/K4 against K2/K1's run-time-row form on the same 4-row input and
+   of K4's block width (2048 against 4096 records);
 7. profile: device time by kernel and the device's idle share over one
-   main-path call (``torch.profiler``).
+   ``keys8`` ("auto") and one ``keys8f`` call (``torch.profiler``).
 
 The last two lines are one JSON object with a record per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -109,6 +115,22 @@ EDGE_CASES = [
     (8, 2, 7, 1 << 15, 16384, "high"),
     (8, 6, 7, 1 << 14, 8192, "mixed"),
 ]
+# K3/K4 at the edges of theirs: key words, n, tile and the kind of keys
+SLIM_EDGE_CASES = [
+    (3, 1 << 12, 256, "mixed"),      # first pass: width 512
+    (2, 1024, 1024, "mixed"),        # n == tile: no merge pass
+    (1, 1 << 13, 256, "mixed"),
+    (2, 1 << 13, 512, "equal"),      # order from the arrival index
+    (3, 1 << 13, 1024, "ones"),      # all-0xFFFFFFFF keys
+    (1, 1 << 13, 256, "high"),       # words >= 2^31
+    # tiles past one K3 block at 2-3 key words: sub-tiles merged by K4
+    (2, 1 << 14, 8192, "high"),
+    (3, 1 << 15, 16384, "mixed"),
+    (1, 1 << 15, 16384, "equal"),    # one K3 block at 1 key word
+]
+# K4 on runs whose records have equal twins in the other run: key words,
+# n, run_len
+EQUAL_RUN_CASES = [(1, 1 << 13, 1024), (3, 1 << 13, 256)]
 PROBE_SHAPES = ((32, 2048), (8, 2048), (8, 512))  # scripts/probe_gather.py
 _ALL_ONES = 0xFFFFFFFF
 
@@ -201,6 +223,22 @@ def lanes_words(seed: int, rows: int, n: int, num_keys: int,
     return x
 
 
+def equal_runs(seed: int, n: int, run_len: int,
+               num_keys: int) -> np.ndarray:
+    """uint32[4, n] slim records in ascending runs of ``run_len``, where
+    every second run copies the key words and tie-break of the run before
+    it (its payload rows differ): each record has an equal twin in the
+    other run of its pair, so a merge must send ties to the first run."""
+    x = lanes_words(seed, 4, n, num_keys)
+    for a0 in range(0, n, 2 * run_len):
+        a = x[:, a0:a0 + run_len]
+        a[:] = a[:, np.lexsort(a[num_keys - 1::-1])]
+        a[3] = np.arange(run_len, dtype=np.uint32)
+        x[:num_keys, a0 + run_len:a0 + 2 * run_len] = a[:num_keys]
+        x[3, a0 + run_len:a0 + 2 * run_len] = a[3]
+    return x
+
+
 def stable_reference(x: torch.Tensor, num_keys: int,
                      tb_row: int) -> torch.Tensor:
     """The sorted lanes array by PyTorch's stable sort."""
@@ -212,8 +250,10 @@ def stable_reference(x: torch.Tensor, num_keys: int,
 
 def cascade(folded: bool, num_keys: int, tb_row: int) -> tuple:
     """One cascade's kernel wrappers and plain versions, the launch-counter
-    names and the arguments after (x, [run_len,] tile): (tile sort, its
-    plain version, merge pass, its plain version, names, args)."""
+    names of its tile sort and merge pass and the arguments after
+    (x, [run_len,] tile): (tile sort, its plain version, merge pass, its
+    plain version, names, args). Both merge passes launch the partition
+    kernel too."""
     if folded:
         return (pallas_fold.tile_sort_folded,
                 pallas_fold.tile_sort_folded_plain,
@@ -235,10 +275,10 @@ def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
     y = first(x, tile, *args)
     errs[names[0]] = max_abs_err(y, first_plain(x, tile, *args))
     for lvl in range((x.shape[1] // tile).bit_length() - 1):
-        if not folded:
-            errs["merge_partition"] = max(errs.get("merge_partition", 0),
-                                          check_partition(y, tile << lvl,
-                                                          num_keys, tb_row))
+        errs["merge_partition"] = max(errs.get("merge_partition", 0),
+                                      check_partition(y, tile << lvl,
+                                                      num_keys, tb_row,
+                                                      folded))
         z = step(y, tile << lvl, tile, *args)
         errs[names[1]] = max(errs[names[1]],
                              max_abs_err(z, step_plain(y, tile << lvl, tile,
@@ -250,12 +290,21 @@ def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
     return errs
 
 
+def merge_width(rows: int, num_keys: int, n: int, run_len: int,
+                folded: bool) -> int:
+    """The block width K4 (``folded``) or K1 takes on one pass."""
+    if folded:
+        return pallas_fold.merge_pass_folded_width(num_keys, n, run_len)
+    return pallas_sort.merge_pass_width(rows, num_keys, n, run_len)
+
+
 def check_partition(y: torch.Tensor, run_len: int, num_keys: int,
-                    tb_row: int) -> int:
-    """K1's partition kernel against its plain version (merge_splits) at
-    the block width the merge kernel takes; the largest error."""
+                    tb_row: int, folded: bool) -> int:
+    """The partition kernel against its plain version (merge_splits) at
+    the block width the merge kernel (K4 or K1) takes; the largest
+    error."""
     rows, n = y.shape
-    width = pallas_sort.merge_pass_width(rows, num_keys, n, run_len)
+    width = merge_width(rows, num_keys, n, run_len, folded)
     require(n % width == 0 and width <= 2 * run_len,
             f"merge width {width} at n={n} run_len={run_len}")
     got = pallas_sort.merge_partition(y, run_len, width, num_keys, tb_row)
@@ -278,6 +327,7 @@ def check_take_lanes(gen: torch.Generator, rows: int, n: int) -> int:
 
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
+                  slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
                   probe_shapes=PROBE_SHAPES) -> dict:
     gen = generator(SEED + 1, dev)
     seeds = itertools.count(SEED + 1)
@@ -306,15 +356,29 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
             log(f"[kernels] rows={rows} keys={nk} tile={tile} n={n}: "
                 f"max_abs_err against the plain versions {errs} "
                 f"(tolerance 0); public cascade equal to the stable sort")
-    for rows, nk, tb, n_edge, tile, kind in edges:
+    edge_runs = [(rows, nk, tb, n_edge, tile, kind, False)
+                 for rows, nk, tb, n_edge, tile, kind in edges]
+    edge_runs += [(4, nk, 3, n_edge, tile, kind, True)
+                  for nk, n_edge, tile, kind in slim_edges]
+    for rows, nk, tb, n_edge, tile, kind, folded in edge_runs:
         x = interop.words_from_numpy(
             lanes_words(next(seeds), rows, n_edge, nk, kind), dev)
-        errs = check_cascade(x, nk, tb, tile, False)
+        errs = check_cascade(x, nk, tb, tile, folded)
         for name, err in errs.items():
             worst[name] = max(worst.get(name, 0), err)
         log(f"[kernels] edge rows={rows} keys={nk} tile={tile} n={n_edge} "
             f"{kind} keys: max_abs_err {errs} (tolerance 0); cascade equal "
             f"to the stable sort")
+    for nk, n_eq, run_len in equal_cases:
+        x = interop.words_from_numpy(
+            equal_runs(next(seeds), n_eq, run_len, nk), dev)
+        err = max_abs_err(
+            pallas_fold.merge_pass_folded(x, run_len, run_len, nk),
+            pallas_fold.merge_pass_folded_plain(x, run_len, run_len, nk))
+        worst["merge_pass_folded"] = max(worst.get("merge_pass_folded", 0),
+                                         err)
+        log(f"[kernels] K4 on runs with equal records, keys={nk} "
+            f"run_len={run_len} n={n_eq}: max_abs_err {err} (tolerance 0)")
     for rows, n_probe in probe_shapes:
         err = check_take_lanes(gen, rows, n_probe)
         worst["take_lanes"] = max(worst.get("take_lanes", 0), err)
@@ -368,8 +432,9 @@ def phase_main(dev: torch.device, n: int = N_MAIN) -> tuple:
     require(auto == "keys8", f'"auto" resolved to {auto!r}, not keys8')
     reference = yardstick(words)
     runs = [run_path(words, "auto", MAIN_PATH, reference),
-            run_path(words, "keys8f",
-                     ("tile_sort_folded", "merge_pass_folded"), reference)]
+            run_path(words, "keys8f", ("tile_sort_folded",
+                                       "merge_pass_folded",
+                                       "merge_partition"), reference)]
     return words, runs
 
 
@@ -418,7 +483,7 @@ def library_sort(x: torch.Tensor, seg: int, num_keys: int,
 
 
 def partition_work(m: int, run_len: int, width: int) -> tuple:
-    """Bytes and compares K1's partition kernel needs on one pass: per
+    """Bytes and compares the partition kernel needs on one pass: per
     block boundary a binary search over the diagonal's range, each step
     reading one word of two records (more only on equal words), and one
     4-byte split written. Returns (bytes, compares)."""
@@ -462,19 +527,17 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
             "ops": 0, "max_abs_err": 0, "library_ms": None}
     for lvl in range((m // tile).bit_length() - 1):
         L = tile << lvl
-        if not folded:
-            width = pallas_sort.merge_pass_width(rows, nk, m, L)
-            part["per_pass_ms"].append(time_ms(
-                lambda: pallas_sort.merge_partition(y, L, width, nk, tb),
-                reps))
-            part["plain_ms"] += time_ms(
-                lambda: pallas_sort.merge_partition_plain(y, L, width, nk,
-                                                          tb), 1, warmup=0)
-            part["max_abs_err"] = max(part["max_abs_err"],
-                                      check_partition(y, L, nk, tb))
-            nbytes, steps = partition_work(m, L, width)
-            part["bytes"] += nbytes
-            part["ops"] += steps
+        width = merge_width(rows, nk, m, L, folded)
+        part["per_pass_ms"].append(time_ms(
+            lambda: pallas_sort.merge_partition(y, L, width, nk, tb), reps))
+        part["plain_ms"] += time_ms(
+            lambda: pallas_sort.merge_partition_plain(y, L, width, nk, tb),
+            1, warmup=0)
+        part["max_abs_err"] = max(part["max_abs_err"],
+                                  check_partition(y, L, nk, tb, folded))
+        nbytes, steps = partition_work(m, L, width)
+        part["bytes"] += nbytes
+        part["ops"] += steps
         per_pass.append(time_ms(lambda: step(y, L, tile, *args, out=spare),
                                 reps))
         plain_total += time_ms(lambda: step_plain(y, L, tile, *args), 1,
@@ -486,19 +549,79 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
         require(same(library_sort(y, 2 * L, nk, None), z),
                 f"{names[1]}: PyTorch's sort of each run pair differs")
         y, spare = z, y
+    part["ms"] = sum(part["per_pass_ms"])
     res[names[1]] = {
         "ms": sum(per_pass), "per_pass_ms": per_pass,
         "plain_ms": plain_total, "library_ms": library_total,
         "bytes": len(per_pass) * 2 * rows * m * word,
         # a merge: one compare per record and pass
         "ops": len(per_pass) * m * words_compared,
-        "max_abs_err": errs,
+        "max_abs_err": max(errs, part["max_abs_err"]),
     }
-    if not folded:
-        part["ms"] = sum(part["per_pass_ms"])
+    # the partition kernel, at each merge kernel's own width; its time is
+    # also inside the merge pass's, which is timed through the wrapper
+    if folded:
+        res[names[1]]["partition"] = part
+    else:
         res["merge_partition"] = part
     torch.cuda.synchronize()
     return res
+
+
+def in_turns(fa, fb, reps: int) -> tuple:
+    """Mean ms of ``fa()`` and of ``fb()``, timed a, b, b, a so that the
+    card's drift falls on both."""
+    a1, b1, b2, a2 = (time_ms(f, reps) for f in (fa, fb, fb, fa))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def ab_slim(mat4: torch.Tensor, tile: int, reps: int) -> dict:
+    """A/Bs on the slim [4, m] matrix, in turns within this run: K3 and K4
+    (the layout fixed at compile time) against K2 and K1 on the same
+    input (rows, key count and tie-break row read at run time; K1's own
+    width rule), and K4 at 2048 against 4096 records a block (passes with
+    2 * run_len >= 4096). Every output is checked against K4's."""
+    nk, tb = terasort.KEY_WORDS, 3
+    m = mat4.shape[1]
+    ab = {"k3_ms": 0.0, "k2_4rows_ms": 0.0, "k4_ms": 0.0, "k1_4rows_ms": 0.0,
+          "k1_4rows_widths": [], "k4_w2048_ms": 0.0, "k4_w4096_ms": 0.0,
+          "width_ab_passes": 0}
+    ab["k3_ms"], ab["k2_4rows_ms"] = in_turns(
+        lambda: pallas_fold.tile_sort_folded(mat4, tile, nk),
+        lambda: pallas_sort.tile_sort(mat4, tile, nk, tb), reps)
+    y = pallas_fold.tile_sort_folded(mat4, tile, nk)
+    require(same(y, pallas_sort.tile_sort(mat4, tile, nk, tb)),
+            "K3 differs from K2 at 4 rows")
+    spare = torch.empty_like(y)
+    for lvl in range((m // tile).bit_length() - 1):
+        L = tile << lvl
+        k4, k1 = in_turns(
+            lambda: pallas_fold.merge_pass_folded(y, L, tile, nk, out=spare),
+            lambda: pallas_sort.merge_pass(y, L, tile, nk, tb, out=spare),
+            reps)
+        ab["k4_ms"] += k4
+        ab["k1_4rows_ms"] += k1
+        ab["k1_4rows_widths"].append(
+            pallas_sort.merge_pass_width(4, nk, m, L))
+        z = pallas_fold.merge_pass_folded(y, L, tile, nk)
+        require(same(z, pallas_sort.merge_pass(y, L, tile, nk, tb)),
+                "K4 differs from K1 at 4 rows")
+        if 2 * L >= 4096:
+            w2, w4 = in_turns(
+                lambda: pallas_fold._merge_pass_folded_at(y, L, nk, 2048,
+                                                          spare),
+                lambda: pallas_fold._merge_pass_folded_at(y, L, nk, 4096,
+                                                          spare), reps)
+            ab["k4_w2048_ms"] += w2
+            ab["k4_w4096_ms"] += w4
+            ab["width_ab_passes"] += 1
+            require(same(z, pallas_fold._merge_pass_folded_at(
+                y, L, nk, 4096, None)), "K4 at width 4096 differs")
+        y = z
+    torch.cuda.synchronize()
+    log("[ab] slim layout at m={} tile={}: {}".format(m, tile,
+                                                        json.dumps(ab)))
+    return ab
 
 
 def time_take_lanes(mat: torch.Tensor, perm: torch.Tensor,
@@ -535,6 +658,7 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
     mat4 = u32(torch.cat([i32(keyr), i32(keyr).new_zeros((1, m))]))
     times = time_cascade(mat8, tile, False, reps)
     times.update(time_cascade(mat4, tile, True, reps))
+    ab = ab_slim(mat4, tile, reps)
     _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile)
     times["take_lanes"] = time_take_lanes(mat8, perm, reps)
     del mat8, mat4, perm
@@ -553,6 +677,12 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
         if "per_pass_ms" in t:
             log(f"[times] {name} per pass (ms): "
                 + " ".join(f"{v:.3f}" for v in t["per_pass_ms"]))
+        if "partition" in t:
+            p = t["partition"]
+            log(f"[times] {name}'s partition: {p['ms']:.3f} ms, plain "
+                f"{p['plain_ms']:.3f} ms, max_abs_err {p['max_abs_err']}; "
+                f"per pass (ms): "
+                + " ".join(f"{v:.3f}" for v in p["per_pass_ms"]))
     keys = list(keyr)
     casc = {
         "keys8_cascade_ms": time_ms(
@@ -574,11 +704,11 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
         "tile": tile,
     }
     log("[times] cascades " + json.dumps(casc))
-    return {"kernels": times, "cascades": casc}
+    return {"kernels": times, "cascades": casc, "ab": ab}
 
 
-def phase_profile(words: torch.Tensor) -> dict:
-    """Where the main path's time goes: ``torch.profiler`` over one keys8
+def phase_profile(words: torch.Tensor, path: str) -> dict:
+    """Where a path's time goes: ``torch.profiler`` over one
     ``single_chip_sort`` call, device time summed by kernel name, and the
     device's busy share of the call (the union of device intervals over
     the host clock around the call, profiler overhead included)."""
@@ -588,7 +718,7 @@ def phase_profile(words: torch.Tensor) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        terasort.single_chip_sort(words, device=words.device)
+        terasort.single_chip_sort(words, path=path, device=words.device)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -608,7 +738,7 @@ def phase_profile(words: torch.Tensor) -> dict:
     prof_out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
                 "idle_share": 1.0 - busy / wall_us,
                 "device_ms_by_kernel": {k[:80]: v / 1e3 for k, v in top}}
-    log("[profile] keys8 single_chip_sort " + json.dumps(prof_out))
+    log(f"[profile] {path} single_chip_sort " + json.dumps(prof_out))
     return prof_out
 
 
@@ -623,7 +753,8 @@ def main() -> int:
     words, runs = phase_main(dev)
     phase_engines(dev)
     timed = phase_times(words)
-    phase_profile(words)
+    for path in ("auto", "keys8f"):
+        phase_profile(words, path)
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]

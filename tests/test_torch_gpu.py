@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import EDGE_CASES
+from chip_smoke import (EDGE_CASES, EQUAL_RUN_CASES, SLIM_EDGE_CASES,
+                        equal_runs)
 from port_helpers import (cuda_device, oracle, records,  # noqa: F401
                           words)
 from uda_tpu_torch import interop
@@ -139,7 +140,7 @@ def test_launch_counts(cuda_device):
     pallas_fold.sort_lanes_folded(x, 3, tile=1024)
     torch.cuda.synchronize()
     assert dict(_build.launches) == {"tile_sort": 1, "merge_pass": 4,
-                                     "merge_partition": 4,
+                                     "merge_partition": 8,
                                      "tile_sort_folded": 1,
                                      "merge_pass_folded": 4}
 
@@ -152,6 +153,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pallas_sort.tile_sort(x, 384, 3, 7)
     with pytest.raises(ValueError, match="4 rows"):
         pallas_fold.tile_sort_folded(x, 1024, 3)
+    x4 = _on_card(words(3, 4, 1 << 12, 3), cuda_device)
+    with pytest.raises(ValueError, match="power of two"):
+        pallas_fold.tile_sort_folded(x4, 768, 3)
+    with pytest.raises(ValueError, match="1 to 3 key words"):
+        pallas_fold.tile_sort_folded(x4, 1024, 4)
+    with pytest.raises(ValueError, match="1 to 3 key words"):
+        pallas_fold.merge_pass_folded(x4, 1024, 1024, 0)
+    with pytest.raises(ValueError, match="4 rows"):
+        pallas_fold.merge_pass_folded(x, 1024, 1024, 3)
     wide = _on_card(words(2, 40, 1 << 10, 32), cuda_device)
     with pytest.raises(ValueError, match="1 to 31 key words"):
         pallas_sort.tile_sort(wide, 1024, 32, 39)
@@ -176,3 +186,77 @@ def test_k2_takes_a_tile_wider_than_a_block(cuda_device, nk, tile):
     assert _build.launches["tile_sort"] == 1
     assert _build.launches["merge_pass"] >= 1
     assert _same(y, pallas_sort.tile_sort_plain(x, tile, nk, 31))
+
+
+def _k3_k4_cascade(x, nk, tile):
+    """K3 and every K4 pass against their plain versions; the result."""
+    y = pallas_fold.tile_sort_folded(x, tile, nk)
+    assert _same(y, pallas_fold.tile_sort_folded_plain(x, tile, nk))
+    run = tile
+    while run < x.shape[1]:
+        z = pallas_fold.merge_pass_folded(y, run, tile, nk)
+        assert _same(z, pallas_fold.merge_pass_folded_plain(y, run, tile,
+                                                             nk))
+        y, run = z, 2 * run
+    return y
+
+
+@pytest.mark.parametrize("nk,n,tile,kind", SLIM_EDGE_CASES)
+def test_k3_k4_edges_match_plain(cuda_device, nk, n, tile, kind):
+    """K3 and K4 at the edges of their design (tile 256, n == tile, 1-3
+    key words, all-equal, all-0xFFFFFFFF and high keys, tiles past one K3
+    block), against their plain versions and numpy."""
+    x_np = words(n + nk, 4, n, nk, kind)
+    y = _k3_k4_cascade(_on_card(x_np, cuda_device), nk, tile)
+    np.testing.assert_array_equal(interop.words_to_numpy(y),
+                                  oracle(x_np, nk, 3))
+
+
+@pytest.mark.parametrize("nk,n,run_len", EQUAL_RUN_CASES)
+def test_k4_sends_ties_to_the_first_run(cuda_device, nk, n, run_len):
+    """Runs whose records have equal (key words, tie-break) twins in the
+    other run: K4 keeps every record and puts each A record before its B
+    twin, as its plain version does."""
+    x = _on_card(equal_runs(n + nk, n, run_len, nk), cuda_device)
+    got = pallas_fold.merge_pass_folded(x, run_len, run_len, nk)
+    assert _same(got, pallas_fold.merge_pass_folded_plain(x, run_len,
+                                                          run_len, nk))
+
+
+@pytest.mark.parametrize("nk,tile,k4_launches", [(1, 16384, 1),
+                                                 (2, 8192, 1),
+                                                 (3, 8192, 1),
+                                                 (3, 16384, 2)])
+def test_k3_takes_a_tile_wider_than_a_block(cuda_device, nk, tile,
+                                            k4_launches):
+    """Tiles the card refused before (shared memory per block): one K3
+    launch, sub-tiles past one K3 block (8192 at 2-3 key words) merged by
+    K4, then the cascade's own pass; equal to the plain cascade."""
+    x_np = words(tile + nk, 4, 2 * tile, nk)
+    x = _on_card(x_np, cuda_device)
+    _build.reset_launches()
+    y = pallas_fold.sort_lanes_folded4(x, nk, tile=tile)
+    torch.cuda.synchronize()
+    assert _build.launches["tile_sort_folded"] == 1
+    assert _build.launches["merge_pass_folded"] == k4_launches
+    want = pallas_fold.sort_lanes_folded4(torch.from_numpy(x_np), nk,
+                                          tile=tile)
+    np.testing.assert_array_equal(interop.words_to_numpy(y), want.numpy())
+
+
+@pytest.mark.parametrize("nk", [1, 2, 3])
+def test_k4_partition_matches_merge_splits(cuda_device, nk):
+    """The partition at K4's width on the slim layout against the plain
+    version's merge_splits, on every pass of a cascade."""
+    x = _on_card(words(nk + 4, 4, 1 << 14, nk), cuda_device)
+    y = pallas_fold.tile_sort_folded(x, 256, nk)
+    run = 256
+    while run < x.shape[1]:
+        width = pallas_fold.merge_pass_folded_width(nk, x.shape[1], run)
+        assert width <= 2 * run and x.shape[1] % width == 0
+        got = pallas_sort.merge_partition(y, run, width, nk, 3)
+        keys = [tsort._as_i64(y[r]) for r in [*range(nk), 3]]
+        want = pallas_sort.merge_splits(keys, y.shape[1], run, width)[1]
+        assert torch.equal(got.to(torch.int64), want)
+        y = pallas_fold.merge_pass_folded(y, run, 256, nk)
+        run *= 2
