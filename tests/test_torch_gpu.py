@@ -70,23 +70,28 @@ def test_k2_k1_edges_match_plain(cuda_device, rows, nk, tb, n, tile, kind):
                                   oracle(x_np, nk, tb))
 
 
-@pytest.mark.parametrize("rows,nk,tb,tile", [(8, 3, 7, 128), (32, 30, 31, 128),
-                                             (4, 1, 3, 1024)])
+@pytest.mark.parametrize("rows,nk,tb,tile,folded", [
+    (8, 3, 7, 128, False), (32, 30, 31, 128, False), (4, 1, 3, 1024, False),
+    (4, 1, 3, 256, True), (4, 2, 3, 256, True), (4, 3, 3, 256, True)])
 def test_merge_partition_matches_merge_splits(cuda_device, rows, nk, tb,
-                                              tile):
-    """K1's partition kernel against the plain version's merge_splits, on
-    every pass of a cascade."""
+                                              tile, folded):
+    """The partition kernel against the plain version's merge_splits, at
+    K1's width (or K4's, ``folded``), on every pass of a cascade."""
+    fold = pallas_fold if folded else None
     x = _on_card(words(rows, rows, 1 << 13, nk), cuda_device)
-    y = pallas_sort.tile_sort(x, tile, nk, tb)
+    y = (fold.tile_sort_folded(x, tile, nk) if fold
+         else pallas_sort.tile_sort(x, tile, nk, tb))
     run = tile
     while run < x.shape[1]:
-        width = pallas_sort.merge_pass_width(rows, nk, x.shape[1], run)
+        width = (fold.merge_pass_folded_width(nk, x.shape[1], run) if fold
+                 else pallas_sort.merge_pass_width(rows, nk, x.shape[1], run))
         assert width <= 2 * run and x.shape[1] % width == 0
         got = pallas_sort.merge_partition(y, run, width, nk, tb)
         keys = [tsort._as_i64(y[r]) for r in [*range(nk), tb]]
         want = pallas_sort.merge_splits(keys, y.shape[1], run, width)[1]
         assert torch.equal(got.to(torch.int64), want)
-        y = pallas_sort.merge_pass(y, run, tile, nk, tb)
+        y = (fold.merge_pass_folded(y, run, tile, nk) if fold
+             else pallas_sort.merge_pass(y, run, tile, nk, tb))
         run *= 2
 
 
@@ -105,15 +110,19 @@ def test_take_lanes_matches_plain(cuda_device, rows, n):
                                   x_np[:, perm_np])
 
 
-@pytest.mark.parametrize("nk,tile", [(3, 1024), (1, 256), (2, 4096)])
-def test_k3_k4_match_plain(cuda_device, nk, tile):
-    """K3 and every K4 pass against their plain versions."""
-    x_np = words(nk, 4, 1 << 15, nk)
+@pytest.mark.parametrize("nk,n,tile,kind",
+                         [(3, 1 << 15, 1024, "mixed"), (1, 1 << 15, 256, "mixed"),
+                          (2, 1 << 15, 4096, "mixed")] + SLIM_EDGE_CASES)
+def test_k3_k4_match_plain(cuda_device, nk, n, tile, kind):
+    """K3 and every K4 pass against their plain versions and numpy, also
+    at the edges of their design (tile 256, n == tile, 1-3 key words,
+    all-equal, all-0xFFFFFFFF and high keys, tiles past one K3 block)."""
+    x_np = words(n + nk, 4, n, nk, kind)
     x = _on_card(x_np, cuda_device)
     y = pallas_fold.tile_sort_folded(x, tile, nk)
     assert _same(y, pallas_fold.tile_sort_folded_plain(x, tile, nk))
     run = tile
-    while run < x.shape[1]:
+    while run < n:
         z = pallas_fold.merge_pass_folded(y, run, tile, nk)
         assert _same(z, pallas_fold.merge_pass_folded_plain(y, run, tile,
                                                              nk))
@@ -188,29 +197,6 @@ def test_k2_takes_a_tile_wider_than_a_block(cuda_device, nk, tile):
     assert _same(y, pallas_sort.tile_sort_plain(x, tile, nk, 31))
 
 
-def _k3_k4_cascade(x, nk, tile):
-    """K3 and every K4 pass against their plain versions; the result."""
-    y = pallas_fold.tile_sort_folded(x, tile, nk)
-    assert _same(y, pallas_fold.tile_sort_folded_plain(x, tile, nk))
-    run = tile
-    while run < x.shape[1]:
-        z = pallas_fold.merge_pass_folded(y, run, tile, nk)
-        assert _same(z, pallas_fold.merge_pass_folded_plain(y, run, tile,
-                                                             nk))
-        y, run = z, 2 * run
-    return y
-
-
-@pytest.mark.parametrize("nk,n,tile,kind", SLIM_EDGE_CASES)
-def test_k3_k4_edges_match_plain(cuda_device, nk, n, tile, kind):
-    """K3 and K4 at the edges of their design (tile 256, n == tile, 1-3
-    key words, all-equal, all-0xFFFFFFFF and high keys, tiles past one K3
-    block), against their plain versions and numpy."""
-    x_np = words(n + nk, 4, n, nk, kind)
-    y = _k3_k4_cascade(_on_card(x_np, cuda_device), nk, tile)
-    np.testing.assert_array_equal(interop.words_to_numpy(y),
-                                  oracle(x_np, nk, 3))
-
 
 @pytest.mark.parametrize("nk,n,run_len", EQUAL_RUN_CASES)
 def test_k4_sends_ties_to_the_first_run(cuda_device, nk, n, run_len):
@@ -229,9 +215,9 @@ def test_k4_sends_ties_to_the_first_run(cuda_device, nk, n, run_len):
                                                  (3, 16384, 2)])
 def test_k3_takes_a_tile_wider_than_a_block(cuda_device, nk, tile,
                                             k4_launches):
-    """Tiles the card refused before (shared memory per block): one K3
-    launch, sub-tiles past one K3 block (8192 at 2-3 key words) merged by
-    K4, then the cascade's own pass; equal to the plain cascade."""
+    """Tiles at and past one K3 block (8192 at 2-3 key words, 16384 at
+    1): one K3 launch, wider tiles' sub-tiles merged by K4, then the
+    cascade's own pass; equal to the plain cascade."""
     x_np = words(tile + nk, 4, 2 * tile, nk)
     x = _on_card(x_np, cuda_device)
     _build.reset_launches()
@@ -243,20 +229,3 @@ def test_k3_takes_a_tile_wider_than_a_block(cuda_device, nk, tile,
                                           tile=tile)
     np.testing.assert_array_equal(interop.words_to_numpy(y), want.numpy())
 
-
-@pytest.mark.parametrize("nk", [1, 2, 3])
-def test_k4_partition_matches_merge_splits(cuda_device, nk):
-    """The partition at K4's width on the slim layout against the plain
-    version's merge_splits, on every pass of a cascade."""
-    x = _on_card(words(nk + 4, 4, 1 << 14, nk), cuda_device)
-    y = pallas_fold.tile_sort_folded(x, 256, nk)
-    run = 256
-    while run < x.shape[1]:
-        width = pallas_fold.merge_pass_folded_width(nk, x.shape[1], run)
-        assert width <= 2 * run and x.shape[1] % width == 0
-        got = pallas_sort.merge_partition(y, run, width, nk, 3)
-        keys = [tsort._as_i64(y[r]) for r in [*range(nk), 3]]
-        want = pallas_sort.merge_splits(keys, y.shape[1], run, width)[1]
-        assert torch.equal(got.to(torch.int64), want)
-        y = pallas_fold.merge_pass_folded(y, run, 256, nk)
-        run *= 2

@@ -20,11 +20,10 @@
 // planes, no payload).
 //
 // What bounds them: bytes, 16 a record read and 16 written per launch,
-// half of the 8-row keys8 matrix's. PR 1's kernels here lost most of that:
-// a bitonic network with a barrier per stage (K3) and, in K4, one thread
-// per block binary-searching global memory for its split while the rest
-// waited (the pass slowed as runs grew), two full tile-wide windows loaded
-// of which half was used, and a binary search per record.
+// half of the 8-row keys8 matrix's. What keeps them off that bound is
+// latency: a sorting network's barrier per stage, and a block that waits
+// for its split or loads more of a run than it merges. The designs below
+// avoid both.
 //
 // K3 (tile_sort_kernel): a block merge sort with the data in registers (V
 //   records sorted per thread with no barrier, then log2(tile / V) merge-
@@ -34,7 +33,7 @@
 //   wrapper sorts a wider tile as such sub-tiles merged by K4.
 // K4 (merge_pass_kernel after the partition): every block's split is found
 //   in parallel beforehand, with ties to A, so no block waits on a search
-//   and a pass no longer grows with the run length. Each block loads
+//   that grows with the run length. Each block loads
 //   exactly its width of records, every word once and coalesced, merges 8
 //   outputs a thread from register heads and writes every row once. Its
 //   width comes from the slim layout's own shared-memory budget
@@ -47,7 +46,10 @@ namespace {
 
 constexpr int SLIM_ROWS = 4;
 constexpr int SLIM_TB = 3;
-// 2048 records at every key count: 39-47 KB, 4-5 blocks per SM.
+// 2048 records a block at every key count (39-47 KB); registers (62-64 a
+// thread) then allow 4 blocks of 256 threads per SM. 4096 records (2
+// blocks per SM) measured no faster, and capping the registers for a
+// fifth block was slower.
 constexpr size_t K4_SMEM_BUDGET = 48 * 1024;
 
 // F<planes_of(nk), 4, nk, 3>::run(a...) for nk in 1..3, or `none`.

@@ -228,7 +228,7 @@ def merge_partition_plain(x: torch.Tensor, run_len: int, width: int,
 
 def merge_partition(x: torch.Tensor, run_len: int, width: int,
                     num_keys: int, tb_row: int) -> torch.Tensor:
-    """K1's partition kernel (replaces the window table
+    """The partition kernel of K1 and K4 (replaces the window table
     ``uda_tpu/ops/pallas_sort.py::_pass_splits``): per block of ``width``
     output records of one pass, the number of A-run records merged before
     it, one thread per block boundary. The kernel on a CUDA tensor,
