@@ -40,7 +40,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    of K3/K4 against K2/K1's run-time-row form on the same 4-row input and
    of K4's block width (2048 against 4096 records);
 7. profile: device time by kernel and the device's idle share over one
-   ``keys8`` ("auto") and one ``keys8f`` call (``torch.profiler``).
+   ``keys8`` ("auto") and one ``keys8f`` call (``torch.profiler``);
+8. merge: one TeraSort reduce task through ``MergeManager.run``
+   (``uda.tpu.merge.overlap=false``): 64 map outputs of 16 MiB of sorted
+   TeraSort records (Text keys of 10 bytes, Text values of 90), written
+   by ``MOFWriter``, fetched through ``LocalFetchClient``/``DataEngine``,
+   merged by K1's two-phase merge tree and emitted as IFile blocks, with
+   the launch counts reset just before and read just after, under
+   ``torch.profiler``; the stream is cracked, checked for key order and
+   multiset checksum and held byte for byte against the whole-partition
+   re-sort (``merge_batches``) on the card; then K1 at each capacity
+   class of the merge tree against its plain version, timed beside its
+   bound.
 
 The last two lines are one JSON object with a record per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -52,6 +63,7 @@ import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,10 +71,18 @@ import torch
 
 from uda_tpu_torch import interop
 from uda_tpu_torch.device import generator
+from uda_tpu_torch.merger import LocalFetchClient, MergeManager
 from uda_tpu_torch.models import terasort
-from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
+from uda_tpu_torch.mofserver import DataEngine, DirIndexResolver, MOFWriter
+from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_merge
+from uda_tpu_torch.ops import merge as merge_ops
+from uda_tpu_torch.ops import packing, pallas_sort
 from uda_tpu_torch.ops import sort as sort_ops
 from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
+from uda_tpu_torch.utils.comparators import get_key_type
+from uda_tpu_torch.utils.config import Config
+from uda_tpu_torch.utils.ifile import RecordBatch, crack
+from uda_tpu_torch.utils.metrics import metrics
 
 SEED = 0
 N_MAIN = 100_000_000       # BASELINE.md config 2: TeraSort 10 GB
@@ -133,6 +153,17 @@ SLIM_EDGE_CASES = [
 EQUAL_RUN_CASES = [(1, 1 << 13, 1024), (3, 1 << 13, 256)]
 PROBE_SHAPES = ((32, 2048), (8, 2048), (8, 512))  # scripts/probe_gather.py
 _ALL_ONES = 0xFFFFFFFF
+# phase 8: one reduce partition of TeraSort. The reference's deployment
+# shape is 64 maps of 64 MiB (scripts/bench_pipeline.py:182-183); the maps
+# are cut to 16 MiB so the pure-Python host side fits the time budget.
+MERGE_MAPS = 64
+MERGE_MAP_BYTES = 16 << 20
+MERGE_KEY_CLASS = "org.apache.hadoop.io.Text"
+MERGE_JOB = "terasort"
+MERGE_TILE = 512           # merge_sorted_pair's default tile
+# one framed record: VInt(11) VInt(91), the Text key (VInt(10) + 10 bytes),
+# the Text value (VInt(90) + 90 bytes)
+TERA_RECORD = 104
 
 
 def log(msg: str) -> None:
@@ -742,6 +773,235 @@ def phase_profile(words: torch.Tensor, path: str) -> dict:
     return prof_out
 
 
+def device_time(prof) -> tuple:
+    """(device ms by kernel name, device busy ms) of a profile: the busy
+    time is the union of the device's intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    by_name: dict = {}
+    busy = 0.0
+    reach = spans[0][0] if spans else 0.0
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+        busy += max(0.0, end - max(start, reach)) / 1e3
+        reach = max(reach, end)
+    return by_name, busy
+
+
+# ---------------------------------------------------------------- phase 8
+def tera_partitions(seed: int, maps: int, map_bytes: int) -> list:
+    """Each map's reduce partition of TeraSort records, sorted by key as a
+    map-side sort leaves it: uint8[n, 104] framed IFile records (n =
+    map_bytes // 104 less the EOF marker), random keys and values from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = (map_bytes - 2) // TERA_RECORD
+    parts = []
+    for _ in range(maps):
+        keys = rng.integers(0, 256, (n, 10), dtype=np.uint8)
+        rec = np.empty((n, TERA_RECORD), np.uint8)
+        rec[:, :3] = (11, 91, 10)
+        rec[:, 3:13] = keys[np.lexsort(keys.T[::-1])]
+        rec[:, 13] = 90
+        rec[:, 14:] = rng.integers(0, 256, (n, 90), dtype=np.uint8)
+        parts.append(rec)
+    return parts
+
+
+def write_mof_tree(root: str, parts: list) -> list:
+    """One map output per partition under ``root`` by ``MOFWriter`` (one
+    reduce partition each); returns the map ids."""
+    writer = MOFWriter(root, MERGE_JOB)
+    mids = []
+    for m, rec in enumerate(parts):
+        flat = rec.tobytes()
+        mid = f"attempt_{MERGE_JOB}_m_{m:06d}_0"
+        writer.write(mid, [((flat[o + 2:o + 13], flat[o + 13:o + 104])
+                            for o in range(0, len(flat), TERA_RECORD))])
+        mids.append(mid)
+    return mids
+
+
+def tera_batch(rec: np.ndarray) -> RecordBatch:
+    """The RecordBatch of one partition's framed records."""
+    start = np.arange(rec.shape[0], dtype=np.int64) * TERA_RECORD
+    return RecordBatch(rec.reshape(-1), start + 2,
+                       np.full_like(start, 11), start + 13,
+                       np.full_like(start, 91))
+
+
+def record_checksum(rec: np.ndarray) -> int:
+    """Order-free checksum of framed records (uint8[n, 104]): the sum,
+    mod 2^64, of a 64-bit mix of each record's 13 words."""
+    words = np.ascontiguousarray(rec).view(np.uint64)
+    mult = (np.arange(1, words.shape[1] + 1, dtype=np.uint64)
+            * np.uint64(0x9E3779B97F4A7C15)) | np.uint64(1)
+    return int((words * mult).sum(axis=1, dtype=np.uint64).sum(
+        dtype=np.uint64))
+
+
+def check_merged_stream(stream: bytes, parts: list, dev: torch.device
+                        ) -> dict:
+    """The emitted stream cracks into every input record, its keys are in
+    Text order (bytewise on the 10-byte content), its record multiset
+    equals the input's, and it equals, byte for byte, the same partition
+    merged by the whole-partition stable re-sort on the card."""
+    total = sum(p.shape[0] for p in parts)
+    t0 = time.perf_counter()
+    batch = crack(stream)
+    crack_s = time.perf_counter() - t0
+    require(batch.num_records == total,
+            f"stream cracks to {batch.num_records} records, not {total}")
+    require(stream[-2:] == b"\xff\xff" and
+            len(stream) == total * TERA_RECORD + 2, "stream length")
+    out = np.frombuffer(stream, np.uint8)[:-2].reshape(total, TERA_RECORD)
+    keys = out[:, 3:13]
+    hi = keys[:, :8].copy().view(">u8").ravel()
+    lo = keys[:, 8:].copy().view(">u2").ravel()
+    require(bool(np.all((hi[:-1] < hi[1:])
+                        | ((hi[:-1] == hi[1:]) & (lo[:-1] <= lo[1:])))),
+            "emitted keys are out of Text order")
+    require(record_checksum(out) == sum(record_checksum(p) for p in parts)
+            % (1 << 64), "emitted records differ from the input multiset")
+    t0 = time.perf_counter()
+    resort = merge_ops.merge_batches([tera_batch(p) for p in parts],
+                                     get_key_type(MERGE_KEY_CLASS), 16, dev)
+    want = resort.data[(resort.key_off - 2)[:, None]
+                       + np.arange(TERA_RECORD)]
+    resort_s = time.perf_counter() - t0
+    require(np.array_equal(out, want),
+            "the merge differs from the whole-partition re-sort")
+    return {"records": total, "crack_s": crack_s, "resort_s": resort_s}
+
+
+def merge_classes(parts: list, dev: torch.device, reps: int) -> list:
+    """K1 at each capacity class of the reduce task's merge tree: the
+    partitions' run rows built as ``merge_batches_two_phase`` builds them,
+    merged pairwise level by level (64 runs fold as the path folds them),
+    and at each level the first pair packed as the path packs it, K1 held
+    against its plain version and timed beside its bound and PyTorch's
+    stable sort of the pair."""
+    kt = get_key_type(MERGE_KEY_CLASS)
+    level = []
+    for seg, rec in enumerate(parts):
+        pk = packing.pack_keys(tera_batch(rec), kt, 16)
+        rows = np.empty((merge_ops.next_run_capacity(pk.num_records),
+                         4 + merge_ops.ROW_EXTRA_COLS), np.uint32)
+        merge_ops.fill_run_rows(rows, pk, merge_ops.run_row_order(pk), seg)
+        level.append(interop.words_from_numpy(rows, dev))
+    classes = []
+    while len(level) > 1:
+        a, b = level[0], level[1]
+        w = a.shape[1]
+        L = pallas_merge.pair_run_len(a.shape[0], b.shape[0], MERGE_TILE)
+        x = pallas_merge.pack_pair(a, b, L)
+        spare = torch.empty_like(x)
+        got = pallas_sort.merge_pass(x, L, MERGE_TILE, w, w)
+        err = max_abs_err(got, pallas_sort.merge_pass_plain(
+            x, L, MERGE_TILE, w, w))
+        require(err == 0, f"K1 at run_len {L} differs from its plain "
+                          f"version")
+        require(same(got, library_sort(x, 2 * L, w, None)),
+                f"K1 at run_len {L} differs from PyTorch's stable sort")
+        nbytes = 2 * x.numel() * 4     # every word read once, written once
+        ms_bound, bound_by = bound(nbytes, 2 * L * (w + 1))
+        rec = {"run_len": L, "shape": list(x.shape),
+               "ms": time_ms(lambda: pallas_sort.merge_pass(
+                   x, L, MERGE_TILE, w, w, out=spare), reps),
+               "plain_ms": time_ms(lambda: pallas_sort.merge_pass_plain(
+                   x, L, MERGE_TILE, w, w), 1, warmup=0),
+               "library_ms": time_ms(lambda: library_sort(x, 2 * L, w, None),
+                                     1),
+               "bound_ms": ms_bound, "bound_by": bound_by,
+               "width": pallas_sort.merge_pass_width(w + 1, w, 2 * L, L),
+               "max_abs_err": err}
+        classes.append(rec)
+        log(f"[merge] K1 class run_len={L} x={rec['shape']}: "
+            f"{rec['ms']:.3f} ms, bound {ms_bound:.3f} ms ({bound_by}), "
+            f"plain {rec['plain_ms']:.3f} ms, library "
+            f"{rec['library_ms']:.3f} ms, width {rec['width']}, "
+            f"max_abs_err {err} (tolerance 0)")
+        del x, spare, got
+        level = [pallas_merge.merge_sorted_pair(level[i], level[i + 1], w)
+                 for i in range(0, len(level) - 1, 2)] \
+            + level[len(level) - len(level) % 2:]
+    torch.cuda.synchronize()
+    return classes
+
+
+def phase_merge(dev: torch.device, maps: int = MERGE_MAPS,
+                map_bytes: int = MERGE_MAP_BYTES,
+                reps: int = TIMED_REPS) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    parts = tera_partitions(SEED + 3, maps, map_bytes)
+    part_bytes = sum(p.nbytes + 2 for p in parts)
+    cfg = Config({"uda.tpu.merge.overlap": False})
+    with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
+        mids = write_mof_tree(root, parts)
+        setup_s = time.perf_counter() - t0
+        log(f"[merge] {maps} maps x {map_bytes} B of TeraSort records "
+            f"({part_bytes} B, {sum(p.shape[0] for p in parts)} records) "
+            f"written by MOFWriter in {setup_s:.1f} s")
+        engine = DataEngine(DirIndexResolver(root), cfg)
+        stream = bytearray()
+        try:
+            mm = MergeManager(LocalFetchClient(engine), MERGE_KEY_CLASS, cfg,
+                              device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics.reset()
+            _build.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                emitted = mm.run(MERGE_JOB, mids, 0, stream.extend)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            counts = {k: _build.launches[k] for k in KERNELS}
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            engine.stop()
+    pairs = maps - 1
+    require(counts["merge_pass"] == pairs and
+            counts["merge_partition"] == pairs,
+            f"the merge launched {counts}, not K1 once per each of its "
+            f"{pairs} pair merges")
+    require(emitted == len(stream) == part_bytes - 2 * (maps - 1),
+            f"run() emitted {emitted} B")
+    snap = metrics.snapshot()
+    split = {"fetch_s": snap.get("fetch_time", 0.0),
+             "rows_upload_s": snap.get("merge.rows_time", 0.0),
+             "k1_fold_s": snap.get("merge.fold_time", 0.0),
+             "k1_fold_device_ms": snap.get("merge.fold.device_ms", 0.0),
+             "readback_gather_s": snap.get("merge.gather_time", 0.0)}
+    split["emit_and_rest_s"] = wall - split["fetch_s"] - snap.get(
+        "merge_time", 0.0)
+    require(split["k1_fold_device_ms"] > 0, "the fold's device time was "
+                                            "not measured")
+    by_name, busy = device_time(prof)
+    k1 = {name: sum(v for k, v in by_name.items() if name in k)
+          for name in ("merge_pass_kernel", "merge_partition_kernel")}
+    checks = check_merged_stream(bytes(stream), parts, dev)
+    del stream
+    classes = merge_classes(parts, dev, reps)
+    res = {"maps": maps, "map_bytes": map_bytes,
+           "partition_bytes": part_bytes, "records": checks["records"],
+           "wall_s": wall, "mb_per_s": part_bytes / wall / 1e6,
+           "split": split, "launches": counts, "k1_device_ms": k1,
+           "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / (wall * 1e3) if by_name else None,
+           "peak_bytes": peak, "setup_s": setup_s, "checks": checks,
+           "top_device_ms": {k[:80]: v for k, v in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:6]},
+           "classes": classes}
+    log("[merge] " + json.dumps({k: v for k, v in res.items()
+                                 if k != "classes"}))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -755,6 +1015,9 @@ def main() -> int:
     timed = phase_times(words)
     for path in ("auto", "keys8f"):
         phase_profile(words, path)
+    del words
+    torch.cuda.empty_cache()
+    merged = phase_merge(dev)
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -770,6 +1033,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if name in ("merge_pass", "merge_partition"):
+            kernels[-1]["merge_path_launches"] = merged["launches"][name]
     log(f"[main] peak memory: " + ", ".join(
         f"{r['path']} {r['peak_bytes']} B" for r in runs))
     log(info["smi"])

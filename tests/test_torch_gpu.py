@@ -229,3 +229,91 @@ def test_k3_takes_a_tile_wider_than_a_block(cuda_device, nk, tile,
                                           tile=tile)
     np.testing.assert_array_equal(interop.words_to_numpy(y), want.numpy())
 
+
+
+def _sorted_runs(seed, n, cap, w, equal=False):
+    """Two sorted uint32[cap, w] runs of n real rows (small alphabet, so
+    equal rows within and across runs) and all-0xFFFFFFFF pad rows up to
+    ``cap``, as the merge tree's runs are; ``equal`` makes B a copy of
+    A."""
+    rng = np.random.default_rng(seed)
+    runs = []
+    for _ in range(2):
+        r = rng.integers(0, 3, size=(n, w), dtype=np.uint32)
+        r[rng.random(n) < 0.1] = np.uint32(0x80000000)
+        r = r[np.lexsort(r.T[::-1])]
+        runs.append(np.concatenate([r, np.full((cap - n, w), 0xFFFFFFFF,
+                                               np.uint32)]))
+    if equal:
+        runs[1] = runs[0].copy()
+    return runs
+
+
+@pytest.mark.parametrize("run_len,w,equal", [
+    (512, 7, False), (1536, 7, False), (2560, 7, False), (1 << 14, 7, False),
+    (1536, 1, False), (2560, 31, False), (1 << 13, 31, False),
+    (512, 1, True), (1536, 7, True), (2560, 31, True)])
+def test_pair_merge_matches_plain(cuda_device, run_len, w, equal):
+    """K1 as the merge tree's pair merge: [W + 1, 2L] at L = 512 x {1, 3,
+    5, 2^k}, 2, 8 and 32 rows, pad rows in both runs, and B a copy of A
+    (every record has an equal twin): the packed pass against the plain
+    version, and merge_sorted_pair against numpy's stable sort."""
+    from uda_tpu_torch.ops import pallas_merge
+
+    a, b = _sorted_runs(run_len + w, run_len - 37, run_len, w, equal)
+    ta, tb = _on_card(a, cuda_device), _on_card(b, cuda_device)
+    L = pallas_merge.pair_run_len(run_len, run_len, 512)
+    assert L == run_len
+    x = pallas_merge.pack_pair(ta, tb, L)
+    assert tuple(x.shape) == (w + 1, 2 * L)
+    _build.reset_launches()
+    got = pallas_sort.merge_pass(x, L, 512, w, w)
+    torch.cuda.synchronize()
+    assert _build.launches["merge_pass"] == 1
+    assert _same(got, pallas_sort.merge_pass_plain(x.cpu(), L, 512, w, w))
+    merged = pallas_merge.merge_sorted_pair(ta, tb, num_keys=w)
+    cat = np.concatenate([a, b])
+    np.testing.assert_array_equal(interop.words_to_numpy(merged),
+                                  cat[np.lexsort(cat.T[::-1])])
+
+
+def test_merge_manager_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """A small reduce task on the card (two-phase through K1, one launch
+    pair per pair merge) emits the bytes the same call emits with
+    device="cpu" (the re-sort), at 1 KB chunks."""
+    from uda_tpu_torch.merger import LocalFetchClient, MergeManager
+    from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver,
+                                         MOFWriter)
+    from uda_tpu_torch.utils.config import Config
+    from uda_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(5)
+    writer = MOFWriter(str(tmp_path), "job")
+    for m in range(5):
+        recs = []
+        for _ in range(300):
+            c = bytes(rng.integers(0, 3, int(rng.integers(0, 12)),
+                                   dtype=np.uint8))
+            recs.append((bytes([len(c)]) + c, rng.bytes(40)))
+        writer.write(f"m{m}", [sorted(recs, key=lambda kv: kv[0][1:])])
+    conf = Config({"uda.tpu.merge.overlap": False, "mapred.rdma.buf.size": 1})
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        engine = DataEngine(DirIndexResolver(str(tmp_path)), conf)
+        out = bytearray()
+        try:
+            _build.reset_launches()
+            metrics.reset()
+            mm = MergeManager(LocalFetchClient(engine),
+                              "org.apache.hadoop.io.Text", conf, device=dev)
+            assert mm.run("job", writer.map_ids, 0, out.extend) == len(out)
+            torch.cuda.synchronize()
+            streams[dev] = (bytes(out), dict(_build.launches),
+                            metrics.get("merge.fold.device_ms"))
+        finally:
+            engine.stop()
+    assert streams["cuda"][0] == streams["cpu"][0]
+    assert streams["cuda"][1]["merge_pass"] == 4
+    assert streams["cuda"][1]["merge_partition"] == 4
+    assert not streams["cpu"][1].get("merge_pass")
+    assert streams["cuda"][2] > 0 and streams["cpu"][2] == 0

@@ -16,7 +16,8 @@ import torch
 import chip_smoke
 from uda_tpu_torch import device as tdevice
 from uda_tpu_torch.models import terasort as tts
-from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
+from uda_tpu_torch.ops import (_build, lane_gather, pallas_fold,
+                                pallas_merge, pallas_sort)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "uda_tpu_torch").rglob("*.py")) + [
@@ -98,6 +99,7 @@ def test_chip_smoke_fails_alone(tmp_path):
     lambda x: pallas_sort.merge_partition(x, 128, 256, 3, 7),
     lambda x: lane_gather.take_lanes(
         x, torch.empty(512, dtype=torch.int32, device="meta")),
+    lambda x: pallas_merge.merge_sorted_pair(x.T[:300], x.T[300:], 8),
 ])
 def test_wrappers_take_no_plain_path_off_the_cpu(call):
     """A wrapper runs its plain version only for a CPU tensor; any other

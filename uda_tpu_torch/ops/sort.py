@@ -1,11 +1,13 @@
 """Engine names, engine routing and the plain sort operations of the port.
 
-Counterpart of ``uda_tpu/ops/sort.py``. This slice carries the engine-name
-tuples, ``resolve_sort_path`` / ``route_engine`` with a device argument,
+Counterpart of ``uda_tpu/ops/sort.py``: the engine-name tuples,
+``resolve_sort_path`` / ``route_engine`` with a device argument,
 ``apply_perm_chunked`` and ``stable_lex_argsort``, the port's stable
 lexicographic sort permutation over uint32 key words (the counterpart of
 ``lax.sort(..., is_stable=True)``, behind the ``carry``, ``gather``,
-``gather2`` and ``carrychunk`` engines).
+``gather2`` and ``carrychunk`` engines), and the sorts over packed record
+keys the merge uses (``sort_permutation``, ``merge_runs``,
+``sort_records_fixed``).
 
 Torch's ``uint32`` support is thin (on the CPU it has no ``<``, ``gather``
 or ``index_select`` for it, and the card is not assumed to have more), so
@@ -19,14 +21,18 @@ from __future__ import annotations
 import os
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from uda_tpu_torch.device import resolve_device
+from uda_tpu_torch.ops.packing import PackedKeys
 
 __all__ = ["resolve_sort_path", "route_engine", "apply_perm_chunked",
            "stable_lex_argsort", "take_cols", "i32", "u32", "words_of",
-           "fill_words", "LANES_ENGINES", "FLYOFF_ENGINES", "BENCH_FLYOFF",
-           "ALL_SORT_PATHS", "DEFAULT_CHUNK_COLS", "DEPLOYED_SORT_PATH"]
+           "fill_words", "sort_permutation", "concat_packed", "merge_runs",
+           "sort_records_fixed", "LANES_ENGINES", "FLYOFF_ENGINES",
+           "BENCH_FLYOFF", "ALL_SORT_PATHS", "DEFAULT_CHUNK_COLS",
+           "DEPLOYED_SORT_PATH"]
 
 # The engine knobs, under the reference's names, read once at import.
 DEFAULT_CHUNK_COLS = int(os.environ.get("UDA_TPU_CHUNK_COLS", "6"))
@@ -158,3 +164,69 @@ def apply_perm_chunked(perm: torch.Tensor, cols: Sequence[torch.Tensor],
         chunk = torch.stack([i32(c) for c in cols[base:base + chunk_cols]])
         out.extend(c.view(cols[0].dtype) for c in chunk[:, perm].unbind(0))
     return out
+
+
+def _key_columns(keys: PackedKeys, device) -> list:
+    """The sort columns of packed keys on ``device``, in the reference's
+    operand order (``uda_tpu/ops/sort.py:240-253``): the prefix words,
+    then the overflow rank, then the content length. Rank precedes length:
+    two keys that both overflow the carried width with equal prefixes are
+    ordered by the bytes past the width (the rank), not by their lengths;
+    length then orders the remaining ties. All three columns hold values
+    in [0, 2^32), so they travel as one int32 upload."""
+    cols = np.empty((keys.num_records, keys.key_words.shape[1] + 2),
+                    np.int32)
+    cols[:, :-2] = keys.key_words.view(np.int32)
+    cols[:, -2] = keys.ranks
+    cols[:, -1] = keys.key_lens
+    dev = torch.from_numpy(cols).to(resolve_device(device))
+    return list(dev.T)
+
+
+def sort_permutation(keys: PackedKeys, device=None) -> np.ndarray:
+    """Stable sort permutation of one run by (key words lexicographic,
+    overflow rank, content length), computed on ``device`` (``None`` =
+    the card); equal keys keep arrival order. Returns int64 numpy."""
+    if keys.num_records == 0:
+        return np.zeros(0, np.int64)
+    perm = stable_lex_argsort(_key_columns(keys, device))
+    return perm.cpu().numpy()
+
+
+def concat_packed(runs: Sequence[PackedKeys]) -> PackedKeys:
+    """Concatenate packed runs (the host-side prelude to merge_runs)."""
+    return PackedKeys(
+        np.concatenate([r.key_words for r in runs], axis=0),
+        np.concatenate([r.key_lens for r in runs]),
+        np.concatenate([r.ranks for r in runs]),
+    )
+
+
+def merge_runs(runs: Sequence[PackedKeys],
+               device=None) -> tuple[np.ndarray, np.ndarray]:
+    """Merge k sorted runs into one global order: ``(perm, run_id)``,
+    ``perm`` indexing the concatenation of the runs and ``run_id[i]`` the
+    source run of output position i. Each run's overflow ranks are taken
+    as they are (see the reference's caveat, ``uda_tpu/ops/sort.py``)."""
+    if not runs:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    cat = concat_packed(runs)
+    perm = sort_permutation(cat, device)
+    sizes = np.asarray([r.num_records for r in runs], dtype=np.int64)
+    bounds = np.cumsum(sizes)
+    run_id = np.searchsorted(bounds, perm, side="right")
+    return perm, run_id
+
+
+def sort_records_fixed(keys: PackedKeys, payload, device=None):
+    """Device-resident sort of (keys, fixed-stride payload words): the
+    rows of ``payload`` (uint32[n, P], numpy or a tensor) in the stable
+    key order. Returns ``(sorted_payload, perm)`` as tensors on
+    ``device``: uint32[n, P] and the int64 permutation."""
+    dev = resolve_device(device)
+    perm = stable_lex_argsort(_key_columns(keys, dev))
+    if isinstance(payload, np.ndarray):
+        payload = torch.from_numpy(
+            np.ascontiguousarray(payload, np.uint32).view(np.int32))
+    rows = payload.view(torch.int32).to(dev)
+    return u32(rows[perm]), perm
