@@ -51,7 +51,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    multiset checksum and held byte for byte against the whole-partition
    re-sort (``merge_batches``) on the card; then K1 at each capacity
    class of the merge tree against its plain version, timed beside its
-   bound.
+   bound;
+9. overlap: the default reduce path on phase 8's MOF tree, each run
+   through ``MergeManager.run`` with ``metrics`` and the launch counts
+   reset just before and read just after: (a) the default ``Config()``
+   (the overlapped merger: pipelined staging, auto stage pool, auto
+   in-flight cap; runs copied from pinned leases on a copy stream and
+   merged by K1 on a merge stream while later fetches are in flight),
+   under ``torch.profiler``; (b) the same with
+   ``uda.tpu.online.streaming=true``, spilling sorted runs under a
+   temporary directory; (c) ``uda.tpu.stage.pipeline=false`` on the first
+   16 maps; (d) the default and (e) streaming on a second tree, 64 maps
+   of 1 MiB of Text records with values of 1 to 1000 bytes, beside one
+   emission slab of them gathered by ``streaming._gather_spans`` and by a
+   per-byte index (equal bytes, host ms of each). Each stream is hashed
+   as it is emitted and must equal phase 8's stream (run c: the card's
+   re-sort of its 16 maps; d, e: of their tree, framed) in sha256 and
+   length; K1 must launch one merge and one partition kernel per forest
+   merge (63 for 64 maps); the in-flight gauge must end at 0 and every
+   pinned lease go back, some reused. The reduce modes the port does not
+   run yet (``mapred.netmerger.merge.approach`` 0 or 2,
+   ``uda.tpu.ckpt.dir``, the watchdog, push, coding, failpoints,
+   speculation, resume) raise ``ConfigError`` and are not driven.
 
 The last two lines are one JSON object with a record per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -59,8 +80,11 @@ contract line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -72,6 +96,8 @@ import torch
 from uda_tpu_torch import interop
 from uda_tpu_torch.device import generator
 from uda_tpu_torch.merger import LocalFetchClient, MergeManager
+from uda_tpu_torch.merger import streaming as stream_mod
+from uda_tpu_torch.merger.emitter import frame_batch
 from uda_tpu_torch.models import terasort
 from uda_tpu_torch.mofserver import DataEngine, DirIndexResolver, MOFWriter
 from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_merge
@@ -81,7 +107,8 @@ from uda_tpu_torch.ops import sort as sort_ops
 from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
 from uda_tpu_torch.utils.comparators import get_key_type
 from uda_tpu_torch.utils.config import Config
-from uda_tpu_torch.utils.ifile import RecordBatch, crack
+from uda_tpu_torch.utils import vint
+from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, crack
 from uda_tpu_torch.utils.metrics import metrics
 
 SEED = 0
@@ -164,6 +191,13 @@ MERGE_TILE = 512           # merge_sorted_pair's default tile
 # one framed record: VInt(11) VInt(91), the Text key (VInt(10) + 10 bytes),
 # the Text value (VInt(90) + 90 bytes)
 TERA_RECORD = 104
+# phase 9's run c (the serial stage loop) merges the first 16 maps only
+OVERLAP_C_MAPS = 16
+# phase 9's runs d and e: Text values of 1 to 1000 bytes, the mix of
+# lengths that the emission's span gather takes by size class
+VARLEN_MAPS = 64
+VARLEN_MAP_BYTES = 1 << 20
+VARLEN_MAX_VALUE = 1000
 
 
 def log(msg: str) -> None:
@@ -809,16 +843,20 @@ def tera_partitions(seed: int, maps: int, map_bytes: int) -> list:
     return parts
 
 
-def write_mof_tree(root: str, parts: list) -> list:
+def write_mof_tree(root: str, parts: list, pairs: bool = False) -> list:
     """One map output per partition under ``root`` by ``MOFWriter`` (one
-    reduce partition each); returns the map ids."""
+    reduce partition each): framed TeraSort records, or (key, value)
+    pairs when ``pairs``; returns the map ids."""
     writer = MOFWriter(root, MERGE_JOB)
     mids = []
     for m, rec in enumerate(parts):
-        flat = rec.tobytes()
         mid = f"attempt_{MERGE_JOB}_m_{m:06d}_0"
-        writer.write(mid, [((flat[o + 2:o + 13], flat[o + 13:o + 104])
-                            for o in range(0, len(flat), TERA_RECORD))])
+        if pairs:
+            writer.write(mid, [rec])
+        else:
+            flat = rec.tobytes()
+            writer.write(mid, [((flat[o + 2:o + 13], flat[o + 13:o + 104])
+                                for o in range(0, len(flat), TERA_RECORD))])
         mids.append(mid)
     return mids
 
@@ -930,40 +968,33 @@ def merge_classes(parts: list, dev: torch.device, reps: int) -> list:
     return classes
 
 
-def phase_merge(dev: torch.device, maps: int = MERGE_MAPS,
-                map_bytes: int = MERGE_MAP_BYTES,
+def phase_merge(dev: torch.device, root: str, mids: list, parts: list,
+                map_bytes: int, setup_s: float,
                 reps: int = TIMED_REPS) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
-    parts = tera_partitions(SEED + 3, maps, map_bytes)
+    maps = len(parts)
     part_bytes = sum(p.nbytes + 2 for p in parts)
     cfg = Config({"uda.tpu.merge.overlap": False})
-    with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
-        mids = write_mof_tree(root, parts)
-        setup_s = time.perf_counter() - t0
-        log(f"[merge] {maps} maps x {map_bytes} B of TeraSort records "
-            f"({part_bytes} B, {sum(p.shape[0] for p in parts)} records) "
-            f"written by MOFWriter in {setup_s:.1f} s")
-        engine = DataEngine(DirIndexResolver(root), cfg)
-        stream = bytearray()
-        try:
-            mm = MergeManager(LocalFetchClient(engine), MERGE_KEY_CLASS, cfg,
-                              device=dev)
+    engine = DataEngine(DirIndexResolver(root), cfg)
+    stream = bytearray()
+    try:
+        mm = MergeManager(LocalFetchClient(engine), MERGE_KEY_CLASS, cfg,
+                          device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics.reset()
+        _build.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            emitted = mm.run(MERGE_JOB, mids, 0, stream.extend)
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            metrics.reset()
-            _build.reset_launches()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t1 = time.perf_counter()
-                emitted = mm.run(MERGE_JOB, mids, 0, stream.extend)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t1
-            counts = {k: _build.launches[k] for k in KERNELS}
-            peak = torch.cuda.max_memory_allocated()
-        finally:
-            engine.stop()
+            wall = time.perf_counter() - t1
+        counts = {k: _build.launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        engine.stop()
     pairs = maps - 1
     require(counts["merge_pass"] == pairs and
             counts["merge_partition"] == pairs,
@@ -982,24 +1013,280 @@ def phase_merge(dev: torch.device, maps: int = MERGE_MAPS,
     require(split["k1_fold_device_ms"] > 0, "the fold's device time was "
                                             "not measured")
     by_name, busy = device_time(prof)
-    k1 = {name: sum(v for k, v in by_name.items() if name in k)
-          for name in ("merge_pass_kernel", "merge_partition_kernel")}
     checks = check_merged_stream(bytes(stream), parts, dev)
+    digest = hashlib.sha256(stream).hexdigest()
     del stream
     classes = merge_classes(parts, dev, reps)
     res = {"maps": maps, "map_bytes": map_bytes,
            "partition_bytes": part_bytes, "records": checks["records"],
            "wall_s": wall, "mb_per_s": part_bytes / wall / 1e6,
-           "split": split, "launches": counts, "k1_device_ms": k1,
-           "device_busy_ms": busy,
+           "split": split, "launches": counts,
+           "k1_device_ms": k1_device_ms(by_name), "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (wall * 1e3) if by_name else None,
            "peak_bytes": peak, "setup_s": setup_s, "checks": checks,
+           "sha256": digest, "stream_bytes": emitted,
            "top_device_ms": {k[:80]: v for k, v in sorted(
                by_name.items(), key=lambda kv: -kv[1])[:6]},
            "classes": classes}
     log("[merge] " + json.dumps({k: v for k, v in res.items()
                                  if k != "classes"}))
     return res
+
+
+def k1_device_ms(by_name: dict) -> dict:
+    """K1's device ms in a profile, by its two kernels."""
+    return {name: sum(v for k, v in by_name.items() if name in k)
+            for name in ("merge_pass_kernel", "merge_partition_kernel")}
+
+
+# ---------------------------------------------------------------- phase 9
+def resort_digest(parts: list, dev: torch.device) -> tuple:
+    """(sha256, length) of the stream a reduce task over ``parts`` must
+    emit: the records in the order of the card's whole-partition stable
+    re-sort, framed, and the EOF marker."""
+    resort = merge_ops.merge_batches([tera_batch(p) for p in parts],
+                                     get_key_type(MERGE_KEY_CLASS), 16, dev)
+    want = resort.data[(resort.key_off - 2)[:, None]
+                       + np.arange(TERA_RECORD)]
+    digest = hashlib.sha256(want.tobytes())
+    digest.update(b"\xff\xff")
+    return digest.hexdigest(), want.size + 2
+
+
+def hist(name: str) -> dict:
+    """count, mean and max of one of the run's histograms (ms)."""
+    h = metrics.histogram(name)
+    return {"count": h["count"], "max": h["max"],
+            "mean": h["sum"] / h["count"] if h["count"] else 0.0}
+
+
+def overlap_run(dev: torch.device, root: str, mids: list, part_bytes: int,
+                conf: dict, want: tuple, name: str,
+                profiled: bool = False) -> dict:
+    """One ``MergeManager.run`` of the overlapped merger over ``mids``,
+    with the counts, metrics and launch counts reset just before and read
+    just after; the stream is hashed as it is emitted and must equal
+    ``want`` (sha256, length). K1 must have launched one merge and one
+    partition kernel per forest merge (maps - 1); the in-flight gauge must
+    be back at 0 and every pinned lease returned and some reused."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config(conf)
+    engine = DataEngine(DirIndexResolver(root), cfg)
+    digest = hashlib.sha256()
+    length = 0
+
+    def consumer(block: memoryview) -> None:
+        nonlocal length
+        digest.update(block)
+        length += len(block)
+
+    try:
+        mm = MergeManager(LocalFetchClient(engine), MERGE_KEY_CLASS, cfg,
+                          device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics.reset()
+        _build.reset_launches()
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        with ctx as prof:
+            t0 = time.perf_counter()
+            emitted = mm.run(MERGE_JOB, mids, 0, consumer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {k: _build.launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        engine.stop()
+    om = mm._active_overlap
+    snap = metrics.snapshot()
+    merges = len(mids) - 1
+    require((digest.hexdigest(), length) == want and emitted == length,
+            f"[overlap {name}] the stream differs from phase 8's: "
+            f"{length} B, sha256 {digest.hexdigest()}")
+    require(counts["merge_pass"] == counts["merge_partition"] == merges
+            == om.stats["device_merges"],
+            f"[overlap {name}] K1 launched {counts}, forest merges "
+            f"{om.stats['device_merges']}, not {merges}")
+    require(metrics.get_gauge("stage.inflight.bytes") == 0
+            and om.stats["inflight_bytes"] == 0,
+            f"[overlap {name}] in-flight bytes left charged")
+    pool = om._buf_pool
+    require(pool.pinned and pool.leased == 0,
+            f"[overlap {name}] {pool.leased} leases not returned "
+            f"(pinned: {pool.pinned})")
+    require(snap.get("stage.buffer.reuses", 0) > 0,
+            f"[overlap {name}] the pinned pool reused no buffer")
+    require(metrics.histogram("merge.pipeline.put_ms")["count"]
+            == len(mids), f"[overlap {name}] not one copy per run")
+    split = {k: snap.get(k, 0.0) for k in (
+        "fetch_time", "overlap_pack_time", "overlap_stage_time",
+        "overlap_device_merge_time", "run_spool_time", "merge_time",
+        "emit_time")}
+    split["emit_and_rest_s"] = wall - split["fetch_time"] - split[
+        "merge_time"]
+    res = {"run": name, "maps": len(mids), "partition_bytes": part_bytes,
+           "wall_s": wall, "mb_per_s": part_bytes / wall / 1e6,
+           "split": split, "launches": counts,
+           "merge_wait_ms": hist("merge.wait_ms"),
+           "put_ms": hist("merge.pipeline.put_ms"),
+           "pipeline_runs": snap.get("merge.pipeline.runs", 0),
+           "backpressure_events": snap.get("stage.backpressure_events", 0),
+           "buffer_reuses": snap.get("stage.buffer.reuses", 0),
+           "peak_bytes": peak, "sha256": digest.hexdigest(),
+           "stream_bytes": length}
+    if profiled:
+        by_name, busy = device_time(prof)
+        res.update(k1_device_ms=k1_device_ms(by_name), device_busy_ms=busy,
+                   idle_share=(1.0 - busy / (wall * 1e3) if by_name
+                               else None),
+                   top_device_ms={k[:80]: v for k, v in sorted(
+                       by_name.items(), key=lambda kv: -kv[1])[:6]})
+    log(f"[overlap {name}] " + json.dumps(res))
+    return res
+
+
+def varlen_partitions(seed: int, maps: int, map_bytes: int) -> list:
+    """Each map's reduce partition of Text records, sorted by key as a
+    map-side sort leaves it: (key, value) pairs in their Text form, keys
+    of 10 random bytes, values of 1 to VARLEN_MAX_VALUE random bytes,
+    about ``map_bytes`` a map, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = map_bytes // (14 + VARLEN_MAX_VALUE // 2)
+    key_head = vint.encode_vlong(10)
+    parts = []
+    for _ in range(maps):
+        keys = rng.integers(0, 256, (n, 10), dtype=np.uint8)
+        keys = keys[np.lexsort(keys.T[::-1])].tobytes()
+        lens = rng.integers(1, VARLEN_MAX_VALUE + 1, n).tolist()
+        body = rng.integers(0, 256, sum(lens), dtype=np.uint8).tobytes()
+        pairs, at = [], 0
+        for i, ln in enumerate(lens):
+            pairs.append((key_head + keys[10 * i:10 * i + 10],
+                          vint.encode_vlong(ln) + body[at:at + ln]))
+            at += ln
+        parts.append(pairs)
+    return parts
+
+
+def varlen_batches(parts: list) -> list:
+    """The RecordBatch of each partition's framed records."""
+    return [crack(b"".join(vint.encode_vlong(len(k)) + vint.encode_vlong(
+        len(v)) + k + v for k, v in pairs) + EOF_MARKER) for pairs in parts]
+
+
+def gather_times(cat: RecordBatch, reps: int = 3) -> dict:
+    """One emission slab of variable-length records (SLAB_RECORDS spans of
+    key and value, in a random order) gathered by the port's
+    ``_gather_spans`` (by size class) and by an int64 index per byte (the
+    reference's numpy form), on the same spans: equal bytes, host ms of
+    each, best of ``reps``."""
+    rng = np.random.default_rng(SEED + 9)
+    pick = rng.choice(cat.num_records,
+                      min(stream_mod.SLAB_RECORDS, cat.num_records),
+                      replace=False)
+    lens = (cat.key_len + cat.val_len)[pick]
+    src_off = cat.key_off[pick]
+    dst_off = np.cumsum(lens) - lens
+
+    def by_class():
+        out = np.empty(int(lens.sum()), np.uint8)
+        stream_mod._gather_spans(cat.data, src_off, lens, out, dst_off)
+        return out
+
+    def index(off):
+        return np.repeat(off - dst_off, lens) + np.arange(
+            int(lens.sum()), dtype=np.int64)
+
+    def by_byte():
+        out = np.empty(int(lens.sum()), np.uint8)
+        out[index(dst_off)] = cat.data[index(src_off)]
+        return out
+
+    require(np.array_equal(by_class(), by_byte()),
+            "the span gather differs from the per-byte index")
+    times = {}
+    for name, fn in (("size_class_ms", by_class), ("byte_index_ms", by_byte)):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        times[name] = best
+    times.update(spans=int(lens.size), bytes=int(lens.sum()),
+                 distinct_lengths=int(np.unique(lens).size))
+    return times
+
+
+def phase_varlen(dev: torch.device, spill: str) -> dict:
+    """Runs d (default Config) and e (streaming) on a tree of Text records
+    with values of 1 to 1000 bytes, each held to the card's whole-partition
+    re-sort of the same records, framed; and the span gather on one slab
+    of them."""
+    parts = varlen_partitions(SEED + 5, VARLEN_MAPS, VARLEN_MAP_BYTES)
+    batches = varlen_batches(parts)
+    part_bytes = sum(len(b.data) for b in batches)
+    resort = merge_ops.merge_batches(batches, get_key_type(MERGE_KEY_CLASS),
+                                     16, dev)
+    framed = frame_batch(resort)
+    want = (hashlib.sha256(framed).hexdigest(), len(framed))
+    del framed, resort
+    runs = {"gather": gather_times(RecordBatch.concat(batches))}
+    log("[overlap varlen] span gather on one slab: "
+        + json.dumps(runs["gather"]))
+    with tempfile.TemporaryDirectory(prefix="uda_varlen_") as root:
+        mids = write_mof_tree(root, parts, pairs=True)
+        runs["d"] = overlap_run(dev, root, mids, part_bytes, {}, want,
+                                "d varlen default")
+        runs["e"] = overlap_run(dev, root, mids, part_bytes,
+                                {"uda.tpu.online.streaming": True,
+                                 "uda.tpu.spill.dirs": spill}, want,
+                                "e varlen streaming")
+    return runs
+
+
+def phase_overlap(dev: torch.device, root: str, mids: list, parts: list,
+                  merged: dict, c_maps: int = OVERLAP_C_MAPS) -> dict:
+    part_bytes = sum(p.nbytes + 2 for p in parts)
+    want = (merged["sha256"], merged["stream_bytes"])
+    with tempfile.TemporaryDirectory(prefix="uda_spill_") as spill:
+        runs = {
+            "a": overlap_run(dev, root, mids, part_bytes, {}, want,
+                             "a default", profiled=True),
+            "b": overlap_run(dev, root, mids, part_bytes,
+                             {"uda.tpu.online.streaming": True,
+                              "uda.tpu.spill.dirs": spill}, want,
+                             "b streaming"),
+        }
+        runs.update(phase_varlen(dev, spill))
+        require(not os.listdir(spill), "the run store left files behind")
+    sub = parts[:c_maps]
+    runs["c"] = overlap_run(dev, root, mids[:c_maps],
+                            sum(p.nbytes + 2 for p in sub),
+                            {"uda.tpu.stage.pipeline": False},
+                            resort_digest(sub, dev), "c pipeline off")
+    return runs
+
+
+def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
+                 map_bytes: int = MERGE_MAP_BYTES, reps: int = TIMED_REPS,
+                 c_maps: int = OVERLAP_C_MAPS) -> tuple:
+    """Phases 8 and 9 on one MOF tree: the tree is written once."""
+    t0 = time.perf_counter()
+    parts = tera_partitions(SEED + 3, maps, map_bytes)
+    with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
+        mids = write_mof_tree(root, parts)
+        setup_s = time.perf_counter() - t0
+        log(f"[merge] {maps} maps x {map_bytes} B of TeraSort records "
+            f"({sum(p.nbytes + 2 for p in parts)} B, "
+            f"{sum(p.shape[0] for p in parts)} records) written by "
+            f"MOFWriter in {setup_s:.1f} s")
+        merged = phase_merge(dev, root, mids, parts, map_bytes, setup_s,
+                             reps)
+        overlap = phase_overlap(dev, root, mids, parts, merged, c_maps)
+    return merged, overlap
 
 
 def main() -> int:
@@ -1017,7 +1304,7 @@ def main() -> int:
         phase_profile(words, path)
     del words
     torch.cuda.empty_cache()
-    merged = phase_merge(dev)
+    merged, overlap = phase_reduce(dev)
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -1035,6 +1322,8 @@ def main() -> int:
         })
         if name in ("merge_pass", "merge_partition"):
             kernels[-1]["merge_path_launches"] = merged["launches"][name]
+            kernels[-1]["overlap_path_launches"] = \
+                overlap["a"]["launches"][name]
     log(f"[main] peak memory: " + ", ".join(
         f"{r['path']} {r['peak_bytes']} B" for r in runs))
     log(info["smi"])

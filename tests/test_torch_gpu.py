@@ -9,6 +9,8 @@ is installed; on the card run it without the JAX package's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -277,43 +279,130 @@ def test_pair_merge_matches_plain(cuda_device, run_len, w, equal):
                                   cat[np.lexsort(cat.T[::-1])])
 
 
-def test_merge_manager_on_the_card_matches_the_cpu(cuda_device, tmp_path):
-    """A small reduce task on the card (two-phase through K1, one launch
-    pair per pair merge) emits the bytes the same call emits with
-    device="cpu" (the re-sort), at 1 KB chunks."""
-    from uda_tpu_torch.merger import LocalFetchClient, MergeManager
-    from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver,
-                                         MOFWriter)
-    from uda_tpu_torch.utils.config import Config
-    from uda_tpu_torch.utils.metrics import metrics
+def _text_mofs(root, maps: int = 5, n: int = 300):
+    """A MOF tree of sorted Text records (duplicate keys), one partition a
+    map; returns the map ids."""
+    from uda_tpu_torch.mofserver import MOFWriter
 
     rng = np.random.default_rng(5)
-    writer = MOFWriter(str(tmp_path), "job")
-    for m in range(5):
+    writer = MOFWriter(str(root), "job")
+    for m in range(maps):
         recs = []
-        for _ in range(300):
+        for _ in range(n + 37 * m):
             c = bytes(rng.integers(0, 3, int(rng.integers(0, 12)),
                                    dtype=np.uint8))
             recs.append((bytes([len(c)]) + c, rng.bytes(40)))
         writer.write(f"m{m}", [sorted(recs, key=lambda kv: kv[0][1:])])
-    conf = Config({"uda.tpu.merge.overlap": False, "mapred.rdma.buf.size": 1})
+    return writer.map_ids
+
+
+def _reduce_on(dev: str, root, mids, conf: dict) -> tuple:
+    """(stream, launch counts) of one MergeManager.run on ``dev``."""
+    from uda_tpu_torch.merger import LocalFetchClient, MergeManager
+    from uda_tpu_torch.mofserver import DataEngine, DirIndexResolver
+    from uda_tpu_torch.utils.config import Config
+
+    engine = DataEngine(DirIndexResolver(str(root)), Config(conf))
+    out = bytearray()
+    try:
+        _build.reset_launches()
+        mm = MergeManager(LocalFetchClient(engine),
+                          "org.apache.hadoop.io.Text", Config(conf),
+                          device=dev)
+        assert mm.run("job", mids, 0, out.extend) == len(out)
+        torch.cuda.synchronize()
+        return bytes(out), dict(_build.launches)
+    finally:
+        engine.stop()
+
+
+def test_merge_manager_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """A small reduce task on the card (two-phase through K1, one launch
+    pair per pair merge) emits the bytes the same call emits with
+    device="cpu" (the re-sort), at 1 KB chunks."""
+    from uda_tpu_torch.utils.metrics import metrics
+
+    mids = _text_mofs(tmp_path)
+    conf = {"uda.tpu.merge.overlap": False, "mapred.rdma.buf.size": 1}
     streams = {}
     for dev in ("cuda", "cpu"):
-        engine = DataEngine(DirIndexResolver(str(tmp_path)), conf)
-        out = bytearray()
-        try:
-            _build.reset_launches()
-            metrics.reset()
-            mm = MergeManager(LocalFetchClient(engine),
-                              "org.apache.hadoop.io.Text", conf, device=dev)
-            assert mm.run("job", writer.map_ids, 0, out.extend) == len(out)
-            torch.cuda.synchronize()
-            streams[dev] = (bytes(out), dict(_build.launches),
-                            metrics.get("merge.fold.device_ms"))
-        finally:
-            engine.stop()
+        metrics.reset()
+        streams[dev] = _reduce_on(dev, tmp_path, mids, conf) + (
+            metrics.get("merge.fold.device_ms"),)
     assert streams["cuda"][0] == streams["cpu"][0]
     assert streams["cuda"][1]["merge_pass"] == 4
     assert streams["cuda"][1]["merge_partition"] == 4
     assert not streams["cpu"][1].get("merge_pass")
     assert streams["cuda"][2] > 0 and streams["cpu"][2] == 0
+
+
+@pytest.mark.parametrize("mode", [{}, {"uda.tpu.stage.pipeline": False},
+                                  {"uda.tpu.online.streaming": True}],
+                         ids=["default", "pipeline_off", "streaming"])
+def test_overlapped_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path,
+                                                       mode):
+    """The default reduce path (the overlapped merger) on the card, with
+    the pipeline off and in streaming mode, emits the bytes of the same
+    call on the CPU; K1 launches once per forest merge (4 for 5 maps)."""
+    mids = _text_mofs(tmp_path)
+    conf = dict(mode, **{"mapred.rdma.buf.size": 1,
+                         "uda.tpu.spill.dirs": str(tmp_path / "spill")})
+    on_card, launches = _reduce_on("cuda", tmp_path, mids, conf)
+    on_cpu, cpu_launches = _reduce_on("cpu", tmp_path, mids, conf)
+    assert on_card == on_cpu
+    assert launches["merge_pass"] == launches["merge_partition"] == 4
+    assert not cpu_launches.get("merge_pass")
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_overlap_merger_on_the_card_matches_the_cpu(cuda_device, pipeline):
+    """The overlapped merger on the card (K1, runs copied from pinned
+    leases on the copy stream, merged on the merge stream) emits what the
+    same merger emits on the CPU with the host engine; K1 launches once
+    per forest merge; every lease is pinned, goes back and is reused;
+    nothing stays charged."""
+    from uda_tpu_torch.merger.emitter import FramedEmitter
+    from uda_tpu_torch.merger.overlap import OverlappedMerger
+    from uda_tpu_torch.utils.comparators import get_key_type
+    from uda_tpu_torch.utils.ifile import IFileWriter, crack
+    from uda_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(7)
+    batches = []
+    for s in range(12):
+        recs = [(rng.bytes(int(rng.integers(0, 12))), rng.bytes(30))
+                for _ in range(int(rng.integers(1, 5000)))]
+        if s % 3:
+            recs.sort()  # the others need run_row_order's lexsort
+        buf = io.BytesIO()
+        with IFileWriter(buf) as w:
+            for k, v in recs:
+                w.append(k, v)
+        batches.append(crack(buf.getvalue()))
+    kt = get_key_type("uda.tpu.RawBytes")
+    order = list(np.random.default_rng(8).permutation(len(batches)))
+    streams = {}
+    for dev, engine in (("cpu", "host"), ("cuda", "auto")):
+        metrics.reset()
+        _build.reset_launches()
+        om = OverlappedMerger(kt, 16, engine=engine, pipeline=pipeline,
+                              stagers=3, inflight_bytes=1 << 20, device=dev)
+        for i in order:
+            om.feed(int(i), batches[i])
+        out = bytearray()
+        om.emit_stream(batches, FramedEmitter(1 << 14), out.extend)
+        torch.cuda.synchronize()
+        streams[dev] = (bytes(out), dict(_build.launches), om)
+    assert streams["cuda"][0] == streams["cpu"][0]
+    om = streams["cuda"][2]
+    assert om.engine == "pallas" and om.stats["device_merges"] == 11
+    assert streams["cuda"][1]["merge_pass"] == 11
+    assert streams["cuda"][1]["merge_partition"] == 11
+    pool = om._buf_pool
+    assert pool.pinned and pool.leased == 0
+    assert metrics.get("stage.buffer.reuses") > 0
+    assert metrics.histogram("merge.pipeline.put_ms")["count"] == 12
+    assert metrics.get_gauge("stage.inflight.bytes") == 0
+    lease = pool.lease(512, 7)
+    assert torch.from_numpy(lease.view(np.int32)).is_pinned()
+    pool.release(lease)

@@ -1,9 +1,12 @@
-"""The port's reduce task (uda_tpu_torch.merger.MergeManager.run with
-``uda.tpu.merge.overlap=false``) against the JAX package's on the same MOF
-tree and the same Config: the emitted IFile byte streams and the returned
-byte counts must be identical, across ``uda.tpu.merge.two_phase``, 1 KB
-fetch chunks (records split across chunks), three key types, fetch faults
-and retries. Configs asking for a mode the port does not have raise."""
+"""The port's reduce task (uda_tpu_torch.merger.MergeManager.run) against
+the JAX package's on the same MOF tree and the same Config: the emitted
+IFile byte streams and the returned byte counts must be identical, under
+the default Config (the overlapped merger, pipelined staging), with the
+pipeline off, in streaming mode and with ``uda.tpu.merge.overlap=false``
+across ``uda.tpu.merge.two_phase``; at 1 KB fetch chunks (records split
+across chunks), three key types, keys past the width, empty partitions,
+fetch faults and retries. Configs asking for a mode the port does not
+have raise."""
 
 import os
 
@@ -190,8 +193,6 @@ def test_a_fetch_that_always_fails_ends_in_fallback_in_both(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("uda.tpu.merge.overlap", True),
-    ("uda.tpu.online.streaming", True),
     ("mapred.netmerger.merge.approach", 0),
     ("mapred.netmerger.merge.approach", 2),
     ("uda.tpu.ckpt.dir", "/nonexistent/ckpt"),
@@ -207,14 +208,257 @@ def test_unported_modes_raise_config_error(tmp_path, key, value):
         port_run(str(tmp_path), mids, TEXT, conf)
 
 
-def test_default_config_refuses_the_overlapped_merge(tmp_path):
+# -- the overlapped merger (the default) and streaming mode ------------------
+
+CHUNK_1K = {"mapred.rdma.buf.size": 1}
+MODES = {
+    "default": {},
+    "pipeline_off": {"uda.tpu.stage.pipeline": False},
+    "streaming": {"uda.tpu.online.streaming": True},
+}
+
+
+def _mode_conf(tmp_path, mode: str, side: str, extra=None) -> dict:
+    """The Config of one mode at 1 KB chunks; streaming spills under
+    ``tmp_path/<side>``."""
+    conf = dict(CHUNK_1K, **MODES[mode], **(extra or {}))
+    if mode == "streaming":
+        conf["uda.tpu.spill.dirs"] = str(tmp_path / f"spill_{side}")
+    return conf
+
+
+def _spill_left(tmp_path, side: str) -> list:
+    root = tmp_path / f"spill_{side}"
+    return os.listdir(root) if root.exists() else []
+
+
+def _k1_engine(monkeypatch):
+    """Route the port's overlapped merger through K1 (its plain version
+    on the CPU) instead of the CPU's "auto" choice, the host engine."""
+    from uda_tpu_torch.merger import merge_manager, overlap
+
+    def pallas_merger(*args, **kwargs):
+        return overlap.OverlappedMerger(*args, engine="pallas", **kwargs)
+
+    monkeypatch.setattr(merge_manager, "OverlappedMerger", pallas_merger)
+
+
+@pytest.mark.parametrize("engine", ["auto", "pallas"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("java_class", [TEXT, BYTES, LONG])
+def test_overlapped_run_matches_reference(tmp_path, monkeypatch, java_class,
+                                          mode, engine):
+    """MergeManager.run under the default Config, with the pipeline off and
+    in streaming mode, at 1 KB chunks: the same bytes and count as the
+    reference; the run store is cleaned up."""
+    if engine == "pallas":
+        _k1_engine(monkeypatch)
+    mids = mof_tree(str(tmp_path), java_class, seed=len(java_class) + 1)
+    got = port_run(str(tmp_path), mids, java_class,
+                   _mode_conf(tmp_path, mode, "port"))
+    want = reference_run(str(tmp_path), mids, java_class,
+                         _mode_conf(tmp_path, mode, "ref"))
+    assert got[0] == want[0] == len(got[1]) > 1024
+    assert got[1] == want[1]
+    assert jcrack(got[1]).num_records == partition_records(
+        str(tmp_path), mids, 1)
+    assert not _spill_left(tmp_path, "port")
+
+
+def _reference_drains_first(monkeypatch):
+    """The reference's finish_streaming reads its overflow flag before it
+    drains the stage threads (uda_tpu/merger/overlap.py:996-998): when no
+    segment has been staged yet, it then merges a forest without the
+    oversize segments and raises "fed 0 of N records". Drain first, so it
+    takes the path the port always takes (the port reads the flag after
+    the drain)."""
+    from uda_tpu.merger.overlap import OverlappedMerger as JOM
+
+    finish = JOM.finish_streaming
+
+    def drained_first(self, *args, **kwargs):
+        self._drain()
+        self._drain = lambda: None
+        return finish(self, *args, **kwargs)
+
+    monkeypatch.setattr(JOM, "finish_streaming", drained_first)
+
+
+@pytest.mark.parametrize("mode", ["default", "pipeline_off", "streaming"])
+def test_overlapped_run_with_keys_past_the_width(tmp_path, monkeypatch,
+                                                 mode):
+    """Keys wider than uda.tpu.key.width: the overlap falls back to the
+    global re-sort, streaming to the k-way merge over its run files, in
+    the port as in the reference."""
+    _reference_drains_first(monkeypatch)
+    mids = text_tree(str(tmp_path), "job", 3, 150, seed=7, max_len=40)
+    got = port_run(str(tmp_path), mids, TEXT,
+                   _mode_conf(tmp_path, mode, "port"))
+    assert got == reference_run(str(tmp_path), mids, TEXT,
+                                _mode_conf(tmp_path, mode, "ref"))
+    assert not _spill_left(tmp_path, "port")
+
+
+def _faulty_mode_run(tmp_path, mids, fails, mode, port: bool):
+    conf = _mode_conf(tmp_path, mode, "port" if port else "ref",
+                      {"uda.tpu.fetch.retries": 3})
+    made = []
+
+    def client_of(engine):
+        made.append(flaky(engine, fails))
+        return made[-1]
+
+    if port:
+        flaky = _flaky(LocalFetchClient, errors.TransportError)
+        return port_run(str(tmp_path), mids, TEXT, conf, client_of)
+    flaky = _flaky(JLocalFetchClient, jerrors.TransportError)
+    return reference_run(str(tmp_path), mids, TEXT, conf, client_of)
+
+
+@pytest.mark.parametrize("mode", ["default", "streaming"])
+def test_overlapped_run_retries_faults_to_the_same_stream(tmp_path, mode):
+    mids = text_tree(str(tmp_path), "job", 3, 100, seed=11)
+    got = _faulty_mode_run(tmp_path, mids, 2, mode, port=True)
+    assert got == _faulty_mode_run(tmp_path, mids, 2, mode, port=False)
+    assert got == port_run(str(tmp_path), mids, TEXT,
+                           _mode_conf(tmp_path, mode, "port"))
+
+
+@pytest.mark.parametrize("mode", ["default", "streaming"])
+def test_overlapped_run_that_always_fails_ends_in_fallback(tmp_path,
+                                                           monkeypatch,
+                                                           mode):
+    """A fetch that always fails: FallbackSignal in both, and the port's
+    merger aborted with nothing left running, charged or spooled."""
+    from uda_tpu_torch.merger import merge_manager, overlap
+    from uda_tpu_torch.utils.metrics import metrics
+
+    made = []
+
+    def recorded(*args, **kwargs):
+        made.append(overlap.OverlappedMerger(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(merge_manager, "OverlappedMerger", recorded)
+    mids = text_tree(str(tmp_path), "job", 3, 30, seed=13)
+    with pytest.raises(errors.FallbackSignal) as got:
+        _faulty_mode_run(tmp_path, mids, 10**6, mode, port=True)
+    with pytest.raises(jerrors.FallbackSignal) as want:
+        _faulty_mode_run(tmp_path, mids, 10**6, mode, port=False)
+    assert type(got.value.cause).__name__ == \
+        type(want.value.cause).__name__ == "TransportError"
+    om = made[0]
+    assert om._aborted
+    for t in om._threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert om.stats["inflight_bytes"] == 0
+    assert metrics.get_gauge("stage.inflight.bytes") == 0
+    assert not _spill_left(tmp_path, "port")
+
+
+def test_a_failed_k1_merge_ends_in_fallback(tmp_path, monkeypatch):
+    """K1 refused mid-run (a RuntimeError, as a failed launch raises):
+    run() ends in FallbackSignal carrying a MergeError, not in the host
+    engine's or the CPU's result."""
+    from uda_tpu_torch.merger import overlap
+
+    _k1_engine(monkeypatch)
+
+    def refused(*args):
+        raise RuntimeError("uda_merge_pass failed: CUDA error 700")
+
+    monkeypatch.setattr(overlap.merge_ops, "merge_row_pair", refused)
+    mids = text_tree(str(tmp_path), "job", 3, 40, seed=29)
+    with pytest.raises(errors.FallbackSignal) as got:
+        port_run(str(tmp_path), mids, TEXT, CHUNK_1K)
+    assert isinstance(got.value.cause, errors.MergeError)
+    assert "CUDA error 700" in str(got.value.cause)
+
+
+@pytest.mark.parametrize("where,mode", [("refused_shape", "default"),
+                                        ("refused_shape", "pipeline_off"),
+                                        ("readback", "default"),
+                                        ("readback", "streaming")])
+def test_any_k1_failure_ends_in_fallback(tmp_path, monkeypatch, where,
+                                         mode):
+    """Not only a RuntimeError: K1 refusing its operands (a ValueError, as
+    merge_pass does past 31 row words) and a failed readback of the merged
+    rows during emission both end in FallbackSignal carrying a
+    MergeError, with the run store cleaned up."""
+    from uda_tpu_torch.merger import overlap
+    from uda_tpu_torch.ops import merge as tmerge
+
+    _k1_engine(monkeypatch)
+    if where == "refused_shape":
+        def refused(*args, **kwargs):
+            raise ValueError("merge_pass takes 1 to 31 key words, got 32")
+
+        monkeypatch.setattr(tmerge, "merge_sorted_pair", refused)
+    else:
+        def lost(*args, **kwargs):
+            raise RuntimeError("CUDA error: an illegal memory access")
+
+        monkeypatch.setattr(overlap.stream_mod, "iter_row_slabs", lost)
+    mids = text_tree(str(tmp_path), "job", 3, 40, seed=37)
+    with pytest.raises(errors.FallbackSignal) as got:
+        port_run(str(tmp_path), mids, TEXT, _mode_conf(tmp_path, mode,
+                                                       "port"))
+    assert isinstance(got.value.cause, errors.MergeError)
+    assert not _spill_left(tmp_path, "port")
+
+
+@pytest.mark.parametrize("conf,on_k1", [
+    ({}, True),
+    ({"uda.tpu.online.streaming": True}, True),
+    ({"uda.tpu.merge.overlap": False}, True),
+    ({"uda.tpu.merge.overlap": False, "uda.tpu.merge.two_phase": "off"},
+     False),
+])
+def test_key_widths_k1_cannot_carry_are_refused_on_the_card(
+        tmp_path, monkeypatch, conf, on_k1):
+    """K1's rows hold at most 31 words (28 key words + 3): on the card a
+    wider ``uda.tpu.key.width`` is refused with ConfigError at
+    construction wherever K1 would merge, and left to the whole re-sort
+    where it would not. On the CPU the host engine takes any width."""
     engine = DataEngine(DirIndexResolver(str(tmp_path)))
     try:
-        mm = MergeManager(LocalFetchClient(engine), TEXT, device="cpu")
-        with pytest.raises(errors.ConfigError, match="overlap"):
-            mm.run("job", [], 0, lambda b: None)
+        MergeManager(LocalFetchClient(engine), TEXT,
+                     Config(dict(conf, **{"uda.tpu.key.width": 128})),
+                     device="cpu")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        MergeManager(LocalFetchClient(engine), TEXT,
+                     Config(dict(conf, **{"uda.tpu.key.width": 112})))
+        wide = Config(dict(conf, **{"uda.tpu.key.width": 116}))
+        if on_k1:
+            with pytest.raises(errors.ConfigError,
+                               match=r"key\.width=116 .* at most 31"):
+                MergeManager(LocalFetchClient(engine), TEXT, wide)
+        else:
+            MergeManager(LocalFetchClient(engine), TEXT, wide)
     finally:
         engine.stop()
+
+
+@pytest.mark.parametrize("mode", ["default", "pipeline_off", "streaming"])
+def test_overlapped_run_with_empty_partitions(tmp_path, mode):
+    """Maps whose partition is empty, a reducer with one non-empty map and
+    a reducer whose every partition is empty."""
+    rng = np.random.default_rng(31)
+    w = jwriter.MOFWriter(str(tmp_path), "job")
+    recs = sorted(((encode_vlong(3) + rng.bytes(3), rng.bytes(20))
+                   for _ in range(50)), key=lambda kv: kv[0][1:])
+    w.write("m0", [[], recs, []])
+    w.write("m1", [[], [], []])
+    w.write("m2", [recs[:7], recs[7:], []])
+    for reduce_id in (0, 1, 2):
+        got = port_run(str(tmp_path), ["m0", "m1", "m2"], TEXT,
+                       _mode_conf(tmp_path, mode, "port"),
+                       reduce_id=reduce_id)
+        assert got == reference_run(str(tmp_path), ["m0", "m1", "m2"], TEXT,
+                                    _mode_conf(tmp_path, mode, "ref"),
+                                    reduce_id=reduce_id)
+    assert not _spill_left(tmp_path, "port")
 
 
 def test_manager_needs_a_card_or_cpu(tmp_path, monkeypatch):

@@ -18,11 +18,12 @@ the duration of the call.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Iterator, Optional
+import io
+from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 from uda_tpu_torch.merger.arena import BufferArena
 from uda_tpu_torch.utils import vint
-from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch
+from uda_tpu_torch.utils.ifile import EOF_MARKER, IFileWriter, RecordBatch
 from uda_tpu_torch.utils.metrics import metrics
 
 __all__ = ["FramedEmitter", "frame_batch", "iter_framed_chunks",
@@ -99,6 +100,40 @@ class FramedEmitter:
         with metrics.timer("emit"):
             consumer(slot.view().data.toreadonly())
         return len(piece)
+
+    def emit(self, records: Iterable[Tuple[bytes, bytes]],
+             consumer: Callable[[memoryview], None]) -> int:
+        """Frame ``records`` and stream them to ``consumer`` in blocks of
+        at most the block size, the final one carrying the EOF marker;
+        returns the bytes emitted."""
+        out = io.BytesIO()
+        writer = IFileWriter(out)
+        total = 0
+        held: list = []
+
+        def flush() -> None:
+            nonlocal total
+            block = out.getvalue()
+            out.seek(0)
+            out.truncate()
+            # a single oversized record may exceed the block size
+            for start in range(0, len(block), self.block_size):
+                total += self._deliver(block[start:start + self.block_size],
+                                       held, consumer)
+
+        try:
+            for key, value in records:
+                writer.append(key, value)
+                if out.tell() >= self.block_size:
+                    flush()
+            writer.close()
+            if out.tell():
+                flush()
+        finally:
+            for slot in held:
+                self.arena.release(slot)
+        metrics.add("emit.bytes", total)
+        return total
 
     def emit_framed(self, pieces: Iterable[bytes],
                     consumer: Callable[[memoryview], None]) -> int:

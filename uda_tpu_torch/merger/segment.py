@@ -97,6 +97,7 @@ class Segment:
         self.on_done = None   # callback fired once when the fetch finishes
         self.on_fault = None  # callback fired on EVERY transport fault
         self.policy = policy or RetryPolicy(retries=max(0, retries))
+        self._released = False
         self._carry = b""
         self._next_offset = 0
         self._retries_left = max(0, self.policy.retries)
@@ -331,8 +332,20 @@ class Segment:
         the concatenation is cached."""
         self.wait()
         with self._lock:
+            if self._released:
+                raise MergeError(
+                    f"segment {self.map_id} bytes were released "
+                    f"(streaming mode spooled them to a sorted run)")
             if len(self.batches) == 1:
                 return self.batches[0]
             cat = RecordBatch.concat(self.batches)
             self.batches = [cat]
             return cat
+
+    def release(self) -> None:
+        """Drop the fetched bytes (streaming mode: the sorted run file is
+        now the source of truth; ``num_records`` survives for
+        accounting). record_batch() raises after this."""
+        with self._lock:
+            self.batches = []
+            self._released = True

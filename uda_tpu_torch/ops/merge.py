@@ -27,7 +27,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import heapq
-from typing import Iterator, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +47,9 @@ __all__ = ["merge_batches", "merge_batches_host", "merge_iter_host",
            "merge_batches_two_phase", "resolve_merge_mode",
            "resolve_run_engine", "lex_cols_sorted", "run_row_order",
            "fill_run_rows", "merge_row_pair", "merge_split_point",
-           "next_run_capacity", "pad_rows_to", "PAD_WORD",
-           "MIN_RUN_CAPACITY", "ROW_EXTRA_COLS"]
+           "next_run_capacity", "pad_rows_to", "RowBufferPool", "PAD_WORD",
+           "MIN_RUN_CAPACITY", "ROW_EXTRA_COLS", "Run", "merge_run_pair",
+           "carry_run", "merge_leftover_runs"]
 
 # Padding word for device runs: all-0xFFFFFFFF rows sort strictly after
 # every real row (a real row's length column is a content length < 2^31),
@@ -100,6 +102,65 @@ def merge_split_point(a_rows: np.ndarray, b_rows: np.ndarray,
         else:
             hi = ia
     return lo
+
+
+class RowBufferPool:
+    """Reusable pre-allocated host uint32 row buffers.
+
+    Stage workers lease the row matrix of each run bound for the K1 fold;
+    the merge consumer releases it once the run's copy to the device is
+    done. On the card the buffers are pinned (page-locked) host memory, so
+    that copy runs asynchronously on the merger's copy stream (a copy from
+    pageable memory would wait for the host); on the CPU they are plain
+    numpy. Pinned memory is slow to allocate, which is why the pool
+    exists. Buffers are flat arrays reshaped per lease, so one big early
+    buffer serves every later request that fits; the free list is bounded
+    so a pathological size spread cannot hoard host memory. ``leased``
+    counts the leases not yet released."""
+
+    MAX_FREE = 8
+
+    def __init__(self, device=None):
+        self.pinned = resolve_device(device).type == "cuda"
+        self._lock = threading.Lock()
+        self._free: list[np.ndarray] = []
+        self.leased = 0
+
+    def _alloc(self, need: int) -> np.ndarray:
+        if self.pinned:
+            return torch.empty(need, dtype=torch.int32,
+                               pin_memory=True).numpy().view(np.uint32)
+        return np.empty(need, np.uint32)
+
+    def lease(self, rows: int, cols: int) -> np.ndarray:
+        need = rows * cols
+        got = None
+        with self._lock:
+            for i, buf in enumerate(self._free):
+                if buf.size >= need:
+                    got = self._free.pop(i)
+                    metrics.add("stage.buffer.reuses")
+                    break
+        if got is None:
+            got = self._alloc(need)
+        with self._lock:
+            self.leased += 1
+        return got[:need].reshape(rows, cols)
+
+    def release(self, view: Optional[np.ndarray]) -> None:
+        if view is None:
+            return
+        # walk the view back to the array that holds the whole buffer (a
+        # pinned buffer's chain ends at the numpy view of its tensor)
+        base = view
+        while isinstance(base.base, np.ndarray):
+            base = base.base
+        flat = base.view(np.uint32).reshape(-1)
+        with self._lock:
+            self.leased -= 1
+            self._free.append(flat)
+            self._free.sort(key=lambda b: b.size)
+            del self._free[self.MAX_FREE:]
 
 
 def lex_cols_sorted(cols: Sequence[np.ndarray]) -> bool:
@@ -351,28 +412,71 @@ def pad_rows_to(rows: torch.Tensor, capacity: int) -> torch.Tensor:
     return u32(torch.cat([i32(rows), i32(pad)]))
 
 
+class Run:
+    """One sorted run of a binary-counter forest: the overlapped merger's
+    and the two-phase fold's.
+
+    Rows are uint32[cap, C] with C = key words + 3: the composite key
+    (words..., content length, segment index, row index). K1 runs are
+    tensors padded to a power-of-two capacity with all-0xFFFFFFFF rows,
+    which sort after every real row, so valid rows stay a prefix through
+    any merge; host runs are exact-sized numpy. ``bucket`` is the
+    binary-counter size class: next_run_capacity(valid) at first, doubled
+    by each merge."""
+
+    __slots__ = ("rows", "valid", "bucket")
+
+    def __init__(self, rows, valid: int, bucket: int):
+        self.rows = rows
+        self.valid = valid
+        self.bucket = bucket
+
+    @property
+    def capacity(self) -> int:
+        return int(self.rows.shape[0])
+
+
+def merge_run_pair(a: Run, b: Run, engine: str) -> Run:
+    """Merge two forest runs (``a``'s rows first on equal keys) into one
+    of twice the larger size class."""
+    return Run(merge_row_pair(a.rows, b.rows, a.valid, b.valid, engine),
+               a.valid + b.valid, 2 * max(a.bucket, b.bucket))
+
+
+def carry_run(forest: dict, run: Run, merge: Callable) -> None:
+    """Binary-counter insert into ``forest`` (size class -> run): while
+    the forest holds a run of ``run``'s class, ``merge(that, run)``
+    replaces both; then the result takes its class."""
+    while run.bucket in forest:
+        run = merge(forest.pop(run.bucket), run)
+    forest[run.bucket] = run
+
+
+def merge_leftover_runs(runs: Sequence[Run], engine: str,
+                        merge: Callable) -> Optional[Run]:
+    """Merge a forest's leftover runs, smallest size class first; K1 runs
+    pad the smaller operand up to the larger capacity first
+    (:func:`pad_rows_to`). None when there is no run."""
+    if not runs:
+        return None
+    acc = runs[0]
+    for nxt in runs[1:]:
+        if engine == "pallas" and acc.capacity < nxt.capacity:
+            acc = Run(pad_rows_to(acc.rows, nxt.capacity), acc.valid,
+                      acc.bucket)
+        acc = merge(acc, nxt)
+    return acc
+
+
 def _fold_runs(runs: list, engine: str):
-    """Binary-counter fold of sorted (rows, valid) runs: equal capacity
-    classes merge immediately, leftovers merge smallest-first (K1 runs pad
-    the smaller operand up to the larger capacity — :func:`pad_rows_to`).
-    The reference's fold, ``uda_tpu/ops/merge.py:_fold_runs``."""
-    forest: dict[int, tuple] = {}  # bucket -> (rows, valid)
+    """Binary-counter fold of sorted (rows, valid) runs: equal size
+    classes merge at once (:func:`carry_run`), the leftovers smallest
+    first (:func:`merge_leftover_runs`). The reference's fold,
+    ``uda_tpu/ops/merge.py:_fold_runs``."""
+    merge = functools.partial(merge_run_pair, engine=engine)
+    forest: dict[int, Run] = {}
     for rows, valid in runs:
-        bucket = next_run_capacity(valid)
-        while bucket in forest:
-            o_rows, o_valid = forest.pop(bucket)
-            rows = merge_row_pair(o_rows, rows, o_valid, valid, engine)
-            valid += o_valid
-            bucket *= 2
-        forest[bucket] = (rows, valid)
-    acc_rows, acc_valid = None, 0
-    for bucket in sorted(forest):
-        rows, valid = forest[bucket]
-        if acc_rows is None:
-            acc_rows, acc_valid = rows, valid
-            continue
-        if engine == "pallas" and acc_rows.shape[0] < rows.shape[0]:
-            acc_rows = pad_rows_to(acc_rows, int(rows.shape[0]))
-        acc_rows = merge_row_pair(acc_rows, rows, acc_valid, valid, engine)
-        acc_valid += valid
-    return acc_rows, acc_valid
+        carry_run(forest, Run(rows, valid, next_run_capacity(valid)), merge)
+    acc = merge_leftover_runs([forest[c] for c in sorted(forest)], engine,
+                              merge)
+    return (None, 0) if acc is None else (acc.rows, acc.valid)

@@ -34,7 +34,7 @@ from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
 __all__ = ["merge_sorted_pair", "merge_splits", "pack_pair", "pair_run_len"]
 
 _ALL_ONES = 0xFFFFFFFF
-_MAX_COLS = pallas_sort.ROWS - 1  # W + 1 rows within K1's 32
+MAX_COLS = pallas_sort.ROWS - 1  # W + 1 rows within K1's 32
 
 
 def merge_splits(a: torch.Tensor, b: torch.Tensor, tile: int,
@@ -106,7 +106,7 @@ def merge_sorted_pair(a: torch.Tensor, b: torch.Tensor, num_keys: int,
                              f"{r.dtype} {tuple(r.shape)}")
     if a.shape[1] != b.shape[1] or a.device != b.device:
         raise ValueError("the two runs differ in width or device")
-    if a.shape[1] > _MAX_COLS:
+    if a.shape[1] > MAX_COLS:
         raise ValueError(f"{a.shape[1]} record words do not fit the "
                          f"{pallas_sort.ROWS}-row lanes layout")
     if not 0 < num_keys <= a.shape[1]:

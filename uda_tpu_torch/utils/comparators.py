@@ -40,7 +40,8 @@ from typing import Callable, Dict
 from uda_tpu_torch.utils import vint
 from uda_tpu_torch.utils.errors import UdaError
 
-__all__ = ["KeyType", "get_key_type", "register_key_type", "memcmp"]
+__all__ = ["KeyType", "get_key_type", "register_key_type", "memcmp",
+           "uses_default_bytewise"]
 
 
 def memcmp(a: bytes, b: bytes) -> int:
@@ -86,6 +87,19 @@ class KeyType:
         if len(c) >= width:
             return c[:width], len(c)
         return c + b"\x00" * (width - len(c)), len(c)
+
+
+def uses_default_bytewise(kt: KeyType) -> bool:
+    """True when ``kt.compare`` is the stock bytewise order — memcmp
+    over ``content()`` with the shorter-is-smaller tiebreak — i.e. the
+    method was not overridden by a subclass. For such key types the
+    comparator order equals a (zero-padded content bytes, content
+    length) lexicographic order, so hot paths may replace per-record
+    ``cmp_to_key`` Python comparisons with one vectorized
+    ``np.lexsort`` (uda_tpu_torch.merger.overlap's oversize-key spool
+    path). A subclass with a custom ``compare`` always gets the
+    comparator-faithful slow path."""
+    return type(kt).compare is KeyType.compare
 
 
 def _text_content(serialized: bytes) -> bytes:

@@ -30,7 +30,7 @@ from uda_tpu_torch.utils import vint
 from uda_tpu_torch.utils.errors import StorageError
 
 __all__ = ["IFileWriter", "IFileReader", "RecordBatch", "crack",
-           "crack_partial", "EOF_MARKER"]
+           "crack_partial", "iter_file_records", "EOF_MARKER"]
 
 EOF_MARKER = b"\xff\xff"  # VInt(-1) VInt(-1)
 
@@ -251,3 +251,24 @@ def crack_partial(data: bytes, expect_eof: bool = False
         val_len.append(vlen)
         pos = p + klen + vlen
     return _batch(arr, key_off, key_len, val_off, val_len), pos, saw_eof
+
+
+def iter_file_records(path: str, buffer_size: int = 1 << 20
+                      ) -> Iterator[Tuple[bytes, bytes]]:
+    """Stream records from an IFile on disk with bounded memory: reads
+    ``buffer_size`` chunks, cracks the complete records and carries the
+    partial tail (the file-backed analogue of the reference's
+    SuperSegment cursor, StreamRW.cc:813-861)."""
+    carry = b""
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(buffer_size)
+            if not chunk:
+                raise StorageError(f"IFile {path} missing EOF marker")
+            data = carry + chunk
+            batch, consumed, saw_eof = crack_partial(data)
+            for i in range(batch.num_records):
+                yield batch.key(i), batch.value(i)
+            if saw_eof:
+                return
+            carry = data[consumed:]

@@ -1,10 +1,13 @@
-"""Process-wide counters, phase timers and spans.
+"""Process-wide counters, gauges, histograms, phase timers and spans.
 
 The port's copy of the part of ``uda_tpu/utils/metrics.py`` its modules
-call: labelled counters (``add``), phase timers that accumulate
-``<name>_time`` seconds (``timer``) and spans, which are recorded only
-while stats are on (``uda.tpu.stats.enable``). The reference's gauges,
-histograms, span trees and exports are not ported yet.
+call: labelled counters (``add``), gauges adjusted by deltas
+(``gauge_add``), histograms that keep a count, sum and maximum per name
+(``observe``), phase timers that accumulate ``<name>_time`` seconds
+(``timer``) and spans, which are recorded only while stats are on
+(``uda.tpu.stats.enable``). Histograms are always live here (the
+reference's wait for stats to be enabled); the reference's histogram
+buckets and percentiles, span trees and exports are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,11 +27,14 @@ def _series_key(name: str, labels: dict) -> str:
 
 
 class Metrics:
-    """Counters (always live) and spans (off until :meth:`enable_stats`)."""
+    """Counters, gauges and histograms (always live) and spans (off until
+    :meth:`enable_stats`)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.counters: Dict[str, float] = defaultdict(float)
+        self.gauges: Dict[str, float] = defaultdict(float)
+        self.histograms: Dict[str, Dict[str, float]] = {}
         self.spans: list[dict] = []
         self._spans_enabled = False
 
@@ -42,6 +48,34 @@ class Metrics:
             self.counters[name] += value
             if labels:
                 self.counters[_series_key(name, labels)] += value
+
+    def gauge_add(self, name: str, delta: float) -> None:
+        """Adjust a gauge by ``delta`` (an increment that a later
+        decrement must meet, such as bytes in flight)."""
+        with self._lock:
+            self.gauges[name] += delta
+
+    def get_gauge(self, name: str) -> float:
+        with self._lock:
+            return self.gauges.get(name, 0.0)
+
+    def observe(self, name: str, value: float) -> None:
+        """Record one histogram sample: its count, sum and maximum."""
+        with self._lock:
+            h = self.histograms.get(name)
+            if h is None:
+                h = self.histograms[name] = {"count": 0, "sum": 0.0,
+                                             "max": value}
+            h["count"] += 1
+            h["sum"] += value
+            h["max"] = max(h["max"], value)
+
+    def histogram(self, name: str) -> Dict[str, float]:
+        """``{"count", "sum", "max"}`` of one histogram (count 0 when it
+        has no sample)."""
+        with self._lock:
+            return dict(self.histograms.get(name)
+                        or {"count": 0, "sum": 0.0, "max": 0.0})
 
     @contextlib.contextmanager
     def timer(self, name: str) -> Iterator[None]:
@@ -82,6 +116,8 @@ class Metrics:
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()
+            self.gauges.clear()
+            self.histograms.clear()
             self.spans.clear()
             self._spans_enabled = False
 
