@@ -69,10 +69,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    re-sort of its 16 maps; d, e: of their tree, framed) in sha256 and
    length; K1 must launch one merge and one partition kernel per forest
    merge (63 for 64 maps); the in-flight gauge must end at 0 and every
-   pinned lease go back, some reused. The reduce modes the port does not
-   run yet (``mapred.netmerger.merge.approach`` 0 or 2,
-   ``uda.tpu.ckpt.dir``, the watchdog, push, coding, failpoints,
-   speculation, resume) raise ``ConfigError`` and are not driven.
+   pinned lease go back, some reused;
+10. admission: the rest of ``MergeManager.run`` on run c's 16 maps, each
+   run with ``metrics`` and the launch counts reset just before and read
+   just after, its stream hashed and held to run c's: (a) approach 2,
+   the hybrid merge (4 LPQs of 4 maps, 3 at a time, each merged by K1's
+   merge tree, 12 + 12 launches; the RPQ on the host; no spill file
+   left); (b) approach 0 three times: the defaults route to hybrid, a
+   256 MB device budget to streaming with no device run (0 launches), a
+   100 MB hard ceiling to ``FallbackSignal`` with no fetch; (c) streaming
+   with a checkpoint (interval 0): attempt 1 dies on its last map
+   (``segment.fetch=error:match:<map>``, no retry), attempt 2 resumes,
+   adopts every run the manifest holds into K1's forest, fetches none of
+   them and removes the checkpoint; (d) 2 maps at 1 KB chunks with every
+   fourth fetch issue delayed 3 s: the 0.5 s watchdog ends the task in
+   ``FallbackSignal(StallError)`` within 3 s. The reduce modes the port
+   does not run yet (push, coded stripes, speculation, mid-partition
+   resume) raise ``ConfigError`` and are not driven.
 
 The last two lines are one JSON object with a record per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
@@ -88,6 +101,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -95,7 +109,7 @@ import torch
 
 from uda_tpu_torch import interop
 from uda_tpu_torch.device import generator
-from uda_tpu_torch.merger import LocalFetchClient, MergeManager
+from uda_tpu_torch.merger import LocalFetchClient, MergeManager, checkpoint
 from uda_tpu_torch.merger import streaming as stream_mod
 from uda_tpu_torch.merger.emitter import frame_batch
 from uda_tpu_torch.models import terasort
@@ -108,6 +122,8 @@ from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
 from uda_tpu_torch.utils.comparators import get_key_type
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils import vint
+from uda_tpu_torch.utils.errors import FallbackSignal
+from uda_tpu_torch.utils.failpoints import failpoints
 from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, crack
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -198,6 +214,9 @@ OVERLAP_C_MAPS = 16
 VARLEN_MAPS = 64
 VARLEN_MAP_BYTES = 1 << 20
 VARLEN_MAX_VALUE = 1000
+# phase 10's hybrid merge: LPQs of 4 maps, 3 at a time
+HYBRID_LPQ_MAPS = 4
+HYBRID_PARALLEL = 3
 
 
 def log(msg: str) -> None:
@@ -1270,10 +1289,225 @@ def phase_overlap(dev: torch.device, root: str, mids: list, parts: list,
     return runs
 
 
+# --------------------------------------------------------------- phase 10
+class CountingClient(LocalFetchClient):
+    """LocalFetchClient that counts ``start_fetch`` calls per map: the
+    probe of the zero-fetch checks (the hard ceiling, the resume)."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.fetches: dict = {}
+        self._count_lock = threading.Lock()
+
+    def start_fetch(self, req, on_complete):
+        with self._count_lock:
+            self.fetches[req.map_id] = self.fetches.get(req.map_id, 0) + 1
+        super().start_fetch(req, on_complete)
+
+
+def task_run(dev: torch.device, root: str, mids: list, conf: dict,
+             name: str, fault: str = "") -> dict:
+    """One ``MergeManager.run`` over ``mids`` with ``fault`` armed in the
+    port's failpoint registry, ``metrics`` and the launch counts reset
+    just before and read just after; the stream is hashed as it is
+    emitted. Returns the run's record: its stream (sha256, length) or the
+    FallbackSignal it ended in, wall, launches, peak memory, the metrics
+    snapshot, the manager and the client."""
+    cfg = Config(conf)
+    engine = DataEngine(DirIndexResolver(root), cfg)
+    client = CountingClient(engine)
+    digest = hashlib.sha256()
+    length = 0
+
+    def consumer(block: memoryview) -> None:
+        nonlocal length
+        digest.update(block)
+        length += len(block)
+
+    error = None
+    try:
+        mm = MergeManager(client, MERGE_KEY_CLASS, cfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics.reset()
+        _build.reset_launches()
+        with failpoints.scoped(fault):
+            t0 = time.perf_counter()
+            try:
+                mm.run(MERGE_JOB, mids, 0, consumer)
+            except FallbackSignal as e:
+                error = e
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {k: _build.launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        engine.stop()
+    return {"run": name, "wall_s": wall, "launches": counts,
+            "peak_bytes": peak, "sha256": digest.hexdigest(),
+            "stream_bytes": length, "error": error, "mm": mm,
+            "client": client, "metrics": metrics.snapshot()}
+
+
+def _report(res: dict, part_bytes: int, keys=()) -> dict:
+    """The printable part of a task_run record: wall, MB/s, launches, peak
+    memory, stream or cause, and the named metrics."""
+    out = {k: res[k] for k in ("run", "wall_s", "launches", "peak_bytes",
+                               "sha256", "stream_bytes")}
+    out["mb_per_s"] = part_bytes / res["wall_s"] / 1e6
+    if res["error"] is not None:
+        out["cause"] = type(res["error"].cause).__name__
+    out.update({k: res["metrics"].get(k, 0.0) for k in keys})
+    adm = res["mm"].last_admission
+    if adm is not None:
+        out["admission"] = {"decision": adm.decision, "cause": adm.cause,
+                            "reason": adm.reason,
+                            "estimate_bytes": adm.estimate_bytes,
+                            "device_bytes": adm.device_bytes,
+                            "hbm_budget_bytes": adm.hbm_budget_bytes,
+                            "host_budget_bytes": adm.host_budget_bytes}
+    log(f"[admission {res['run']}] " + json.dumps(out))
+    return out
+
+
+def _require_stream(res: dict, want: tuple) -> None:
+    require(res["error"] is None,
+            f"[admission {res['run']}] ended in {res['error']!r}")
+    require((res["sha256"], res["stream_bytes"]) == want,
+            f"[admission {res['run']}] the stream differs from run c's: "
+            f"{res['stream_bytes']} B, sha256 {res['sha256']}")
+
+
+def phase_admission(dev: torch.device, root: str, mids: list,
+                    part_bytes: int, want: tuple) -> dict:
+    """Phase 10 on the maps of run c (``mids``, whose stream must equal
+    ``want``, run c's (sha256, length)): (a) the hybrid merge; (b) the
+    three routes of approach 0; (c) a checkpointed task killed by a lost
+    map and resumed; (d) a wedged fetch ended by the watchdog."""
+    k1 = ("merge_pass", "merge_partition")
+    runs: dict = {}
+    with tempfile.TemporaryDirectory(prefix="uda_lpq_") as spill:
+        # (a) 4 LPQs of 4 maps, 3 at a time: 3 K1 pair merges an LPQ
+        hybrid = {"mapred.netmerger.merge.approach": 2,
+                  "mapred.netmerger.hybrid.lpq.size": HYBRID_LPQ_MAPS,
+                  "mapred.rdma.num.parallel.lpqs": HYBRID_PARALLEL,
+                  "uda.tpu.spill.dirs": spill}
+        res = task_run(dev, root, mids, hybrid, "a hybrid")
+        _require_stream(res, want)
+        lpqs = -(-len(mids) // HYBRID_LPQ_MAPS)
+        pairs = len(mids) - lpqs
+        require(all(res["launches"][k] == pairs for k in k1),
+                f"[admission a] K1 launched {res['launches']}, not "
+                f"{pairs} + {pairs}")
+        require(not os.listdir(spill), "the hybrid merge left spill files")
+        runs["a"] = _report(res, part_bytes,
+                            ("lpq_phase_time", "lpq_spill_time",
+                             "rpq_phase_time", "fetch_time", "merge_time"))
+        # (b) approach 0: the defaults route 268 MB to hybrid
+        auto = {"mapred.netmerger.merge.approach": 0,
+                "mapred.rdma.num.parallel.lpqs": HYBRID_PARALLEL,
+                "uda.tpu.spill.dirs": spill}
+        res = task_run(dev, root, mids, auto, "b1 auto")
+        _require_stream(res, want)
+        adm = res["mm"].last_admission
+        require(adm.decision == "hybrid" and not adm.cause,
+                f"[admission b1] routed {adm}")
+        require(all(res["launches"][k] == pairs for k in k1),
+                f"[admission b1] K1 launched {res['launches']}")
+        runs["b1"] = _report(res, part_bytes, ("rpq_phase_time",))
+        runs["b1"]["card_hbm_bytes"] = torch.cuda.mem_get_info(dev)[1]
+        # a 256 MB device budget: streaming with no device run
+        res = task_run(dev, root, mids,
+                       dict(auto, **{"uda.tpu.hbm.budget.mb": 256}),
+                       "b2 auto over the device budget")
+        _require_stream(res, want)
+        adm = res["mm"].last_admission
+        require(adm.decision == "streaming" and adm.cause == "hbm"
+                and not res["mm"]._active_overlap.device_runs,
+                f"[admission b2] routed {adm}")
+        require(not any(res["launches"][k] for k in k1),
+                f"[admission b2] K1 launched {res['launches']}")
+        runs["b2"] = _report(res, part_bytes, ("run_spool_time",
+                                               "merge_time"))
+        # a 100 MB hard ceiling: refused before any fetch
+        res = task_run(dev, root, mids,
+                       dict(auto, **{"uda.tpu.budget.hard.mb": 100}),
+                       "b3 auto over the hard ceiling")
+        adm = res["mm"].last_admission
+        require(res["error"] is not None and adm.rejected
+                and adm.cause == "hard" and not res["client"].fetches,
+                f"[admission b3] {res['error']!r}, {adm}, fetches "
+                f"{res['client'].fetches}")
+        runs["b3"] = _report(res, part_bytes)
+        require(not os.listdir(spill), "the run store left files behind")
+    # (c) a checkpointed streaming task dies on its last map; the retry
+    # resumes from the checkpoint
+    with tempfile.TemporaryDirectory(prefix="uda_ckpt_") as ck:
+        conf = {"uda.tpu.online.streaming": True, "uda.tpu.ckpt.dir": ck,
+                "uda.tpu.ckpt.interval.s": 0.0, "uda.tpu.fetch.retries": 0}
+        res = task_run(dev, root, mids, conf, "c1 checkpoint, killed",
+                       fault=f"segment.fetch=error:match:{mids[-1]}")
+        require(res["error"] is not None and
+                type(res["error"].cause).__name__ == "TransportError",
+                f"[admission c1] ended in {res['error']!r}")
+        runs["c1"] = _report(res, part_bytes, ("ckpt.snapshots",
+                                               "ckpt.bytes"))
+        task = os.path.join(ck, f"{MERGE_JOB}.r0")
+        newest = max(f for f in os.listdir(task) if f.endswith(".uckp"))
+        manifest = checkpoint.TaskCheckpoint._read_manifest(
+            os.path.join(task, newest))
+        saved = {rec["map"] for rec in manifest["runs"].values()}
+        res = task_run(dev, root, mids, conf, "c2 checkpoint, resumed")
+        _require_stream(res, want)
+        snap = res["metrics"]
+        adopted = int(snap.get("ckpt.runs.adopted", 0))
+        fetched = res["client"].fetches
+        require(snap.get("ckpt.resumed", 0) == 1
+                and adopted == len(saved) >= 1,
+                f"[admission c2] resumed {snap.get('ckpt.resumed', 0)}, "
+                f"adopted {adopted} of the manifest's {len(saved)} runs")
+        require(not saved & set(fetched)
+                and len(fetched) == len(mids) - adopted,
+                f"[admission c2] fetched {sorted(fetched)}, adopted "
+                f"{sorted(saved)}")
+        require(all(res["launches"][k] == len(mids) - 1 for k in k1),
+                f"[admission c2] K1 launched {res['launches']}, not once "
+                f"per forest merge")
+        require(not os.path.exists(task), "the checkpoint outlived the task")
+        runs["c2"] = _report(res, part_bytes, ("ckpt.runs.adopted",
+                                               "ckpt.snapshots",
+                                               "fetch_time", "merge_time"))
+        runs["c2"]["maps_fetched"] = len(fetched)
+    # (d) every fourth fetch issue sleeps 3 s: the 0.5 s watchdog ends it
+    res = task_run(dev, root, mids[:2],
+                   {"mapred.rdma.buf.size": 1,
+                    "uda.tpu.watchdog.stall.s": 0.5},
+                   "d watchdog", fault="segment.fetch=delay:3000:every:4")
+    require(res["error"] is not None
+            and type(res["error"].cause).__name__ == "StallError"
+            and res["wall_s"] < 3.0,
+            f"[admission d] ended in {res['error']!r} after "
+            f"{res['wall_s']:.3f} s")
+    runs["d"] = _report(res, part_bytes, ("watchdog.stalls",))
+    return runs
+
+
+def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
+                          map_bytes: int = MERGE_MAP_BYTES) -> dict:
+    """Phase 10 on its own: the first ``maps`` maps of phase 8's tree,
+    held to the card's whole-partition re-sort of them (run c's stream)."""
+    parts = tera_partitions(SEED + 3, MERGE_MAPS, map_bytes)[:maps]
+    with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
+        mids = write_mof_tree(root, parts)
+        return phase_admission(dev, root, mids,
+                               sum(p.nbytes + 2 for p in parts),
+                               resort_digest(parts, dev))
+
+
 def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
                  map_bytes: int = MERGE_MAP_BYTES, reps: int = TIMED_REPS,
                  c_maps: int = OVERLAP_C_MAPS) -> tuple:
-    """Phases 8 and 9 on one MOF tree: the tree is written once."""
+    """Phases 8, 9 and 10 on one MOF tree: the tree is written once."""
     t0 = time.perf_counter()
     parts = tera_partitions(SEED + 3, maps, map_bytes)
     with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
@@ -1286,7 +1520,11 @@ def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
         merged = phase_merge(dev, root, mids, parts, map_bytes, setup_s,
                              reps)
         overlap = phase_overlap(dev, root, mids, parts, merged, c_maps)
-    return merged, overlap
+        admission = phase_admission(
+            dev, root, mids[:c_maps],
+            sum(p.nbytes + 2 for p in parts[:c_maps]),
+            (overlap["c"]["sha256"], overlap["c"]["stream_bytes"]))
+    return merged, overlap, admission
 
 
 def main() -> int:
@@ -1304,7 +1542,7 @@ def main() -> int:
         phase_profile(words, path)
     del words
     torch.cuda.empty_cache()
-    merged, overlap = phase_reduce(dev)
+    merged, overlap, admission = phase_reduce(dev)
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -1324,6 +1562,10 @@ def main() -> int:
             kernels[-1]["merge_path_launches"] = merged["launches"][name]
             kernels[-1]["overlap_path_launches"] = \
                 overlap["a"]["launches"][name]
+            kernels[-1]["hybrid_path_launches"] = \
+                admission["a"]["launches"][name]
+            kernels[-1]["resume_path_launches"] = \
+                admission["c2"]["launches"][name]
     log(f"[main] peak memory: " + ", ".join(
         f"{r['path']} {r['peak_bytes']} B" for r in runs))
     log(info["smi"])

@@ -406,3 +406,106 @@ def test_overlap_merger_on_the_card_matches_the_cpu(cuda_device, pipeline):
     lease = pool.lease(512, 7)
     assert torch.from_numpy(lease.view(np.int32)).is_pinned()
     pool.release(lease)
+
+
+@pytest.mark.parametrize("lpq_size", [2, 3])
+def test_hybrid_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path,
+                                                   lpq_size):
+    """Approach 2 on the card: every LPQ merged by K1's merge tree on its
+    pool thread (one launch pair per pair merge: 5 maps in LPQs of 2, 2
+    and 1 make 2; in LPQs of 3 and 2, 3), the RPQ on the host; the bytes of the same call
+    on the CPU, and no spill file left."""
+    import os
+
+    mids = _text_mofs(tmp_path)
+    conf = {"mapred.netmerger.merge.approach": 2,
+            "mapred.netmerger.hybrid.lpq.size": lpq_size,
+            "mapred.rdma.buf.size": 1,
+            "uda.tpu.spill.dirs": str(tmp_path / "spill")}
+    on_card, launches = _reduce_on("cuda", tmp_path, mids, conf)
+    on_cpu, _ = _reduce_on("cpu", tmp_path, mids, conf)
+    assert on_card == on_cpu
+    pairs = {2: 2, 3: 3}[lpq_size]
+    assert launches["merge_pass"] == launches["merge_partition"] == pairs
+    assert not os.listdir(tmp_path / "spill")
+
+
+@pytest.mark.parametrize("keys,route,k1", [
+    ({"uda.tpu.hbm.budget.mb": 64 * 1024,
+      "uda.tpu.host.budget.mb": 64 * 1024}, "hybrid", 2),
+    ({"uda.tpu.hbm.budget.mb": 64 * 1024,
+      "uda.tpu.host.budget.mb": 64 * 1024,
+      "uda.tpu.auto.approach.threshold.mb": 0}, "streaming", 4)])
+def test_auto_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path,
+                                                 keys, route, k1):
+    """Approach 0 on the card, each route forced by the budget keys: the
+    bytes of the same call on the CPU, K1 on the route's path."""
+    mids = _text_mofs(tmp_path)
+    conf = dict(keys, **{"mapred.netmerger.merge.approach": 0,
+                         "mapred.netmerger.hybrid.lpq.size": 2,
+                         "mapred.rdma.buf.size": 1,
+                         "uda.tpu.spill.dirs": str(tmp_path / "spill")})
+    on_card, launches = _reduce_on("cuda", tmp_path, mids, conf)
+    on_cpu, _ = _reduce_on("cpu", tmp_path, mids, conf)
+    assert on_card == on_cpu
+    assert launches["merge_pass"] == k1
+
+
+def test_resumed_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """A streaming task with a checkpoint dies on a lost map; the retry on
+    the card adopts the spooled runs into K1's forest (launches K1), fetches
+    none of them again, and emits the bytes of an uninterrupted run on the
+    CPU."""
+    import threading
+
+    from uda_tpu_torch.merger import LocalFetchClient, MergeManager
+    from uda_tpu_torch.mofserver import DataEngine, DirIndexResolver
+    from uda_tpu_torch.utils.config import Config
+    from uda_tpu_torch.utils.errors import FallbackSignal, TransportError
+
+    mids = _text_mofs(tmp_path, maps=6)
+    conf = {"uda.tpu.online.streaming": True,
+            "uda.tpu.ckpt.dir": str(tmp_path / "ck"),
+            "uda.tpu.ckpt.interval.s": 0.0, "uda.tpu.fetch.retries": 0,
+            "mapred.rdma.buf.size": 1}
+    fetched = []
+
+    class Client(LocalFetchClient):
+        bad = None
+
+        def start_fetch(self, req, on_complete):
+            fetched.append(req.map_id)
+            if req.map_id == self.bad:
+                threading.Timer(0.3, on_complete, args=(
+                    TransportError("lost"),)).start()
+                return
+            super().start_fetch(req, on_complete)
+
+    def attempt(bad):
+        engine = DataEngine(DirIndexResolver(str(tmp_path)), Config(conf))
+        client = Client(engine)
+        client.bad = bad
+        out = bytearray()
+        try:
+            _build.reset_launches()
+            MergeManager(client, "org.apache.hadoop.io.Text", Config(conf),
+                         device="cuda").run("job", mids, 0, out.extend)
+            torch.cuda.synchronize()
+            return bytes(out), dict(_build.launches)
+        finally:
+            engine.stop()
+
+    with pytest.raises(FallbackSignal):
+        attempt(mids[-1])
+    runs = sorted((tmp_path / "ck" / "job.r0" / "runs").glob("*.ifile"))
+    assert runs
+    fetched.clear()
+    out, launches = attempt(None)
+    want, _ = _reduce_on("cpu", tmp_path, mids,
+                         {"uda.tpu.online.streaming": True,
+                          "uda.tpu.spill.dirs": str(tmp_path / "spill")})
+    assert out == want
+    assert launches["merge_pass"] == 5
+    adopted = [mids[int(p.stem.split("-")[1])] for p in runs]
+    assert not set(adopted) & set(fetched)
+    assert not (tmp_path / "ck" / "job.r0").exists()

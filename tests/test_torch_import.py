@@ -45,7 +45,10 @@ def test_imports_with_jax_and_uda_tpu_blocked():
     assert res.returncode == 0, res.stderr
     assert {"chip_smoke", "uda_tpu_torch.ops.pallas_sort",
             "uda_tpu_torch.merger.overlap", "uda_tpu_torch.merger.streaming",
-            "uda_tpu_torch.utils.budget"} <= set(MODULES)
+            "uda_tpu_torch.utils.budget", "uda_tpu_torch.merger.hybrid",
+            "uda_tpu_torch.merger.checkpoint",
+            "uda_tpu_torch.utils.failpoints",
+            "uda_tpu_torch.utils.watchdog"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

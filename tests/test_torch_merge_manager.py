@@ -6,7 +6,9 @@ pipeline off, in streaming mode and with ``uda.tpu.merge.overlap=false``
 across ``uda.tpu.merge.two_phase``; at 1 KB fetch chunks (records split
 across chunks), three key types, keys past the width, empty partitions,
 fetch faults and retries. Configs asking for a mode the port does not
-have raise."""
+have (push, coded stripes, speculation, mid-partition resume) raise; the
+other approaches, checkpoints, failpoints and the watchdog have test files
+of their own."""
 
 import os
 
@@ -193,13 +195,10 @@ def test_a_fetch_that_always_fails_ends_in_fallback_in_both(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("mapred.netmerger.merge.approach", 0),
-    ("mapred.netmerger.merge.approach", 2),
-    ("uda.tpu.ckpt.dir", "/nonexistent/ckpt"),
     ("uda.tpu.push.enable", True),
     ("uda.tpu.coding.scheme", "rs:2:3"),
-    ("uda.tpu.failpoints", "segment.fetch=error"),
-    ("uda.tpu.watchdog.stall.s", 5.0),
+    ("uda.tpu.fetch.resume", True),
+    ("uda.tpu.fetch.speculate.pn", 95),
 ])
 def test_unported_modes_raise_config_error(tmp_path, key, value):
     mids = text_tree(str(tmp_path), "job", 1, 5, seed=15)

@@ -55,8 +55,13 @@ resource ledger's lease and gauge accounting, the flight recorder's
 ``overlap.abort`` record, span adoption and the ``merge.wait`` spans,
 lockdep-tracked locks (``threading`` stands in), the native row merge
 and its split merge (the host engine keeps ``merge_row_pair``'s lexsort,
-as the reference does without its library); ``adopt_run`` and the
-``on_spool`` hook wait for ``merger/checkpoint.py``.
+as the reference does without its library).
+
+Checkpointing (``merger/checkpoint.py``) adds two hooks: ``on_spool`` fires
+with the segment index once its run file is on disk (the snapshot
+trigger), outside every merger lock; ``adopt_run`` puts a run file a
+previous attempt spooled into the forest before any feed, through the
+same row build and ``_consume_run`` (so onto K1 on the card).
 """
 
 from __future__ import annotations
@@ -134,9 +139,12 @@ class OverlappedMerger:
     def __init__(self, key_type: KeyType, width: int, engine: str = "auto",
                  run_store=None, max_pending: int = 0, stagers: int = 0,
                  device_runs: bool = True, pipeline: bool = False,
-                 inflight_bytes: int = 0, device=None):
+                 inflight_bytes: int = 0, device=None, on_spool=None):
         self.key_type = key_type
         self.width = width
+        # the run-spool boundary hook (the checkpoint trigger); it never
+        # raises (TaskCheckpoint.maybe_save absorbs its failures)
+        self._on_spool = on_spool
         self.device_runs = bool(device_runs)
         if not self.device_runs and run_store is None:
             raise MergeError("device_runs=False requires streaming mode "
@@ -424,7 +432,6 @@ class OverlappedMerger:
             return None
         with metrics.timer("overlap_pack"):
             packed = packing.pack_keys(batch, self.key_type, self.width)
-        kw = packed.key_words.shape[1]
         metrics.add("stage.bytes",
                     int(batch.key_len.sum() + batch.val_len.sum()))
         if int(np.max(packed.key_lens, initial=0)) > self.width:
@@ -441,6 +448,7 @@ class OverlappedMerger:
             with self._state_lock:
                 self._staged += 1
             metrics.add("merge.records", n)
+            self._notify_spool(seg_index)
             self._observe_wait(fed_t)
             self._release(source)
             return None
@@ -453,18 +461,26 @@ class OverlappedMerger:
                            else order)
             self.run_store.write_run(seg_index, batch, spool_order)
             self._release(source)
+            self._notify_spool(seg_index)
         with self._state_lock:
             self._staged += 1
         metrics.add("merge.records", n)
         if self._overflow or not self.device_runs:
             self._observe_wait(fed_t)
             return None  # forest output won't be consumed; runs suffice
-        cols = kw + merge_ops.ROW_EXTRA_COLS
-        if self._buf_pool is None:  # host runs stay exact-sized
+        return self._run_rows(packed, order, seg_index, fed_t)
+
+    def _run_rows(self, packed, order: Optional[np.ndarray], seg_index: int,
+                  fed_t: float) -> _StagedRun:
+        """A run's composite-key rows, staged for the merge: exact-sized
+        numpy for the host engine, a pool lease padded to a power-of-two
+        capacity (a bounded set of shapes) for K1."""
+        n = packed.num_records
+        cols = packed.key_words.shape[1] + merge_ops.ROW_EXTRA_COLS
+        if self._buf_pool is None:
             rows = np.empty((n, cols), np.uint32)
             merge_ops.fill_run_rows(rows, packed, order, seg_index)
             return _StagedRun(rows, n, None, fed_t, 0)
-        # K1 runs pad to a power-of-two capacity (a bounded set of shapes)
         with self._device_errors():
             lease = self._buf_pool.lease(_next_pow2(n), cols)
         try:
@@ -473,6 +489,43 @@ class OverlappedMerger:
             self._buf_pool.release(lease)
             raise
         return _StagedRun(lease, n, lease, fed_t, 0)
+
+    def _notify_spool(self, seg_index: int) -> None:
+        """Fire the run-spool boundary hook, outside every merger lock
+        (the hook fsyncs)."""
+        hook = self._on_spool
+        if hook is not None:
+            hook(seg_index)
+
+    def adopt_run(self, seg_index: int, batch: RecordBatch) -> None:
+        """Resume path: account a run file a previous attempt spooled; the
+        re-cracked, already sorted batch joins the forest without being
+        spooled again. Called before any feed(), so no stage thread races
+        the forest. The run file is in sorted order, so the identity
+        order (row index = file position) builds exactly the rows the
+        original ``_prepare`` built: the output is byte-identical to an
+        uninterrupted run's."""
+        n = batch.num_records
+        if n == 0:
+            return
+        with metrics.timer("overlap_pack"):
+            packed = packing.pack_keys(batch, self.key_type, self.width)
+        if int(np.max(packed.key_lens, initial=0)) > self.width:
+            # oversize keys: as in _prepare, the fast path is off and
+            # finish_streaming's k-way merge over the run files (this one
+            # included) is the fallback
+            self._overflow = True
+        with self._state_lock:
+            self._staged += 1
+        metrics.add("merge.records", n)
+        if self._overflow or not self.device_runs:
+            return
+        staged = self._run_rows(packed, None, seg_index, time.perf_counter())
+        try:
+            with self._on_device():
+                self._consume_run(staged)
+        finally:
+            self._recycle(staged)
 
     def _overflow_order(self, batch: RecordBatch, n: int) -> np.ndarray:
         """Full-comparator sort order for an oversize-key run. Default

@@ -3,15 +3,17 @@ reduce task.
 
 The port's copy of the journal half of ``uda_tpu/merger/recovery.py``: a
 bounded list of structured events (kind, supplier, map_id, error class —
-never reason strings). Its ``rank()`` view serves replicated and
-reconstructed fetches, which are not ported yet.
+never reason strings), with the ``snapshot``/``restore`` a checkpoint
+manifest carries. The monotone ``version`` feeds the stall watchdog's
+progress token. Its ``rank()`` view serves replicated and reconstructed
+fetches, which are not ported yet.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Optional
+from typing import Optional, Sequence
 
 __all__ = ["RecoveryLedger"]
 
@@ -42,3 +44,28 @@ class RecoveryLedger:
             evs = list(self._events)
         return evs if kind is None else [e for e in evs
                                          if e["kind"] == kind]
+
+    def restore(self, events: Sequence[dict]) -> None:
+        """Re-seed the journal from a checkpoint manifest. Only the
+        structured keys are taken (a manifest is outside input). Bumps
+        ``version`` once, so the watchdog sees the load as progress."""
+        with self._lock:
+            for e in events:
+                self._events.append(
+                    {"kind": str(e.get("kind", "")),
+                     "supplier": str(e.get("supplier", "")),
+                     "map_id": str(e.get("map_id", "")),
+                     "error": (str(e["error"])
+                               if e.get("error") is not None else None)})
+            self.version += 1
+
+    def snapshot(self) -> dict:
+        """The journal with its version and per-kind counts (the
+        checkpoint manifest's ``journal`` is its ``events``)."""
+        with self._lock:
+            evs = list(self._events)
+            version = self.version
+        counts: dict = {}
+        for e in evs:
+            counts[e["kind"]] = counts.get(e["kind"], 0) + 1
+        return {"version": version, "counts": counts, "events": evs}

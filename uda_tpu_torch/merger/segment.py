@@ -3,10 +3,13 @@
 The port's copy of ``uda_tpu/merger/segment.py``: the transport
 abstraction, the in-process client and the chunked fetch with
 partial-record carry, attempt timeouts, CRC re-fetch and whole-segment
-retry. The reference's host-routing client, its survivable-shuffle
-rungs (speculative fetch, mid-partition resume, k-of-n reconstruction)
-and its administrative ``fail()`` (the watchdog's and ``stop()``'s
-rescue) are not ported yet.
+retry, the ``segment.fetch`` failpoint, the administrative ``fail()`` (the
+watchdog's and ``stop()``'s rescue) and the checkpoint's offset ledger
+(``ckpt_export``/``ckpt_preload``: a preloaded segment issues its first
+fetch at the checkpointed offset and checks the partition's identity on
+its first chunk). The reference's host-routing client and its
+survivable-shuffle rungs (speculative fetch, the transport-retry
+mid-partition resume, k-of-n reconstruction) are not ported yet.
 
 Equivalent of the reference's Segment/BaseSegment (reference
 src/Merger/StreamRW.cc:334-590): a segment pulls its partition's bytes
@@ -32,8 +35,11 @@ from typing import Optional
 
 from uda_tpu_torch.mofserver.data_engine import (DataEngine, FetchResult,
                                                  ShuffleRequest)
+from uda_tpu_torch.merger.streaming import framed_records
 from uda_tpu_torch.utils.errors import (MergeError, StorageError,
-                                        TransportError)
+                                        TenantError, TransportError,
+                                        attribute_supplier)
+from uda_tpu_torch.utils.failpoints import failpoint
 from uda_tpu_torch.utils.ifile import RecordBatch, crack_partial
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
@@ -51,6 +57,27 @@ class InputClient(abc.ABC):
     def start_fetch(self, req: ShuffleRequest, on_complete) -> None:
         """Async fetch; ``on_complete(FetchResult | Exception)``."""
 
+    def estimate_partition_bytes(self, job_id: str, map_ids,
+                                 reduce_id: int):
+        """Best-effort size of this reduce partition across ``map_ids``, or
+        None when the transport cannot know it without fetching (the auto
+        merge approach then takes the bounded-memory path)."""
+        return None
+
+    def resume_ok(self, host: str = "") -> bool:
+        """May a segment keep its offset ledger and continue
+        mid-partition? True by default: MOFs are immutable files."""
+        return True
+
+    def generation(self, host: str = "") -> Optional[int]:
+        """The supplier's restart generation for ``host``, or None when the
+        transport has none. A checkpoint's ledger recorded under another
+        generation is dropped on resume (its run files are kept)."""
+        return None
+
+    def stop(self) -> None:
+        pass
+
 
 class LocalFetchClient(InputClient):
     """Single-host client: fetches straight from a DataEngine."""
@@ -66,6 +93,24 @@ class LocalFetchClient(InputClient):
             on_complete(err if err is not None else f.result())
 
         fut.add_done_callback(_done)
+
+    def estimate_partition_bytes(self, job_id: str, map_ids,
+                                 reduce_id: int):
+        """Sum of raw_length over the map outputs. Exact or unknown: any
+        unresolvable map makes the whole estimate None (a partial sum is a
+        lower bound, which could steer the auto policy onto the
+        host-resident path for a partition that is really huge)."""
+        total = 0
+        for mid in map_ids:
+            try:
+                total += int(self.engine.resolver.resolve(
+                    job_id, mid, reduce_id).raw_length)
+            except Exception as e:  # noqa: BLE001 - exact-or-unknown
+                metrics.add("errors.swallowed")
+                log.debug(f"size estimate: {mid} unresolvable ({e}); "
+                          f"partition size unknown")
+                return None
+        return total
 
 
 class Segment:
@@ -109,6 +154,7 @@ class Segment:
         self._inline = self._PENDING
         self._epoch = 0          # id of the outstanding attempt
         self._epoch_settled = True
+        self._resume_check = False   # next chunk must revalidate identity
         self._timeout_timer: Optional[threading.Timer] = None
         self._done = threading.Event()
         self._error: Optional[Exception] = None
@@ -138,7 +184,17 @@ class Segment:
     def start(self) -> None:
         if self.policy.deadline_ms > 0:
             self._deadline = time.monotonic() + self.policy.deadline_ms / 1e3
-        self._drive(self._try_issue(0))
+        with self._lock:
+            resume_at = self._next_offset
+        if resume_at > 0:
+            # a checkpointed offset ledger (ckpt_preload): the bytes below
+            # the offset are never refetched, and the first chunk checks
+            # the partition's identity
+            metrics.add("fetch.resumed", supplier=self.supplier)
+            metrics.add("fetch.resumed.bytes", resume_at)
+            log.info(f"fetch of {self.map_id} resuming at offset "
+                     f"{resume_at} from a checkpointed ledger")
+        self._drive(self._try_issue(resume_at))
 
     def _try_issue(self, offset: int):
         """Issue one fetch. Returns None when the transport took it
@@ -146,6 +202,11 @@ class Segment:
         transport raised or completed inline — the caller's _drive loop
         then processes it without recursing."""
         with self._lock:
+            if self._done.is_set():
+                # failed administratively (fail()) while a retry backoff
+                # was pending: issuing would open an attempt on a
+                # finished segment
+                return None
             self._inline = self._PENDING
             self._issuing = True
             self._epoch += 1
@@ -154,6 +215,9 @@ class Segment:
         req = ShuffleRequest(self.job_id, self.map_id, self.reduce_id,
                              offset, self.chunk_size, host=self.host)
         try:
+            # inside the try: an injected raise takes the path of a
+            # transport that fails synchronously
+            failpoint("segment.fetch", key=f"{self.map_id}@{self.host}")
             self.client.start_fetch(
                 req, lambda res, e=epoch: self._on_complete(res, e))
         except Exception as e:  # noqa: BLE001 - a sync raise fails the
@@ -224,11 +288,21 @@ class Segment:
         """Iterative fetch state machine (one outstanding fetch at a time;
         runs on whichever thread delivered the completion)."""
         while result is not None:
+            if isinstance(result, TenantError):
+                # the service plane's refusal is terminal: no retry can
+                # make a fenced epoch legal
+                self._notify_fault(result)
+                self._finish(result)
+                return
             if isinstance(result, Exception):
                 # transport-level retry: restart the WHOLE segment from
                 # offset 0 (re-fetch-the-MOF granularity)
                 deadline_hit = False
                 with self._lock:
+                    if self._done.is_set():
+                        # failed administratively (fail()) while this
+                        # attempt was in flight: no retry into a dead task
+                        return
                     retry = self._retries_left > 0
                     if retry and self._deadline is not None \
                             and time.monotonic() >= self._deadline:
@@ -240,6 +314,7 @@ class Segment:
                         self._carry = b""
                         self._next_offset = 0
                         self._crc_refetched.clear()
+                        self._resume_check = False
                     attempt = self.policy.retries - self._retries_left
                 self._notify_fault(result)
                 if not retry:
@@ -266,6 +341,21 @@ class Segment:
                     return
                 result = self._try_issue(0)
                 continue
+            if self._resume_check:
+                # the first chunk after a checkpointed ledger: the
+                # partition must be the one the ledger was built from,
+                # else the StorageError restarts the fetch from zero
+                with self._lock:
+                    prev = self.raw_length
+                    self._resume_check = False
+                if prev is not None and result.raw_length != prev:
+                    metrics.add("fetch.resume.invalidated")
+                    result = StorageError(
+                        f"partition {self.map_id} changed identity "
+                        f"across the supplier restart (raw_length "
+                        f"{result.raw_length} != {prev}); restarting "
+                        f"the fetch from zero")
+                    continue
             crc = getattr(result, "crc", None)
             if crc is not None and \
                     zlib.crc32(result.data) & 0xFFFFFFFF != crc:
@@ -315,6 +405,25 @@ class Segment:
         metrics.add("fetch.chunks", supplier=self.supplier)
         return last
 
+    def fail(self, exc: Exception) -> bool:
+        """Administratively end the fetch (the watchdog's rescue, the stop
+        path's drain): the segment completes now with ``exc`` and every
+        waiter wakes. The outstanding attempt's epoch is invalidated, so a
+        completion that arrives later is dropped as stale. Returns False
+        when the segment had already finished. Fires on_done exactly once
+        like every other terminal path."""
+        with self._lock:
+            if self._done.is_set():
+                return False
+            self._epoch += 1          # outstanding completions -> stale
+            self._epoch_settled = True
+        self._cancel_timeout()
+        attribute_supplier(exc, self.supplier)
+        if not self._finish(exc):
+            return False  # a real terminal path won the race
+        metrics.add("fetch.failed_admin")
+        return True
+
     # -- consumption --------------------------------------------------------
 
     def wait(self, timeout: Optional[float] = None) -> None:
@@ -349,3 +458,59 @@ class Segment:
         with self._lock:
             self.batches = []
             self._released = True
+
+    # -- checkpoint (merger/checkpoint.py) ----------------------------------
+
+    def ckpt_export(self) -> Optional[dict]:
+        """This segment's fetch offset ledger for a checkpoint manifest:
+        the cracked batches framed (IFile framing, no EOF; a cracked
+        chunk's own bytes) plus the carry tail, with the offsets that make
+        it resumable. None when there is nothing worth keeping: the
+        segment is done or released (its run file carries the records),
+        or has fetched nothing yet. State is copied under the segment
+        lock, framed outside it."""
+        with self._lock:
+            if self._done.is_set() or self._released \
+                    or self._next_offset <= 0:
+                return None
+            batches = list(self.batches)
+            carry = self._carry
+            state = {"next_offset": self._next_offset,
+                     "raw_length": self.raw_length,
+                     "num_records": self.num_records,
+                     "carry_len": len(carry)}
+        framed = b"".join(framed_records(b) for b in batches)
+        state["data"] = framed + bytes(carry)
+        return state
+
+    def ckpt_preload(self, *, data: bytes, carry_len: int,
+                     next_offset: int, raw_length, num_records: int) -> None:
+        """Restore a checkpointed offset ledger before start(): re-crack
+        the framed bytes, check they hold exactly the recorded records,
+        and arm the resume (start() then issues at ``next_offset``, and
+        the first chunk checks the partition's identity). Raises
+        :class:`StorageError` on any mismatch; the caller then drops the
+        ledger and the segment fetches from zero."""
+        framed_len = len(data) - int(carry_len)
+        if framed_len < 0:
+            raise StorageError(
+                f"checkpoint ledger of {self.map_id}: carry "
+                f"{carry_len} B exceeds payload {len(data)} B")
+        batch, consumed, _ = crack_partial(bytes(data[:framed_len]),
+                                           expect_eof=False)
+        if consumed != framed_len or batch.num_records != int(num_records):
+            raise StorageError(
+                f"checkpoint ledger of {self.map_id} re-cracked to "
+                f"{batch.num_records} records/{consumed} B, manifest "
+                f"says {num_records}/{framed_len}")
+        with self._lock:
+            if self._epoch:
+                raise StorageError(
+                    f"ckpt_preload of {self.map_id} after start()")
+            self.batches = [batch] if batch.num_records else []
+            self.num_records = int(num_records)
+            self._carry = bytes(data[framed_len:])
+            self._next_offset = int(next_offset)
+            self.raw_length = (int(raw_length) if raw_length is not None
+                               else None)
+            self._resume_check = True  # first chunk revalidates identity

@@ -26,9 +26,12 @@ around it:
   streaming is off: each output slab's bytes are gathered straight from
   the per-segment batches, never concatenating the whole shuffle.
 
-The checkpoint hooks of the reference's ``RunStore`` (``fixed_dir``,
-``adopt``, ``discard``, ``manifest`` and the per-run CRC) wait for
-``merger/checkpoint.py``.
+With a checkpoint (``merger/checkpoint.py``) the store spools into the
+checkpoint's fixed directory (``fixed_dir``: the files outlive the
+process, cleanup leaves them), records each run's CRC as it writes it, and
+lists its finished runs for the manifest (``manifest``); a resumed task
+registers the runs it adopts (``adopt``) and unlinks the ones that fail
+revalidation (``discard``).
 """
 
 from __future__ import annotations
@@ -36,19 +39,21 @@ from __future__ import annotations
 import os
 import tempfile
 import threading
-from typing import Iterator, Sequence
+import zlib
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
-from uda_tpu_torch.merger.emitter import iter_framed_chunks
+from uda_tpu_torch.merger.emitter import frame_batch, iter_framed_chunks
 from uda_tpu_torch.ops.sort import i32
 from uda_tpu_torch.utils.errors import MergeError, StorageError
 from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch
 from uda_tpu_torch.utils.metrics import metrics
 
-__all__ = ["RunStore", "framed_lengths", "interleave_runs", "slab_batch",
+__all__ = ["RunStore", "framed_lengths", "framed_records",
+           "interleave_runs", "slab_batch",
            "iter_row_slabs", "spill_dirs", "SLAB_RECORDS",
            "MAX_OPEN_CURSORS"]
 
@@ -129,6 +134,17 @@ def _group_ranks(seg: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return unique, ranks, counts
 
 
+def framed_records(batch: RecordBatch) -> bytes:
+    """The batch's records IFile-framed, without the EOF marker: a copy of
+    its own bytes when they sit framed back to back in its buffer (every
+    cracked chunk), else framed anew. The same bytes either way."""
+    span = RunStore._contiguous_framed_span(
+        batch, framed_lengths(batch.key_len, batch.val_len))
+    if span is None:
+        return frame_batch(batch, write_eof=False)
+    return bytes(batch.data[span[0]:span[1]])
+
+
 def spill_dirs(cfg) -> list[str]:
     """Parse ``uda.tpu.spill.dirs`` into a rotation list; empty = the
     system temporary directory."""
@@ -149,17 +165,30 @@ class RunStore:
     different segments concurrently.
     """
 
-    def __init__(self, base_dirs=None, tag: str = "online"):
-        if isinstance(base_dirs, str):
-            base_dirs = [base_dirs]
-        roots = list(base_dirs) if base_dirs else [tempfile.gettempdir()]
-        self.dirs = []
-        for root in roots:
-            os.makedirs(root, exist_ok=True)
-            self.dirs.append(
-                tempfile.mkdtemp(prefix=f"uda.{tag}.runs.", dir=root))
+    def __init__(self, base_dirs=None, tag: str = "online",
+                 fixed_dir: Optional[str] = None):
+        # fixed_dir (checkpointing): the runs live at a stable path that
+        # outlives the process, where the manifest says; the checkpoint
+        # owns the directory (cleanup() keeps the files)
+        self.fixed = fixed_dir is not None
+        if self.fixed:
+            os.makedirs(fixed_dir, exist_ok=True)
+            self.dirs = [fixed_dir]
+        else:
+            if isinstance(base_dirs, str):
+                base_dirs = [base_dirs]
+            roots = (list(base_dirs) if base_dirs
+                     else [tempfile.gettempdir()])
+            self.dirs = []
+            for root in roots:
+                os.makedirs(root, exist_ok=True)
+                self.dirs.append(
+                    tempfile.mkdtemp(prefix=f"uda.{tag}.runs.", dir=root))
         self.counts: dict[int, int] = {}   # seg index -> record count
         self.bytes: dict[int, int] = {}    # seg index -> framed bytes (no EOF)
+        # seg index -> crc32 of the whole run file, EOF marker included
+        # (the checkpoint manifest's torn-spool detector)
+        self.crcs: dict[int, int] = {}
         self._lock = threading.Lock()
         self._closed = False
 
@@ -210,14 +239,24 @@ class RunStore:
                     and np.array_equal(order, np.arange(order.shape[0])))
         span = self._contiguous_framed_span(batch, lens) \
             if identity else None
+        # the CRC accumulates while writing: one pass over bytes already
+        # in cache
+        crc = 0
         with metrics.timer("run_spool"):
             with open(run_path, "wb") as f:
                 if span is not None:
-                    f.write(memoryview(batch.data[span[0]:span[1]]))
+                    piece = memoryview(batch.data[span[0]:span[1]])
+                    f.write(piece)
+                    crc = zlib.crc32(piece)
                     f.write(EOF_MARKER)
+                    crc = zlib.crc32(EOF_MARKER, crc)
                 else:
                     for piece in iter_framed_chunks(sub, write_eof=True):
                         f.write(piece)
+                        crc = zlib.crc32(piece, crc)
+                if self.fixed:
+                    f.flush()
+                    os.fsync(f.fileno())
             wrote = os.path.getsize(run_path)
             if wrote != total + len(EOF_MARKER):
                 raise StorageError(
@@ -225,10 +264,46 @@ class RunStore:
                     f"predict {total + len(EOF_MARKER)}")
             with open(off_path, "wb") as f:
                 ends.astype("<i8").tofile(f)
+                f.flush()
+                if self.fixed:
+                    # the sidecar is durable before a manifest can name
+                    # this run
+                    os.fsync(f.fileno())
         with self._lock:
             self.counts[seg_index] = sub.num_records
             self.bytes[seg_index] = total
+            self.crcs[seg_index] = crc & 0xFFFFFFFF
         metrics.add("spool.bytes", total)
+
+    def adopt(self, seg_index: int, records: int, nbytes: int,
+              crc: int) -> None:
+        """Register a run already on disk (a resumed task: written, and
+        checked against the manifest, by an earlier attempt). Accounting
+        only; no byte moves."""
+        with self._lock:
+            if seg_index in self.counts:
+                raise MergeError(f"segment {seg_index} staged twice")
+            self.counts[seg_index] = int(records)
+            self.bytes[seg_index] = int(nbytes)
+            self.crcs[seg_index] = int(crc) & 0xFFFFFFFF
+
+    def discard(self, seg_index: int) -> None:
+        """Unlink an unregistered run's files (an adoption that failed
+        revalidation: the segment is fetched again and write_run rewrites
+        the path)."""
+        for p in self._paths(seg_index):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    def manifest(self) -> dict[int, tuple[int, int, int]]:
+        """The finished runs for the checkpoint writer: {seg_index:
+        (records, framed_bytes, crc)}; runs still being spooled (count
+        -1) are left for a later snapshot."""
+        with self._lock:
+            return {s: (n, self.bytes[s], self.crcs[s])
+                    for s, n in self.counts.items() if n >= 0}
 
     def cleanup(self) -> None:
         with self._lock:
@@ -236,6 +311,11 @@ class RunStore:
                 return
             self._closed = True
             segs = list(self.counts)
+        if self.fixed:
+            # the checkpoint's directory: the runs are the next attempt's
+            # resume state; TaskCheckpoint.discard removes them once the
+            # merge output is delivered
+            return
         for seg in segs:
             for p in self._paths(seg):
                 try:

@@ -28,8 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["launches", "reset_launches", "build_all", "library", "launch",
-           "cuda_words", "smem_limit", "check_smem", "stream_of"]
+__all__ = ["launches", "count", "reset_launches", "build_all", "library",
+           "launch", "cuda_words", "smem_limit", "check_smem", "stream_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,11 +41,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    launches.clear()
+    with _count_lock:
+        launches.clear()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel ``name``. Under a lock: host threads (the
+    hybrid merge's LPQs) launch K1 at once, and ``+= 1`` on a Counter is
+    not atomic."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def nvcc() -> str:

@@ -63,5 +63,5 @@ def take_lanes(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
             _build.launch(lib, "uda_lane_gather", x.data_ptr(),
                           perm.data_ptr(), out.data_ptr(), rows, n,
                           _build.stream_of(x))
-        _build.launches["take_lanes"] += 1
+        _build.count("take_lanes")
     return out

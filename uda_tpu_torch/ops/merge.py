@@ -37,7 +37,7 @@ from uda_tpu_torch.device import resolve_device
 from uda_tpu_torch.ops import packing, sort
 from uda_tpu_torch.ops.pallas_merge import merge_sorted_pair
 from uda_tpu_torch.ops.sort import fill_words, i32, u32
-from uda_tpu_torch.utils.comparators import KeyType
+from uda_tpu_torch.utils.comparators import KeyType, uses_default_bytewise
 from uda_tpu_torch.utils.errors import MergeError
 from uda_tpu_torch.utils.ifile import RecordBatch
 from uda_tpu_torch.utils.metrics import metrics
@@ -264,8 +264,21 @@ def merge_record_streams(streams: Sequence[Iterator[Tuple[bytes, bytes]]],
                          kt: KeyType) -> Iterator[Tuple[bytes, bytes]]:
     """Streaming k-way heap merge over record iterators — the literal
     analogue of the reference's MergeQueue::next (MergeQueue.h:276-427).
-    Memory held = one record per stream."""
+    Memory held = one record per stream; equal keys keep stream order.
 
+    For the stock bytewise comparators (``uses_default_bytewise``) the
+    comparator order is Python's bytes order over ``kt.content``, so the
+    merge runs as ``heapq.merge`` keyed by the content (stable by stream
+    position too): the same order, with the comparisons in C."""
+    if uses_default_bytewise(kt):
+        content = kt.content
+        return heapq.merge(*streams, key=lambda kv: content(kv[0]))
+    return _merge_record_streams_cmp(streams, kt)
+
+
+def _merge_record_streams_cmp(streams: Sequence[Iterator[Tuple[bytes, bytes]]],
+                              kt: KeyType) -> Iterator[Tuple[bytes, bytes]]:
+    """merge_record_streams by ``kt.compare``, for any comparator."""
     cmp = kt.compare
 
     class _Cursor:

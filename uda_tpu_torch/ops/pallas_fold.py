@@ -104,7 +104,7 @@ def tile_sort_folded(x4: torch.Tensor, tile: int,
         _build.launch(lib, "uda_tile_sort_folded", x4.data_ptr(),
                       out.data_ptr(), n, num_keys, sub,
                       _build.stream_of(x4))
-    _build.launches["tile_sort_folded"] += 1
+    _build.count("tile_sort_folded")
     spare = None
     while sub < tile:
         spare = merge_pass_folded(out, sub, sub, num_keys, out=spare)
@@ -156,7 +156,7 @@ def _merge_pass_folded_at(x4: torch.Tensor, run_len: int, num_keys: int,
         _build.launch(lib, "uda_merge_pass_folded", x4.data_ptr(),
                       out.data_ptr(), splits.data_ptr(), x4.shape[1],
                       num_keys, width, run_len, _build.stream_of(x4))
-    _build.launches["merge_pass_folded"] += 1
+    _build.count("merge_pass_folded")
     return out
 
 

@@ -201,7 +201,7 @@ def tile_sort(x: torch.Tensor, tile: int, num_keys: int,
     with torch.cuda.device(x.device):
         _build.launch(lib, "uda_tile_sort", x.data_ptr(), out.data_ptr(), n,
                       rows, num_keys, tb_row, sub, _build.stream_of(x))
-    _build.launches["tile_sort"] += 1
+    _build.count("tile_sort")
     spare = None
     while sub < tile:
         spare = merge_pass(out, sub, sub, num_keys, tb_row, out=spare)
@@ -244,7 +244,7 @@ def merge_partition(x: torch.Tensor, run_len: int, width: int,
         _build.launch(lib, "uda_merge_partition", x.data_ptr(),
                       splits.data_ptr(), n, num_keys, tb_row, width, run_len,
                       _build.stream_of(x))
-    _build.launches["merge_partition"] += 1
+    _build.count("merge_partition")
     return splits
 
 
@@ -277,7 +277,7 @@ def merge_pass(x: torch.Tensor, run_len: int, tile: int, num_keys: int,
         _build.launch(lib, "uda_merge_pass", x.data_ptr(), out.data_ptr(),
                       splits.data_ptr(), n, rows, num_keys, tb_row, width,
                       run_len, _build.stream_of(x))
-    _build.launches["merge_pass"] += 1
+    _build.count("merge_pass")
     return out
 
 

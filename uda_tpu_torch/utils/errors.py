@@ -19,11 +19,27 @@ import traceback
 __all__ = [
     "UdaError",
     "ConfigError",
+    "ProtocolError",
     "TransportError",
     "MergeError",
     "StorageError",
+    "StoreError",
+    "CompressionError",
+    "TenantError",
     "FallbackSignal",
+    "attribute_supplier",
 ]
+
+
+def attribute_supplier(exc: BaseException, supplier: str) -> None:
+    """Stamp the structured failing-supplier attribution onto ``exc``
+    (see :attr:`UdaError.supplier`): first writer wins, and foreign
+    exception types without attribute slots are tolerated."""
+    if getattr(exc, "supplier", None) is None:
+        try:
+            exc.supplier = supplier
+        except AttributeError:
+            pass  # foreign exception type without attribute slots
 
 
 class UdaError(Exception):
@@ -48,6 +64,11 @@ class ConfigError(UdaError):
     src/CommUtils/C2JNexus.cc:43-137)."""
 
 
+class ProtocolError(UdaError):
+    """Malformed control-plane command (reference parse_hadoop_cmd,
+    src/CommUtils/C2JNexus.cc:141-207)."""
+
+
 class TransportError(UdaError):
     """Fetch-plane failure (reference RDMA WC errors and connect failures,
     src/DataNet/RDMAClient.cc:215-356)."""
@@ -61,6 +82,28 @@ class MergeError(UdaError):
 class StorageError(UdaError):
     """Segment IO failure (reference AIOHandler/DataEngine read errors,
     src/MOFServer/IndexInfo.cc:304-376)."""
+
+
+class StoreError(StorageError):
+    """Disaggregated MOF-store failure. ``cause`` is the structured
+    failure class and ``backend`` the tier that produced it; both default
+    empty, so the failpoint runtime's one-message construction stays
+    legal."""
+
+    def __init__(self, message: str, cause: str = "", backend: str = ""):
+        super().__init__(message)
+        self.cause = cause
+        self.backend = backend
+
+
+class CompressionError(UdaError):
+    """Codec failure (reference DecompressorWrapper paths,
+    src/Merger/DecompressorWrapper.cc)."""
+
+
+class TenantError(UdaError):
+    """Multi-tenant service-plane refusal: unknown or retired job, stale
+    epoch or failed authentication. Terminal on the reduce side."""
 
 
 class FallbackSignal(Exception):

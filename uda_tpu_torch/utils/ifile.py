@@ -267,8 +267,12 @@ def iter_file_records(path: str, buffer_size: int = 1 << 20
                 raise StorageError(f"IFile {path} missing EOF marker")
             data = carry + chunk
             batch, consumed, saw_eof = crack_partial(data)
-            for i in range(batch.num_records):
-                yield batch.key(i), batch.value(i)
+            # slices of the bytes themselves: the records of
+            # batch.key(i)/value(i) without a numpy slice each
+            yield from ((data[ko:ko + kl], data[vo:vo + vl])
+                        for ko, kl, vo, vl in zip(
+                            batch.key_off.tolist(), batch.key_len.tolist(),
+                            batch.val_off.tolist(), batch.val_len.tolist()))
             if saw_eof:
                 return
             carry = data[consumed:]

@@ -113,6 +113,10 @@ class Metrics:
         with self._lock:
             return dict(self.counters)
 
+    def gauges_snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self.gauges)
+
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()
