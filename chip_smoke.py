@@ -20,9 +20,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    K3/K4 at theirs (tile 256, n == tile, 1, 2 and 3 key words, the same
    kinds of keys, tiles 8192 and 16384, past one K3 block) and K4 on runs
    that hold equal records; K5 (``take_lanes``) at the probe's three
-   shapes; every launch held byte for byte against its plain PyTorch
-   version on the same input, and each cascade against PyTorch's stable
-   sort;
+   shapes and at 3, 26 and 33 rows, each of its two designs launched on
+   its own too; every launch held byte for byte against its plain
+   PyTorch version on the same input, and each cascade against PyTorch's
+   stable sort;
 4. main path: ``single_chip_sort`` of 100,000,000 TeraSort records
    (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``, padded to 2^27
    inside) with ``path="auto"``, which resolves to ``keys8`` (K2, K1 and
@@ -34,11 +35,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``bench_step`` runs 2 rounds of ``keys8``;
 6. times, with CUDA events at the main path's shapes: each kernel (K1, K4
    and the partition kernel at each one's width per pass and summed over
-   the cascade; K5 on the keys8 matrix by the main path's permutation),
-   its plain version, PyTorch's call computing the same function, its
-   bound, the cascades and the whole-sort yardstick; and A/Bs, in turns,
-   of K3/K4 against K2/K1's run-time-row form on the same 4-row input and
-   of K4's block width (2048 against 4096 records);
+   the cascade; K5 on the keys8 matrix by the main path's permutation and
+   by a merge permutation, its own device time in turns with torch
+   indexing and its other design, the whole wrapper call, its scratch
+   and peak memory), its plain version, PyTorch's call computing the same
+   function, its bound, the cascades and the whole-sort yardstick; A/Bs,
+   in turns, of K3/K4 against K2/K1's run-time-row form on the same 4-row
+   input and of K4's block width (2048 against 4096 records); and K5's
+   two designs from 16 KB to 1 GB of ``x`` (the small-shape rule);
 7. profile: device time by kernel and the device's idle share over one
    ``keys8`` ("auto") and one ``keys8f`` call (``torch.profiler``);
 8. merge: one TeraSort reduce task through ``MergeManager.run``
@@ -136,6 +140,9 @@ MAIN_TILE = 1024           # single_chip_sort's default tile
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 OPS_PER_S = 67e12          # H100 SXM 32-bit rate outside the tensor cores
 TIMED_REPS = 5
+# device_ms's sleep: about 50 ms of a card's clock, longer than the host
+# takes to queue the timed launches
+HOST_HIDE_CYCLES = 100_000_000
 
 KERNELS = {
     "merge_pass": dict(
@@ -195,6 +202,13 @@ SLIM_EDGE_CASES = [
 # n, run_len
 EQUAL_RUN_CASES = [(1, 1 << 13, 1024), (3, 1 << 13, 256)]
 PROBE_SHAPES = ((32, 2048), (8, 2048), (8, 512))  # scripts/probe_gather.py
+# K5 in phase 3: the probe's shapes, then records of 3, 26 and 33 words
+# (26: n not a multiple of 4, so rows are moved a word a thread)
+TAKE_SHAPES = PROBE_SHAPES + ((3, 1 << 20), (26, 100_003), (33, 1029))
+# K5's designs in turns at [8, n] (phase 6): n from 2^9 to 2^25, finer
+# around lane_gather.SMALL_BYTES (2^15 columns of 8 rows)
+TAKE_SWEEP_NS = tuple(1 << k for k in (9, 11, 13, 15, 16, 17, 19, 21, 23,
+                                       25))
 _ALL_ONES = 0xFFFFFFFF
 # phase 8: one reduce partition of TeraSort. The reference's deployment
 # shape is 64 maps of 64 MiB (scripts/bench_pipeline.py:182-183); the maps
@@ -244,6 +258,24 @@ def time_ms(fn, reps: int = TIMED_REPS, warmup: int = 1) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = TIMED_REPS, warmup: int = 1) -> float:
+    """Mean device milliseconds of ``fn()``, which must not synchronise:
+    the launches are queued behind a sleeping kernel, so the events
+    around them time the card's work and not the host's launch cost."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_HIDE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -398,21 +430,29 @@ def check_partition(y: torch.Tensor, run_len: int, num_keys: int,
 
 
 def check_take_lanes(gen: torch.Generator, rows: int, n: int) -> int:
-    """K5 against its plain version on random words and a permutation."""
+    """K5 against ``x[:, perm]`` on random words and a permutation, through
+    the wrapper and through each design launched on its own; the largest
+    error of the wrapper against its plain version."""
     dev = gen.device
     x = torch.randint(-(1 << 31), 1 << 31, (rows, n), dtype=torch.int32,
                       generator=gen, device=dev).view(torch.uint32)
     perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    want = sort_ops.take_cols(x, perm.long())
     got = lane_gather.take_lanes(x, perm)
-    require(same(got, sort_ops.take_cols(x, perm.long())),
+    require(same(got, want),
             f"take_lanes [{rows}, {n}] differs from x[:, perm]")
+    for how in ("direct", "records"):
+        out = torch.empty_like(x)
+        lane_gather._launch(x, perm, out, how)
+        require(same(out, want),
+                f"K5 {how} [{rows}, {n}] differs from x[:, perm]")
     return max_abs_err(got, lane_gather.take_lanes_plain(x, perm))
 
 
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
-                  probe_shapes=PROBE_SHAPES) -> dict:
+                  take_shapes=TAKE_SHAPES) -> dict:
     gen = generator(SEED + 1, dev)
     seeds = itertools.count(SEED + 1)
     worst: dict = {}
@@ -463,11 +503,12 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                                          err)
         log(f"[kernels] K4 on runs with equal records, keys={nk} "
             f"run_len={run_len} n={n_eq}: max_abs_err {err} (tolerance 0)")
-    for rows, n_probe in probe_shapes:
-        err = check_take_lanes(gen, rows, n_probe)
+    for rows, n_take in take_shapes:
+        err = check_take_lanes(gen, rows, n_take)
         worst["take_lanes"] = max(worst.get("take_lanes", 0), err)
-        log(f"[kernels] K5 take_lanes [{rows}, {n_probe}]: max_abs_err "
-            f"{err} (tolerance 0); equal to x[:, perm]")
+        log(f"[kernels] K5 take_lanes [{rows}, {n_take}] "
+            f"({lane_gather.design(rows, n_take)}): max_abs_err {err} "
+            f"(tolerance 0); both designs equal to x[:, perm]")
     torch.cuda.synchronize()
     require(all(v == 0 for v in worst.values()),
             f"kernel differs from its plain version: {worst}")
@@ -652,11 +693,13 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     return res
 
 
-def in_turns(fa, fb, reps: int) -> tuple:
-    """Mean ms of ``fa()`` and of ``fb()``, timed a, b, b, a so that the
-    card's drift falls on both."""
-    a1, b1, b2, a2 = (time_ms(f, reps) for f in (fa, fb, fb, fa))
-    return (a1 + a2) / 2, (b1 + b2) / 2
+def in_turns(*fns, reps: int, timer=time_ms) -> tuple:
+    """Mean ms of each of ``fns`` by ``timer``, timed in order and then in
+    reverse (a, b, b, a; a, b, c, c, b, a) so that the card's drift falls
+    on all."""
+    order = list(fns) + list(reversed(fns))
+    ms = [timer(f, reps) for f in order]
+    return tuple((ms[i] + ms[-1 - i]) / 2 for i in range(len(fns)))
 
 
 def ab_slim(mat4: torch.Tensor, tile: int, reps: int) -> dict:
@@ -672,7 +715,7 @@ def ab_slim(mat4: torch.Tensor, tile: int, reps: int) -> dict:
           "width_ab_passes": 0}
     ab["k3_ms"], ab["k2_4rows_ms"] = in_turns(
         lambda: pallas_fold.tile_sort_folded(mat4, tile, nk),
-        lambda: pallas_sort.tile_sort(mat4, tile, nk, tb), reps)
+        lambda: pallas_sort.tile_sort(mat4, tile, nk, tb), reps=reps)
     y = pallas_fold.tile_sort_folded(mat4, tile, nk)
     require(same(y, pallas_sort.tile_sort(mat4, tile, nk, tb)),
             "K3 differs from K2 at 4 rows")
@@ -682,7 +725,7 @@ def ab_slim(mat4: torch.Tensor, tile: int, reps: int) -> dict:
         k4, k1 = in_turns(
             lambda: pallas_fold.merge_pass_folded(y, L, tile, nk, out=spare),
             lambda: pallas_sort.merge_pass(y, L, tile, nk, tb, out=spare),
-            reps)
+            reps=reps)
         ab["k4_ms"] += k4
         ab["k1_4rows_ms"] += k1
         ab["k1_4rows_widths"].append(
@@ -695,7 +738,7 @@ def ab_slim(mat4: torch.Tensor, tile: int, reps: int) -> dict:
                 lambda: pallas_fold._merge_pass_folded_at(y, L, nk, 2048,
                                                           spare),
                 lambda: pallas_fold._merge_pass_folded_at(y, L, nk, 4096,
-                                                          spare), reps)
+                                                          spare), reps=reps)
             ab["k4_w2048_ms"] += w2
             ab["k4_w4096_ms"] += w4
             ab["width_ab_passes"] += 1
@@ -708,27 +751,104 @@ def ab_slim(mat4: torch.Tensor, tile: int, reps: int) -> dict:
     return ab
 
 
+def merge_perm(keys: torch.Tensor) -> torch.Tensor:
+    """The stable order of ``keys`` (int64) with each half sorted first:
+    two increasing runs interleaved, the permutation a two-phase merge
+    applies."""
+    h = keys.shape[0] // 2
+    runs = torch.cat([keys[:h].sort().values, keys[h:].sort().values])
+    return torch.sort(runs, stable=True).indices.to(torch.int32)
+
+
 def time_take_lanes(mat: torch.Tensor, perm: torch.Tensor,
-                    reps: int) -> dict:
-    """K5 on the keys8 matrix by the main path's sort permutation, its
-    plain version and torch indexing ``x[:, perm]``."""
+                    merge: torch.Tensor, reps: int) -> dict:
+    """K5 on the keys8 matrix by the main path's sort permutation and by a
+    merge permutation. Per permutation: K5's own time (``device_ms``
+    around its launches, after one checked call) in turns with torch
+    indexing ``x[:, perm]`` and the other design; the whole wrapper call,
+    its range check included; the peak memory of one call and the scratch
+    (the most one launch into a given ``out`` allocates). The plain
+    version's time on the sort permutation."""
     rows, m = mat.shape
-    perm64 = perm.long()
-    got = lane_gather.take_lanes(mat, perm)
+    how = lane_gather.design(rows, m)
+    other = "direct" if how == "records" else "records"
+    out = torch.empty_like(mat)
     res = {
-        "ms": time_ms(lambda: lane_gather.take_lanes(mat, perm), reps),
-        "plain_ms": time_ms(lambda: lane_gather.take_lanes_plain(mat, perm),
-                            1),
-        "library_ms": time_ms(lambda: i32(mat)[:, perm64], reps),
+        "design": how,
         # every input word and perm read once, every output word written
         "bytes": (2 * rows * m + m) * 4,
         "ops": 0,
-        "max_abs_err": max_abs_err(got, lane_gather.take_lanes_plain(mat,
-                                                                     perm)),
+        "max_abs_err": 0,
     }
-    require(same(got, sort_ops.take_cols(mat, perm64)),
-            "take_lanes differs from x[:, perm] at the main path's shape")
+    for name, p in (("sort", perm), ("merge", merge)):
+        p64 = p.long()
+        want = i32(mat)[:, p64]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = lane_gather.take_lanes(mat, p)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lane_gather._launch(mat, p, out, how)
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - base
+        require(same(got, u32(want)),
+                f"take_lanes differs from x[:, perm] ({name} permutation)")
+        res["max_abs_err"] = max(res["max_abs_err"], max_abs_err(
+            got, lane_gather.take_lanes_plain(mat, p)))
+        del got, want
+        own, lib, alt = in_turns(
+            lambda: lane_gather._launch(mat, p, out, how),
+            lambda: i32(mat)[:, p64],
+            lambda: lane_gather._launch(mat, p, out, other),
+            reps=reps, timer=device_ms)
+        t = {"ms": own, "library_ms": lib, f"{other}_ms": alt,
+             "call_ms": time_ms(lambda: lane_gather.take_lanes(mat, p),
+                                reps),
+             "peak_bytes": peak, "scratch_bytes": scratch}
+        if name == "sort":
+            res.update(t)
+        else:
+            res["merge"] = t
+        log(f"[times] K5 take_lanes [{rows}, {m}] {name} permutation: "
+            f"{how} {own:.3f} ms, torch indexing {lib:.3f} ms, {other} "
+            f"{alt:.3f} ms (device, in turns); wrapper call "
+            f"{t['call_ms']:.3f} ms; scratch {scratch} B, "
+            f"peak {peak} B")
+    res["plain_ms"] = time_ms(lambda: lane_gather.take_lanes_plain(mat, perm),
+                              1)
+    # the card's streaming rate in this run: x copied, read once, written
+    res["copy_ms"] = device_ms(lambda: out.copy_(mat), reps)
     torch.cuda.synchronize()
+    return res
+
+
+def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,
+                     probe_shapes=PROBE_SHAPES) -> list:
+    """K5's two designs in turns (device time) on random words by a random
+    permutation at [8, n] for each n of ``ns`` and at the probe's shapes:
+    the evidence for the small-shape rule (``lane_gather.SMALL_BYTES``)."""
+    gen = generator(SEED + 7, dev)
+    shapes = [(8, n) for n in ns]
+    shapes += [s for s in probe_shapes if s not in shapes]
+    res = []
+    for rows, n in shapes:
+        x = torch.randint(-(1 << 31), 1 << 31, (rows, n), dtype=torch.int32,
+                          generator=gen, device=dev).view(torch.uint32)
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        out = torch.empty_like(x)
+        direct, records = in_turns(
+            lambda: lane_gather._launch(x, perm, out, "direct"),
+            lambda: lane_gather._launch(x, perm, out, "records"),
+            reps=max(5, min(200, (1 << 24) // n)), timer=device_ms)
+        res.append({"rows": rows, "n": n, "x_bytes": rows * n * 4,
+                    "direct_ms": direct, "records_ms": records,
+                    "design": lane_gather.design(rows, n)})
+        log(f"[times] K5 sweep [{rows}, {n}] ({rows * n * 4} B of x): "
+            f"direct {direct:.4f} ms, records {records:.4f} ms; the rule "
+            f"takes {res[-1]['design']}")
     return res
 
 
@@ -744,8 +864,10 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
     times.update(time_cascade(mat4, tile, True, reps))
     ab = ab_slim(mat4, tile, reps)
     _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile)
-    times["take_lanes"] = time_take_lanes(mat8, perm, reps)
-    del mat8, mat4, perm
+    merge = merge_perm(sort_ops._packed_keys(list(keyr[:2]))[0])
+    times["take_lanes"] = time_take_lanes(mat8, perm, merge, reps)
+    del mat8, mat4, perm, merge
+    sweep = sweep_take_lanes(words.device)
     require(all(t["max_abs_err"] == 0 for t in times.values()),
             "a kernel differs from its plain version at the main path's "
             "shapes")
@@ -788,7 +910,8 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
         "tile": tile,
     }
     log("[times] cascades " + json.dumps(casc))
-    return {"kernels": times, "cascades": casc, "ab": ab}
+    return {"kernels": times, "cascades": casc, "ab": ab,
+            "take_lanes_sweep": sweep}
 
 
 def phase_profile(words: torch.Tensor, path: str) -> dict:
@@ -1558,6 +1681,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if name == "take_lanes":
+            kernels[-1].update({k: t[k] for k in (
+                "design", "call_ms", "direct_ms", "records_ms",
+                "scratch_bytes", "peak_bytes", "copy_ms", "merge")
+                if k in t})
         if name in ("merge_pass", "merge_partition"):
             kernels[-1]["merge_path_launches"] = merged["launches"][name]
             kernels[-1]["overlap_path_launches"] = \

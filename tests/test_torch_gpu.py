@@ -17,8 +17,8 @@ import torch
 
 from chip_smoke import (EDGE_CASES, EQUAL_RUN_CASES, SLIM_EDGE_CASES,
                         equal_runs)
-from port_helpers import (cuda_device, oracle, records,  # noqa: F401
-                          words)
+from port_helpers import (GATHER_NS, GATHER_ROWS, PERM_KINDS,  # noqa: F401
+                          cuda_device, gather_index, oracle, records, words)
 from uda_tpu_torch import interop
 from uda_tpu_torch.models import terasort as tts
 from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_sort
@@ -97,19 +97,39 @@ def test_merge_partition_matches_merge_splits(cuda_device, rows, nk, tb,
         run *= 2
 
 
-@pytest.mark.parametrize("rows,n", [(32, 2048), (8, 2048), (8, 512)])
-def test_take_lanes_matches_plain(cuda_device, rows, n):
-    """K5 at the probe's three shapes, against the plain version and the
-    probe's own oracle ``x[:, perm]``."""
+def _take_lanes_cases():
+    """The probe's three shapes, K5's record and tile edges with every kind
+    of index, a merge permutation and repeats past one tile, and both sides
+    of the small-shape rule (lane_gather.SMALL_BYTES)."""
+    cases = [(32, 2048, "random"), (8, 2048, "random"), (8, 512, "random")]
+    cases += [(rows, n, kind) for rows in GATHER_ROWS for n in GATHER_NS
+              for kind in PERM_KINDS]
+    cases += [(8, 1 << 16, "merge"), (26, 1 << 16, "repeated")]
+    edge = lane_gather.SMALL_BYTES // 32
+    cases += [(8, edge, "random"), (8, edge + 4, "random"),
+              (8, edge + 1, "merge")]
+    return cases
+
+
+@pytest.mark.parametrize("rows,n,kind", _take_lanes_cases())
+def test_take_lanes_matches_plain(cuda_device, rows, n, kind):
+    """K5 against the plain version and the probe's own oracle
+    ``x[:, perm]``, through the wrapper's design and through each design
+    launched on its own."""
     rng = np.random.default_rng(rows + n)
     x_np = rng.integers(0, 2**32, size=(rows, n), dtype=np.uint32)
-    perm_np = rng.permutation(n).astype(np.int32)
+    x_np[:, ::7] = np.uint32(0xFFFFFFFF)
+    perm_np = gather_index(kind, n, rows + n)
     x = _on_card(x_np, cuda_device)
     perm = torch.from_numpy(perm_np).to(cuda_device)
     got = lane_gather.take_lanes(x, perm)
     assert _same(got, lane_gather.take_lanes_plain(x, perm))
     np.testing.assert_array_equal(interop.words_to_numpy(got),
                                   x_np[:, perm_np])
+    for how in ("direct", "records"):
+        out = torch.full_like(x, 0x5A5A5A5A)
+        lane_gather._launch(x, perm, out, how)
+        assert _same(out, got), how
 
 
 @pytest.mark.parametrize("nk,n,tile,kind",
@@ -156,6 +176,21 @@ def test_launch_counts(cuda_device):
                                      "merge_pass_folded": 4}
 
 
+def test_take_lanes_counts_one_launch_a_call(cuda_device):
+    """K5 counts one launch per call in either design (the records
+    design's two passes are one launch of K5), none for an empty x."""
+    small = _on_card(words(4, 8, 512, 3), cuda_device)
+    large = _on_card(words(5, 8, lane_gather.SMALL_BYTES // 16, 3),
+                     cuda_device)
+    empty = torch.empty((8, 0), dtype=torch.uint32, device=cuda_device)
+    _build.reset_launches()
+    for x in (small, large, empty):
+        lane_gather.take_lanes(x, torch.arange(x.shape[1], dtype=torch.int32,
+                                               device=cuda_device))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"take_lanes": 2}
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = _on_card(words(2, 8, 1 << 14, 3), cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -183,6 +218,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                torch.tensor([0, 1, 2, 8, 4, 5, 6, 7],
                                             dtype=torch.int32,
                                             device=cuda_device))
+    with pytest.raises(IndexError, match=r"\[0, 8\)"):
+        lane_gather.take_lanes(x[:, :8].contiguous(),
+                               torch.tensor([0, 1, 2, -1, 4, 5, 6, 7],
+                                            dtype=torch.int32,
+                                            device=cuda_device))
+    tall = torch.zeros((lane_gather.MAX_ROWS + 1, 4), dtype=torch.uint32,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="at most 65535 rows"):
+        lane_gather.take_lanes(tall, torch.arange(4, dtype=torch.int32,
+                                                  device=cuda_device))
 
 
 @pytest.mark.parametrize("nk,tile", [(2, 16384), (7, 16384), (30, 4096)])

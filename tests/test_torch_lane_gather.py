@@ -1,7 +1,9 @@
 """The port's lane gather (uda_tpu_torch.ops.lane_gather, kernel K5) against
 the Pallas lowering probe it ports (scripts/probe_gather.py): the probe's
-own oracle ``x[:, perm]`` at its three shapes, and one interpret-mode run
-of its ``kern_take_along`` body. Tolerance 0: a gather moves words."""
+own oracle ``x[:, perm]`` at its three shapes, one interpret-mode run of
+its ``kern_take_along`` body, and the plain version's records
+decomposition against numpy's ``x[:, perm]`` at the edges of the kernel's
+tiles and records. Tolerance 0: a gather moves words."""
 
 import importlib.util
 from functools import partial
@@ -14,6 +16,8 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from port_helpers import (GATHER_NS, GATHER_ROWS, PERM_KINDS,
+                          gather_index)
 from uda_tpu_torch.ops import _build, lane_gather
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -97,3 +101,39 @@ def test_take_lanes_counts_no_launch_on_the_cpu():
     x, perm = _probe_inputs(8, 512)
     lane_gather.take_lanes(torch.from_numpy(x), torch.from_numpy(perm))
     assert _build.launches["take_lanes"] == 0
+
+
+@pytest.mark.parametrize("kind", PERM_KINDS)
+@pytest.mark.parametrize("n", GATHER_NS)
+@pytest.mark.parametrize("rows", GATHER_ROWS)
+def test_take_lanes_plain_records_match_numpy(rows, n, kind):
+    """The records decomposition (transpose into padded records, gather
+    records, transpose back) equals ``x[:, perm]`` for every record width
+    and tile edge, every kind of index, words >= 2^31 and all-ones."""
+    rng = np.random.default_rng(rows * 1000 + n)
+    x = rng.integers(0, 2**32, size=(rows, n), dtype=np.uint32)
+    x[:, ::7] = np.uint32(0xFFFFFFFF)
+    idx = gather_index(kind, n, rows + n)
+    xt, it = torch.from_numpy(x), torch.from_numpy(idx)
+    got = lane_gather.take_lanes_plain(xt, it)
+    assert got.dtype == torch.uint32 and got.shape == (rows, n)
+    np.testing.assert_array_equal(got.numpy(), x[:, idx])
+    np.testing.assert_array_equal(lane_gather.take_lanes(xt, it).numpy(),
+                                  x[:, idx])
+
+
+@pytest.mark.parametrize("rows,want", [(1, 4), (3, 4), (4, 4), (5, 8),
+                                       (8, 8), (26, 28), (33, 36)])
+def test_records_start_on_16_byte_boundaries(rows, want):
+    assert lane_gather.record_words(rows) == want
+
+
+def test_design_goes_by_the_bytes_of_x():
+    """The direct kernel up to SMALL_BYTES of x, the records design past
+    it; the probe's shapes and the main path's shape on either side."""
+    small = lane_gather.SMALL_BYTES
+    assert lane_gather.design(8, small // 32) == "direct"
+    assert lane_gather.design(8, small // 32 + 1) == "records"
+    assert lane_gather.design(1, small // 4) == "direct"
+    assert lane_gather.design(8, 1 << 27) == "records"
+    assert lane_gather.design(8, 0) == "direct"
