@@ -30,9 +30,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the partition kernel), then the same records through ``keys8f`` (K3,
    K4 and the partition kernel); each checked for order, multiset
    checksum and byte identity with the stable-sort yardstick, with the
-   launches of every kernel counted;
+   launches of every kernel counted; 4b: a temporary tune cache
+   (``UDA_TPU_TUNE_CACHE``, written by the port's ``TuneCache``) names
+   ``keys8f`` for the 10^8-row bucket (``gpu|rows27|lanes1``): "auto"
+   routes to it, one "auto" call equals the yardstick with K3 and K4
+   launched and K2 not, timed beside phase 4's calls; the cache is
+   cleared after;
 5. engines: all eight engines on 2^22 records give the same bytes, and
-   ``bench_step`` runs 2 rounds of ``keys8``;
+   ``bench_step`` runs 2 rounds of ``keys8``; the small-batch steering:
+   at 2^16 rows a cold cache's "auto" resolves to ``carrychunk``, timed
+   against ``keys8`` and ``keys8f`` at 2^16 and 2^19 rows (equal bytes);
 6. times, with CUDA events at the main path's shapes: each kernel (K1, K4
    and the partition kernel at each one's width per pass and summed over
    the cascade; K5 on the keys8 matrix by the main path's permutation and
@@ -62,18 +69,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (the overlapped merger: pipelined staging, auto stage pool, auto
    in-flight cap; runs copied from pinned leases on a copy stream and
    merged by K1 on a merge stream while later fetches are in flight),
-   under ``torch.profiler``; (b) the same with
-   ``uda.tpu.online.streaming=true``, spilling sorted runs under a
-   temporary directory; (c) ``uda.tpu.stage.pipeline=false`` on the first
-   16 maps; (d) the default and (e) streaming on a second tree, 64 maps
+   under ``torch.profiler``; (b) ``uda.tpu.online.streaming=true`` on the
+   first 16 maps (run c's), spilling sorted runs under a temporary
+   directory; (c) ``uda.tpu.stage.pipeline=false`` on the first 16 maps;
+   (d) the default and (e) streaming on a second tree, 64 maps
    of 1 MiB of Text records with values of 1 to 1000 bytes, beside one
    emission slab of them gathered by ``streaming._gather_spans`` and by a
    per-byte index (equal bytes, host ms of each). Each stream is hashed
    as it is emitted and must equal phase 8's stream (run c: the card's
    re-sort of its 16 maps; d, e: of their tree, framed) in sha256 and
-   length; K1 must launch one merge and one partition kernel per forest
-   merge (63 for 64 maps); the in-flight gauge must end at 0 and every
-   pinned lease go back, some reused;
+   length (run b: run c's digest); K1 must launch one merge and one
+   partition kernel per forest merge (63 for 64 maps); the in-flight gauge
+   must end at 0 and every pinned lease go back, some reused;
 10. admission: the rest of ``MergeManager.run`` on run c's 16 maps, each
    run with ``metrics`` and the launch counts reset just before and read
    just after, its stream hashed and held to run c's: (a) approach 2,
@@ -87,11 +94,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    adopts every run the manifest holds into K1's forest, fetches none of
    them and removes the checkpoint; (d) 2 maps at 1 KB chunks with every
    fourth fetch issue delayed 3 s: the 0.5 s watchdog ends the task in
-   ``FallbackSignal(StallError)`` within 3 s. The reduce modes the port
-   does not run yet (push, coded stripes, speculation, mid-partition
-   resume) raise ``ConfigError`` and are not driven.
+   ``FallbackSignal(StallError)`` within 3 s;
+11. survivable fetch: run c's 16 maps written again by
+   ``write_striped_map_output`` with ``rs:2:4`` over four supplier roots
+   h0-h3 (4 maps each, map m's primary on h(m % 4); the data region of
+   each ``file.out`` is the uncoded layout), each root behind its own
+   ``DataEngine`` and ``HostRoutingClient(lambda h: LocalFetchClient(...))``,
+   with ``metrics`` and the launch counts reset just before each run and
+   read just after: (a) h2 fails every fetch from the start, under
+   ``uda.tpu.coding.scheme=rs:2:4`` and ``uda.tpu.fetch.retries=1``: its 4
+   partitions are rebuilt from 2 shards each on the survivors, the
+   stream equals run c's, K1 launches 15 pairs, nothing falls back
+   (under ``torch.profiler``: idle share); (b) h0's 4 maps listed on the
+   replicas h0 and h1 (two engines over h0's root), h0's transport
+   holding every chunk 300 ms, ``uda.tpu.fetch.speculate.pn=95`` (floor
+   50 ms): speculation wins, beside the same 4 maps with speculation
+   off; (c) the same 4 maps with ``uda.tpu.fetch.resume=true``, one fetch
+   in flight and one ``data_engine.pread`` transport fault injected by
+   the failpoint registry mid-partition in each map: 4 resumes, no map's
+   offset 0 read twice (reads counted per map and offset). Runs b and c
+   equal the card's re-sort of those 4 maps. The one reduce mode the port
+   does not run yet (push) raises ``ConfigError`` and is not driven.
 
-The last two lines are one JSON object with a record per kernel and the
+Each phase's seconds are printed on a line of their own. The last two
+lines are one JSON object with a record per kernel and the
 contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -113,11 +139,14 @@ import torch
 
 from uda_tpu_torch import interop
 from uda_tpu_torch.device import generator
-from uda_tpu_torch.merger import LocalFetchClient, MergeManager, checkpoint
+from uda_tpu_torch.coding import parse_scheme
+from uda_tpu_torch.merger import (HostRoutingClient, LocalFetchClient,
+                                  MergeManager, checkpoint)
 from uda_tpu_torch.merger import streaming as stream_mod
 from uda_tpu_torch.merger.emitter import frame_batch
 from uda_tpu_torch.models import terasort
-from uda_tpu_torch.mofserver import DataEngine, DirIndexResolver, MOFWriter
+from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver, MOFWriter,
+                                     write_striped_map_output)
 from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_merge
 from uda_tpu_torch.ops import merge as merge_ops
 from uda_tpu_torch.ops import packing, pallas_sort
@@ -126,10 +155,11 @@ from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
 from uda_tpu_torch.utils.comparators import get_key_type
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils import vint
-from uda_tpu_torch.utils.errors import FallbackSignal
+from uda_tpu_torch.utils.errors import FallbackSignal, TransportError
 from uda_tpu_torch.utils.failpoints import failpoints
 from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, crack
 from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils import tuncache
 
 SEED = 0
 N_MAIN = 100_000_000       # BASELINE.md config 2: TeraSort 10 GB
@@ -231,6 +261,15 @@ VARLEN_MAX_VALUE = 1000
 # phase 10's hybrid merge: LPQs of 4 maps, 3 at a time
 HYBRID_LPQ_MAPS = 4
 HYBRID_PARALLEL = 3
+# phase 5's steering check (ops/sort.SMALL_BATCH_ROWS is 2^20)
+STEER_ROWS = (1 << 16, 1 << 19)
+# phase 11: run c's maps striped over four suppliers
+CODED_HOSTS = ("h0", "h1", "h2", "h3")
+CODED_SCHEME = "rs:2:4"
+CODED_DEAD = "h2"
+SPEC_HOLD_S = 0.3          # h0's hold on every chunk in run 11b
+SPEC_CONF = {"uda.tpu.fetch.speculate.pn": 95,
+             "uda.tpu.fetch.speculate.floor.ms": 50}
 
 
 def log(msg: str) -> None:
@@ -563,7 +602,89 @@ def phase_main(dev: torch.device, n: int = N_MAIN) -> tuple:
     return words, runs
 
 
+@contextlib.contextmanager
+def tune_cache_naming(engine: str, n: int, dev: torch.device):
+    """A temporary tune cache, the process default for the block
+    (``UDA_TPU_TUNE_CACHE``), whose winner for ``n`` rows of lanes-capable
+    callers on ``dev`` is ``engine``; the cold default is back after."""
+    key = (f"{sort_ops.cache_backend(dev)}|rows{tuncache.rows_bucket(n)}"
+           f"|lanes1")
+    saved_cache = tuncache.tune_cache
+    saved_env = os.environ.get("UDA_TPU_TUNE_CACHE")
+    with tempfile.TemporaryDirectory(prefix="uda_tune_") as d:
+        path = os.path.join(d, "tune.json")
+        tuncache.TuneCache(path).record("sort.engine", key,
+                                        {"engine": engine},
+                                        probe="chip_smoke phase 4b")
+        os.environ["UDA_TPU_TUNE_CACHE"] = path
+        tuncache.tune_cache = tuncache.TuneCache(
+            tuncache.cache_path_from_env())
+        try:
+            yield key
+        finally:
+            tuncache.tune_cache = saved_cache
+            if saved_env is None:
+                os.environ.pop("UDA_TPU_TUNE_CACHE", None)
+            else:
+                os.environ["UDA_TPU_TUNE_CACHE"] = saved_env
+
+
+def phase_tune_cache(words: torch.Tensor, runs: list) -> dict:
+    """Phase 4b: "auto" routed by a cached winner (keys8f) on the main
+    path's records, held to the yardstick; K3 and K4 launch and K2 does
+    not. Timed (CUDA events, in turns) against phase 4's explicit
+    engines."""
+    dev, n = words.device, int(words.shape[0])
+    reference = yardstick(words)
+    with tune_cache_naming("keys8f", n, dev) as key:
+        auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
+        require(auto == "keys8f",
+                f'"auto" under the cache {key} resolved to {auto!r}')
+        res = run_path(words, "auto", ("tile_sort_folded",
+                                       "merge_pass_folded",
+                                       "merge_partition"), reference)
+        require(res["launches"]["tile_sort"] == 0,
+                f"K2 launched under the cached keys8f: {res['launches']}")
+        hits = metrics.get("tune.cache.hits", domain="sort.engine")
+        call = {p: (lambda p=p: terasort.single_chip_sort(
+            words, path=p, device=dev)) for p in ("auto", "keys8f", "keys8")}
+        auto_ms, keys8f_ms, keys8_ms = in_turns(
+            call["auto"], call["keys8f"], call["keys8"], reps=2)
+    del reference
+    cold = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
+    require(cold == "keys8", f'"auto" after the cache resolved to {cold!r}')
+    out = {"key": key, "engine": auto, "launches": res["launches"],
+           "first_call_s": res["seconds"], "cache_hits": hits,
+           "auto_ms": auto_ms, "keys8f_ms": keys8f_ms, "keys8_ms": keys8_ms,
+           "phase4_first_call_s": {r["path"]: r["seconds"] for r in runs}}
+    log("[tune cache] " + json.dumps(out))
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
+def phase_steering(dev: torch.device) -> dict:
+    """At 2^16 rows a cold cache's "auto" is carrychunk on the card (the
+    reference's small-batch rule); the steered route is timed in turns
+    against keys8 and keys8f at each of STEER_ROWS, with equal bytes."""
+    out = {}
+    for n in STEER_ROWS:
+        words = terasort.teragen(generator(SEED + 7, dev), n)
+        auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
+        require(auto == "carrychunk",
+                f'"auto" at {n} rows resolved to {auto!r}, not carrychunk')
+        reference = yardstick(words)
+        call = {p: (lambda p=p: terasort.single_chip_sort(
+            words, path=p, device=dev)) for p in ("auto", "keys8",
+                                                  "keys8f")}
+        for p, fn in call.items():
+            require(same(fn(), reference), f"{p} at {n} rows differs")
+        ms = in_turns(call["auto"], call["keys8"], call["keys8f"], reps=10)
+        out[n] = {"auto": auto, "auto_ms": ms[0], "keys8_ms": ms[1],
+                  "keys8f_ms": ms[2]}
+    log("[steering] " + json.dumps(out))
+    return out
+
+
 def phase_engines(dev: torch.device, n: int = N_ENGINES) -> dict:
     words = terasort.teragen(generator(SEED + 2, dev), n)
     reference = yardstick(words)
@@ -992,15 +1113,22 @@ def write_mof_tree(root: str, parts: list, pairs: bool = False) -> list:
     writer = MOFWriter(root, MERGE_JOB)
     mids = []
     for m, rec in enumerate(parts):
-        mid = f"attempt_{MERGE_JOB}_m_{m:06d}_0"
-        if pairs:
-            writer.write(mid, [rec])
-        else:
-            flat = rec.tobytes()
-            writer.write(mid, [((flat[o + 2:o + 13], flat[o + 13:o + 104])
-                                for o in range(0, len(flat), TERA_RECORD))])
+        mid = map_id(m)
+        writer.write(mid, [rec if pairs else record_pairs(rec)])
         mids.append(mid)
     return mids
+
+
+def map_id(m: int) -> str:
+    return f"attempt_{MERGE_JOB}_m_{m:06d}_0"
+
+
+def record_pairs(rec: np.ndarray):
+    """The (key, value) pairs, in their Text form, of framed TeraSort
+    records."""
+    flat = rec.tobytes()
+    return ((flat[o + 2:o + 13], flat[o + 13:o + 104])
+            for o in range(0, len(flat), TERA_RECORD))
 
 
 def tera_batch(rec: np.ndarray) -> RecordBatch:
@@ -1229,6 +1357,7 @@ def overlap_run(dev: torch.device, root: str, mids: list, part_bytes: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         metrics.reset()
+        metrics.enable_stats()   # the run's histograms below
         _build.reset_launches()
         ctx = (profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
@@ -1391,54 +1520,72 @@ def phase_varlen(dev: torch.device, spill: str) -> dict:
 
 def phase_overlap(dev: torch.device, root: str, mids: list, parts: list,
                   merged: dict, c_maps: int = OVERLAP_C_MAPS) -> dict:
+    """Runs a (64 maps, held to phase 8's stream), b and c (run c's first
+    16 maps, held to the card's re-sort of them) and the variable-length
+    runs d, e."""
     part_bytes = sum(p.nbytes + 2 for p in parts)
     want = (merged["sha256"], merged["stream_bytes"])
+    sub = parts[:c_maps]
+    sub_bytes = sum(p.nbytes + 2 for p in sub)
+    want_c = resort_digest(sub, dev)
     with tempfile.TemporaryDirectory(prefix="uda_spill_") as spill:
         runs = {
             "a": overlap_run(dev, root, mids, part_bytes, {}, want,
                              "a default", profiled=True),
-            "b": overlap_run(dev, root, mids, part_bytes,
+            "b": overlap_run(dev, root, mids[:c_maps], sub_bytes,
                              {"uda.tpu.online.streaming": True,
-                              "uda.tpu.spill.dirs": spill}, want,
+                              "uda.tpu.spill.dirs": spill}, want_c,
                              "b streaming"),
         }
         runs.update(phase_varlen(dev, spill))
         require(not os.listdir(spill), "the run store left files behind")
-    sub = parts[:c_maps]
-    runs["c"] = overlap_run(dev, root, mids[:c_maps],
-                            sum(p.nbytes + 2 for p in sub),
-                            {"uda.tpu.stage.pipeline": False},
-                            resort_digest(sub, dev), "c pipeline off")
+    runs["c"] = overlap_run(dev, root, mids[:c_maps], sub_bytes,
+                            {"uda.tpu.stage.pipeline": False}, want_c,
+                            "c pipeline off")
     return runs
 
 
 # --------------------------------------------------------------- phase 10
-class CountingClient(LocalFetchClient):
-    """LocalFetchClient that counts ``start_fetch`` calls per map: the
-    probe of the zero-fetch checks (the hard ceiling, the resume)."""
+class CountingEngine(DataEngine):
+    """A DataEngine that counts its reads per (map, offset): the probe of
+    the zero-fetch checks (the hard ceiling, the checkpoint's resume) and
+    of the mid-partition resume (no offset 0 read twice)."""
 
-    def __init__(self, engine):
-        super().__init__(engine)
-        self.fetches: dict = {}
-        self._count_lock = threading.Lock()
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.reads: dict = {}
+        self._reads_lock = threading.Lock()
 
-    def start_fetch(self, req, on_complete):
-        with self._count_lock:
-            self.fetches[req.map_id] = self.fetches.get(req.map_id, 0) + 1
-        super().start_fetch(req, on_complete)
+    def submit(self, req):
+        with self._reads_lock:
+            key = (req.map_id, req.offset)
+            self.reads[key] = self.reads.get(key, 0) + 1
+        return super().submit(req)
+
+    @property
+    def fetches(self) -> dict:
+        """Reads per map."""
+        out: dict = {}
+        with self._reads_lock:
+            for (mid, _), n in self.reads.items():
+                out[mid] = out.get(mid, 0) + n
+        return out
 
 
-def task_run(dev: torch.device, root: str, mids: list, conf: dict,
-             name: str, fault: str = "") -> dict:
-    """One ``MergeManager.run`` over ``mids`` with ``fault`` armed in the
-    port's failpoint registry, ``metrics`` and the launch counts reset
-    just before and read just after; the stream is hashed as it is
-    emitted. Returns the run's record: its stream (sha256, length) or the
-    FallbackSignal it ended in, wall, launches, peak memory, the metrics
-    snapshot, the manager and the client."""
+def drive_task(dev: torch.device, client, engines: list, entries: list,
+               conf: dict, name: str, fault: str = "",
+               profiled: bool = False) -> dict:
+    """One ``MergeManager.run`` over ``entries`` through ``client`` with
+    ``fault`` armed in the port's failpoint registry, ``metrics`` and the
+    launch counts reset just before and read just after; the stream is
+    hashed as it is emitted; ``engines`` are stopped after. Returns the
+    run's record: its stream (sha256, length) or the FallbackSignal it
+    ended in, wall, launches, peak memory, the metrics snapshot and the
+    manager; with ``profiled`` (``torch.profiler``) the device's busy ms
+    and idle share too."""
+    from torch.profiler import ProfilerActivity, profile
+
     cfg = Config(conf)
-    engine = DataEngine(DirIndexResolver(root), cfg)
-    client = CountingClient(engine)
     digest = hashlib.sha256()
     length = 0
 
@@ -1454,10 +1601,13 @@ def task_run(dev: torch.device, root: str, mids: list, conf: dict,
         torch.cuda.reset_peak_memory_stats()
         metrics.reset()
         _build.reset_launches()
-        with failpoints.scoped(fault):
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        with failpoints.scoped(fault), ctx as prof:
             t0 = time.perf_counter()
             try:
-                mm.run(MERGE_JOB, mids, 0, consumer)
+                mm.run(MERGE_JOB, entries, 0, consumer)
             except FallbackSignal as e:
                 error = e
             torch.cuda.synchronize()
@@ -1465,11 +1615,28 @@ def task_run(dev: torch.device, root: str, mids: list, conf: dict,
         counts = {k: _build.launches[k] for k in KERNELS}
         peak = torch.cuda.max_memory_allocated()
     finally:
-        engine.stop()
-    return {"run": name, "wall_s": wall, "launches": counts,
-            "peak_bytes": peak, "sha256": digest.hexdigest(),
-            "stream_bytes": length, "error": error, "mm": mm,
-            "client": client, "metrics": metrics.snapshot()}
+        for e in engines:
+            e.stop()
+    res = {"run": name, "wall_s": wall, "launches": counts,
+           "peak_bytes": peak, "sha256": digest.hexdigest(),
+           "stream_bytes": length, "error": error, "mm": mm,
+           "metrics": metrics.snapshot()}
+    if profiled:
+        by_name, busy = device_time(prof)
+        res.update(device_busy_ms=busy, idle_share=(
+            1.0 - busy / (wall * 1e3) if by_name else None))
+    return res
+
+
+def task_run(dev: torch.device, root: str, mids: list, conf: dict,
+             name: str, fault: str = "") -> dict:
+    """``drive_task`` over ``mids`` through a LocalFetchClient of a
+    CountingEngine over ``root`` (the record's ``engine``)."""
+    engine = CountingEngine(DirIndexResolver(root), Config(conf))
+    res = drive_task(dev, LocalFetchClient(engine), [engine], mids, conf,
+                     name, fault)
+    res["engine"] = engine
+    return res
 
 
 def _report(res: dict, part_bytes: int, keys=()) -> dict:
@@ -1558,9 +1725,9 @@ def phase_admission(dev: torch.device, root: str, mids: list,
                        "b3 auto over the hard ceiling")
         adm = res["mm"].last_admission
         require(res["error"] is not None and adm.rejected
-                and adm.cause == "hard" and not res["client"].fetches,
+                and adm.cause == "hard" and not res["engine"].fetches,
                 f"[admission b3] {res['error']!r}, {adm}, fetches "
-                f"{res['client'].fetches}")
+                f"{res['engine'].fetches}")
         runs["b3"] = _report(res, part_bytes)
         require(not os.listdir(spill), "the run store left files behind")
     # (c) a checkpointed streaming task dies on its last map; the retry
@@ -1584,7 +1751,7 @@ def phase_admission(dev: torch.device, root: str, mids: list,
         _require_stream(res, want)
         snap = res["metrics"]
         adopted = int(snap.get("ckpt.runs.adopted", 0))
-        fetched = res["client"].fetches
+        fetched = res["engine"].fetches
         require(snap.get("ckpt.resumed", 0) == 1
                 and adopted == len(saved) >= 1,
                 f"[admission c2] resumed {snap.get('ckpt.resumed', 0)}, "
@@ -1615,6 +1782,175 @@ def phase_admission(dev: torch.device, root: str, mids: list,
     return runs
 
 
+# --------------------------------------------------------------- phase 11
+def write_striped_tree(roots: list, parts: list) -> list:
+    """Map m's records written by ``write_striped_map_output`` with
+    CODED_SCHEME, its primary on ``roots[m % len(roots)]`` (one reduce
+    partition each); returns the ``(host, map id)`` entries."""
+    scheme = parse_scheme(CODED_SCHEME)
+    entries = []
+    for m, rec in enumerate(parts):
+        write_striped_map_output(roots, m % len(roots), MERGE_JOB, map_id(m),
+                                 [record_pairs(rec)], scheme)
+        entries.append((CODED_HOSTS[m % len(roots)], map_id(m)))
+    return entries
+
+
+class DeadClient(LocalFetchClient):
+    """A supplier that answers every fetch with a transport fault,
+    delivered late as a dead host's dial failure is."""
+
+    def start_fetch(self, req, on_complete):
+        t = threading.Timer(0.002, on_complete, args=(
+            TransportError(f"supplier {req.host} down ({req.map_id})"),))
+        t.daemon = True
+        t.start()
+
+
+class HeldClient(LocalFetchClient):
+    """A straggling supplier: every completion is held ``hold_s``."""
+
+    def __init__(self, engine, hold_s: float):
+        super().__init__(engine)
+        self.hold_s = hold_s
+
+    def start_fetch(self, req, on_complete):
+        def held(res):
+            t = threading.Timer(self.hold_s, on_complete, args=(res,))
+            t.daemon = True
+            t.start()
+
+        super().start_fetch(req, held)
+
+
+def _coded_report(res: dict, part_bytes: int, keys: tuple, want: tuple,
+                  extra: dict) -> dict:
+    require(res["error"] is None,
+            f"[coded {res['run']}] ended in {res['error']!r}")
+    require((res["sha256"], res["stream_bytes"]) == want,
+            f"[coded {res['run']}] the stream differs from its digest: "
+            f"{res['stream_bytes']} B, sha256 {res['sha256']}")
+    out = {k: res[k] for k in ("run", "wall_s", "launches", "peak_bytes",
+                               "sha256", "stream_bytes")}
+    out["mb_per_s"] = part_bytes / res["wall_s"] / 1e6
+    out.update({k: res["metrics"].get(k, 0.0) for k in keys})
+    for k in ("idle_share", "device_busy_ms"):
+        if k in res:
+            out[k] = res[k]
+    out.update(extra)
+    log(f"[coded {res['run']}] " + json.dumps(out))
+    return out
+
+
+def phase_coded(dev: torch.device, parts: list, want: tuple,
+                run_c_wall: float) -> dict:
+    """Phase 11 on run c's maps (``parts``, whose stream must equal
+    ``want``, run c's (sha256, length)): (a) a dead supplier under rs:2:4;
+    (b) speculation against a straggling replica, beside the same maps
+    with speculation off; (c) a resumed fetch in every map."""
+    k1 = ("merge_pass", "merge_partition")
+    runs: dict = {}
+    part_bytes = sum(p.nbytes + 2 for p in parts)
+    # the maps whose primary is h0 (b, c): their own digest
+    own = list(range(0, len(parts), len(CODED_HOSTS)))
+    sub = [parts[i] for i in own]
+    sub_bytes = sum(p.nbytes + 2 for p in sub)
+    want_sub = resort_digest(sub, dev)
+    with tempfile.TemporaryDirectory(prefix="uda_coded_") as tree:
+        roots = [os.path.join(tree, h) for h in CODED_HOSTS]
+        t0 = time.perf_counter()
+        entries = write_striped_tree(roots, parts)
+        log(f"[coded] {len(parts)} maps written by write_striped_map_output"
+            f" ({CODED_SCHEME}, {len(roots)} roots) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) one supplier dead from the start
+        conf = {"uda.tpu.coding.scheme": CODED_SCHEME,
+                "uda.tpu.fetch.retries": 1}
+        engines = [DataEngine(DirIndexResolver(r), Config(conf))
+                   for r in roots]
+        clients = {h: (DeadClient if h == CODED_DEAD else LocalFetchClient)(e)
+                   for h, e in zip(CODED_HOSTS, engines)}
+        res = drive_task(dev, HostRoutingClient(clients.__getitem__),
+                         engines, entries, conf, "a dead h2", profiled=True)
+        lost = sum(1 for h, _ in entries if h == CODED_DEAD)
+        snap = res["metrics"]
+        require(snap.get("coding.reconstructed.partitions", 0) == lost
+                and snap.get("coding.shard.fetches", 0) >= 2 * lost
+                and snap.get("fallback.signals", 0) == 0,
+                f"[coded a] reconstructed "
+                f"{snap.get('coding.reconstructed.partitions', 0)} of "
+                f"{lost}, {snap.get('coding.shard.fetches', 0)} shard "
+                f"fetches, {snap.get('fallback.signals', 0)} fallbacks")
+        require(all(res["launches"][k] == len(parts) - 1 for k in k1),
+                f"[coded a] K1 launched {res['launches']}")
+        runs["a"] = _coded_report(
+            res, part_bytes, ("coding.reconstructed.partitions",
+                              "coding.reconstructed.bytes",
+                              "coding.shard.fetches", "fetch.retries",
+                              "fallback.signals", "fetch_time",
+                              "merge_time"), want,
+            {"run_c_wall_s": run_c_wall})
+
+        # (b) speculation against h0 holding every chunk, then the same
+        # maps with speculation off (the slow run, capped at these maps)
+        replicas = [([CODED_HOSTS[0], CODED_HOSTS[1]], entries[i][1])
+                    for i in own]
+        walls = {}
+        for name, conf in (("b speculation", SPEC_CONF),
+                           ("b speculation off", {})):
+            engines = [DataEngine(DirIndexResolver(roots[0]), Config(conf))
+                       for _ in range(2)]
+            clients = {CODED_HOSTS[0]: HeldClient(engines[0], SPEC_HOLD_S),
+                       CODED_HOSTS[1]: LocalFetchClient(engines[1])}
+            res = drive_task(dev, HostRoutingClient(clients.__getitem__),
+                             engines, replicas, conf, name)
+            walls[name] = res["wall_s"]
+            snap = res["metrics"]
+            if conf:
+                require(snap.get("fetch.speculated", 0) >= 1
+                        and snap.get("fetch.speculation.won", 0) >= 1,
+                        f"[coded b] speculated "
+                        f"{snap.get('fetch.speculated', 0)}, won "
+                        f"{snap.get('fetch.speculation.won', 0)}")
+            runs[name] = _coded_report(
+                res, sub_bytes, ("fetch.speculated", "fetch.speculation.won",
+                                 "fetch.speculation.lost",
+                                 "fetch.stale_completions", "fetch_time"),
+                want_sub, {})
+        runs["b speculation"]["off_wall_s"] = walls["b speculation off"]
+
+        # (c) resume: one fetch in flight, so the every-N-th read of the
+        # task falls mid-partition once in each map (N = a map's chunks)
+        conf = {"uda.tpu.fetch.resume": True, "mapred.rdma.wqe.per.conn": 1}
+        engine = CountingEngine(DirIndexResolver(roots[0]), Config(conf))
+        rec = engine.resolver.resolve(MERGE_JOB, entries[own[0]][1], 0)
+        chunk = int(Config(conf).get("mapred.rdma.buf.size")) * 1024
+        chunks = -(-rec.part_length // chunk)
+        # map i's fault falls on its (chunks - i + 1)-th read: mid-partition
+        # for every map while the maps are fewer than a map's chunks
+        require(chunks > len(own), f"[coded c] {chunks} chunks a map is "
+                                   f"too few for {len(own)} maps")
+        res = drive_task(dev, HostRoutingClient(
+            {CODED_HOSTS[0]: LocalFetchClient(engine)}.__getitem__),
+            [engine], [entries[i] for i in own], conf, "c resume",
+            fault=f"data_engine.pread=error:transport:every:{chunks}")
+        snap = res["metrics"]
+        again = {m: n for (m, off), n in engine.reads.items()
+                 if off == 0 and n != 1}
+        require(snap.get("fetch.resumed", 0) == len(own)
+                and snap.get("fetch.resumed.bytes", 0) > 0 and not again,
+                f"[coded c] resumed {snap.get('fetch.resumed', 0)} times "
+                f"({snap.get('fetch.resumed.bytes', 0)} B); offset 0 read "
+                f"again in {again}")
+        runs["c"] = _coded_report(
+            res, sub_bytes, ("fetch.resumed", "fetch.resumed.bytes",
+                             "fetch.retries", "failpoint.data_engine.pread"),
+            want_sub, {"chunks_per_map": chunks,
+                       "reads": sum(engine.reads.values())})
+    return runs
+
+
 def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
                           map_bytes: int = MERGE_MAP_BYTES) -> dict:
     """Phase 10 on its own: the first ``maps`` maps of phase 8's tree,
@@ -1630,7 +1966,8 @@ def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
 def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
                  map_bytes: int = MERGE_MAP_BYTES, reps: int = TIMED_REPS,
                  c_maps: int = OVERLAP_C_MAPS) -> tuple:
-    """Phases 8, 9 and 10 on one MOF tree: the tree is written once."""
+    """Phases 8, 9 and 10 on one MOF tree (the tree is written once), then
+    phase 11 on run c's maps striped over four roots."""
     t0 = time.perf_counter()
     parts = tera_partitions(SEED + 3, maps, map_bytes)
     with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
@@ -1647,7 +1984,19 @@ def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
             dev, root, mids[:c_maps],
             sum(p.nbytes + 2 for p in parts[:c_maps]),
             (overlap["c"]["sha256"], overlap["c"]["stream_bytes"]))
-    return merged, overlap, admission
+    log(f"[phase 10] {time.perf_counter() - t0:.1f} s since phase 8 began")
+    coded = phase_coded(dev, parts[:c_maps],
+                        (overlap["c"]["sha256"], overlap["c"]["stream_bytes"]),
+                        overlap["c"]["wall_s"])
+    return merged, overlap, admission, coded
+
+
+@contextlib.contextmanager
+def phase_seconds(name: str):
+    """Prints the seconds a phase took, on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[seconds] phase {name}: {time.perf_counter() - t0:.1f}")
 
 
 def main() -> int:
@@ -1655,17 +2004,29 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    info = phase_device()
-    phase_build()
-    phase_kernels(dev)
-    words, runs = phase_main(dev)
-    phase_engines(dev)
-    timed = phase_times(words)
-    for path in ("auto", "keys8f"):
-        phase_profile(words, path)
+    t0 = time.perf_counter()
+    with phase_seconds("1 device"):
+        info = phase_device()
+    with phase_seconds("2 build"):
+        phase_build()
+    with phase_seconds("3 kernels"):
+        phase_kernels(dev)
+    with phase_seconds("4 main path"):
+        words, runs = phase_main(dev)
+    with phase_seconds("4b tune cache"):
+        phase_tune_cache(words, runs)
+    with phase_seconds("5 engines and steering"):
+        phase_engines(dev)
+        phase_steering(dev)
+    with phase_seconds("6 times"):
+        timed = phase_times(words)
+    with phase_seconds("7 profile"):
+        for path in ("auto", "keys8f"):
+            phase_profile(words, path)
     del words
     torch.cuda.empty_cache()
-    merged, overlap, admission = phase_reduce(dev)
+    with phase_seconds("8-11 reduce"):
+        merged, overlap, admission, coded = phase_reduce(dev)
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -1694,8 +2055,12 @@ def main() -> int:
                 admission["a"]["launches"][name]
             kernels[-1]["resume_path_launches"] = \
                 admission["c2"]["launches"][name]
+            kernels[-1]["coded_path_launches"] = {
+                k: coded[k]["launches"][name]
+                for k in ("a", "b speculation", "c")}
     log(f"[main] peak memory: " + ", ".join(
         f"{r['path']} {r['peak_bytes']} B" for r in runs))
+    log(f"[seconds] whole run: {time.perf_counter() - t0:.1f}")
     log(info["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -429,6 +429,7 @@ def test_overlap_merger_on_the_card_matches_the_cpu(cuda_device, pipeline):
     streams = {}
     for dev, engine in (("cpu", "host"), ("cuda", "auto")):
         metrics.reset()
+        metrics.enable_stats()   # the put_ms histogram read below
         _build.reset_launches()
         om = OverlappedMerger(kt, 16, engine=engine, pipeline=pipeline,
                               stagers=3, inflight_bytes=1 << 20, device=dev)
@@ -498,12 +499,18 @@ def test_auto_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path,
 
 def test_resumed_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     """A streaming task with a checkpoint dies on a lost map; the retry on
-    the card adopts the spooled runs into K1's forest (launches K1), fetches
-    none of them again, and emits the bytes of an uninterrupted run on the
-    CPU."""
+    the card adopts the runs the checkpoint's manifest holds into K1's
+    forest (launches K1), fetches none of them again, and emits the bytes
+    of an uninterrupted run on the CPU. The map is lost only once the
+    manifest holds a run, and the adopted maps are read from the newest
+    manifest: a run spooled while the first attempt was being torn down
+    may miss its snapshot (saves skip rather than queue), and is fetched
+    again by design."""
     import threading
+    import time
 
     from uda_tpu_torch.merger import LocalFetchClient, MergeManager
+    from uda_tpu_torch.merger.checkpoint import TaskCheckpoint
     from uda_tpu_torch.mofserver import DataEngine, DirIndexResolver
     from uda_tpu_torch.utils.config import Config
     from uda_tpu_torch.utils.errors import FallbackSignal, TransportError
@@ -514,6 +521,13 @@ def test_resumed_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
             "uda.tpu.ckpt.interval.s": 0.0, "uda.tpu.fetch.retries": 0,
             "mapred.rdma.buf.size": 1}
     fetched = []
+    ck = TaskCheckpoint(str(tmp_path / "ck"), "job", 0)
+
+    def saved() -> set:
+        """The maps whose runs the newest manifest holds."""
+        newest = ck._manifests()[:1]
+        man = TaskCheckpoint._read_manifest(newest[0][1]) if newest else None
+        return {r["map"] for r in ((man or {}).get("runs") or {}).values()}
 
     class Client(LocalFetchClient):
         bad = None
@@ -521,8 +535,12 @@ def test_resumed_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         def start_fetch(self, req, on_complete):
             fetched.append(req.map_id)
             if req.map_id == self.bad:
-                threading.Timer(0.3, on_complete, args=(
-                    TransportError("lost"),)).start()
+                def lose():
+                    deadline = time.monotonic() + 60.0
+                    while not saved() and time.monotonic() < deadline:
+                        time.sleep(0.01)
+                    on_complete(TransportError("lost"))
+                threading.Thread(target=lose, daemon=True).start()
                 return
             super().start_fetch(req, on_complete)
 
@@ -543,7 +561,8 @@ def test_resumed_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     with pytest.raises(FallbackSignal):
         attempt(mids[-1])
     runs = sorted((tmp_path / "ck" / "job.r0" / "runs").glob("*.ifile"))
-    assert runs
+    adopted = saved()
+    assert runs and adopted and mids[-1] not in adopted
     fetched.clear()
     out, launches = attempt(None)
     want, _ = _reduce_on("cpu", tmp_path, mids,
@@ -551,6 +570,52 @@ def test_resumed_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                           "uda.tpu.spill.dirs": str(tmp_path / "spill")})
     assert out == want
     assert launches["merge_pass"] == 5
-    adopted = [mids[int(p.stem.split("-")[1])] for p in runs]
-    assert not set(adopted) & set(fetched)
+    assert not adopted & set(fetched)
+    assert mids[-1] in fetched
     assert not (tmp_path / "ck" / "job.r0").exists()
+
+
+def test_dead_supplier_reduce_on_the_card_matches_the_cpu(cuda_device,
+                                                          tmp_path):
+    """rs:2:4 over four suppliers, h2 dead from the start, 4 maps x 256
+    KiB of TeraSort records: on the card the partition on h2 is rebuilt
+    from two shards on the survivors, K1 merges the forest (3 launch
+    pairs), and the stream is the bytes of the same task on the CPU."""
+    from chip_smoke import (CODED_DEAD, CODED_HOSTS, DeadClient, SEED,
+                            tera_partitions, write_striped_tree)
+    from uda_tpu_torch.merger import (HostRoutingClient, LocalFetchClient,
+                                      MergeManager)
+    from uda_tpu_torch.mofserver import DataEngine, DirIndexResolver
+    from uda_tpu_torch.utils.config import Config
+    from uda_tpu_torch.utils.metrics import metrics
+
+    parts = tera_partitions(SEED + 3, 4, 256 << 10)
+    roots = [str(tmp_path / h) for h in CODED_HOSTS]
+    entries = write_striped_tree(roots, parts)
+    conf = {"uda.tpu.coding.scheme": "rs:2:4", "uda.tpu.fetch.retries": 1}
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        engines = [DataEngine(DirIndexResolver(r), Config(conf))
+                   for r in roots]
+        clients = {h: (DeadClient if h == CODED_DEAD else LocalFetchClient)(e)
+                   for h, e in zip(CODED_HOSTS, engines)}
+        out = bytearray()
+        metrics.reset()
+        _build.reset_launches()
+        try:
+            MergeManager(HostRoutingClient(clients.__getitem__),
+                         "org.apache.hadoop.io.Text", Config(conf),
+                         device=dev).run("terasort", entries, 0, out.extend)
+            torch.cuda.synchronize()
+        finally:
+            for e in engines:
+                e.stop()
+        streams[dev] = (bytes(out), dict(_build.launches),
+                        metrics.get("coding.reconstructed.partitions"),
+                        metrics.get("fallback.signals"))
+    assert streams["cuda"][0] == streams["cpu"][0]
+    assert len(streams["cuda"][0]) == sum(p.nbytes for p in parts) + 2
+    assert streams["cuda"][1]["merge_pass"] == 3
+    assert streams["cuda"][1]["merge_partition"] == 3
+    assert streams["cuda"][2] == streams["cpu"][2] == 1
+    assert streams["cuda"][3] == streams["cpu"][3] == 0

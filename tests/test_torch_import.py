@@ -48,7 +48,10 @@ def test_imports_with_jax_and_uda_tpu_blocked():
             "uda_tpu_torch.utils.budget", "uda_tpu_torch.merger.hybrid",
             "uda_tpu_torch.merger.checkpoint",
             "uda_tpu_torch.utils.failpoints",
-            "uda_tpu_torch.utils.watchdog"} <= set(MODULES)
+            "uda_tpu_torch.utils.watchdog", "uda_tpu_torch.coding",
+            "uda_tpu_torch.coding.gf256", "uda_tpu_torch.coding.rs",
+            "uda_tpu_torch.coding.recovery", "uda_tpu_torch.coding.scrub",
+            "uda_tpu_torch.utils.tuncache"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

@@ -5,10 +5,10 @@ the default Config (the overlapped merger, pipelined staging), with the
 pipeline off, in streaming mode and with ``uda.tpu.merge.overlap=false``
 across ``uda.tpu.merge.two_phase``; at 1 KB fetch chunks (records split
 across chunks), three key types, keys past the width, empty partitions,
-fetch faults and retries. Configs asking for a mode the port does not
-have (push, coded stripes, speculation, mid-partition resume) raise; the
-other approaches, checkpoints, failpoints and the watchdog have test files
-of their own."""
+fetch faults and retries. A Config asking for push, the one mode the port
+does not have, raises; the survivable fetch (coded stripes, speculation,
+mid-partition resume), the other approaches, checkpoints, failpoints and
+the watchdog have test files of their own."""
 
 import os
 
@@ -201,9 +201,16 @@ def test_a_fetch_that_always_fails_ends_in_fallback_in_both(tmp_path):
     ("uda.tpu.fetch.speculate.pn", 95),
 ])
 def test_unported_modes_raise_config_error(tmp_path, key, value):
+    """Push is still refused, naming its key and module; the three
+    survivable-fetch keys are ported and run to the reference's stream."""
     mids = text_tree(str(tmp_path), "job", 1, 5, seed=15)
     conf = dict(BASE, **{key: value})
-    with pytest.raises(errors.ConfigError, match=key.replace(".", r"\.")):
+    if key != "uda.tpu.push.enable":
+        assert port_run(str(tmp_path), mids, TEXT, conf) == \
+            reference_run(str(tmp_path), mids, TEXT, conf)
+        return
+    with pytest.raises(errors.ConfigError,
+                       match=r"uda\.tpu\.push\.enable.*uda_tpu/net/push\.py"):
         port_run(str(tmp_path), mids, TEXT, conf)
 
 

@@ -14,6 +14,7 @@ from uda_tpu_torch.device import generator
 from uda_tpu_torch.models import terasort as tts
 from uda_tpu_torch.ops import pallas_sort as tps
 from uda_tpu_torch.ops import sort as tsort
+from uda_tpu_torch.utils import tuncache
 
 ENGINES = tsort.ALL_SORT_PATHS + ("auto",)
 
@@ -136,13 +137,22 @@ def test_validate_sorted_catches_faults():
 
 
 def test_auto_resolves_per_device(monkeypatch):
+    """A cold tune cache: "auto" is carry on the CPU at any size, keys8
+    (gather for a lanes-incapable caller) on the card from
+    SMALL_BATCH_ROWS up, and carrychunk on the card below it."""
     monkeypatch.setattr(tsort, "DEPLOYED_SORT_PATH", "")
-    assert tsort.route_engine(10, "auto", lanes_ok=True, device="cpu") \
-        == "carry"
+    monkeypatch.setattr(tuncache, "tune_cache", tuncache.TuneCache(""))
+    big = tsort.SMALL_BATCH_ROWS
+    for n in (10, big):
+        assert tsort.route_engine(n, "auto", lanes_ok=True,
+                                  device="cpu") == "carry"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert tsort.route_engine(10, "auto", lanes_ok=True, device="cuda") \
+    assert tsort.route_engine(big, "auto", lanes_ok=True, device="cuda") \
         == "keys8"
-    assert tsort.route_engine(10, "auto", device="cuda") == "gather"
+    assert tsort.route_engine(big, "auto", device="cuda") == "gather"
+    assert tsort.route_engine(10, "auto", lanes_ok=True, device="cuda") \
+        == "carrychunk"
+    assert tsort.route_engine(10, "auto", device="cuda") == "carrychunk"
     assert tsort.route_engine(10, "lanes", lanes_ok=True,
                               device="cuda") == "lanes"
     with pytest.raises(ValueError, match="unknown sort path"):

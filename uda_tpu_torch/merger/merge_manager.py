@@ -34,6 +34,15 @@ The port's copy of ``uda_tpu/merger/merge_manager.py``'s ``run``: every
 ``FallbackSignal(StallError)``; ``uda.tpu.failpoints`` arms the port's
 failpoint registry (``utils/failpoints.py``).
 
+The fetch survives a bad supplier as the reference's does: every segment
+shares the task's recovery ledger and climbs its ladder
+(``merger/segment.Segment``): ``uda.tpu.fetch.speculate.pn`` issues a
+duplicate fetch against a straggler (to a replica where the map entry
+lists several hosts), ``uda.tpu.fetch.resume`` keeps the offset ledger
+across a transport retry, and ``uda.tpu.coding.scheme=rs:k:n`` rebuilds a
+partition whose primary stays dead from any k of its stripe's n chunks
+(``coding/recovery``).
+
 Equivalent of the reference's MergeManager (reference
 src/Merger/MergeManager.cc): the fetch phase issues per-map fetch requests
 in a seeded random order with a bounded in-flight window (the reference
@@ -42,10 +51,9 @@ fetches with RDMA credits); the merge phase produces the globally sorted
 stream on the device and hands it to the consumer in
 staging-buffer-sized IFile-framed blocks (MergeManager.cc:155-182).
 
-Modes the port does not have yet raise :class:`ConfigError` naming the key
-and the missing module at construction, and never quietly take another
-path: ``uda.tpu.push.enable``, ``uda.tpu.coding.scheme``,
-``uda.tpu.fetch.speculate.pn`` and ``uda.tpu.fetch.resume``. On the card a
+A mode the port does not have yet raises :class:`ConfigError` naming the
+key and the missing module at construction, and never quietly takes
+another path: ``uda.tpu.push.enable``. On the card a
 ``uda.tpu.key.width`` above 112 bytes is refused at construction too
 wherever K1 would merge (its rows hold at most 31 words), and left to the
 whole re-sort where it would not. The resume path's revalidation of
@@ -63,6 +71,8 @@ import time
 from collections import deque
 from typing import Callable, Iterator, Optional, Sequence
 
+from uda_tpu_torch.coding import parse_domains, parse_scheme
+from uda_tpu_torch.coding.recovery import StripeContext
 from uda_tpu_torch.device import resolve_device
 from uda_tpu_torch.merger import checkpoint
 from uda_tpu_torch.merger.emitter import FramedEmitter
@@ -82,7 +92,7 @@ from uda_tpu_torch.utils.failpoints import failpoints
 from uda_tpu_torch.utils.ifile import RecordBatch
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
-from uda_tpu_torch.utils.retry import RetryPolicy
+from uda_tpu_torch.utils.retry import RetryPolicy, SpeculationPolicy
 from uda_tpu_torch.utils.watchdog import StallError, StallWatchdog
 
 __all__ = ["MergeManager", "PenaltyBox"]
@@ -93,11 +103,6 @@ log = get_logger()
 # construction
 _UNPORTED_FETCH = [
     ("uda.tpu.push.enable", lambda v: bool(v), "uda_tpu/net/push.py"),
-    ("uda.tpu.coding.scheme", lambda v: bool(v), "uda_tpu/coding"),
-    ("uda.tpu.fetch.speculate.pn", lambda v: int(v) > 0,
-     "speculative fetch (uda_tpu/merger/segment.py)"),
-    ("uda.tpu.fetch.resume", lambda v: bool(v),
-     "mid-partition resume (uda_tpu/merger/segment.py)"),
 ]
 
 
@@ -207,6 +212,20 @@ class PenaltyBox:
         with self._lock:
             return self._faults.get(key, 0)
 
+    def rank(self, keys) -> list:
+        """``keys`` healthiest-first: unboxed before boxed, fewer faults
+        before more, stable otherwise (the caller's preference order
+        breaks ties). Read-only: no parole side effects."""
+        with self._lock:
+            now = time.monotonic()
+
+            def score(k):
+                t = self._until.get(k)
+                return (1 if (t is not None and t > now) else 0,
+                        self._faults.get(k, 0))
+
+            return sorted(keys, key=score)
+
     def penalized(self, key: str) -> bool:
         with self._lock:
             t = self._until.get(key)
@@ -265,7 +284,13 @@ class MergeManager:
         self.penalty_box = PenaltyBox(
             threshold=self.cfg.get("uda.tpu.fetch.penalty.threshold"),
             penalty_s=self.cfg.get("uda.tpu.fetch.penalty.ms") / 1e3)
-        self.ledger = RecoveryLedger()
+        # the survivable-fetch rungs (speculation, resume, k-of-n
+        # reconstruction) all share one recovery ledger
+        self.ledger = RecoveryLedger(self.penalty_box)
+        self.speculation = SpeculationPolicy.from_config(self.cfg)
+        self.resume_fetch = bool(self.cfg.get("uda.tpu.fetch.resume"))
+        self.coding_scheme = parse_scheme(
+            self.cfg.get("uda.tpu.coding.scheme"))
         spec = self.cfg.get("uda.tpu.failpoints")
         if spec:
             failpoints.arm_spec(spec)
@@ -298,7 +323,12 @@ class MergeManager:
                   preload: Optional[dict] = None) -> list:
         """Fetch every map's partition, randomized order, sliding window.
 
-        Entries are ``"map_id"`` or ``("host", "map_id")``. The window
+        Entries are ``"map_id"``, ``("host", "map_id")`` or
+        ``(["host", ...], "map_id")``: a host list names replicas (every
+        listed supplier holds the map output) and leads with the map
+        writer's host (the stripe placement anchor); the fetch opens
+        against the best PenaltyBox-ranked replica and speculation
+        duplicates to the others. The window
         refills as individual segments complete (credit-flow semantics).
         Returns segments in the *original* map order (merge stability and
         reproducibility do not depend on fetch completion order).
@@ -324,20 +354,35 @@ class MergeManager:
         supplier to the penalty box; maps of a boxed supplier rotate to
         the back of the pending schedule (see :class:`PenaltyBox`)."""
         def _norm(m):
-            if not isinstance(m, tuple):
-                return "", m
-            host, mid = m
-            if isinstance(host, (list, tuple)):
-                raise MergeError(
-                    f"replica host lists ({host!r}) need speculative and "
-                    f"replicated fetch, not ported to uda_tpu_torch yet")
-            return host, mid
+            if isinstance(m, tuple):
+                host, mid = m
+                hosts = (list(host) if isinstance(host, (list, tuple))
+                         else [host])
+            else:
+                hosts, mid = [""], m
+            return hosts or [""], mid
 
+        entries = [_norm(m) for m in map_ids]
+        stripe_ctx = None
+        if self.coding_scheme is not None:
+            # the placement domain: the job's canonically ordered supplier
+            # universe (sorted unique hosts, the order writers derive).
+            # Host-less local entries ("") are not suppliers; the
+            # all-local degenerate keeps [""]
+            universe = sorted({h for hosts, _ in entries
+                               for h in hosts if h}) or [""]
+            stripe_ctx = StripeContext(
+                self.coding_scheme, universe, ledger=self.ledger,
+                domains=parse_domains(
+                    str(self.cfg.get("uda.tpu.coding.domains"))))
         skip = frozenset(skip or ())
         segs = [None if i in skip else
                 Segment(self.client, job_id, mid, reduce_id,
-                        self.chunk_size, host=host, policy=self.retry_policy)
-                for i, (host, mid) in enumerate(map(_norm, map_ids))]
+                        self.chunk_size, host=hosts[0],
+                        policy=self.retry_policy, hosts=hosts,
+                        ledger=self.ledger, speculation=self.speculation,
+                        resume=self.resume_fetch, stripe=stripe_ctx)
+                for i, (hosts, mid) in enumerate(entries)]
         for i, kw in (preload or {}).items():
             if segs[i] is None:
                 continue
@@ -363,6 +408,9 @@ class MergeManager:
         started: list[Segment] = []
 
         def on_fault(seg, exc) -> None:
+            # the structured cause wins over the segment's current source:
+            # a speculation loser's fault punishes the host whose attempt
+            # failed, not the source the segment switched to
             sup = getattr(exc, "supplier", None) or seg.supplier
             self.ledger.record("fault", supplier=sup, map_id=seg.map_id,
                                error=exc)

@@ -1,12 +1,15 @@
 """The recovery ledger: one shared record of what the fetch layer did for a
 reduce task.
 
-The port's copy of the journal half of ``uda_tpu/merger/recovery.py``: a
-bounded list of structured events (kind, supplier, map_id, error class —
-never reason strings), with the ``snapshot``/``restore`` a checkpoint
-manifest carries. The monotone ``version`` feeds the stall watchdog's
-progress token. Its ``rank()`` view serves replicated and reconstructed
-fetches, which are not ported yet.
+The port's copy of ``uda_tpu/merger/recovery.py``: a bounded list of
+structured events (kind, supplier, map_id, error class — never reason
+strings), with the ``snapshot``/``restore`` a checkpoint manifest carries,
+and a ``rank()`` view over the task's ``PenaltyBox``: the one source-choice
+primitive of the fetch layer (a replicated segment's primary pick,
+speculation's alternate, reconstruction's shard fan-out). The monotone
+``version`` feeds the stall watchdog's progress token: a reconstruction
+fetching shards is progress even while the segment's counters stand
+still.
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ _MAX_EVENTS = 256
 
 
 class RecoveryLedger:
-    """Bounded per-task recovery journal."""
+    """Bounded per-task recovery journal + supplier health ranking."""
 
-    def __init__(self):
+    def __init__(self, box=None):
+        self._box = box  # PenaltyBox (rank source); optional for tests
         self._lock = threading.Lock()
         self._events: deque = deque(maxlen=_MAX_EVENTS)
         self.version = 0  # monotone event counter
@@ -38,6 +42,15 @@ class RecoveryLedger:
         with self._lock:
             self._events.append(event)
             self.version += 1
+
+    def rank(self, hosts: Sequence[str]) -> list:
+        """``hosts`` healthiest-first by PenaltyBox state (unboxed before
+        boxed, fewer faults before more; stable within a tier, so the
+        caller's preference order breaks ties)."""
+        box = self._box
+        if box is None:
+            return list(hosts)
+        return box.rank(hosts)
 
     def events(self, kind: Optional[str] = None) -> list:
         with self._lock:

@@ -128,8 +128,12 @@ def single_chip_sort(words, path: str = "auto", tile: int = 1024,
     """The single-chip shuffle+merge: stable lexicographic sort of whole
     ``uint32[n, 26]`` records (a tensor or numpy array) by their 3 key
     words, on ``device`` (``None`` = the card). ``path`` names the engine;
-    ``"auto"`` resolves per device and the deployed ``UDA_TPU_SORT_PATH``
-    (``ops/sort.route_engine``): ``keys8`` on the card."""
+    ``"auto"`` resolves through ``ops/sort.route_engine``: a deployed
+    ``UDA_TPU_SORT_PATH``, else the tune cache's winner for this device
+    and batch-size class (``utils/tuncache``), else the built-in default,
+    ``keys8`` on the card and ``carry`` on the CPU; on the card a batch
+    below ``SMALL_BATCH_ROWS`` (2^20) that resolved to a gather-bound
+    engine is steered to ``carrychunk``."""
     dev = resolve_device(device)
     words = _as_words(words, dev)
     path = route_engine(int(words.shape[0]), path, lanes_ok=True, device=dev)

@@ -4,11 +4,12 @@ resolution, the map-output writer and the chunk-serving data engine."""
 from uda_tpu_torch.mofserver.data_engine import (DataEngine, FetchResult,
                                                  ShuffleRequest)
 from uda_tpu_torch.mofserver.index import (DirIndexResolver, IndexRecord,
-                                           IndexResolver, read_index_file,
-                                           write_index_file)
-from uda_tpu_torch.mofserver.writer import MOFWriter, write_map_output
+                                           IndexResolver, PartitionStripe,
+                                           read_index_file, write_index_file)
+from uda_tpu_torch.mofserver.writer import (MOFWriter, write_map_output,
+                                            write_striped_map_output)
 
 __all__ = ["DataEngine", "FetchResult", "ShuffleRequest",
            "DirIndexResolver", "IndexRecord", "IndexResolver",
-           "read_index_file", "write_index_file", "MOFWriter",
-           "write_map_output"]
+           "PartitionStripe", "read_index_file", "write_index_file",
+           "MOFWriter", "write_map_output", "write_striped_map_output"]

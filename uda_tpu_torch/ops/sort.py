@@ -1,7 +1,8 @@
 """Engine names, engine routing and the plain sort operations of the port.
 
 Counterpart of ``uda_tpu/ops/sort.py``: the engine-name tuples,
-``resolve_sort_path`` / ``route_engine`` with a device argument,
+``resolve_sort_path`` / ``route_engine`` with a device argument (the
+latter with the tune-cache consult and the small-batch steering),
 ``apply_perm_chunked`` and ``stable_lex_argsort``, the port's stable
 lexicographic sort permutation over uint32 key words (the counterpart of
 ``lax.sort(..., is_stable=True)``, behind the ``carry``, ``gather``,
@@ -26,13 +27,15 @@ import torch
 
 from uda_tpu_torch.device import resolve_device
 from uda_tpu_torch.ops.packing import PackedKeys
+from uda_tpu_torch.utils import tuncache
 
 __all__ = ["resolve_sort_path", "route_engine", "apply_perm_chunked",
            "stable_lex_argsort", "take_cols", "i32", "u32", "words_of",
            "fill_words", "sort_permutation", "concat_packed", "merge_runs",
            "sort_records_fixed", "LANES_ENGINES", "FLYOFF_ENGINES",
            "BENCH_FLYOFF", "ALL_SORT_PATHS", "DEFAULT_CHUNK_COLS",
-           "DEPLOYED_SORT_PATH"]
+           "DEPLOYED_SORT_PATH", "GATHER_BOUND_ENGINES", "SMALL_BATCH_ROWS",
+           "cache_backend"]
 
 # The engine knobs, under the reference's names, read once at import.
 DEFAULT_CHUNK_COLS = int(os.environ.get("UDA_TPU_CHUNK_COLS", "6"))
@@ -46,6 +49,14 @@ FLYOFF_ENGINES = ("lanes", "lanes2", "keys8", "gather2", "carrychunk")
 BENCH_FLYOFF = FLYOFF_ENGINES + ("keys8f",)
 ALL_SORT_PATHS = ("carry", "gather") + BENCH_FLYOFF
 
+# Engines whose payload movement is one or more global gathers, and the
+# batch size below which "auto" steers them to "carrychunk" on the
+# accelerator (uda_tpu/ops/sort.py:86-93: on the TPU the gather is
+# latency-bound below 2^20 rows). On the card the rule is kept as it is;
+# chip_smoke.py phase 5 times it.
+GATHER_BOUND_ENGINES = ("gather", "gather2", "keys8", "keys8f")
+SMALL_BATCH_ROWS = 1 << 20
+
 _I32_BIAS = 1 << 31
 
 
@@ -57,8 +68,7 @@ def resolve_sort_path(path: str, lanes_ok: bool = False,
     main path goes through the tile-sort and merge-pass kernels (``gather``
     for a caller that runs no lanes engine). ``lanes_ok`` admits
     LANES_ENGINES for callers that implement them."""
-    valid = (ALL_SORT_PATHS if lanes_ok
-             else tuple(p for p in ALL_SORT_PATHS if p not in LANES_ENGINES))
+    valid = _valid_paths(lanes_ok)
     if path == "auto":
         if DEPLOYED_SORT_PATH:
             if DEPLOYED_SORT_PATH not in ALL_SORT_PATHS:
@@ -76,15 +86,56 @@ def resolve_sort_path(path: str, lanes_ok: bool = False,
     return path
 
 
+def _valid_paths(lanes_ok: bool) -> tuple:
+    return (ALL_SORT_PATHS if lanes_ok
+            else tuple(p for p in ALL_SORT_PATHS if p not in LANES_ENGINES))
+
+
+def cache_backend(device=None) -> str:
+    """The backend coordinate of a tune-cache key, under the names JAX
+    uses: ``cpu`` on the CPU, ``gpu`` on the card, so a cache file written
+    by the reference routes the port the same way."""
+    return "cpu" if resolve_device(device).type == "cpu" else "gpu"
+
+
+def _cached_engine(n_rows: int, lanes_ok: bool, device=None) -> "str | None":
+    """The tune-cache consult for "auto" routing (``utils/tuncache``): a
+    fly-off winner persisted per (backend, row bucket, lanes capability).
+    None (the built-in default) on a cold cache, an unreadable file, or a
+    winner this caller cannot run: a stale or hand-edited cache can never
+    force an invalid engine onto a sort surface."""
+    key = (f"{cache_backend(device)}|rows{tuncache.rows_bucket(n_rows)}"
+           f"|lanes{int(lanes_ok)}")
+    rec = tuncache.tune_cache.lookup("sort.engine", key)
+    if rec is None:
+        return None
+    engine = (rec.get("winner") or {}).get("engine")
+    return engine if engine in _valid_paths(lanes_ok) else None
+
+
 def route_engine(n_rows: int, path: str = "auto", lanes_ok: bool = False,
                  device=None) -> str:
-    """The resolution entry of the production sort surfaces
-    (``models/terasort.single_chip_sort``). In this slice it is
-    :func:`resolve_sort_path`; the reference's tune-cache consult and its
-    small-batch steering by ``n_rows`` (uda_tpu/ops/sort.py:145-198) are
-    not ported yet. An explicit path is always honoured."""
-    del n_rows  # the small-batch steering that reads it is not ported
-    return resolve_sort_path(path, lanes_ok, device)
+    """Batch-size-aware engine routing, the resolution entry of the
+    production sort surfaces (``models/terasort.single_chip_sort``).
+    ``path`` resolves like :func:`resolve_sort_path`; for "auto" with no
+    deployed ``UDA_TPU_SORT_PATH`` the persisted tune cache is consulted
+    first (env > cache > built-in; a cold cache routes as the built-in
+    default), and then, on the card, a batch below
+    :data:`SMALL_BATCH_ROWS` is steered from :data:`GATHER_BOUND_ENGINES`
+    to "carrychunk", deployed and cached winners alike (the card takes
+    the accelerator's role of the reference's rule). An explicit path is
+    always honoured."""
+    if path != "auto":
+        return resolve_sort_path(path, lanes_ok, device)
+    resolved = resolve_sort_path("auto", lanes_ok, device)
+    if not DEPLOYED_SORT_PATH:
+        cached = _cached_engine(n_rows, lanes_ok, device)
+        if cached is not None:
+            resolved = cached
+    if (n_rows < SMALL_BATCH_ROWS and resolve_device(device).type != "cpu"
+            and resolved in GATHER_BOUND_ENGINES):
+        return "carrychunk"
+    return resolved
 
 
 def i32(x: torch.Tensor) -> torch.Tensor:

@@ -33,8 +33,9 @@ reference's.
 
 Sites of the port: ``data_engine.pread`` (the supplier's chunk read; it
 carries data, so truncate/corrupt apply), ``segment.fetch`` (the
-``InputClient.start_fetch`` boundary), ``ckpt.save`` (the assembled
-manifest bytes) and ``ckpt.load`` (the manifest walk). Every other site
+``InputClient.start_fetch`` boundary), ``coding.decode`` (a stripe
+reconstruction's decode), ``ckpt.save`` (the assembled manifest bytes) and
+``ckpt.load`` (the manifest walk). Every other site
 the reference knows lives in a module the port lacks: arming it raises
 :class:`ConfigError` naming the site and that module, never a schedule
 that could not fire. A name the reference does not know either arms as
@@ -118,7 +119,6 @@ _UNPORTED_SITE_MODULES = {
     "net.handoff": "uda_tpu/net/server.py",
     "net.push": "uda_tpu/net/push.py",
     "push.admit": "uda_tpu/net/push.py",
-    "coding.decode": "uda_tpu/coding/recovery.py",
     "decompress.block": "uda_tpu/compress",
     "data_engine.preadv": "the batched read plane of "
                           "uda_tpu/mofserver/data_engine.py",

@@ -1,8 +1,8 @@
 """Retry policy for the fetch path: backoff, attempt timeout, deadline.
 
-The port's copy of ``RetryPolicy`` from ``uda_tpu/utils/retry.py`` (the
-speculation policy is not ported). Built from the ``mapred.rdma.fetch.*``
-config knobs and applied by ``uda_tpu_torch.merger.segment.Segment``:
+The port's copy of ``uda_tpu/utils/retry.py``. ``RetryPolicy`` is built
+from the ``mapred.rdma.fetch.*`` config knobs and applied by
+``uda_tpu_torch.merger.segment.Segment``:
 
 - ``retries``: whole-segment re-fetch attempts after a transport error
   (``uda.tpu.fetch.retries``);
@@ -13,6 +13,9 @@ config knobs and applied by ``uda_tpu_torch.merger.segment.Segment``:
   forever);
 - ``deadline_ms``: overall per-segment budget across every retry and
   backoff (0 = none).
+
+``SpeculationPolicy`` holds the straggler detector's knobs
+(``uda.tpu.fetch.speculate.pn`` and ``.floor.ms``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import dataclasses
 import random
 from typing import Optional
 
-__all__ = ["RetryPolicy"]
+from uda_tpu_torch.utils.metrics import metrics
+
+__all__ = ["RetryPolicy", "SpeculationPolicy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,4 +63,33 @@ class RetryPolicy:
             attempt_timeout_ms=float(
                 cfg.get("mapred.rdma.fetch.attempt.timeout.ms")),
             deadline_ms=float(cfg.get("mapred.rdma.fetch.deadline.ms")),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeculationPolicy:
+    """The straggler detector's knobs (speculative dual-source fetch,
+    ``merger/segment``): an in-flight chunk fetch that outlives
+    ``max(floor_ms, pN of the observed fetch.latency_ms histogram)`` gets
+    a duplicate issued to an alternate source. ``pn == 0`` (the default)
+    disables speculation; with stats off (no histogram) the floor alone
+    is the threshold."""
+
+    pn: int = 0           # latency percentile (e.g. 95); 0 = off
+    floor_ms: float = 50.0
+
+    @property
+    def enabled(self) -> bool:
+        return self.pn > 0
+
+    def threshold_ms(self) -> float:
+        q = metrics.percentile("fetch.latency_ms", float(self.pn))
+        return max(self.floor_ms, q or 0.0)
+
+    @classmethod
+    def from_config(cls, cfg) -> "SpeculationPolicy":
+        return cls(
+            pn=max(0, min(100, int(cfg.get("uda.tpu.fetch.speculate.pn")))),
+            floor_ms=max(0.0, float(
+                cfg.get("uda.tpu.fetch.speculate.floor.ms"))),
         )
