@@ -114,7 +114,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the failpoint registry mid-partition in each map: 4 resumes, no map's
    offset 0 read twice (reads counted per map and offset). Runs b and c
    equal the card's re-sort of those 4 maps. The one reduce mode the port
-   does not run yet (push) raises ``ConfigError`` and is not driven.
+   does not run yet (push) raises ``ConfigError`` and is not driven;
+12. networked shuffle: a port ``ShuffleServer`` on 127.0.0.1 (any free
+   port) serves a tree through its own ``DataEngine``, and the reduce task
+   is ``MergeManager.run`` on the card over ``HostRoutingClient(config=)``
+   with its socket default (``uda.tpu.net.fetch=true``), each run with
+   ``metrics`` and the launch counts reset just before and read just
+   after, its stream hashed and held to a digest: (a) the default
+   ``Config()`` (zero-copy, ``zerocopy.mode=auto``) on phase 8's 64 maps,
+   equal to 9a's stream, K1 63 pairs, under ``torch.profiler``; (b) run
+   c's 16 maps with ``uda.tpu.net.zerocopy=false`` and
+   ``uda.tpu.fetch.crc=true``: every chunk through ``submit_batch``, none
+   zero-copy, equal to run c's; (c) run c's maps written again with
+   ``DefaultCodec`` (zlib) and fetched through ``DecompressingClient``,
+   equal to run c's; (d) 4 maps x 1 MiB with LZO through the port's
+   ladder (the rung printed), equal to their re-sort; (e) 4 maps, one
+   fetch in flight, the server stopped while a fetch at half a map is held
+   and restarted on its port: warm (a handoff record) the segment
+   resumes and no offset 0 is read twice; cold (no record) ``resume_ok``
+   goes False and the partition restarts from 0; both equal the 4 maps'
+   re-sort.
 
 Each phase's seconds are printed on a line of their own. The last two
 lines are one JSON object with a record per kernel and the
@@ -140,11 +159,15 @@ import torch
 from uda_tpu_torch import interop
 from uda_tpu_torch.device import generator
 from uda_tpu_torch.coding import parse_scheme
+from uda_tpu_torch.compress import (BLOCK_HEADER, Codec, DecompressingClient,
+                                    get_codec)
+from uda_tpu_torch.compress.lzo import native_lzo_source
 from uda_tpu_torch.merger import (HostRoutingClient, LocalFetchClient,
                                   MergeManager, checkpoint)
 from uda_tpu_torch.merger import streaming as stream_mod
 from uda_tpu_torch.merger.emitter import frame_batch
 from uda_tpu_torch.models import terasort
+from uda_tpu_torch.net import ShuffleServer
 from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver, MOFWriter,
                                      write_striped_map_output)
 from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_merge
@@ -268,6 +291,10 @@ CODED_HOSTS = ("h0", "h1", "h2", "h3")
 CODED_SCHEME = "rs:2:4"
 CODED_DEAD = "h2"
 SPEC_HOLD_S = 0.3          # h0's hold on every chunk in run 11b
+RESTART_MAPS = 4           # phase 12e
+LZO_MAPS = 4               # phase 12d
+LZO_MAP_BYTES = 1 << 20
+NET_CONF = {"uda.tpu.net.fetch": True}
 SPEC_CONF = {"uda.tpu.fetch.speculate.pn": 95,
              "uda.tpu.fetch.speculate.floor.ms": 50}
 
@@ -1951,6 +1978,358 @@ def phase_coded(dev: torch.device, parts: list, want: tuple,
     return runs
 
 
+# --------------------------------------------------------------- phase 12
+class RecordingClient:
+    """An InputClient in front of ``inner`` that counts its fetches per
+    (map, offset) and can hold one: the first fetch at or past ``hold_at``
+    bytes is held (``reached`` is set) until ``release`` is set, then
+    fails with TransportError, as a fetch in flight when its supplier went
+    down does. The held fetch never reaches a supplier and is not
+    counted."""
+
+    def __init__(self, inner, hold_at=None):
+        self.inner = inner
+        self.hold_at = hold_at
+        self.reads: dict = {}
+        self.held = None
+        self.reached = threading.Event()
+        self.release = threading.Event()
+        self._lock = threading.Lock()
+
+    def start_fetch(self, req, on_complete):
+        with self._lock:
+            key = (req.map_id, req.offset)
+            hold = (self.hold_at is not None and self.held is None
+                    and req.offset >= self.hold_at)
+            if hold:
+                self.held = key
+            else:
+                self.reads[key] = self.reads.get(key, 0) + 1
+        if not hold:
+            self.inner.start_fetch(req, on_complete)
+            return
+
+        def fail_later() -> None:
+            self.release.wait(600)
+            on_complete(TransportError(
+                f"supplier went down mid-fetch ({req.map_id}@{req.offset})"))
+
+        threading.Thread(target=fail_later, daemon=True).start()
+        self.reached.set()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class Servers(list):
+    """The servers one run started (a bounce adds one); stop() stops
+    every one of them."""
+
+    def stop(self) -> None:
+        for server in self:
+            server.stop()
+
+
+class TimedCodec(Codec):
+    """A codec whose decompress time is summed (``seconds``)."""
+
+    def __init__(self, base: Codec):
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+
+        def decompress(data, n):
+            t0 = time.perf_counter()
+            out = base.decompress(data, n)
+            with self._lock:
+                self.seconds += time.perf_counter() - t0
+            return out
+
+        super().__init__(base.name, base.compress, decompress)
+
+
+def comp_chunk_bytes(cfg: Config) -> int:
+    """The compressed-domain fetch size a reduce task asks for: the
+    ``mapred.rdma.compression.buffer.ratio`` share of each buffer
+    (calculateMemPool's split, the reference's bridge wiring)."""
+    buf = int(cfg.get("mapred.rdma.buf.size")) * 1024
+    ratio = float(cfg.get("mapred.rdma.compression.buffer.ratio"))
+    return max(BLOCK_HEADER.size + 1, int(buf * ratio))
+
+
+def serve(root: str, conf: dict, port: int = 0) -> tuple:
+    """A DataEngine over ``root`` behind a port ShuffleServer on
+    127.0.0.1 (``port`` 0: any free port)."""
+    engine = DataEngine(DirIndexResolver(root), Config(conf))
+    server = ShuffleServer(engine, Config(conf), host="127.0.0.1",
+                           port=port).start()
+    return engine, server
+
+
+def net_task(dev: torch.device, root: str, mids: list, conf: dict,
+             name: str, codec=None, hold_at=None, bounce=None,
+             profiled: bool = False) -> dict:
+    """``drive_task`` over the wire: a port ShuffleServer serves ``root``
+    and the reduce task fetches through ``HostRoutingClient``'s socket
+    default (through ``DecompressingClient`` when ``codec`` is given).
+    With ``hold_at`` one fetch is held and, once ``bounce(servers,
+    router, host)`` has run on a thread of its own, failed."""
+    cfg = Config(conf)
+    engine, server = serve(root, conf)
+    servers = Servers([server])
+    host = f"127.0.0.1:{server.port}"
+    router = HostRoutingClient(config=cfg)
+    rec = RecordingClient(router, hold_at)
+    top = (DecompressingClient(rec, codec, comp_chunk_size=comp_chunk_bytes(
+        cfg)) if codec is not None else rec)
+    bouncer = None
+    if bounce is not None:
+        def run_bounce() -> None:
+            if rec.reached.wait(300):
+                try:
+                    bounce(servers, router, host)
+                finally:
+                    rec.release.set()
+
+        bouncer = threading.Thread(target=run_bounce, daemon=True)
+        bouncer.start()
+    try:
+        res = drive_task(dev, top, [top, servers, engine],
+                         [(host, m) for m in mids], conf, name,
+                         profiled=profiled)
+    finally:
+        rec.release.set()
+        servers.stop()
+    if bouncer is not None:
+        bouncer.join(timeout=60)
+    res.update(servers=servers, engine=engine, client=rec)
+    return res
+
+
+def _net_report(res: dict, part_bytes: int, want: tuple, pairs: int,
+                keys: tuple, extra: dict) -> dict:
+    """Require the run's stream to equal ``want`` with ``pairs`` K1
+    launch pairs; print and return its record."""
+    require(res["error"] is None,
+            f"[net {res['run']}] ended in {res['error']!r}")
+    require((res["sha256"], res["stream_bytes"]) == want,
+            f"[net {res['run']}] the stream differs from its digest: "
+            f"{res['stream_bytes']} B, sha256 {res['sha256']}")
+    require(res["launches"]["merge_pass"] == pairs
+            == res["launches"]["merge_partition"],
+            f"[net {res['run']}] K1 launched {res['launches']}, not "
+            f"{pairs} pairs")
+    out = {k: res[k] for k in ("run", "wall_s", "launches", "peak_bytes",
+                               "sha256", "stream_bytes")}
+    out["mb_per_s"] = part_bytes / res["wall_s"] / 1e6
+    out["zerocopy_mode"] = res["servers"][0].zc_mode
+    out.update({k: res["metrics"].get(k, 0.0) for k in keys})
+    for k in ("idle_share", "device_busy_ms"):
+        if k in res:
+            out[k] = res[k]
+    out.update(extra)
+    log(f"[net {res['run']}] " + json.dumps(out))
+    return out
+
+
+NET_KEYS = ("fetch_time", "merge_time", "net.serve.fd", "net.serve.copy",
+            "net.sendfile.bytes", "net.mmap.bytes", "net.requests",
+            "net.bytes.in", "io.batch.requests", "io.batch.reads")
+
+
+def phase_net_tree(dev: torch.device, root: str, mids: list, parts: list,
+                   want_a: tuple, wall_9a: float, want_c: tuple,
+                   c_maps: int = OVERLAP_C_MAPS) -> dict:
+    """Phase 12a, 12b and 12e on phase 8's tree: (a) the default
+    ``Config()`` over the wire on every map (held to 9a's stream, under
+    ``torch.profiler``); (b) run c's maps with zero-copy off and CRC
+    stamping on (every chunk through ``submit_batch``); (e) a supplier
+    bounced mid-fetch, warm then cold."""
+    runs: dict = {}
+    part_bytes = sum(p.nbytes + 2 for p in parts)
+    res = net_task(dev, root, mids, dict(NET_CONF), "a default",
+                   profiled=True)
+    snap = res["metrics"]
+    require(snap.get("net.serve.fd", 0) > 0,
+            "[net a] no chunk went out zero-copy")
+    runs["a"] = _net_report(res, part_bytes, want_a, len(mids) - 1,
+                            NET_KEYS, {"phase_9a_wall_s": wall_9a})
+
+    sub_bytes = sum(p.nbytes + 2 for p in parts[:c_maps])
+    conf = dict(NET_CONF, **{"uda.tpu.net.zerocopy": False,
+                             "uda.tpu.fetch.crc": True})
+    res = net_task(dev, root, mids[:c_maps], conf, "b bytes+crc")
+    snap = res["metrics"]
+    copies = snap.get("net.serve.copy", 0)
+    require(copies > 0 and snap.get("net.serve.fd", 0) == 0
+            and snap.get("io.batch.requests", 0) == copies,
+            f"[net b] {snap.get('net.serve.fd', 0)} chunks zero-copy, "
+            f"{copies} by bytes, {snap.get('io.batch.requests', 0)} "
+            f"through submit_batch")
+    runs["b"] = _net_report(res, sub_bytes, want_c, c_maps - 1, NET_KEYS,
+                            {"io_backend": res["engine"].io_backend})
+
+    sub = parts[:RESTART_MAPS]
+    runs.update(phase_restart(dev, root, mids[:RESTART_MAPS],
+                              sum(p.nbytes + 2 for p in sub),
+                              resort_digest(sub, dev)))
+    return runs
+
+
+def phase_restart(dev: torch.device, root: str, mids: list,
+                  part_bytes: int, want: tuple) -> dict:
+    """Phase 12e: one fetch in flight and one held at half a map; the
+    server is stopped and restarted on its port meanwhile. Warm (a
+    handoff record): the segment resumes, no offset 0 is read twice.
+    Cold (no record): resume_ok goes False and the partition restarts
+    from 0."""
+    runs: dict = {}
+    half = MERGE_MAP_BYTES // 2
+    for name, warm in (("e warm", True), ("e cold", False)):
+        with tempfile.TemporaryDirectory(prefix="uda_handoff_") as hd:
+            conf = dict(NET_CONF, **{
+                "uda.tpu.fetch.resume": True,
+                "mapred.rdma.wqe.per.conn": 1,
+                "uda.tpu.fetch.retries": 8,
+                "mapred.rdma.fetch.retry.backoff.ms": 20,
+                "uda.tpu.net.handoff.path":
+                    os.path.join(hd, "handoff.json") if warm else ""})
+            seen: dict = {}
+
+            def bounce(servers, router, host, conf=conf, seen=seen):
+                old = servers[0]
+                old.stop(drain=True)
+                new = ShuffleServer(old.engine, Config(conf),
+                                    host="127.0.0.1",
+                                    port=int(host.rsplit(":", 1)[1])
+                                    ).start()
+                servers.append(new)
+                for _ in range(3):  # the first probe may ride the dead
+                    # connection; the next dials the new server
+                    if router.estimate_partition_bytes(
+                            MERGE_JOB, [(host, mids[0])], 0) is not None:
+                        break
+                seen.update(old_gen=old.generation, new_gen=new.generation,
+                            warm=new.warm_restart,
+                            seen_gen=router.generation(host),
+                            resume_ok=router.resume_ok(host))
+
+            res = net_task(dev, root, mids, conf, name, hold_at=half,
+                           bounce=bounce)
+        snap = res["metrics"]
+        reads = res["client"].reads
+        held = res["client"].held
+        zero_again = {m: n for (m, off), n in reads.items()
+                      if off == 0 and n != 1}
+        require(held is not None and seen.get("seen_gen")
+                == seen.get("new_gen") and seen.get("warm") == warm
+                and seen.get("resume_ok") == warm,
+                f"[net {name}] bounce {seen}, held {held}")
+        if warm:
+            require(seen["new_gen"] == (seen["old_gen"] + 1) & 0x7FFFFFFF
+                    and snap.get("fetch.resumed", 0) >= 1
+                    and snap.get("fetch.resumed.bytes", 0) >= half
+                    and not zero_again
+                    and snap.get("net.handoff.loaded", 0) == 1,
+                    f"[net {name}] resumed {snap.get('fetch.resumed', 0)} "
+                    f"({snap.get('fetch.resumed.bytes', 0)} B), offset 0 "
+                    f"read again in {zero_again}")
+        else:
+            require(snap.get("fetch.resumed", 0) == 0
+                    and zero_again == {held[0]: 2},
+                    f"[net {name}] resumed {snap.get('fetch.resumed', 0)}"
+                    f"; offset 0 read again in {zero_again}, held {held}")
+        runs[name] = _net_report(
+            res, part_bytes, want, len(mids) - 1,
+            ("fetch.resumed", "fetch.resumed.bytes", "fetch.retries",
+             "net.handoff.persisted", "net.handoff.loaded",
+             "net.generation.changes", "net.disconnects"),
+            {"held": list(held), "generations": [seen["old_gen"],
+                                                 seen["new_gen"]],
+             "warm": seen["warm"], "resume_ok": seen["resume_ok"],
+             "offset0_reads": {m: n for (m, off), n in reads.items()
+                               if off == 0},
+             "reads": sum(reads.values())})
+    return runs
+
+
+def write_codec_tree(root: str, parts: list, codec) -> tuple:
+    """``parts`` written again by ``MOFWriter(codec=)``; returns the map
+    ids and the partition's (compressed, raw) bytes."""
+    writer = MOFWriter(root, MERGE_JOB, codec=codec)
+    for m, rec in enumerate(parts):
+        writer.write(map_id(m), [record_pairs(rec)])
+    resolver = DirIndexResolver(root)
+    recs = [resolver.resolve(MERGE_JOB, mid, 0) for mid in writer.map_ids]
+    return (writer.map_ids, sum(r.part_length for r in recs),
+            sum(r.raw_length for r in recs))
+
+
+def phase_net_codecs(dev: torch.device, parts: list, want_c: tuple) -> dict:
+    """Phase 12c and 12d: run c's maps written again with zlib
+    (``DefaultCodec``), and 4 maps x 1 MiB with LZO through the port's
+    ladder, each fetched over the wire through ``DecompressingClient``."""
+    runs: dict = {}
+    lzo_parts = tera_partitions(SEED + 7, LZO_MAPS, LZO_MAP_BYTES)
+    for name, sub, codec_name, want in (
+            ("c zlib", parts, "org.apache.hadoop.io.compress.DefaultCodec",
+             want_c),
+            ("d lzo", lzo_parts, "com.hadoop.compression.lzo.LzoCodec",
+             resort_digest(lzo_parts, dev))):
+        codec = TimedCodec(get_codec(codec_name))
+        with tempfile.TemporaryDirectory(prefix="uda_codec_") as root:
+            t0 = time.perf_counter()
+            mids, comp, raw = write_codec_tree(root, sub, codec)
+            write_s = time.perf_counter() - t0
+            res = net_task(dev, root, mids, dict(NET_CONF), name,
+                           codec=codec)
+        snap = res["metrics"]
+        require(snap.get("decompress.bytes", 0) == raw,
+                f"[net {name}] decompressed "
+                f"{snap.get('decompress.bytes', 0)} of {raw} B")
+        runs[name] = _net_report(
+            res, sum(p.nbytes + 2 for p in sub), want, len(sub) - 1,
+            NET_KEYS + ("decompress.bytes",),
+            {"codec": codec.name, "compressed_bytes": comp,
+             "raw_bytes": raw, "ratio": comp / raw,
+             "decompress_s": codec.seconds, "write_s": write_s,
+             "lzo_rung": native_lzo_source() or "python"})
+    return runs
+
+
+def wire_ab(dev: torch.device, maps: int = MERGE_MAPS,
+            map_bytes: int = MERGE_MAP_BYTES, pairs: int = 3) -> dict:
+    """Not part of ``main``: the default reduce task on one tree in
+    process (``LocalFetchClient``, 9a's transport) and over the wire
+    (12a's), both through ``drive_task``, in turns (local first in even
+    pairs, the wire first in odd ones); every stream must be the same.
+    Returns and prints the walls and fetch times of each side."""
+    parts = tera_partitions(SEED + 3, maps, map_bytes)
+    runs: dict = {"local": [], "wire": []}
+    want = None
+    with tempfile.TemporaryDirectory(prefix="uda_ab_") as root:
+        mids = write_mof_tree(root, parts)
+        for i in range(pairs):
+            for side in (("local", "wire") if i % 2 == 0
+                         else ("wire", "local")):
+                if side == "local":
+                    engine = DataEngine(DirIndexResolver(root), Config())
+                    res = drive_task(dev, LocalFetchClient(engine),
+                                     [engine], mids, {}, "ab local")
+                else:
+                    res = net_task(dev, root, mids, dict(NET_CONF),
+                                   "ab wire")
+                stream = (res["sha256"], res["stream_bytes"])
+                want = want or stream
+                require(res["error"] is None and stream == want,
+                        f"[wire ab] {side} pair {i}: {res['error']!r}, "
+                        f"{stream} against {want}")
+                runs[side].append({
+                    "pair": i, "wall_s": res["wall_s"],
+                    "fetch_time": res["metrics"].get("fetch_time", 0.0)})
+    log("[wire ab] " + json.dumps(runs))
+    return runs
+
+
 def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
                           map_bytes: int = MERGE_MAP_BYTES) -> dict:
     """Phase 10 on its own: the first ``maps`` maps of phase 8's tree,
@@ -1966,8 +2345,9 @@ def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
 def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
                  map_bytes: int = MERGE_MAP_BYTES, reps: int = TIMED_REPS,
                  c_maps: int = OVERLAP_C_MAPS) -> tuple:
-    """Phases 8, 9 and 10 on one MOF tree (the tree is written once), then
-    phase 11 on run c's maps striped over four roots."""
+    """Phases 8, 9, 10 and 12a, 12b, 12e on one MOF tree (the tree is
+    written once), then phase 11 on run c's maps striped over four roots
+    and 12c, 12d on compressed trees."""
     t0 = time.perf_counter()
     parts = tera_partitions(SEED + 3, maps, map_bytes)
     with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
@@ -1980,15 +2360,23 @@ def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
         merged = phase_merge(dev, root, mids, parts, map_bytes, setup_s,
                              reps)
         overlap = phase_overlap(dev, root, mids, parts, merged, c_maps)
+        want_c = (overlap["c"]["sha256"], overlap["c"]["stream_bytes"])
         admission = phase_admission(
             dev, root, mids[:c_maps],
-            sum(p.nbytes + 2 for p in parts[:c_maps]),
-            (overlap["c"]["sha256"], overlap["c"]["stream_bytes"]))
-    log(f"[phase 10] {time.perf_counter() - t0:.1f} s since phase 8 began")
-    coded = phase_coded(dev, parts[:c_maps],
-                        (overlap["c"]["sha256"], overlap["c"]["stream_bytes"]),
-                        overlap["c"]["wall_s"])
-    return merged, overlap, admission, coded
+            sum(p.nbytes + 2 for p in parts[:c_maps]), want_c)
+        log(f"[phase 10] {time.perf_counter() - t0:.1f} s since phase 8 "
+            f"began")
+        with phase_seconds("12a 12b 12e wire"):
+            net = phase_net_tree(
+                dev, root, mids, parts,
+                (merged["sha256"], merged["stream_bytes"]),
+                overlap["a"]["wall_s"], want_c, c_maps)
+    with phase_seconds("11 coded"):
+        coded = phase_coded(dev, parts[:c_maps], want_c,
+                            overlap["c"]["wall_s"])
+    with phase_seconds("12c 12d codecs"):
+        net.update(phase_net_codecs(dev, parts[:c_maps], want_c))
+    return merged, overlap, admission, coded, net
 
 
 @contextlib.contextmanager
@@ -2025,8 +2413,8 @@ def main() -> int:
             phase_profile(words, path)
     del words
     torch.cuda.empty_cache()
-    with phase_seconds("8-11 reduce"):
-        merged, overlap, admission, coded = phase_reduce(dev)
+    with phase_seconds("8-12 reduce"):
+        merged, overlap, admission, coded, net = phase_reduce(dev)
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -2058,6 +2446,8 @@ def main() -> int:
             kernels[-1]["coded_path_launches"] = {
                 k: coded[k]["launches"][name]
                 for k in ("a", "b speculation", "c")}
+            kernels[-1]["net_path_launches"] = {
+                k: v["launches"][name] for k, v in net.items()}
     log(f"[main] peak memory: " + ", ".join(
         f"{r['path']} {r['peak_bytes']} B" for r in runs))
     log(f"[seconds] whole run: {time.perf_counter() - t0:.1f}")

@@ -8,6 +8,9 @@ and each route forced by the budget keys through ``run()`` with the same
 bytes for the three key types; the hard ceiling ends in FallbackSignal
 with no fetch in either package."""
 
+import builtins
+import io
+
 import pytest
 import torch
 
@@ -103,7 +106,20 @@ def test_auto_budgets_come_from_the_device_and_the_host(monkeypatch):
     """The card's budget is its own total memory (mem_get_info) x 0.9, not
     a table of sizes; on the CPU it is the host's available memory, as in
     the reference; the host budget is /proc/meminfo's MemAvailable x
-    mapred.job.shuffle.input.buffer.percent in both packages."""
+    mapred.job.shuffle.input.buffer.percent in both packages. Both
+    packages read one fixed /proc/meminfo text: the live file moves
+    between reads while other processes allocate."""
+    meminfo = ("MemTotal:       65536000 kB\n"
+               "MemFree:         1234567 kB\n"
+               "MemAvailable:   12345678 kB\n")
+    real_open = builtins.open
+
+    def fixed_open(file, *args, **kwargs):
+        if file == "/proc/meminfo":
+            return io.StringIO(meminfo)
+        return real_open(file, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "open", fixed_open)
     seen = []
 
     def mem_get_info(device=None):
@@ -117,6 +133,7 @@ def test_auto_budgets_come_from_the_device_and_the_host(monkeypatch):
     assert seen and seen[0].type == "cuda"
     host_mb = budget._host_available_mb()
     assert host_mb == jbudget._host_available_mb()
+    assert host_mb == 12345678 // 1024
     cpu = budget.MemoryBudget(device="cpu")
     assert cpu.hbm_budget_bytes == int(host_mb * 0.9) * MB
     assert cpu.host_budget_bytes == int(host_mb * 0.7) * MB

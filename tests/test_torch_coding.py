@@ -355,10 +355,31 @@ def test_served_shards_equal_the_codec(tmp_path):
 
 
 def test_codec_is_refused_naming_compress(tmp_path):
-    with pytest.raises(errors.ConfigError, match="uda_tpu/compress"):
-        writer.MOFWriter(str(tmp_path), JOB, codec="zlib")
-    with pytest.raises(errors.ConfigError, match="uda_tpu/compress"):
-        writer.write_map_output(str(tmp_path / "m"), [[]], codec="zlib")
+    """``compress`` is ported, so the codec refusal is gone: a codec
+    writes compressed map outputs, plain and striped, file for file the
+    reference's with the same codec (compressed before coding)."""
+    from uda_tpu.compress import get_codec as jget_codec
+    from uda_tpu_torch.compress import get_codec
+
+    parts = [_records(60, 3), _records(40, 4)]
+    scheme = coding.parse_scheme("rs:2:3")
+    jscheme = jcoding.parse_scheme("rs:2:3")
+    for side, mod, codec, sch in (
+            ("p", writer, get_codec("zlib"), scheme),
+            ("r", jwriter, jget_codec("zlib"), jscheme)):
+        mod.MOFWriter(str(tmp_path / side / "a"), JOB, codec=codec) \
+            .write("m0", parts)
+        mod.write_map_output(str(tmp_path / side / "b" / "m0"), parts,
+                             codec=codec, scheme=sch)
+        roots = [str(tmp_path / side / f"h{i}") for i in range(3)]
+        mod.write_striped_map_output(roots, 1, JOB, "m0", parts, sch,
+                                     codec=codec)
+    got, want = (_tree_files(str(tmp_path / side)) for side in "pr")
+    assert got == want and len(got) == 2 + 2 + 2 * 3
+    idx = jindex.read_index_file(
+        str(tmp_path / "p" / "a" / JOB / "m0" / "file.out.index"),
+        str(tmp_path / "p" / "a" / JOB / "m0" / "file.out"))
+    assert all(r.raw_length != r.part_length for r in idx)
 
 
 # -- MergeManager.run through a coded tree ------------------------------------

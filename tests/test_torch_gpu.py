@@ -619,3 +619,62 @@ def test_dead_supplier_reduce_on_the_card_matches_the_cpu(cuda_device,
     assert streams["cuda"][1]["merge_partition"] == 3
     assert streams["cuda"][2] == streams["cpu"][2] == 1
     assert streams["cuda"][3] == streams["cpu"][3] == 0
+
+
+@pytest.mark.parametrize("codec", [None, "zlib"])
+def test_networked_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path,
+                                                      codec):
+    """5 maps of Text records served by a port ShuffleServer on loopback
+    and fetched by HostRoutingClient's socket default (through
+    DecompressingClient for a zlib tree): on the card K1 merges the
+    forest (4 launch pairs) and the stream is the bytes of the same task
+    on the CPU, over the same wire."""
+    from uda_tpu_torch.compress import DecompressingClient, get_codec
+    from uda_tpu_torch.merger import HostRoutingClient, MergeManager
+    from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver,
+                                         MOFWriter)
+    from uda_tpu_torch.net import ShuffleServer
+    from uda_tpu_torch.utils.config import Config
+    from uda_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(41)
+    writer = MOFWriter(str(tmp_path), "job",
+                       codec=get_codec(codec) if codec else None)
+    for m in range(5):
+        recs = []
+        for _ in range(300):
+            c = bytes(rng.integers(0, 4, int(rng.integers(0, 12)),
+                                   dtype=np.uint8))
+            recs.append((bytes([len(c)]) + c, rng.bytes(40)))
+        writer.write(f"m{m}", [sorted(recs, key=lambda kv: kv[0][1:])])
+    conf = {"mapred.rdma.buf.size": 1, "uda.tpu.net.fetch": True}
+    engine = DataEngine(DirIndexResolver(str(tmp_path)), Config(conf))
+    server = ShuffleServer(engine, Config(conf), host="127.0.0.1",
+                           port=0).start()
+    entries = [(f"127.0.0.1:{server.port}", m) for m in writer.map_ids]
+    streams = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            router = HostRoutingClient(config=Config(conf))
+            client = (DecompressingClient(router, get_codec(codec))
+                      if codec else router)
+            out = bytearray()
+            metrics.reset()
+            _build.reset_launches()
+            try:
+                MergeManager(client, "org.apache.hadoop.io.Text",
+                             Config(conf), device=dev).run(
+                    "job", entries, 0, out.extend)
+                torch.cuda.synchronize()
+            finally:
+                client.stop()
+            streams[dev] = (bytes(out), dict(_build.launches),
+                            metrics.get("net.serve.fd"))
+    finally:
+        server.stop()
+        engine.stop()
+    assert streams["cuda"][0] == streams["cpu"][0]
+    assert streams["cuda"][1]["merge_pass"] == 4
+    assert streams["cuda"][1]["merge_partition"] == 4
+    assert not streams["cpu"][1].get("merge_pass")
+    assert streams["cuda"][2] > 0 and streams["cpu"][2] > 0

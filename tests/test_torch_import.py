@@ -51,7 +51,11 @@ def test_imports_with_jax_and_uda_tpu_blocked():
             "uda_tpu_torch.utils.watchdog", "uda_tpu_torch.coding",
             "uda_tpu_torch.coding.gf256", "uda_tpu_torch.coding.rs",
             "uda_tpu_torch.coding.recovery", "uda_tpu_torch.coding.scrub",
-            "uda_tpu_torch.utils.tuncache"} <= set(MODULES)
+            "uda_tpu_torch.utils.tuncache", "uda_tpu_torch.net",
+            "uda_tpu_torch.net.wire", "uda_tpu_torch.net.evloop",
+            "uda_tpu_torch.net.server", "uda_tpu_torch.net.client",
+            "uda_tpu_torch.compress",
+            "uda_tpu_torch.compress.lzo"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

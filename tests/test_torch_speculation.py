@@ -552,10 +552,27 @@ def test_host_routing_client_connects_lazily_once_per_host(tmp_path):
 
 
 def test_host_routing_client_without_connect_is_refused():
-    with pytest.raises(errors.ConfigError, match="uda_tpu/net/client.py"):
-        merger.HostRoutingClient()
-    with pytest.raises(errors.ConfigError, match="uda_tpu/net/client.py"):
-        merger.HostRoutingClient(config=Config())
+    """The refusal is lifted (``net`` is ported): without ``connect`` the
+    router dials ``host[:port]`` over sockets as the reference's does; a
+    supplier nobody listens for fails the fetch with TransportError."""
+    from uda_tpu_torch.net import RemoteFetchClient
+
+    for router, jrouter in ((merger.HostRoutingClient(),
+                             jmerger.HostRoutingClient()),
+                            (merger.HostRoutingClient(config=Config()),
+                             jmerger.HostRoutingClient(config=JConfig()))):
+        got = router._connect("127.0.0.1:1")
+        want = jrouter._connect("127.0.0.1:1")
+        assert isinstance(got, RemoteFetchClient)
+        assert (got.host, got.port) == (want.host, want.port)
+        box, done = [], threading.Event()
+        router.start_fetch(
+            mofserver.ShuffleRequest(JOB, "m", 0, 0, 64, host="127.0.0.1:1"),
+            lambda res: (box.append(res), done.set()))
+        assert done.wait(30)
+        assert isinstance(box[0], errors.TransportError)
+        router.stop()
+        jrouter.stop()
 
 
 def test_a_losing_concurrent_connect_is_torn_down():

@@ -8,9 +8,9 @@ administrative ``fail()`` (the watchdog's and ``stop()``'s rescue), the
 checkpoint's offset ledger (``ckpt_export``/``ckpt_preload``) and the
 survivable-shuffle rungs: speculative dual-source fetch, the
 transport-retry mid-partition resume and k-of-n stripe reconstruction.
-The reference's socket transport (``net/client.py``), its decompressing
-wrapper (``compress/``), and its elastic and push planes are not ported
-yet.
+``HostRoutingClient``'s default connect dials suppliers over sockets
+(``net/client.py``). The reference's elastic and push planes are not
+ported yet.
 
 Equivalent of the reference's Segment/BaseSegment (reference
 src/Merger/StreamRW.cc:334-590): a segment pulls its partition's bytes
@@ -38,9 +38,9 @@ from uda_tpu_torch.coding.recovery import start_recovery
 from uda_tpu_torch.mofserver.data_engine import (DataEngine, FetchResult,
                                                  ShuffleRequest)
 from uda_tpu_torch.merger.streaming import framed_records
-from uda_tpu_torch.utils.errors import (ConfigError, MergeError,
-                                        StorageError, TenantError,
-                                        TransportError, attribute_supplier)
+from uda_tpu_torch.utils.errors import (MergeError, StorageError,
+                                        TenantError, TransportError,
+                                        attribute_supplier)
 from uda_tpu_torch.utils.failpoints import failpoint
 from uda_tpu_torch.utils.ifile import RecordBatch, crack_partial
 from uda_tpu_torch.utils.logging import get_logger
@@ -150,21 +150,51 @@ class HostRoutingClient(InputClient):
     is torn down. A failed connect surfaces through the fetch's completion
     callback like any transport error.
 
-    The reference's default ``connect``, the socket data plane
-    (``RemoteFetchClient`` of ``uda_tpu/net/client.py``), is not ported:
-    without ``connect`` the router raises :class:`ConfigError`."""
+    With no ``connect`` the router defaults to the socket data plane: each
+    host dials that supplier's ShuffleServer as ``host[:port]`` (the port
+    defaulting to ``uda.tpu.net.port``) through a
+    :class:`~uda_tpu_torch.net.client.RemoteFetchClient`, one multiplexed
+    connection per supplier host."""
 
     def __init__(self, connect=None, config=None):
-        if connect is None:
-            raise ConfigError(
-                "HostRoutingClient without connect= dials suppliers over "
-                "sockets, which needs uda_tpu/net/client.py, not ported "
-                "to uda_tpu_torch yet")
-        del config  # the socket default's settings; see above
-        self._connect = connect
+        self._connect = (connect if connect is not None
+                         else self._socket_factory(config))
         self._clients: dict[str, InputClient] = {}
         self._stopped = False
         self._lock = threading.Lock()
+
+    @staticmethod
+    def _socket_factory(config):
+        """The default connect: dial ``host[:port]`` over TCP (imported
+        lazily: ``net`` imports this module)."""
+        def connect(host: str) -> InputClient:
+            from uda_tpu_torch.net.client import RemoteFetchClient
+            from uda_tpu_torch.utils.config import Config
+
+            # accepted shapes: "name", "name:port", "[v6addr]:port", and
+            # a bare IPv6 literal (two or more colons, no brackets)
+            name, port = host, ""
+            if host.startswith("["):
+                name, bracket, rest = host[1:].partition("]")
+                if not bracket or (rest and not rest.startswith(":")):
+                    raise TransportError(
+                        f"malformed supplier address {host!r}")
+                port = rest[1:]
+            elif host.count(":") == 1:
+                name, _, port = host.partition(":")
+            if not name:
+                # an empty host would resolve to localhost and misdirect
+                # the fetch to whatever listens there: a wiring bug
+                raise TransportError(
+                    "socket fetch routing needs a supplier host per "
+                    "map entry; got an empty host")
+            if port and not port.isdigit():
+                raise TransportError(
+                    f"malformed supplier port in {host!r}")
+            return RemoteFetchClient(
+                name, int(port) if port else None,
+                config=config or Config())
+        return connect
 
     def _client_for(self, host: str) -> InputClient:
         with self._lock:

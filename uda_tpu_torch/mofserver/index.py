@@ -243,6 +243,20 @@ class IndexResolver:
                 f"({len(records)} partitions)")
         return records[reduce_id]
 
+    def resolve_cached(self, job_id: str, map_id: str, reduce_id: int):
+        """Cache-hit-only resolve: the record when the (job, map)
+        partition table is cached already, None on a miss. Never does IO,
+        so the network server's loop thread may call it inline."""
+        with self._lock:
+            records = self._cache.get((job_id, map_id))
+        if records is None:
+            return None
+        if not 0 <= reduce_id < len(records):
+            raise StorageError(
+                f"reduce {reduce_id} out of range for {map_id} "
+                f"({len(records)} partitions)")
+        return records[reduce_id]
+
 
 class DirIndexResolver(IndexResolver):
     """Default layout resolver: ``<root>/<job>/<map_id>/file.out[.index]``

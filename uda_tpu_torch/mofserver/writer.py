@@ -2,10 +2,11 @@
 
 The port's copy of ``uda_tpu/mofserver/writer.py``: one IFile segment per
 reduce partition, concatenated into ``file.out``, with the (start,
-raw_length, part_length) index triples in ``file.out.index``
-(``raw_length == part_length``: the reference's block compression,
-``uda_tpu/compress``, is not ported yet, and asking for a codec raises
-:class:`ConfigError`).
+raw_length, part_length) index triples in ``file.out.index``. With a codec
+(``uda_tpu_torch.compress.Codec``) each partition's IFile bytes are
+block-compressed and the triple carries (start, raw_length = uncompressed,
+part_length = on disk), like Hadoop's spill index for compressed map
+outputs.
 
 Erasure coding (``uda.tpu.coding.scheme=rs:k:n``, ``coding``): the writer
 grows two outputs, both derived from the same per-partition blobs:
@@ -34,24 +35,17 @@ import os
 from typing import Iterable, Optional, Sequence, Tuple
 
 from uda_tpu_torch.mofserver.index import shard_map_id, write_index_file
-from uda_tpu_torch.utils.errors import ConfigError
 from uda_tpu_torch.utils.ifile import IFileWriter
 
 __all__ = ["MOFWriter", "write_map_output", "write_striped_map_output",
            "partition_blobs"]
 
 
-def _refuse_codec(codec) -> None:
-    if codec is not None:
-        raise ConfigError(
-            f"a map-output codec ({codec!r}) needs uda_tpu/compress, which "
-            f"is not ported to uda_tpu_torch yet")
-
-
-def partition_blobs(partitions: Sequence[Iterable[Tuple[bytes, bytes]]]
-                    ) -> list[tuple[bytes, int]]:
+def partition_blobs(partitions: Sequence[Iterable[Tuple[bytes, bytes]]],
+                    codec=None) -> list[tuple[bytes, int]]:
     """Each partition as ``(on-disk bytes, raw record-byte length)``: the
-    sorted records IFile-framed."""
+    sorted records IFile-framed, then block-compressed when ``codec`` is
+    given (raw == len(bytes) for uncompressed jobs)."""
     blobs = []
     for records in partitions:
         seg = io.BytesIO()
@@ -60,7 +54,11 @@ def partition_blobs(partitions: Sequence[Iterable[Tuple[bytes, bytes]]]
             w.append(k, v)
         w.close()
         raw = seg.getvalue()
-        blobs.append((raw, len(raw)))
+        if codec is not None:
+            from uda_tpu_torch.compress import compress_block_stream
+            blobs.append((compress_block_stream(raw, codec), len(raw)))
+        else:
+            blobs.append((raw, len(raw)))
     return blobs
 
 
@@ -129,10 +127,11 @@ def write_map_output(map_dir: str,
                      codec=None, scheme=None) -> list[tuple[int, int, int]]:
     """Write one map attempt's output: ``partitions[r]`` is the (already
     sorted) record stream for reducer r. Returns the index triples. With
-    ``scheme`` (a ``coding.CodingScheme``) the parity section and v2
-    index are written too (data region byte-identical either way)."""
-    _refuse_codec(codec)
-    return _write_primary(map_dir, partition_blobs(partitions), scheme)
+    ``codec`` each partition is block-compressed; with ``scheme`` (a
+    ``coding.CodingScheme``) the parity section and v2 index are written
+    too (data region byte-identical either way)."""
+    return _write_primary(map_dir, partition_blobs(partitions, codec),
+                          scheme)
 
 
 def write_striped_map_output(
@@ -148,11 +147,11 @@ def write_striped_map_output(
     hosts) for the placement rules to agree, and ``domains`` (a
     {supplier-root: failure domain} map, the writer-side spelling of
     ``uda.tpu.coding.domains``) must name the same domains the reduce side
-    declares."""
+    declares. With ``codec`` the partitions are compressed before they
+    are coded: the stripes code the on-disk bytes."""
     from uda_tpu_torch.coding import domain_labels, rs, stripe_order
 
-    _refuse_codec(codec)
-    blobs = partition_blobs(partitions)
+    blobs = partition_blobs(partitions, codec)
     h = len(supplier_roots)
     # encode each partition's stripe once; the primary's parity section
     # and the placement loop below both index into it
@@ -181,16 +180,16 @@ class MOFWriter:
     the job's supplier-root table it writes the striped layout
     (``supplier_index`` names this writer's position in the canonical
     supplier order); with a scheme alone, the primary's parity section
-    and v2 index. ``codec`` raises :class:`ConfigError`: the reference's
-    ``uda_tpu/compress`` is not ported yet."""
+    and v2 index. ``codec`` (a ``uda_tpu_torch.compress.Codec``)
+    block-compresses every partition."""
 
     def __init__(self, root: str, job_id: str, codec=None, scheme=None,
                  supplier_roots: Optional[Sequence[str]] = None,
                  supplier_index: int = 0,
                  domains: Optional[dict] = None):
-        _refuse_codec(codec)
         self.root = root
         self.job_id = job_id
+        self.codec = codec
         self.scheme = scheme
         self.supplier_roots = list(supplier_roots or [])
         self.supplier_index = supplier_index
@@ -206,8 +205,8 @@ class MOFWriter:
             write_striped_map_output(self.supplier_roots,
                                      self.supplier_index, self.job_id,
                                      map_id, partitions, self.scheme,
-                                     domains=self.domains)
+                                     self.codec, domains=self.domains)
         else:
-            write_map_output(self.map_dir(map_id), partitions,
+            write_map_output(self.map_dir(map_id), partitions, self.codec,
                              scheme=self.scheme)
         self.map_ids.append(map_id)

@@ -643,6 +643,11 @@ class Config:
         flag = FLAGS.get(key)
         self._values[key] = _coerce(flag, value) if flag else value
 
+    def is_set(self, key: str) -> bool:
+        """True when the key was set explicitly, as opposed to falling
+        through to its declared default."""
+        return key in self._values
+
     def get(self, key: str, default: Any = None) -> Any:
         if key in self._values:
             return self._values[key]

@@ -35,8 +35,11 @@ Sites of the port: ``data_engine.pread`` (the supplier's chunk read; it
 carries data, so truncate/corrupt apply), ``segment.fetch`` (the
 ``InputClient.start_fetch`` boundary), ``coding.decode`` (a stripe
 reconstruction's decode), ``ckpt.save`` (the assembled manifest bytes) and
-``ckpt.load`` (the manifest walk). Every other site
-the reference knows lives in a module the port lacks: arming it raises
+``ckpt.load`` (the manifest walk), ``data_engine.preadv`` (a batched
+read's bytes), ``decompress.block`` (one decoded compressed block),
+``net.accept``, ``net.connect``, ``net.frame`` (each outbound frame's
+head, on both sides) and ``net.handoff`` (the warm-restart record's load
+and save). Every other site the reference knows lives in a module the port lacks: arming it raises
 :class:`ConfigError` naming the site and that module, never a schedule
 that could not fire. A name the reference does not know either arms as
 it does there (tests use such names).
@@ -113,15 +116,8 @@ _UNPORTED_SITE_MODULES = {
     "exchange.round": "uda_tpu/parallel/exchange.py",
     "exchange.decode": "uda_tpu/parallel/exchange.py",
     "bridge.upcall": "uda_tpu/bridge/bridge.py",
-    "net.frame": "uda_tpu/net (client.py, server.py)",
-    "net.accept": "uda_tpu/net/server.py",
-    "net.connect": "uda_tpu/net/client.py",
-    "net.handoff": "uda_tpu/net/server.py",
     "net.push": "uda_tpu/net/push.py",
     "push.admit": "uda_tpu/net/push.py",
-    "decompress.block": "uda_tpu/compress",
-    "data_engine.preadv": "the batched read plane of "
-                          "uda_tpu/mofserver/data_engine.py",
     "tenant.register": "uda_tpu/tenant/registry.py",
     "tenant.validate": "uda_tpu/tenant/registry.py",
     "store.get": "uda_tpu/mofserver/store.py",
