@@ -70,15 +70,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    in-flight cap; runs copied from pinned leases on a copy stream and
    merged by K1 on a merge stream while later fetches are in flight),
    under ``torch.profiler``; (b) ``uda.tpu.online.streaming=true`` on the
-   first 16 maps (run c's), spilling sorted runs under a temporary
-   directory; (c) ``uda.tpu.stage.pipeline=false`` on the first 16 maps;
+   first 8 maps, spilling sorted runs under a temporary directory; (c)
+   ``uda.tpu.stage.pipeline=false`` on the first 16 maps (run c's);
    (d) the default and (e) streaming on a second tree, 64 maps
    of 1 MiB of Text records with values of 1 to 1000 bytes, beside one
    emission slab of them gathered by ``streaming._gather_spans`` and by a
    per-byte index (equal bytes, host ms of each). Each stream is hashed
-   as it is emitted and must equal phase 8's stream (run c: the card's
-   re-sort of its 16 maps; d, e: of their tree, framed) in sha256 and
-   length (run b: run c's digest); K1 must launch one merge and one
+   as it is emitted and must equal phase 8's stream (runs b, c: the
+   card's re-sort of their 8 and 16 maps; d, e: of their tree, framed) in
+   sha256 and length; K1 must launch one merge and one
    partition kernel per forest merge (63 for 64 maps); the in-flight gauge
    must end at 0 and every pinned lease go back, some reused;
 10. admission: the rest of ``MergeManager.run`` on run c's 16 maps, each
@@ -86,9 +86,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    just after, its stream hashed and held to run c's: (a) approach 2,
    the hybrid merge (4 LPQs of 4 maps, 3 at a time, each merged by K1's
    merge tree, 12 + 12 launches; the RPQ on the host; no spill file
-   left); (b) approach 0 three times: the defaults route to hybrid, a
-   256 MB device budget to streaming with no device run (0 launches), a
-   100 MB hard ceiling to ``FallbackSignal`` with no fetch; (c) streaming
+   left); (b) approach 0 three times: on the first 8 maps (held to their
+   re-sort) the defaults route to hybrid (3 LPQs, 5 + 5 launches) and a 256 MB
+   device budget to streaming with no device run (0 launches); on the
+   16, a 100 MB hard ceiling to ``FallbackSignal`` with no fetch; (c) streaming
    with a checkpoint (interval 0): attempt 1 dies on its last map
    (``segment.fetch=error:match:<map>``, no retry), attempt 2 resumes,
    adopts every run the manifest holds into K1's forest, fetches none of
@@ -113,16 +114,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    in flight and one ``data_engine.pread`` transport fault injected by
    the failpoint registry mid-partition in each map: 4 resumes, no map's
    offset 0 read twice (reads counted per map and offset). Runs b and c
-   equal the card's re-sort of those 4 maps. The one reduce mode the port
-   does not run yet (push) raises ``ConfigError`` and is not driven;
+   equal the card's re-sort of those 4 maps;
 12. networked shuffle: a port ``ShuffleServer`` on 127.0.0.1 (any free
    port) serves a tree through its own ``DataEngine``, and the reduce task
    is ``MergeManager.run`` on the card over ``HostRoutingClient(config=)``
    with its socket default (``uda.tpu.net.fetch=true``), each run with
    ``metrics`` and the launch counts reset just before and read just
    after, its stream hashed and held to a digest: (a) the default
-   ``Config()`` (zero-copy, ``zerocopy.mode=auto``) on phase 8's 64 maps,
-   equal to 9a's stream, K1 63 pairs, under ``torch.profiler``; (b) run
+   ``Config()`` (zero-copy, ``zerocopy.mode=auto``) on run c's 16 maps,
+   equal to run c's stream, K1 15 pairs, under ``torch.profiler``; (b) run
    c's 16 maps with ``uda.tpu.net.zerocopy=false`` and
    ``uda.tpu.fetch.crc=true``: every chunk through ``submit_batch``, none
    zero-copy, equal to run c's; (c) run c's maps written again with
@@ -133,7 +133,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and restarted on its port: warm (a handoff record) the segment
    resumes and no offset 0 is read twice; cold (no record) ``resume_ok``
    goes False and the partition restarts from 0; both equal the 4 maps'
-   re-sort.
+   re-sort;
+13. the supplier planes, each run with ``metrics`` and the launch counts
+   reset just before and read just after, under ``torch.profiler``: (a)
+   push: a port ``ShuffleServer`` with ``uda.tpu.push.enable`` serves
+   phase 8's 64 maps; the reduce task (the default ``Config()`` plus
+   push, over the socket default) calls ``arm_push`` first, a thread
+   plays the map phase (``notify_commit`` for one map every 100 ms) and
+   ``run()`` starts after the last commit: the stream equals 9a's, K1 63
+   pairs, at least one pushed prefix adopted (chunks, bytes, adoptions,
+   NACKs by reason, errors, the staging caps and ``run()``'s wall beside
+   9a's printed); (b) the elastic store: run c's 16 maps written again
+   through ``MOFWriter(store=StoreManager)`` into a fresh root, the
+   watermark a tenth of the partition's on-disk bytes, so 15 maps spill
+   to the blob tier oldest first as they are written (peak retained
+   bytes at or below the watermark); the default task over the wire
+   (spilled maps through the store's copy path, the retained one
+   zero-copy) equals run c's stream; then 4 maps retained locally,
+   ``announce_drain(store=)`` migrates them and a task started after it
+   reads them all from the blob tier, equal to their re-sort; (c)
+   tenants: run c's maps as two jobs of 8, one ``ShuffleServer`` with
+   ``uda.tpu.tenant.enable`` and 4 shared credits, two reduce tasks at
+   once on two threads (tenant t1 weight 1, t3 weight 3, each bound by
+   MSG_JOB from its own ``Config``): each stream equals its maps'
+   re-sort, K1 7 + 7 pairs; then t1's job is retired and a fetch of it
+   draws the typed TenantError (walls, granted bytes per tenant, the
+   fairness figure and admission rejections printed).
 
 Each phase's seconds are printed on a line of their own. The last two
 lines are one JSON object with a record per kernel and the
@@ -165,10 +190,12 @@ from uda_tpu_torch.compress.lzo import native_lzo_source
 from uda_tpu_torch.merger import (HostRoutingClient, LocalFetchClient,
                                   MergeManager, checkpoint)
 from uda_tpu_torch.merger import streaming as stream_mod
+from uda_tpu_torch.merger.hybrid import num_lpqs_for
 from uda_tpu_torch.merger.emitter import frame_batch
 from uda_tpu_torch.models import terasort
-from uda_tpu_torch.net import ShuffleServer
+from uda_tpu_torch.net import RemoteFetchClient, ShuffleServer
 from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver, MOFWriter,
+                                     ShuffleRequest, StoreManager,
                                      write_striped_map_output)
 from uda_tpu_torch.ops import _build, lane_gather, pallas_fold, pallas_merge
 from uda_tpu_torch.ops import merge as merge_ops
@@ -178,7 +205,8 @@ from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
 from uda_tpu_torch.utils.comparators import get_key_type
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils import vint
-from uda_tpu_torch.utils.errors import FallbackSignal, TransportError
+from uda_tpu_torch.utils.errors import (FallbackSignal, TenantError,
+                                        TransportError)
 from uda_tpu_torch.utils.failpoints import failpoints
 from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, crack
 from uda_tpu_torch.utils.metrics import metrics
@@ -284,6 +312,7 @@ VARLEN_MAX_VALUE = 1000
 # phase 10's hybrid merge: LPQs of 4 maps, 3 at a time
 HYBRID_LPQ_MAPS = 4
 HYBRID_PARALLEL = 3
+B_MAPS = 8                 # runs 9b, 10b1, 10b2: the first 8 maps
 # phase 5's steering check (ops/sort.SMALL_BATCH_ROWS is 2^20)
 STEER_ROWS = (1 << 16, 1 << 19)
 # phase 11: run c's maps striped over four suppliers
@@ -295,6 +324,10 @@ RESTART_MAPS = 4           # phase 12e
 LZO_MAPS = 4               # phase 12d
 LZO_MAP_BYTES = 1 << 20
 NET_CONF = {"uda.tpu.net.fetch": True}
+PUSH_COMMIT_S = 0.1        # phase 13a: the map phase commits a map each
+STORE_WATERMARK_DIV = 10   # phase 13b: the watermark, a tenth of the tree
+TENANT_WQE = 4             # phase 13c: uda.tpu.tenant.wqe.total
+TENANTS = (("t1", 1), ("t3", 3))  # phase 13c: (tenant, weight)
 SPEC_CONF = {"uda.tpu.fetch.speculate.pn": 95,
              "uda.tpu.fetch.speculate.floor.ms": 50}
 
@@ -1547,9 +1580,9 @@ def phase_varlen(dev: torch.device, spill: str) -> dict:
 
 def phase_overlap(dev: torch.device, root: str, mids: list, parts: list,
                   merged: dict, c_maps: int = OVERLAP_C_MAPS) -> dict:
-    """Runs a (64 maps, held to phase 8's stream), b and c (run c's first
-    16 maps, held to the card's re-sort of them) and the variable-length
-    runs d, e."""
+    """Runs a (64 maps, held to phase 8's stream), b (the first
+    ``B_MAPS`` maps) and c (run c's first 16 maps), each held to the
+    card's re-sort of its maps, and the variable-length runs d, e."""
     part_bytes = sum(p.nbytes + 2 for p in parts)
     want = (merged["sha256"], merged["stream_bytes"])
     sub = parts[:c_maps]
@@ -1559,9 +1592,11 @@ def phase_overlap(dev: torch.device, root: str, mids: list, parts: list,
         runs = {
             "a": overlap_run(dev, root, mids, part_bytes, {}, want,
                              "a default", profiled=True),
-            "b": overlap_run(dev, root, mids[:c_maps], sub_bytes,
+            "b": overlap_run(dev, root, mids[:B_MAPS],
+                             sum(p.nbytes + 2 for p in parts[:B_MAPS]),
                              {"uda.tpu.online.streaming": True,
-                              "uda.tpu.spill.dirs": spill}, want_c,
+                              "uda.tpu.spill.dirs": spill},
+                             resort_digest(parts[:B_MAPS], dev),
                              "b streaming"),
         }
         runs.update(phase_varlen(dev, spill))
@@ -1601,7 +1636,7 @@ class CountingEngine(DataEngine):
 
 def drive_task(dev: torch.device, client, engines: list, entries: list,
                conf: dict, name: str, fault: str = "",
-               profiled: bool = False) -> dict:
+               profiled: bool = False, before_run=None) -> dict:
     """One ``MergeManager.run`` over ``entries`` through ``client`` with
     ``fault`` armed in the port's failpoint registry, ``metrics`` and the
     launch counts reset just before and read just after; the stream is
@@ -1609,7 +1644,8 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
     run's record: its stream (sha256, length) or the FallbackSignal it
     ended in, wall, launches, peak memory, the metrics snapshot and the
     manager; with ``profiled`` (``torch.profiler``) the device's busy ms
-    and idle share too."""
+    and idle share too. ``before_run(manager)`` runs after the resets and
+    before the timed ``run()`` (13a's map phase)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = Config(conf)
@@ -1628,6 +1664,8 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
         torch.cuda.reset_peak_memory_stats()
         metrics.reset()
         _build.reset_launches()
+        if before_run is not None:
+            before_run(mm)
         ctx = (profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
                if profiled else contextlib.nullcontext())
@@ -1696,12 +1734,16 @@ def _require_stream(res: dict, want: tuple) -> None:
 
 
 def phase_admission(dev: torch.device, root: str, mids: list,
-                    part_bytes: int, want: tuple) -> dict:
+                    part_bytes: int, want: tuple, want_b: tuple) -> dict:
     """Phase 10 on the maps of run c (``mids``, whose stream must equal
     ``want``, run c's (sha256, length)): (a) the hybrid merge; (b) the
-    three routes of approach 0; (c) a checkpointed task killed by a lost
-    map and resumed; (d) a wedged fetch ended by the watchdog."""
+    three routes of approach 0, the first two on the first
+    ``B_MAPS`` maps (stream ``want_b``); (c) a checkpointed task
+    killed by a lost map and resumed; (d) a wedged fetch ended by the
+    watchdog."""
     k1 = ("merge_pass", "merge_partition")
+    b_mids = mids[:B_MAPS]
+    b_bytes = part_bytes * len(b_mids) // len(mids)  # maps of one size
     runs: dict = {}
     with tempfile.TemporaryDirectory(prefix="uda_lpq_") as spill:
         # (a) 4 LPQs of 4 maps, 3 at a time: 3 K1 pair merges an LPQ
@@ -1720,32 +1762,36 @@ def phase_admission(dev: torch.device, root: str, mids: list,
         runs["a"] = _report(res, part_bytes,
                             ("lpq_phase_time", "lpq_spill_time",
                              "rpq_phase_time", "fetch_time", "merge_time"))
-        # (b) approach 0: the defaults route 268 MB to hybrid
+        # (b) approach 0: the defaults route the first 8 maps (134 MB) to
+        # hybrid
         auto = {"mapred.netmerger.merge.approach": 0,
                 "mapred.rdma.num.parallel.lpqs": HYBRID_PARALLEL,
                 "uda.tpu.spill.dirs": spill}
-        res = task_run(dev, root, mids, auto, "b1 auto")
-        _require_stream(res, want)
+        res = task_run(dev, root, b_mids, auto, "b1 auto")
+        _require_stream(res, want_b)
         adm = res["mm"].last_admission
         require(adm.decision == "hybrid" and not adm.cause,
                 f"[admission b1] routed {adm}")
-        require(all(res["launches"][k] == pairs for k in k1),
+        # the defaults' LPQ count: round(sqrt(maps)), 3 for 8 maps
+        b_pairs = len(b_mids) - num_lpqs_for(len(b_mids), 0)
+        require(all(res["launches"][k] == b_pairs for k in k1),
                 f"[admission b1] K1 launched {res['launches']}")
-        runs["b1"] = _report(res, part_bytes, ("rpq_phase_time",))
+        runs["b1"] = _report(res, b_bytes, ("rpq_phase_time",))
         runs["b1"]["card_hbm_bytes"] = torch.cuda.mem_get_info(dev)[1]
-        # a 256 MB device budget: streaming with no device run
-        res = task_run(dev, root, mids,
+        # a 256 MB device budget (below the 8 maps' modelled device
+        # working set): streaming with no device run
+        res = task_run(dev, root, b_mids,
                        dict(auto, **{"uda.tpu.hbm.budget.mb": 256}),
                        "b2 auto over the device budget")
-        _require_stream(res, want)
+        _require_stream(res, want_b)
         adm = res["mm"].last_admission
         require(adm.decision == "streaming" and adm.cause == "hbm"
                 and not res["mm"]._active_overlap.device_runs,
                 f"[admission b2] routed {adm}")
         require(not any(res["launches"][k] for k in k1),
                 f"[admission b2] K1 launched {res['launches']}")
-        runs["b2"] = _report(res, part_bytes, ("run_spool_time",
-                                               "merge_time"))
+        runs["b2"] = _report(res, b_bytes, ("run_spool_time",
+                                            "merge_time"))
         # a 100 MB hard ceiling: refused before any fetch
         res = task_run(dev, root, mids,
                        dict(auto, **{"uda.tpu.budget.hard.mb": 100}),
@@ -2137,24 +2183,23 @@ NET_KEYS = ("fetch_time", "merge_time", "net.serve.fd", "net.serve.copy",
 
 
 def phase_net_tree(dev: torch.device, root: str, mids: list, parts: list,
-                   want_a: tuple, wall_9a: float, want_c: tuple,
+                   want_c: tuple, wall_c: float,
                    c_maps: int = OVERLAP_C_MAPS) -> dict:
     """Phase 12a, 12b and 12e on phase 8's tree: (a) the default
-    ``Config()`` over the wire on every map (held to 9a's stream, under
-    ``torch.profiler``); (b) run c's maps with zero-copy off and CRC
+    ``Config()`` over the wire on run c's maps (held to run c's stream,
+    under ``torch.profiler``); (b) run c's maps with zero-copy off and CRC
     stamping on (every chunk through ``submit_batch``); (e) a supplier
     bounced mid-fetch, warm then cold."""
     runs: dict = {}
-    part_bytes = sum(p.nbytes + 2 for p in parts)
-    res = net_task(dev, root, mids, dict(NET_CONF), "a default",
+    sub_bytes = sum(p.nbytes + 2 for p in parts[:c_maps])
+    res = net_task(dev, root, mids[:c_maps], dict(NET_CONF), "a default",
                    profiled=True)
     snap = res["metrics"]
     require(snap.get("net.serve.fd", 0) > 0,
             "[net a] no chunk went out zero-copy")
-    runs["a"] = _net_report(res, part_bytes, want_a, len(mids) - 1,
-                            NET_KEYS, {"phase_9a_wall_s": wall_9a})
+    runs["a"] = _net_report(res, sub_bytes, want_c, c_maps - 1,
+                            NET_KEYS, {"run_c_wall_s": wall_c})
 
-    sub_bytes = sum(p.nbytes + 2 for p in parts[:c_maps])
     conf = dict(NET_CONF, **{"uda.tpu.net.zerocopy": False,
                              "uda.tpu.fetch.crc": True})
     res = net_task(dev, root, mids[:c_maps], conf, "b bytes+crc")
@@ -2296,6 +2341,310 @@ def phase_net_codecs(dev: torch.device, parts: list, want_c: tuple) -> dict:
     return runs
 
 
+
+# --------------------------------------------------------------- phase 13
+PUSH_KEYS = ("push.commits", "push.subs", "push.chunks", "push.bytes",
+             "push.accepted", "push.accepted.bytes", "push.spilled.bytes",
+             "push.acks", "push.adopted", "push.adopted.bytes",
+             "push.invalidated", "push.errors", "fetch.resumed",
+             "net.serve.fd", "net.serve.copy", "fetch_time", "merge_time")
+STORE_KEYS = ("store.read.bytes", "store.failover", "store.errors",
+              "net.serve.fd", "net.serve.copy", "net.sendfile.bytes",
+              "net.requests", "fetch_time", "merge_time")
+
+
+def _series(snap: dict, name: str, label: str) -> dict:
+    """One labelled counter's series in a metrics snapshot: value ->
+    count (``push.nacks{reason=budget}`` -> ``{"budget": n}``)."""
+    pre = f"{name}{{{label}="
+    return {k[len(pre):-1]: v for k, v in snap.items()
+            if k.startswith(pre)}
+
+
+def phase_push(dev: torch.device, root: str, mids: list, part_bytes: int,
+               want: tuple, wall_9a: float) -> dict:
+    """Phase 13a: a port ShuffleServer with ``uda.tpu.push.enable`` serves
+    phase 8's tree; the reduce task (the default ``Config()`` plus push,
+    over ``HostRoutingClient``'s socket default) arms push first, then a
+    thread plays the map phase, ``notify_commit`` for one map every
+    ``PUSH_COMMIT_S``, and ``run()`` starts after the last commit.
+    ``metrics`` and the launch counts are reset before the arm; the wall
+    is ``run()``'s. The stream must equal 9a's with a K1 launch pair per
+    forest merge and at least one pushed prefix adopted."""
+    conf = dict(NET_CONF, **{"uda.tpu.push.enable": True})
+    engine, server = serve(root, conf)
+    servers = Servers([server])
+    host = f"127.0.0.1:{server.port}"
+    router = HostRoutingClient(config=Config(conf))
+    seen: dict = {}
+
+    def map_phase(mm) -> None:
+        staging = mm.arm_push(MERGE_JOB, 0, hosts={host})
+        require(staging is not None, "[push] arm_push left the task pull "
+                "only")
+        seen.update(eager_cap=staging.eager_cap,
+                    staged_cap=staging.staged_cap, spill=staging.spill_ok)
+        t0 = time.perf_counter()
+
+        def commit_all() -> None:
+            for i, mid in enumerate(mids):
+                wait = t0 + i * PUSH_COMMIT_S - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                server.notify_commit(MERGE_JOB, mid)
+
+        committer = threading.Thread(target=commit_all,
+                                     name="uda-map-phase")
+        committer.start()
+        committer.join()
+        seen.update(map_phase_s=time.perf_counter() - t0,
+                    staged_at_run=staging.staged_bytes())
+
+    res = drive_task(dev, router, [router, servers, engine],
+                     [(host, m) for m in mids], conf, "13a push",
+                     profiled=True, before_run=map_phase)
+    res.update(servers=servers, engine=engine)
+    snap = res["metrics"]
+    refused = _series(snap, "push.refused", "reason")
+    require(snap.get("push.adopted", 0) >= 1,
+            f"[push] no pushed prefix adopted: {snap.get('push.chunks', 0)}"
+            f" chunks pushed, refused {refused}")
+    return _net_report(res, part_bytes, want, len(mids) - 1, PUSH_KEYS, {
+        "phase_9a_wall_s": wall_9a, "caps": {
+            k: seen[k] for k in ("eager_cap", "staged_cap", "spill")},
+        "map_phase_s": seen["map_phase_s"],
+        "staged_at_run_bytes": seen["staged_at_run"],
+        "nacks": _series(snap, "push.nacks", "reason"),
+        "refused": refused})
+
+
+def _store_task(dev: torch.device, resolver, mgr, mids: list, name: str,
+                before_run=None) -> dict:
+    """``drive_task`` over the wire against a port ShuffleServer whose
+    engine has ``mgr`` attached (under ``torch.profiler``)."""
+    conf = dict(NET_CONF)
+    engine = DataEngine(resolver, Config(conf))
+    engine.attach_store(mgr)
+    server = ShuffleServer(engine, Config(conf), host="127.0.0.1",
+                           port=0).start()
+    servers = Servers([server])
+    host = f"127.0.0.1:{server.port}"
+    router = HostRoutingClient(config=Config(conf))
+    extra: dict = {}
+    if before_run is not None:
+        extra = before_run(server) or {}
+    res = drive_task(dev, router, [router, servers, engine],
+                     [(host, m) for m in mids], conf, name, profiled=True)
+    res.update(servers=servers, engine=engine, extra=extra)
+    return res
+
+
+def phase_store(dev: torch.device, parts: list, want: tuple,
+                wall_c: float, drain_maps: int = RESTART_MAPS) -> dict:
+    """Phase 13b: run c's maps written again through
+    ``MOFWriter(store=StoreManager)`` into a fresh served root, the
+    watermark a tenth of the partition's on-disk bytes (the reference's
+    "10x over budget" shape), so the spill ladder migrates whole maps to
+    the blob tier, oldest first, as later maps commit; then the default
+    task over the wire, the engine routing spilled maps through the store
+    (the copy path) and the rest by zero-copy. The drain: ``drain_maps``
+    maps retained locally, ``announce_drain(store=)`` migrates them all,
+    and a task started after it reads every one from the blob tier."""
+    runs: dict = {}
+    part_bytes = sum(p.nbytes + 2 for p in parts)
+    with tempfile.TemporaryDirectory(prefix="uda_store_") as top:
+        local = os.path.join(top, "local")
+        resolver = DirIndexResolver(local)
+        mgr = StoreManager(resolver, os.path.join(top, "blob"),
+                           watermark_bytes=part_bytes // STORE_WATERMARK_DIV)
+        writer = MOFWriter(local, MERGE_JOB, store=mgr)
+        t0 = time.perf_counter()
+        peak = 0
+        for m, rec in enumerate(parts):
+            writer.write(map_id(m), [record_pairs(rec)])
+            peak = max(peak, mgr.retained_bytes())
+        write_s = time.perf_counter() - t0
+        moved = mgr.migrations()
+        spilled = sum(e["bytes"] for e in moved if e["reason"] == "spill")
+        require(peak <= mgr.watermark_bytes and spilled > 0,
+                f"[store] retained {peak} B at peak against a watermark of "
+                f"{mgr.watermark_bytes} B, {spilled} B spilled")
+        res = _store_task(dev, resolver, mgr, writer.map_ids, "13b store")
+        snap = res["metrics"]
+        require(snap.get("net.serve.copy", 0) > 0
+                and snap.get("store.read.bytes", 0) > 0,
+                f"[store] {snap.get('net.serve.copy', 0)} chunks by copy, "
+                f"{snap.get('store.read.bytes', 0)} B through the store")
+        runs["b"] = _net_report(res, part_bytes, want, len(parts) - 1,
+                                STORE_KEYS, {
+            "run_c_wall_s": wall_c, "write_s": write_s,
+            "watermark_bytes": mgr.watermark_bytes,
+            "peak_retained_bytes": peak,
+            "store.migrations": len(moved),
+            "store.spilled.bytes": spilled,
+            "retained_bytes": mgr.retained_bytes()})
+        mgr.close()
+
+        sub = parts[:drain_maps]
+        local = os.path.join(top, "drain")
+        resolver = DirIndexResolver(local)
+        mgr = StoreManager(resolver, os.path.join(top, "drain_blob"))
+        writer = MOFWriter(local, MERGE_JOB, store=mgr)
+        for m, rec in enumerate(sub):
+            writer.write(map_id(m), [record_pairs(rec)])
+        require(not mgr.migrations(), "[store drain] a map spilled")
+
+        def drain(server) -> dict:
+            t0 = time.perf_counter()
+            moved = server.announce_drain(store=mgr, job_id=MERGE_JOB)
+            require(len(moved) == drain_maps and mgr.retained_bytes() == 0
+                    and not any(os.path.exists(e["src"]) for e in moved),
+                    f"[store drain] {len(moved)} maps moved, "
+                    f"{mgr.retained_bytes()} B retained")
+            return {"drain_s": time.perf_counter() - t0,
+                    "moved": len(moved),
+                    "moved_bytes": sum(e["bytes"] for e in moved)}
+
+        res = _store_task(dev, resolver, mgr, writer.map_ids, "13b drain",
+                          before_run=drain)
+        snap = res["metrics"]
+        require(snap.get("net.serve.fd", 0) == 0
+                and snap.get("store.read.bytes", 0) > 0,
+                f"[store drain] {snap.get('net.serve.fd', 0)} chunks "
+                f"zero-copy after the drain")
+        runs["b drain"] = _net_report(
+            res, sum(p.nbytes + 2 for p in sub), resort_digest(sub, dev),
+            drain_maps - 1, STORE_KEYS, res["extra"])
+        mgr.close()
+    return runs
+
+
+def phase_tenants(dev: torch.device, root: str, mids: list,
+                  parts: list) -> dict:
+    """Phase 13c: run c's maps as two jobs of half the maps each (their
+    map directories linked under a job of their own), served by one port
+    ShuffleServer with ``uda.tpu.tenant.enable`` and
+    ``uda.tpu.tenant.wqe.total`` = ``TENANT_WQE``; two reduce tasks run at
+    once on two threads, each bound by MSG_JOB from its own ``Config``
+    (``TENANTS``: tenant, weight). ``metrics`` and the launch counts are
+    reset before both start and read after both end, under
+    ``torch.profiler``. Each stream must equal the re-sort of its maps;
+    then ``retire_job`` on t1's job, after which a fetch of it draws the
+    typed TenantError."""
+    from torch.profiler import ProfilerActivity, profile
+
+    half = len(mids) // 2
+    jobs = {}
+    for (tenant_id, weight), lo, hi in zip(TENANTS, (0, half),
+                                           (half, len(mids))):
+        job = f"{MERGE_JOB}_{tenant_id}"
+        os.makedirs(os.path.join(root, job))
+        for mid in mids[lo:hi]:
+            os.symlink(os.path.join(root, MERGE_JOB, mid),
+                       os.path.join(root, job, mid))
+        jobs[tenant_id] = (job, weight, mids[lo:hi],
+                           resort_digest(parts[lo:hi], dev),
+                           sum(p.nbytes + 2 for p in parts[lo:hi]))
+    conf = dict(NET_CONF, **{"uda.tpu.tenant.enable": True,
+                             "uda.tpu.tenant.wqe.total": TENANT_WQE})
+    engine, server = serve(root, conf)
+    host = f"127.0.0.1:{server.port}"
+    results: dict = {}
+
+    def task(tenant_id: str) -> None:
+        job, weight, jmids, _, _ = jobs[tenant_id]
+        cfg = Config(dict(NET_CONF, **{"uda.tpu.tenant.id": tenant_id,
+                                       "uda.tpu.tenant.weight": weight}))
+        router = HostRoutingClient(config=cfg)
+        digest = hashlib.sha256()
+        length = [0]
+
+        def consumer(block: memoryview) -> None:
+            digest.update(block)
+            length[0] += len(block)
+
+        t0 = time.perf_counter()
+        error = None
+        try:
+            MergeManager(router, MERGE_KEY_CLASS, cfg, device=dev).run(
+                job, [(host, m) for m in jmids], 0, consumer)
+        except FallbackSignal as e:
+            error = e
+        finally:
+            router.stop()
+        results[tenant_id] = {"wall_s": time.perf_counter() - t0,
+                              "sha256": digest.hexdigest(),
+                              "stream_bytes": length[0], "error": error}
+
+    try:
+        torch.cuda.synchronize()
+        metrics.reset()
+        _build.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=task, args=(t,),
+                                        name=f"uda-tenant-{t}")
+                       for t, _ in TENANTS]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {k: _build.launches[k] for k in KERNELS}
+        snap = metrics.snapshot()
+        granted = dict(server._sched.granted_cost)
+        for tenant_id, (job, _, _, want, _) in jobs.items():
+            r = results.get(tenant_id, {})
+            require(r.get("error") is None and (
+                r.get("sha256"), r.get("stream_bytes")) == want,
+                f"[tenants {tenant_id}] {r.get('error')!r}, stream "
+                f"{r.get('stream_bytes')} B against {want}")
+        pairs = len(mids) - len(TENANTS)
+        require(counts["merge_pass"] == pairs
+                == counts["merge_partition"],
+                f"[tenants] K1 launched {counts}, not {pairs} pairs")
+        job1 = jobs[TENANTS[0][0]][0]
+        client = RemoteFetchClient("127.0.0.1", server.port, Config({
+            "uda.tpu.tenant.id": TENANTS[0][0],
+            "uda.tpu.tenant.weight": TENANTS[0][1]}))
+        try:
+            client.bind_job(job1)
+            client.retire_job(job1)
+            box, done = [], threading.Event()
+            client.start_fetch(ShuffleRequest(job1, mids[0], 0, 0, 1 << 20),
+                               lambda r: (box.append(r), done.set()))
+            require(done.wait(30) and isinstance(box[0], TenantError),
+                    f"[tenants] a fetch of the retired job gave "
+                    f"{box[:1]!r}")
+        finally:
+            client.stop()
+    finally:
+        server.stop()
+        engine.stop()
+    by_name, busy = device_time(prof)
+    w = dict(TENANTS)
+    out = {"run": "13c tenants", "wall_s": wall, "launches": counts,
+           "tasks": {t: {"wall_s": r["wall_s"], "sha256": r["sha256"],
+                         "stream_bytes": r["stream_bytes"],
+                         "mb_per_s": jobs[t][4] / r["wall_s"] / 1e6}
+                     for t, r in results.items()},
+           "granted_cost": granted, "wqe_total": TENANT_WQE,
+           # granted bytes a unit of weight, t3's over t1's (1.0: the
+           # weighted fair share; recorded, not required)
+           "fairness": ((granted.get("t3", 0) / w["t3"])
+                        / max(1e-9, granted.get("t1", 0) / w["t1"])),
+           "tenant.admission.rejections": snap.get(
+               "tenant.admission.rejections", 0.0),
+           "tenant.sched.parked": snap.get("tenant.sched.parked", 0.0),
+           "retired_fetch": type(box[0]).__name__,
+           "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / (wall * 1e3) if by_name else None}
+    log("[net 13c tenants] " + json.dumps(out))
+    return out
+
+
 def wire_ab(dev: torch.device, maps: int = MERGE_MAPS,
             map_bytes: int = MERGE_MAP_BYTES, pairs: int = 3) -> dict:
     """Not part of ``main``: the default reduce task on one tree in
@@ -2330,6 +2679,27 @@ def wire_ab(dev: torch.device, maps: int = MERGE_MAPS,
     return runs
 
 
+def phase_planes_alone(dev: torch.device, maps: int = MERGE_MAPS,
+                       map_bytes: int = MERGE_MAP_BYTES,
+                       c_maps: int = OVERLAP_C_MAPS) -> dict:
+    """Phase 13 on its own: phase 8's tree written again, each digest the
+    card's re-sort (9a's wall not measured: 0)."""
+    parts = tera_partitions(SEED + 3, maps, map_bytes)
+    want_c = resort_digest(parts[:c_maps], dev)
+    with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
+        mids = write_mof_tree(root, parts)
+        with phase_seconds("13a push"):
+            planes = {"push": phase_push(
+                dev, root, mids, sum(p.nbytes + 2 for p in parts),
+                resort_digest(parts, dev), 0.0)}
+        with phase_seconds("13c tenants"):
+            planes["tenants"] = phase_tenants(dev, root, mids[:c_maps],
+                                              parts[:c_maps])
+    with phase_seconds("13b store"):
+        planes["store"] = phase_store(dev, parts[:c_maps], want_c, 0.0)
+    return planes
+
+
 def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
                           map_bytes: int = MERGE_MAP_BYTES) -> dict:
     """Phase 10 on its own: the first ``maps`` maps of phase 8's tree,
@@ -2339,15 +2709,17 @@ def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
         mids = write_mof_tree(root, parts)
         return phase_admission(dev, root, mids,
                                sum(p.nbytes + 2 for p in parts),
-                               resort_digest(parts, dev))
+                               resort_digest(parts, dev),
+                               resort_digest(parts[:B_MAPS], dev))
 
 
 def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
                  map_bytes: int = MERGE_MAP_BYTES, reps: int = TIMED_REPS,
                  c_maps: int = OVERLAP_C_MAPS) -> tuple:
-    """Phases 8, 9, 10 and 12a, 12b, 12e on one MOF tree (the tree is
-    written once), then phase 11 on run c's maps striped over four roots
-    and 12c, 12d on compressed trees."""
+    """Phases 8, 9, 10, 12a, 12b, 12e, 13a and 13c on one MOF tree (the
+    tree is written once), then phase 11 on run c's maps striped over four
+    roots, 12c, 12d on compressed trees and 13b on run c's maps written
+    again through the store."""
     t0 = time.perf_counter()
     parts = tera_partitions(SEED + 3, maps, map_bytes)
     with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
@@ -2363,20 +2735,30 @@ def phase_reduce(dev: torch.device, maps: int = MERGE_MAPS,
         want_c = (overlap["c"]["sha256"], overlap["c"]["stream_bytes"])
         admission = phase_admission(
             dev, root, mids[:c_maps],
-            sum(p.nbytes + 2 for p in parts[:c_maps]), want_c)
+            sum(p.nbytes + 2 for p in parts[:c_maps]), want_c,
+            (overlap["b"]["sha256"], overlap["b"]["stream_bytes"]))
         log(f"[phase 10] {time.perf_counter() - t0:.1f} s since phase 8 "
             f"began")
         with phase_seconds("12a 12b 12e wire"):
-            net = phase_net_tree(
-                dev, root, mids, parts,
+            net = phase_net_tree(dev, root, mids, parts, want_c,
+                                 overlap["c"]["wall_s"], c_maps)
+        with phase_seconds("13a push"):
+            planes = {"push": phase_push(
+                dev, root, mids, sum(p.nbytes + 2 for p in parts),
                 (merged["sha256"], merged["stream_bytes"]),
-                overlap["a"]["wall_s"], want_c, c_maps)
+                overlap["a"]["wall_s"])}
+        with phase_seconds("13c tenants"):
+            planes["tenants"] = phase_tenants(dev, root, mids[:c_maps],
+                                              parts[:c_maps])
     with phase_seconds("11 coded"):
         coded = phase_coded(dev, parts[:c_maps], want_c,
                             overlap["c"]["wall_s"])
     with phase_seconds("12c 12d codecs"):
         net.update(phase_net_codecs(dev, parts[:c_maps], want_c))
-    return merged, overlap, admission, coded, net
+    with phase_seconds("13b store"):
+        planes["store"] = phase_store(dev, parts[:c_maps], want_c,
+                                      overlap["c"]["wall_s"])
+    return merged, overlap, admission, coded, net, planes
 
 
 @contextlib.contextmanager
@@ -2414,7 +2796,7 @@ def main() -> int:
     del words
     torch.cuda.empty_cache()
     with phase_seconds("8-12 reduce"):
-        merged, overlap, admission, coded, net = phase_reduce(dev)
+        merged, overlap, admission, coded, net, planes = phase_reduce(dev)
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -2448,6 +2830,12 @@ def main() -> int:
                 for k in ("a", "b speculation", "c")}
             kernels[-1]["net_path_launches"] = {
                 k: v["launches"][name] for k, v in net.items()}
+            kernels[-1]["push_path_launches"] = \
+                planes["push"]["launches"][name]
+            kernels[-1]["store_path_launches"] = {
+                k: v["launches"][name] for k, v in planes["store"].items()}
+            kernels[-1]["tenant_path_launches"] = \
+                planes["tenants"]["launches"][name]
     log(f"[main] peak memory: " + ", ".join(
         f"{r['path']} {r['peak_bytes']} B" for r in runs))
     log(f"[seconds] whole run: {time.perf_counter() - t0:.1f}")

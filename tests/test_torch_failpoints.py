@@ -127,14 +127,14 @@ def test_delay_sleeps_and_the_environment_arms():
     try:
         tfp._load_env({"UDA_FAILPOINTS": "segment.fetch=error:once"})
         assert tfp.failpoints.active() == {"segment.fetch": "error:once"}
-        with pytest.raises(errors.ConfigError, match="net.push"):
-            tfp._load_env({"UDA_FAILPOINTS": "net.push=error"})
+        with pytest.raises(errors.ConfigError, match="bridge.upcall"):
+            tfp._load_env({"UDA_FAILPOINTS": "bridge.upcall=error"})
     finally:
         tfp.failpoints = saved
 
 
-@pytest.mark.parametrize("spec", ["net.push=error",
-                                  "store.get=truncate"])
+@pytest.mark.parametrize("spec", ["exchange.round=error",
+                                  "bridge.upcall=truncate"])
 def test_config_key_with_an_unported_site_is_refused(tmp_path, spec):
     conf = Config({"uda.tpu.failpoints": spec})
     with tfp.failpoints.scoped(""):

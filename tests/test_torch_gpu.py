@@ -678,3 +678,121 @@ def test_networked_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path,
     assert streams["cuda"][1]["merge_partition"] == 4
     assert not streams["cpu"][1].get("merge_pass")
     assert streams["cuda"][2] > 0 and streams["cpu"][2] > 0
+
+
+def _fixed_maps(writer, maps=5, n=300, seed=43):
+    """``maps`` one-partition map outputs of fixed-width raw records."""
+    rng = np.random.default_rng(seed)
+    for m in range(maps):
+        writer.write(f"m{m}", [sorted((rng.bytes(10), rng.bytes(30))
+                                      for _ in range(n))])
+    return list(writer.map_ids)
+
+
+def test_pushed_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """5 maps pushed by a port ShuffleServer with uda.tpu.push.enable to a
+    task that armed push before the commits: on the card K1 merges the
+    forest (4 launch pairs), every map's pushed prefix is adopted, and
+    the stream is the bytes of the same task on the CPU."""
+    import threading
+
+    from uda_tpu_torch.merger import HostRoutingClient, MergeManager
+    from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver,
+                                         MOFWriter, read_index_file)
+    from uda_tpu_torch.net import ShuffleServer
+    from uda_tpu_torch.utils.config import Config
+    from uda_tpu_torch.utils.metrics import metrics
+
+    root = str(tmp_path)
+    mids = _fixed_maps(MOFWriter(root, "job"))
+    total = sum(read_index_file(f"{root}/job/{m}/file.out.index",
+                                "")[0].part_length for m in mids)
+    conf = Config({"uda.tpu.push.enable": True, "mapred.rdma.buf.size": 4})
+    engine = DataEngine(DirIndexResolver(root), conf)
+    streams = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            server = ShuffleServer(engine, conf, host="127.0.0.1",
+                                   port=0).start()
+            addr = f"127.0.0.1:{server.port}"
+            router = HostRoutingClient(config=conf)
+            mm = MergeManager(router, "uda.tpu.RawBytes", conf, device=dev)
+            out = bytearray()
+            metrics.reset()
+            try:
+                staging = mm.arm_push("job", 0, hosts={addr})
+                full = threading.Event()
+                offer = staging.offer
+
+                def gated(*args, offer=offer, staging=staging, full=full):
+                    verdict = offer(*args)
+                    if staging.staged_bytes() == total:
+                        full.set()
+                    return verdict
+
+                staging.offer = gated
+                for m in mids:
+                    server.notify_commit("job", m)
+                assert full.wait(30)
+                _build.reset_launches()
+                mm.run("job", [(addr, m) for m in mids], 0, out.extend)
+                torch.cuda.synchronize()
+            finally:
+                router.stop()
+                server.stop()
+            streams[dev] = (bytes(out), dict(_build.launches),
+                            metrics.get("push.adopted"))
+    finally:
+        engine.stop()
+    assert streams["cuda"][0] == streams["cpu"][0]
+    assert streams["cuda"][1]["merge_pass"] == 4
+    assert streams["cuda"][1]["merge_partition"] == 4
+    assert streams["cuda"][2] == streams["cpu"][2] == 5
+
+
+def test_store_spilled_reduce_on_the_card_matches_the_cpu(cuda_device,
+                                                          tmp_path):
+    """5 maps written through MOFWriter(store=) with a 1 KB watermark
+    (each map spills to the blob tier as the next one lands), served by a
+    port ShuffleServer whose engine routes them through the store: the
+    card's stream (4 K1 launch pairs) is the CPU's."""
+    from uda_tpu_torch.merger import HostRoutingClient, MergeManager
+    from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver,
+                                         MOFWriter, StoreManager)
+    from uda_tpu_torch.net import ShuffleServer
+    from uda_tpu_torch.utils.config import Config
+    from uda_tpu_torch.utils.metrics import metrics
+
+    resolver = DirIndexResolver(str(tmp_path / "local"))
+    mgr = StoreManager(resolver, str(tmp_path / "blob"),
+                       watermark_bytes=1 << 10)
+    mids = _fixed_maps(MOFWriter(str(tmp_path / "local"), "job",
+                                 store=mgr))
+    assert len(mgr.migrations()) == 5
+    conf = Config({"mapred.rdma.buf.size": 4})
+    engine = DataEngine(resolver, conf)
+    engine.attach_store(mgr)
+    server = ShuffleServer(engine, conf, host="127.0.0.1", port=0).start()
+    entries = [(f"127.0.0.1:{server.port}", m) for m in mids]
+    streams = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            router = HostRoutingClient(config=conf)
+            out = bytearray()
+            metrics.reset()
+            _build.reset_launches()
+            try:
+                MergeManager(router, "uda.tpu.RawBytes", conf,
+                             device=dev).run("job", entries, 0, out.extend)
+                torch.cuda.synchronize()
+            finally:
+                router.stop()
+            streams[dev] = (bytes(out), dict(_build.launches),
+                            metrics.get("store.read.bytes"))
+    finally:
+        server.stop()
+        mgr.close()
+        engine.stop()
+    assert streams["cuda"][0] == streams["cpu"][0]
+    assert streams["cuda"][1]["merge_pass"] == 4
+    assert streams["cuda"][2] > 0 and streams["cpu"][2] > 0

@@ -55,7 +55,10 @@ def test_imports_with_jax_and_uda_tpu_blocked():
             "uda_tpu_torch.net.wire", "uda_tpu_torch.net.evloop",
             "uda_tpu_torch.net.server", "uda_tpu_torch.net.client",
             "uda_tpu_torch.compress",
-            "uda_tpu_torch.compress.lzo"} <= set(MODULES)
+            "uda_tpu_torch.compress.lzo", "uda_tpu_torch.net.push",
+            "uda_tpu_torch.mofserver.store", "uda_tpu_torch.tenant",
+            "uda_tpu_torch.tenant.registry",
+            "uda_tpu_torch.tenant.sched"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

@@ -201,17 +201,14 @@ def test_a_fetch_that_always_fails_ends_in_fallback_in_both(tmp_path):
     ("uda.tpu.fetch.speculate.pn", 95),
 ])
 def test_unported_modes_raise_config_error(tmp_path, key, value):
-    """Push is still refused, naming its key and module; the three
-    survivable-fetch keys are ported and run to the reference's stream."""
+    """Keys the port once refused now run to the reference's stream: the
+    three survivable-fetch keys, and push (over the in-process
+    LocalFetchClient, which has no push plane, both packages' arm_push
+    leaves the task pull only)."""
     mids = text_tree(str(tmp_path), "job", 1, 5, seed=15)
     conf = dict(BASE, **{key: value})
-    if key != "uda.tpu.push.enable":
-        assert port_run(str(tmp_path), mids, TEXT, conf) == \
-            reference_run(str(tmp_path), mids, TEXT, conf)
-        return
-    with pytest.raises(errors.ConfigError,
-                       match=r"uda\.tpu\.push\.enable.*uda_tpu/net/push\.py"):
-        port_run(str(tmp_path), mids, TEXT, conf)
+    assert port_run(str(tmp_path), mids, TEXT, conf) == \
+        reference_run(str(tmp_path), mids, TEXT, conf)
 
 
 # -- the overlapped merger (the default) and streaming mode ------------------

@@ -51,14 +51,20 @@ fetches with RDMA credits); the merge phase produces the globally sorted
 stream on the device and hands it to the consumer in
 staging-buffer-sized IFile-framed blocks (MergeManager.cc:155-182).
 
-A mode the port does not have yet raises :class:`ConfigError` naming the
-key and the missing module at construction, and never quietly takes
-another path: ``uda.tpu.push.enable``. On the card a
-``uda.tpu.key.width`` above 112 bytes is refused at construction too
-wherever K1 would merge (its rows hold at most 31 words), and left to the
-whole re-sort where it would not. The resume path's revalidation of
-partitions spilled to the disaggregated MOF store waits for
-``mofserver/store.py``.
+The push plane (``uda.tpu.push.enable``, ``net/push.py``): ``arm_push``
+(lazily at the start of ``fetch_all`` when the caller did not arm it
+before the map phase) subscribes the supplier fleet with a
+``PushStaging``; each segment, right before it starts, adopts its map's
+staged prefix through ``Segment.ckpt_preload``, so pushed bytes enter the
+offset ledger as a resumed fetch would and the pull path fetches the
+rest. ``notify_join``/``notify_drain`` carry elastic membership to the
+routing client and widen in-flight segments; a checkpoint resume first
+revalidates the partitions an attached ``StoreManager`` spilled to its
+blob tier.
+
+On the card a ``uda.tpu.key.width`` above 112 bytes is refused at
+construction wherever K1 would merge (its rows hold at most 31 words),
+and left to the whole re-sort where it would not.
 """
 
 from __future__ import annotations
@@ -98,22 +104,6 @@ from uda_tpu_torch.utils.watchdog import StallError, StallWatchdog
 __all__ = ["MergeManager", "PenaltyBox"]
 
 log = get_logger()
-
-# (key, the value the port cannot honour, what is not ported), checked at
-# construction
-_UNPORTED_FETCH = [
-    ("uda.tpu.push.enable", lambda v: bool(v), "uda_tpu/net/push.py"),
-]
-
-
-def _refuse_unported(cfg: Config, checks: list) -> None:
-    for key, unported, module in checks:
-        value = cfg.get(key)
-        if unported(value):
-            raise ConfigError(
-                f"{key}={value!r} needs {module}, which is not ported to "
-                f"uda_tpu_torch yet")
-
 
 def _refuse_wide_rows(cfg: Config, device) -> None:
     """On the card every form of ``run()`` but the whole re-sort merges
@@ -269,7 +259,6 @@ class MergeManager:
                  config: Optional[Config] = None, seed: int = 0,
                  device=None):
         self.cfg = config or Config()
-        _refuse_unported(self.cfg, _UNPORTED_FETCH)
         self.device = resolve_device(device)
         self.client = client
         self.key_type = (get_key_type(key_type) if isinstance(key_type, str)
@@ -309,12 +298,131 @@ class MergeManager:
         self._watchdog: Optional[StallWatchdog] = None
         self._stall_error: Optional[StallError] = None
         self._emit_progress = 0
+        # the push plane's reduce-side staging (arm_push)
+        self._push_staging = None
 
     def budget(self) -> MemoryBudget:
         if self._budget_obj is None:
             self._budget_obj = MemoryBudget.from_config(self.cfg,
                                                          device=self.device)
         return self._budget_obj
+
+    # -- the push plane -----------------------------------------------------
+
+    def arm_push(self, job_id: str, reduce_id: int, hosts=None):
+        """Arm reduce-side push staging for this task and subscribe the
+        supplier fleet (``uda.tpu.push.enable``). Idempotent; returns the
+        staging, or None when the plane stays pull only: the flag off, a
+        transport without a push plane (LocalFetchClient, custom
+        connects), or a byte-domain-transforming wrapper
+        (DecompressingClient: pushed bytes are the compressed on-disk
+        stream, the segment ledger's domain the decompressed one).
+
+        Call it before the map phase ends to win overlap: pushes land
+        while maps still run, and the fetch wave starts from the staged
+        offsets instead of zero."""
+        if self._push_staging is not None:
+            return self._push_staging
+        if not bool(self.cfg.get("uda.tpu.push.enable")):
+            return None
+        if getattr(self.client, "inner", None) is not None:
+            return None
+        reg = getattr(self.client, "push_register", None)
+        if not callable(reg):
+            return None
+        from uda_tpu_torch.net.push import PushStaging
+
+        staging = PushStaging(job_id, int(reduce_id), cfg=self.cfg,
+                              budget=self.budget())
+        reg(job_id, int(reduce_id), staging, hosts=hosts)
+        self._push_staging = staging
+        return staging
+
+    def _release_push(self) -> None:
+        """Unsubscribe and discard unclaimed staged bytes (idempotent;
+        run()'s finally). Later pushes draw PUSH_NACK(UNKNOWN) and the
+        supplier goes pull only: no frame is left unanswered."""
+        staging, self._push_staging = self._push_staging, None
+        if staging is None:
+            return
+        unreg = getattr(self.client, "push_unregister", None)
+        if callable(unreg):
+            unreg(staging.job_id, staging.reduce_id)
+        staging.close()
+
+    def _push_adopt(self, seg: Segment) -> None:
+        """Right before a segment starts: claim its map in staging and arm
+        the staged prefix as a resumed fetch (``Segment.ckpt_preload``).
+        The claim stands even when nothing usable is staged: from here the
+        fetch is in flight, and later pushes for the map are refused
+        CLAIMED."""
+        staging = self._push_staging
+        if staging is None:
+            return
+        kw = staging.take(seg.map_id)
+        if kw is None:
+            return
+        if seg._next_offset or seg.batches:
+            return  # a checkpoint ledger is further along; keep it
+        try:
+            seg.ckpt_preload(**kw)
+        except UdaError as e:
+            metrics.add("push.invalidated")
+            log.warn(f"pushed prefix of map {seg.map_id} rejected, "
+                     f"fetching from zero: {e}")
+            return
+        metrics.add("push.adopted")
+        metrics.add("push.adopted.bytes", int(kw["next_offset"]))
+
+    # -- elastic membership -------------------------------------------------
+
+    def notify_join(self, host: str) -> int:
+        """A supplier joined mid-job: widen every in-flight segment's
+        candidates (it becomes eligible at the next ledger-ranked
+        decision) and fold the host into the routing client's membership.
+        Returns the number of segments widened; live attempts are never
+        re-routed."""
+        notify = getattr(self.client, "notify_join", None)
+        if callable(notify):
+            notify(host)
+        else:
+            metrics.add("elastic.joins", supplier=host)
+        widened = 0
+        for seg in list(self._live_segments):
+            if seg is not None and seg.add_host(host):
+                widened += 1
+        self.ledger.record("join", supplier=host)
+        log.info(f"elastic: supplier {host!r} joined mid-job; "
+                 f"{widened} in-flight segment(s) widened")
+        return widened
+
+    def notify_drain(self, host: str) -> None:
+        """The departure: demote the host in routing (in-flight fetches
+        against it complete; its MOFs migrate to the blob tier through
+        ``StoreManager.drain``, so later fetches resolve there)."""
+        notify = getattr(self.client, "notify_drain", None)
+        if callable(notify):
+            notify(host)
+        self.ledger.record("drain", supplier=host)
+
+    def _revalidate_spilled(self, job_id: str) -> None:
+        """Resume-side locator revalidation, reachable when the transport
+        is in process (a LocalFetchClient, possibly behind a
+        DecompressingClient, over an engine with an attached
+        StoreManager); remote suppliers run the same check on their own
+        resume path. Raises the store's typed error on damage."""
+        client = self.client
+        inner = getattr(client, "inner", None)
+        if inner is not None:
+            client = inner
+        engine = getattr(client, "engine", None)
+        store_mgr = getattr(engine, "store", None)
+        if store_mgr is None:
+            return
+        n = store_mgr.validate_spilled(job_id)
+        if n:
+            log.info(f"ckpt: revalidated {n} spilled blob object(s) of "
+                     f"job {job_id} before resume")
 
     # -- fetch phase --------------------------------------------------------
 
@@ -363,6 +471,12 @@ class MergeManager:
             return hosts or [""], mid
 
         entries = [_norm(m) for m in map_ids]
+        # the push plane, armed lazily if the caller did not: no overlap
+        # is won here, but pushes still beat pulls for maps that commit
+        # during this fetch wave
+        self.arm_push(job_id, reduce_id,
+                      hosts={h for hosts, _ in entries for h in hosts
+                             if h})
         stripe_ctx = None
         if self.coding_scheme is not None:
             # the placement domain: the job's canonically ordered supplier
@@ -474,6 +588,10 @@ class MergeManager:
                 segs[i].on_done = on_done
                 segs[i].on_fault = on_fault
                 started.append(segs[i])
+                # adopt the staged push prefix at start time, not at
+                # construction: maps that committed while earlier
+                # segments held the window get their pushed bytes in
+                self._push_adopt(segs[i])
                 segs[i].start()
             for s in segs:
                 if s is not None:
@@ -577,6 +695,7 @@ class MergeManager:
             log.error(f"merge failed terminally, requesting fallback: {e}")
             raise FallbackSignal(e) from e
         finally:
+            self._release_push()
             if wd is not None:
                 wd.stop()
                 self._watchdog = None
@@ -650,6 +769,7 @@ class MergeManager:
 
     def stop(self) -> None:
         self._stop.set()
+        self._release_push()
         self.client.stop()
 
     # -- crash-consistent checkpointing (merger/checkpoint.py) ---------------
@@ -878,6 +998,12 @@ class MergeManager:
         self._live_segments = []
         try:
             if manifest is not None:
+                # partitions spilled to the blob tier while this task was
+                # down are re-verified before the manifest's run files and
+                # ledgers are trusted: damage surfaces here as a typed
+                # StoreError, not later as a CRC mismatch blamed on the
+                # wire
+                self._revalidate_spilled(job_id)
                 adopted, preload, adopted_records = \
                     self._resume_from_manifest(manifest, mids, store, om,
                                                ckpt)

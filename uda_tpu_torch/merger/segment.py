@@ -154,13 +154,24 @@ class HostRoutingClient(InputClient):
     host dials that supplier's ShuffleServer as ``host[:port]`` (the port
     defaulting to ``uda.tpu.net.port``) through a
     :class:`~uda_tpu_torch.net.client.RemoteFetchClient`, one multiplexed
-    connection per supplier host."""
+    connection per supplier host.
+
+    Elastic membership (``notify_join``/``notify_drain``) is advisory
+    routing state: fetches still address whatever host the entry names;
+    ``members``/``is_draining`` report it, and
+    ``MergeManager.notify_join`` widens in-flight segments beside it.
+    Push registrations (``push_register``) are applied to every transport
+    the router builds, including ones dialled after the registration (a
+    joiner, a re-dial after ``refresh``)."""
 
     def __init__(self, connect=None, config=None):
         self._connect = (connect if connect is not None
                          else self._socket_factory(config))
         self._clients: dict[str, InputClient] = {}
         self._stopped = False
+        self._members: set[str] = set()
+        self._draining: set[str] = set()
+        self._push_regs: dict = {}   # (job, reduce) -> staging
         self._lock = threading.Lock()
 
     @staticmethod
@@ -217,7 +228,97 @@ class HostRoutingClient(InputClient):
             with self._lock:
                 if self._stopped:
                     raise MergeError("HostRoutingClient is stopped")
+                regs = list(self._push_regs.items())
+            self._apply_push_regs(client, regs)
         return client
+
+    @staticmethod
+    def _apply_push_regs(client: InputClient, regs) -> None:
+        """Subscribe armed push registrations on one transport;
+        transports without a push plane (LocalFetchClient, custom
+        connects) stay pull only."""
+        reg = getattr(client, "push_register", None)
+        if not callable(reg):
+            return
+        for (job_id, reduce_id), staging in regs:
+            reg(job_id, reduce_id, staging)
+
+    # -- the push plane ------------------------------------------------------
+
+    def push_register(self, job_id: str, reduce_id: int, staging,
+                      hosts=None) -> None:
+        """Register reduce-side staging across the supplier fleet: every
+        cached transport subscribes now, every later one when it is
+        built. ``hosts`` (and the members) are dialled eagerly so pushes
+        can arrive before the first fetch; a failed dial leaves that host
+        pull only until it is fetched from."""
+        with self._lock:
+            if self._stopped:
+                return
+            self._push_regs[(job_id, int(reduce_id))] = staging
+            cached = list(self._clients.values())
+        regs = [((job_id, int(reduce_id)), staging)]
+        for client in cached:
+            self._apply_push_regs(client, regs)
+        for host in set(hosts or ()) | set(self.members()):
+            try:
+                self._client_for(host)  # the build applies the regs
+            except Exception:  # noqa: BLE001 - the eager dial is advisory
+                metrics.add("push.dial.failures", supplier=host)
+
+    def push_unregister(self, job_id: str, reduce_id: int) -> None:
+        with self._lock:
+            self._push_regs.pop((job_id, int(reduce_id)), None)
+            cached = list(self._clients.values())
+        for client in cached:
+            unreg = getattr(client, "push_unregister", None)
+            if callable(unreg):
+                unreg(job_id, reduce_id)
+
+    # -- elastic membership --------------------------------------------------
+
+    def notify_join(self, host: str) -> None:
+        """A supplier registered mid-job: fold it into the membership and
+        refresh a stale cached transport, so the next fetch re-dials and
+        reads the joiner's current banner."""
+        with self._lock:
+            already = host in self._members
+            self._members.add(host)
+            self._draining.discard(host)
+        if not already:
+            metrics.add("elastic.joins", supplier=host)
+        self.refresh(host)
+
+    def notify_drain(self, host: str) -> None:
+        """A supplier announced departure: its transport stays (in-flight
+        fetches complete against it) but candidate ranking demotes it."""
+        with self._lock:
+            self._members.discard(host)
+            self._draining.add(host)
+
+    def refresh(self, host: str) -> None:
+        """Drop the host's cached transport (stopping it) so the next
+        fetch re-dials; a no-op for an unconnected host."""
+        with self._lock:
+            client = self._clients.pop(host, None)
+        if client is not None:
+            client.stop()
+
+    def members(self) -> list[str]:
+        """The advisory membership (joiners minus announced leavers),
+        sorted for deterministic placement."""
+        with self._lock:
+            return sorted(self._members)
+
+    def is_draining(self, host: str) -> bool:
+        """Has this host announced drain, through notify_drain or a
+        CAP_DRAINING banner its live transport saw?"""
+        with self._lock:
+            if host in self._draining:
+                return True
+            client = self._clients.get(host)
+        probe = getattr(client, "peer_draining", None)
+        return bool(probe(host)) if callable(probe) else False
 
     def start_fetch(self, req: ShuffleRequest, on_complete) -> None:
         try:
@@ -389,6 +490,20 @@ class Segment:
         """The metric/penalty label of the CURRENT source (host when
         routed per host, else the map id); tracks speculation wins."""
         return self.host or self.map_id
+
+    def add_host(self, host: str) -> bool:
+        """A supplier that joined mid-job widens this in-flight segment's
+        candidates, so the ledger-ranked paths (retry re-pick,
+        speculation alternate, reconstruction) can elect it; no attempt is
+        re-routed eagerly. True when the host was added (unknown and the
+        segment not done)."""
+        if not host:
+            return False
+        with self._lock:
+            if self._done.is_set() or host in self.hosts:
+                return False
+            self.hosts.append(host)
+        return True
 
     def _finish(self, error: Optional[Exception]) -> bool:
         """The only terminal transition: the first caller wins, so on_done

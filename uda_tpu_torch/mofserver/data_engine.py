@@ -33,6 +33,17 @@ The batched plane's backend ladder is the reference's io_uring -> preadv
 ``io.read`` winner. The io_uring rung needs the reference's native
 reader (C++, not ported), so the ladder never finds it here and lands on
 preadv: served bytes are the same on every rung.
+
+Two planes attach to a running engine. ``attach_store`` hands it a
+:class:`~uda_tpu_torch.mofserver.store.StoreManager`: every serve path
+(``submit``, ``submit_serve``, ``try_plan``, ``submit_batch``) routes a
+store-managed partition (a blob primary, or a local one with a blob
+twin) through the store's failover router, and ``try_plan`` declines
+zero-copy for it; unmanaged partitions keep the fd path, zero-copy
+included. ``set_tenant_registry`` turns on the per-tenant read-budget
+partitions: a request stamped with a tenant (``ShuffleRequest.tenant``,
+set by the network server from its connection's MSG_JOB binding) is also
+admitted against that tenant's weighted share of the budget.
 """
 
 from __future__ import annotations
@@ -71,7 +82,9 @@ class ShuffleRequest:
     """One chunk fetch (reference shuffle_req_t, src/MOFServer/
     IndexInfo.h:64-77: jobid, map, reduceID, map_offset, chunk_size).
     ``host`` names the supplier serving this map output; single-host
-    transports ignore it."""
+    transports ignore it. ``tenant`` is the supplier's in-process stamp
+    of the connection's MSG_JOB binding (empty = untenanted); it never
+    rides the wire, so a client cannot spoof a neighbour's tenant."""
 
     job_id: str
     map_id: str
@@ -79,6 +92,7 @@ class ShuffleRequest:
     offset: int          # offset within the partition's record bytes
     chunk_size: int
     host: str = ""
+    tenant: str = ""
 
 
 @dataclasses.dataclass
@@ -128,6 +142,7 @@ class FdSlice:
     _engine: "DataEngine" = dataclasses.field(repr=False, default=None)
     _admitted: int = 0
     _released: bool = False
+    _tenant: str = ""    # the admission charge's tenant partition
 
     def release(self) -> None:
         if self._released:
@@ -135,7 +150,7 @@ class FdSlice:
         self._released = True
         self._engine._fds.release(self.path)
         if self._admitted:
-            self._engine._unadmit(self._admitted)
+            self._engine._unadmit(self._admitted, self._tenant)
 
     def view(self):
         """A memoryview of the chunk inside the MOF's cached whole-file
@@ -357,7 +372,13 @@ class DataEngine:
             if (attempt_ms or deadline_ms) else 60.0)
         self._admitted_bytes = 0
         self._admit_lock = threading.Lock()
+        # per-tenant read-budget partitions (set_tenant_registry)
+        self._tenant_registry = None
+        self._tenant_admitted: Dict[str, int] = {}
         self.resolver = resolver
+        # the disaggregated store (attach_store): None = every partition
+        # on the fd path
+        self.store = None
         self._pool = ThreadPoolExecutor(max_workers=threads,
                                         thread_name_prefix="uda-data-engine")
         self._fds = _FdCache()
@@ -445,19 +466,53 @@ class DataEngine:
         if self._stopped:
             raise StorageError("DataEngine is stopped")
         want = req.chunk_size or self.chunk_size_default
-        self._admit_bytes(want)
+        self._admit_bytes(want, req.tenant)
         try:
             return self._pool.submit(self._serve, req, want)
         except BaseException:  # pool shutdown race: undo the accounting
-            self._unadmit(want)
+            self._unadmit(want, req.tenant)
             raise
 
-    def _admit_bytes(self, want: int) -> None:
+    def attach_store(self, store) -> None:
+        """Attach a :class:`~uda_tpu_torch.mofserver.store.StoreManager`:
+        reads of partitions it manages route through its failover router
+        (``read``/``read_ranges``). Byte semantics are the fd path's:
+        short-read checks, CRC stamping and the ``data_engine.pread``
+        failpoint run on the routed bytes."""
+        self.store = store
+
+    def _store_managed(self, rec) -> bool:
+        store = self.store
+        return store is not None and store.manages(rec.path)
+
+    def set_tenant_registry(self, registry) -> None:
+        """Attach the multi-tenant registry: tenant-stamped requests are
+        admitted against per-tenant budget shares
+        (``registry.share_bytes``), and a retiring job's tenant book is
+        checked (:meth:`drain_tenant`)."""
+        self._tenant_registry = registry
+        if registry is not None:
+            registry.on_retire(lambda tenant, job:
+                               self.drain_tenant(tenant))
+
+    def drain_tenant(self, tenant: str) -> int:
+        """The retire hook: the bytes ``tenant`` still has admitted (0
+        when it is quiescent). Bytes in flight at retirement are live
+        obligations, settled by their own serves, not leaks."""
+        with self._admit_lock:
+            return max(0, self._tenant_admitted.get(tenant, 0))
+
+    def _admit_bytes(self, want: int, tenant: str = "") -> None:
         """The read-budget admission gate (the occupy_chunk pool bound,
         IndexInfo.cc:276-292, minus the blocking) every serve path
         charges through; each non-serving outcome pairs the charge with
         :meth:`_unadmit`. An oversized single request is admitted when the
-        pool is otherwise idle: progress beats the bound."""
+        pool is otherwise idle: progress beats the bound. With a tenant
+        registry a tenant-stamped request must also fit its tenant's share
+        (the idle escape is per tenant there, so one tenant's giant
+        request rides its own idle slice, never a neighbour's
+        headroom)."""
+        reg = self._tenant_registry
         with self._admit_lock:
             if self._admitted_bytes > 0 and \
                     self._admitted_bytes + want > self.read_budget_bytes:
@@ -467,11 +522,36 @@ class DataEngine:
                     f" B in flight + {want} B > budget "
                     f"{self.read_budget_bytes} B (retry with backoff, or "
                     f"raise uda.tpu.supplier.read.budget.mb)")
+            if tenant and reg is not None:
+                mine = self._tenant_admitted.get(tenant, 0)
+                share = reg.share_bytes(tenant, self.read_budget_bytes)
+                if mine > 0 and mine + want > share:
+                    metrics.add("supplier.admission.rejections")
+                    metrics.add("tenant.admission.rejections",
+                                tenant=tenant)
+                    raise StorageError(
+                        f"tenant {tenant!r} read share exhausted: "
+                        f"{mine} B in flight + {want} B > share "
+                        f"{share} B of the supplier budget (this "
+                        f"tenant's clients pace; others are unaffected)")
             self._admitted_bytes += want
+            if tenant:
+                self._tenant_admitted[tenant] = \
+                    self._tenant_admitted.get(tenant, 0) + want
+        if tenant:
+            metrics.gauge_add("tenant.read.bytes.on_air", want)
 
-    def _unadmit(self, want: int) -> None:
+    def _unadmit(self, want: int, tenant: str = "") -> None:
         with self._admit_lock:
             self._admitted_bytes -= want
+            if tenant:
+                left = self._tenant_admitted.get(tenant, 0) - want
+                if left > 0:
+                    self._tenant_admitted[tenant] = left
+                else:
+                    self._tenant_admitted.pop(tenant, None)
+        if tenant:
+            metrics.gauge_add("tenant.read.bytes.on_air", -want)
 
     def submit_serve(self, req: ShuffleRequest) -> Future:
         """Like :meth:`submit`, but the Future may resolve to an
@@ -483,11 +563,11 @@ class DataEngine:
         if self._stopped:
             raise StorageError("DataEngine is stopped")
         want = req.chunk_size or self.chunk_size_default
-        self._admit_bytes(want)
+        self._admit_bytes(want, req.tenant)
         try:
             return self._pool.submit(self._serve_plan, req, want)
         except BaseException:  # pool shutdown race: undo the accounting
-            self._unadmit(want)
+            self._unadmit(want, req.tenant)
             raise
 
     def slice_eligible(self) -> bool:
@@ -521,7 +601,7 @@ class DataEngine:
                 continue
             want = req.chunk_size or self.chunk_size_default
             try:
-                self._admit_bytes(want)
+                self._admit_bytes(want, req.tenant)
             except StorageError as e:
                 fut.set_exception(e)
                 continue
@@ -534,7 +614,7 @@ class DataEngine:
             self._pool.submit(self._serve_batch, entries)
         except BaseException as exc:  # pool shutdown race: undo + fail
             for e in entries:
-                self._unadmit(e.want_admit)
+                self._unadmit(e.want_admit, e.req.tenant)
                 err = StorageError("DataEngine is stopped")
                 err.__cause__ = exc
                 e.fut.set_exception(err)
@@ -560,7 +640,7 @@ class DataEngine:
                         else StorageError(f"batch serve failed: {exc}"))
         finally:
             for e in entries:
-                self._unadmit(e.want_admit)
+                self._unadmit(e.want_admit, e.req.tenant)
                 if not e.fut.done():
                     e.fut.set_exception(
                         StorageError("batch entry never served"))
@@ -591,6 +671,9 @@ class DataEngine:
         for e in live:
             by_path.setdefault(e.rec.path, []).append(e)
         for path, group in by_path.items():
+            if self.store is not None and self.store.manages(path):
+                self._read_batch_store(path, group)
+                continue
             try:
                 fd = self._fds.acquire(path)
             except OSError as exc:
@@ -620,6 +703,20 @@ class DataEngine:
                                 f"{exc}")
             finally:
                 self._fds.release(path)
+
+    def _read_batch_store(self, path: str,
+                          group: List[_BatchEntry]) -> None:
+        """One store-managed path group of a batch: the router's vectored
+        read, a failed range failing only its own request."""
+        results = self.store.read_ranges(
+            path, [(e.file_off, e.want) for e in group],
+            keys=[f"{e.req.map_id}/{e.req.reduce_id}" for e in group])
+        for e, res in zip(group, results):
+            if isinstance(res, Exception):
+                e.err = res
+            else:
+                e.buf = bytearray(res)
+                e.got = len(res)
 
     def _read_run_preadv(self, fd: int, run: List[tuple]) -> None:
         """One coalesced run -> one vectored read into per-request
@@ -704,15 +801,17 @@ class DataEngine:
             return None
         rec = self.resolver.resolve_cached(req.job_id, req.map_id,
                                            req.reduce_id)
-        if rec is None:
+        if rec is None or self._store_managed(rec):
+            # a store-managed partition needs the router's failover: no
+            # slice can express a mid-read tier switch
             return None
         want_admit = req.chunk_size or self.chunk_size_default
-        self._admit_bytes(want_admit)
+        self._admit_bytes(want_admit, req.tenant)
         try:
             return self._build_slice(rec, req, want_admit)
         except BaseException:
             # bad offset or a failed open: the charge must unwind
-            self._unadmit(want_admit)
+            self._unadmit(want_admit, req.tenant)
             raise
 
     def _serve_plan(self, req: ShuffleRequest, admitted: int):
@@ -725,14 +824,15 @@ class DataEngine:
             if self.slice_eligible():
                 rec = self.resolver.resolve(req.job_id, req.map_id,
                                             req.reduce_id)
-                plan = self._build_slice(rec, req, admitted)
-                sliced = True
-                return plan
+                if not self._store_managed(rec):
+                    plan = self._build_slice(rec, req, admitted)
+                    sliced = True
+                    return plan
             with metrics.timer("supplier_read"):
                 return self._serve_inner(req)
         finally:
             if not sliced:
-                self._unadmit(admitted)
+                self._unadmit(admitted, req.tenant)
 
     def _build_slice(self, rec, req: ShuffleRequest,
                      admitted: int) -> FdSlice:
@@ -751,7 +851,8 @@ class DataEngine:
                        length=want, raw_length=rec.raw_length,
                        part_length=rec.part_length, offset=req.offset,
                        path=rec.path, last=req.offset + want >= served,
-                       _engine=self, _admitted=admitted)
+                       _engine=self, _admitted=admitted,
+                       _tenant=req.tenant)
 
     def fetch(self, req: ShuffleRequest) -> FetchResult:
         """Synchronous fetch, bounded by the fetch retry knobs (the
@@ -764,7 +865,8 @@ class DataEngine:
             if fut.cancel():
                 # cancelled while still queued: _serve never runs, so its
                 # accounting is undone here
-                self._unadmit(req.chunk_size or self.chunk_size_default)
+                self._unadmit(req.chunk_size or self.chunk_size_default,
+                              req.tenant)
             raise StorageError(
                 f"synchronous fetch of {req.map_id}/{req.reduce_id} at "
                 f"offset {req.offset} did not complete within "
@@ -776,7 +878,7 @@ class DataEngine:
             with metrics.timer("supplier_read"):
                 return self._serve_inner(req)
         finally:
-            self._unadmit(admitted)
+            self._unadmit(admitted, req.tenant)
 
     def _serve_inner(self, req: ShuffleRequest) -> FetchResult:
         rec = self.resolver.resolve(req.job_id, req.map_id, req.reduce_id)
@@ -787,11 +889,19 @@ class DataEngine:
                 f"{served}) for {req.map_id}/{req.reduce_id}")
         want = min(req.chunk_size or self.chunk_size_default,
                    served - req.offset)
-        fd = self._fds.acquire(rec.path)
-        try:
-            data = os.pread(fd, want, rec.start_offset + req.offset)
-        finally:
-            self._fds.release(rec.path)
+        if self._store_managed(rec):
+            # the store's router: tier health, the store.get failpoint
+            # and twin failover live there; the bytes come back through
+            # the same CRC/failpoint tail as the fd path below
+            data = self.store.read(
+                rec.path, rec.start_offset + req.offset, want,
+                key=f"{req.map_id}/{req.reduce_id}")
+        else:
+            fd = self._fds.acquire(rec.path)
+            try:
+                data = os.pread(fd, want, rec.start_offset + req.offset)
+            finally:
+                self._fds.release(rec.path)
         if len(data) != want:
             raise StorageError(
                 f"short read {len(data)}/{want} at {rec.path}:"

@@ -257,6 +257,15 @@ class IndexResolver:
                 f"({len(records)} partitions)")
         return records[reduce_id]
 
+    def invalidate(self, job_id: str) -> None:
+        """Drop every cached partition table of ``job_id``: the next
+        resolve walks the roots again (the store calls this right after a
+        migration's cut-over, so a moved partition resolves to its blob
+        copy, not the unlinked local file)."""
+        with self._lock:
+            for key in [k for k in self._cache if k[0] == job_id]:
+                del self._cache[key]
+
 
 class DirIndexResolver(IndexResolver):
     """Default layout resolver: ``<root>/<job>/<map_id>/file.out[.index]``

@@ -181,12 +181,21 @@ class MOFWriter:
     (``supplier_index`` names this writer's position in the canonical
     supplier order); with a scheme alone, the primary's parity section
     and v2 index. ``codec`` (a ``uda_tpu_torch.compress.Codec``)
-    block-compresses every partition."""
+    block-compresses every partition.
+
+    Two seams run after each map output is on disk: ``store`` (a
+    :class:`~uda_tpu_torch.mofserver.store.StoreManager`) accounts the
+    written bytes against its retention watermark, so an over-budget
+    supplier spills as it produces; ``on_commit(job_id, map_id)`` then
+    announces the map (wire it to ``ShuffleServer.notify_commit`` and
+    subscribed reduce connections receive it as MSG_PUSH chunks while the
+    map phase is still running)."""
 
     def __init__(self, root: str, job_id: str, codec=None, scheme=None,
                  supplier_roots: Optional[Sequence[str]] = None,
                  supplier_index: int = 0,
-                 domains: Optional[dict] = None):
+                 domains: Optional[dict] = None, store=None,
+                 on_commit=None):
         self.root = root
         self.job_id = job_id
         self.codec = codec
@@ -194,10 +203,27 @@ class MOFWriter:
         self.supplier_roots = list(supplier_roots or [])
         self.supplier_index = supplier_index
         self.domains = dict(domains or {})
+        self.store = store
+        self.on_commit = on_commit
         self.map_ids: list[str] = []
 
     def map_dir(self, map_id: str) -> str:
         return os.path.join(self.root, self.job_id, map_id)
+
+    def add_supplier_root(self, root: str, domain: Optional[str] = None,
+                          supplier_index: Optional[int] = None) -> None:
+        """A supplier that joined mid-job enters the stripe-placement
+        universe for maps not yet written (written stripes keep their
+        placement: their indexes are immutable). ``supplier_index``
+        re-anchors this writer when the canonical (sorted) supplier order
+        shifted."""
+        if root in self.supplier_roots:
+            return
+        self.supplier_roots.append(root)
+        if domain is not None:
+            self.domains[root] = domain
+        if supplier_index is not None:
+            self.supplier_index = supplier_index
 
     def write(self, map_id: str,
               partitions: Sequence[Iterable[Tuple[bytes, bytes]]]) -> None:
@@ -210,3 +236,15 @@ class MOFWriter:
             write_map_output(self.map_dir(map_id), partitions, self.codec,
                              scheme=self.scheme)
         self.map_ids.append(map_id)
+        if self.store is not None:
+            try:
+                nbytes = os.path.getsize(
+                    os.path.join(self.map_dir(map_id), "file.out"))
+            except OSError:
+                # a striped writer may anchor the primary on a peer root;
+                # retention covers only bytes under this writer's root
+                nbytes = 0
+            if nbytes:
+                self.store.account_write(self.job_id, map_id, nbytes)
+        if self.on_commit is not None:
+            self.on_commit(self.job_id, map_id)

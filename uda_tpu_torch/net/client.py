@@ -27,11 +27,22 @@ a chunk. Completion upcalls (a Segment's ``on_complete``, which may block
 on admission) run on the loop's dispatcher thread, never the loop thread.
 
 The port keeps no span trees, so its REQ frames carry no trace tail,
-which is what the reference client sends with no current span. The
-tenant and push planes are not ported: ``bind_tenant``, ``bind_job``,
-``retire_job``, ``push_register`` and ``push_unregister`` raise
-:class:`ConfigError`, and ``uda.tpu.tenant.id`` set raises at
-construction.
+which is what the reference client sends with no current span.
+
+The tenant plane: with ``uda.tpu.tenant.id`` set (or after
+``bind_tenant``) the first fetch of each job on each connection to a
+CAP_TENANT peer is preceded by an authenticated MSG_JOB frame binding
+(tenant, job, epoch) in the supplier's registry; TCP order makes
+register-before-fetch a wire guarantee. ``bind_job``/``retire_job`` are
+the blocking round trips. The binding comes from this client's own
+``Config``, never from the process-global ``current_tenant()``.
+
+The push plane: ``push_register(job, reduce, staging)`` subscribes a
+:class:`~uda_tpu_torch.net.push.PushStaging` with MSG_PUSH_SUB on every
+connection whose banner advertises CAP_PUSH (again after each fresh
+banner: a reconnect or a restarted supplier is subscribed anew). Each
+MSG_PUSH chunk goes to ``PushStaging.offer`` on the dispatcher thread and
+is answered with PUSH_ACK or PUSH_NACK.
 
 Failpoints: ``net.connect`` per dial and ``net.frame`` per outbound
 request frame, both on the caller thread (a truncation sends the torn
@@ -53,8 +64,8 @@ from uda_tpu_torch.net import wire
 from uda_tpu_torch.net.evloop import (EventLoop, loop_callback,
                                       shared_client_loop)
 from uda_tpu_torch.utils.config import Config
-from uda_tpu_torch.utils.errors import (ConfigError, ProtocolError,
-                                        TransportError)
+from uda_tpu_torch.utils.errors import (ProtocolError, TransportError,
+                                        UdaError)
 from uda_tpu_torch.utils.failpoints import failpoint
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
@@ -67,11 +78,6 @@ _READ = selectors.EVENT_READ
 _WRITE = selectors.EVENT_WRITE
 
 _SIZE_PROBE_TIMEOUT_S = 30.0
-
-
-def _refuse(what: str, module: str) -> None:
-    raise ConfigError(f"{what} needs {module}, which is not ported to "
-                      f"uda_tpu_torch yet")
 
 
 class _Waiter:
@@ -106,6 +112,9 @@ class _ClientConn:
         self._payload: Optional[bytearray] = None
         self._pay_got = 0
         self._cur = (0, 0)
+        # (job, reduce) pairs MSG_PUSH_SUB'd on this connection (guarded
+        # by the client's lock)
+        self.push_subbed: set = set()
 
     # -- registration --------------------------------------------------------
 
@@ -252,11 +261,20 @@ class _ClientConn:
             result = wire.decode_error(memoryview(payload))
         elif msg_type == wire.MSG_SIZE:
             result = wire.decode_size(memoryview(payload))
+        elif msg_type == wire.MSG_JOB_OK:
+            result = wire.decode_job_ok(payload)
         elif msg_type == wire.MSG_STATS_REPLY:
             result = wire.decode_stats_reply(memoryview(payload))
         elif msg_type == wire.MSG_HELLO:
             generation, warm, caps = wire.decode_hello_ex(bytes(payload))
             self.client._on_hello(generation, warm, caps)
+            return
+        elif msg_type == wire.MSG_PUSH:
+            # a supplier-initiated chunk, only on connections that
+            # subscribed; admission may write a spill file, so it runs
+            # on the dispatcher, never the loop
+            self.loop.dispatch(self.client._handle_push, self, req_id,
+                               payload)
             return
         else:
             raise TransportError(
@@ -302,9 +320,6 @@ class EvLoopFetchClient(InputClient):
     def __init__(self, host: str, port: Optional[int] = None,
                  config: Optional[Config] = None):
         cfg = config or Config()
-        if str(cfg.get("uda.tpu.tenant.id")):
-            _refuse("uda.tpu.tenant.id (a tenant binding)",
-                    "uda_tpu/tenant/")
         self.host = host
         self.port = int(port if port is not None
                         else cfg.get("uda.tpu.net.port"))
@@ -323,6 +338,21 @@ class EvLoopFetchClient(InputClient):
         # the peer's capability bits from its banner (0 until it lands)
         self._peer_caps = 0
         self._hello_seen = threading.Event()
+        # the tenant binding (empty tenant = the untenanted client, frame
+        # for frame) and the jobs MSG_JOB'd on the current connection:
+        # job -> Event set once the bind frame is on the wire, so a
+        # concurrent first fetch of the job waits for it
+        self._tenant = str(cfg.get("uda.tpu.tenant.id"))
+        self._tenant_epoch = max(1, int(cfg.get("uda.tpu.tenant.epoch")))
+        self._tenant_weight = max(1,
+                                  int(cfg.get("uda.tpu.tenant.weight")))
+        self._tenant_secret = str(cfg.get("uda.tpu.tenant.secret"))
+        self._bound_jobs: dict = {}
+        # the push plane: (job, reduce) -> PushStaging; registrations
+        # outlive connections
+        self._push_staging: dict = {}
+        self._push_window = max(1, int(cfg.get("uda.tpu.push.window")))
+        self._push_chunk = int(cfg.get("mapred.rdma.buf.size")) * 1024
 
     def _on_hello(self, generation: int, warm: bool,
                   caps: int = 0) -> None:
@@ -408,6 +438,10 @@ class EvLoopFetchClient(InputClient):
         # a bounded wait for the banner (generation, caps); a timeout only
         # means the first frames go out before it, which is legal
         self._hello_seen.wait(timeout=min(2.0, self.connect_timeout_s))
+        # re-subscribe the push plane on every fresh banner: the server's
+        # tables died with the previous socket (a timed-out banner leaves
+        # caps 0: no SUB, pull only)
+        self._send_push_subs(conn)
         return conn
 
     def _on_conn_dead(self, conn: _ClientConn, cause: Exception) -> None:
@@ -422,6 +456,8 @@ class EvLoopFetchClient(InputClient):
             self._pending.clear()
             self._peer_caps = 0
             self._hello_seen.clear()
+            # bindings are per connection: the next fetch re-sends MSG_JOB
+            self._bound_jobs.clear()
         metrics.gauge_add("net.client.connections", -1)
         metrics.add("net.disconnects", role="client")
         err = TransportError(
@@ -469,24 +505,193 @@ class EvLoopFetchClient(InputClient):
                                             time.perf_counter(), timed)
         return req_id
 
-    # -- the planes the port lacks -------------------------------------------
+    # -- the tenant handshake -----------------------------------------------
 
     def bind_tenant(self, tenant_id: str, epoch: int = 1,
                     weight: int = 1, secret: str = "") -> None:
-        _refuse("bind_tenant", "uda_tpu/tenant/")
+        """Install (or change) this client's tenant identity, the
+        programmatic twin of the ``uda.tpu.tenant.*`` keys. Each job binds
+        again on its next fetch."""
+        with self._lock:
+            self._tenant = str(tenant_id)
+            self._tenant_epoch = max(1, int(epoch))
+            self._tenant_weight = max(1, int(weight))
+            if secret:
+                self._tenant_secret = secret
+            self._bound_jobs.clear()
+
+    def _job_frame(self, req_id: int, job_id: str,
+                   retire: bool = False) -> bytes:
+        from uda_tpu_torch.tenant import sign_job
+
+        return wire.encode_job(
+            req_id, self._tenant, job_id, self._tenant_epoch,
+            weight=self._tenant_weight,
+            token=sign_job(self._tenant_secret, self._tenant, job_id,
+                           self._tenant_epoch),
+            retire=retire)
+
+    def _maybe_bind(self, conn: _ClientConn, job_id: str) -> None:
+        """Send MSG_JOB for ``job_id`` ahead of its first request on this
+        connection (fire and forget: a refusal comes back as a typed ERR,
+        counted; the job's requests then draw their own typed errors from
+        the server's fence). A no-op without a tenant or a CAP_TENANT
+        peer. The winner of a concurrent first fetch posts the frame; the
+        others wait (bounded) until it is on the wire, so no request
+        overtakes the registration."""
+        with self._lock:
+            if not self._tenant or self._conn is not conn \
+                    or not self._peer_caps & wire.CAP_TENANT:
+                return
+            posted = self._bound_jobs.get(job_id)
+            if posted is None:
+                posted = threading.Event()
+                self._bound_jobs[job_id] = posted
+                self._next_id += 1
+                req_id = self._next_id
+
+                def on_bound(result) -> None:
+                    if isinstance(result, Exception):
+                        metrics.add("tenant.bind.errors")
+                        log.warn(f"tenant bind of {self._tenant}/"
+                                 f"{job_id} on {self.host} refused: "
+                                 f"{result}")
+
+                self._pending[req_id] = _Waiter(
+                    on_bound, time.perf_counter(), timed=False)
+            else:
+                req_id = None
+        if req_id is None:
+            # a timeout degrades to the server-side fence, never an error
+            posted.wait(timeout=min(5.0, self.connect_timeout_s))
+            return
+        try:
+            self._post(conn, self._job_frame(req_id, job_id))
+        finally:
+            posted.set()
+
+    def _job_roundtrip(self, job_id: str, retire: bool,
+                       timeout: float) -> int:
+        """Blocking MSG_JOB round trip: the granted epoch, or the typed
+        registry refusal re-raised."""
+        conn = self._ensure_connected()
+        box: list = [None]
+        got = threading.Event()
+
+        def on_reply(result) -> None:
+            box[0] = result
+            got.set()
+
+        posted = threading.Event()
+        with self._lock:
+            if self._conn is not conn:
+                raise TransportError(
+                    f"connection to {self.host} lost before the "
+                    f"MSG_JOB round trip")
+            if not retire:
+                self._bound_jobs[job_id] = posted
+            self._next_id += 1
+            req_id = self._next_id
+            self._pending[req_id] = _Waiter(on_reply, time.perf_counter(),
+                                            timed=False)
+        try:
+            self._post(conn,
+                       self._job_frame(req_id, job_id, retire=retire))
+        finally:
+            posted.set()
+        if not got.wait(timeout=timeout):
+            with self._lock:
+                self._pending.pop(req_id, None)
+            raise TransportError(
+                f"MSG_JOB to {self.host} timed out after {timeout:g}s")
+        result = box[0]
+        if isinstance(result, Exception):
+            if not retire:
+                with self._lock:
+                    self._bound_jobs.pop(job_id, None)
+            raise result
+        return int(result)
 
     def bind_job(self, job_id: str, timeout: float = 10.0) -> int:
-        _refuse("bind_job (MSG_JOB registration)", "uda_tpu/tenant/")
+        """Register (tenant, job, epoch) with the supplier and wait for
+        the grant; raises the typed TenantError on refusal."""
+        return self._job_roundtrip(job_id, retire=False, timeout=timeout)
 
     def retire_job(self, job_id: str, timeout: float = 10.0) -> int:
-        _refuse("retire_job (MSG_JOB retirement)", "uda_tpu/tenant/")
+        """Retire the job in the supplier's registry; its later requests
+        draw typed errors."""
+        return self._job_roundtrip(job_id, retire=True, timeout=timeout)
+
+    # -- the push plane ------------------------------------------------------
 
     def push_register(self, job_id: str, reduce_id: int, staging,
                       hosts=None) -> None:
-        _refuse("push_register", "uda_tpu/net/push.py")
+        """Arm ``staging`` for (job, reduce) and subscribe the supplier:
+        committed partitions start arriving as MSG_PUSH chunks. The dial
+        is eager but best effort (a failed dial leaves the plane pull
+        only until the next fetch redials), and a peer without CAP_PUSH
+        is never sent a SUB."""
+        with self._lock:
+            if self._stopped:
+                return
+            self._push_staging[(job_id, int(reduce_id))] = staging
+        try:
+            conn = self._ensure_connected()
+        except TransportError:
+            return
+        self._send_push_subs(conn)
 
     def push_unregister(self, job_id: str, reduce_id: int) -> None:
-        _refuse("push_unregister", "uda_tpu/net/push.py")
+        """Drop the registration. There is no un-SUB frame: a late push
+        finds no staging, draws PUSH_NACK(UNKNOWN), and the supplier marks
+        the partition pull-only."""
+        with self._lock:
+            self._push_staging.pop((job_id, int(reduce_id)), None)
+
+    def _send_push_subs(self, conn: _ClientConn) -> None:
+        """MSG_PUSH_SUB for every registration not yet subscribed on
+        ``conn`` (idempotent; any thread). Fire and forget: a refusal
+        comes back as a typed ERR with no waiter, counted as an orphan,
+        and the plane stays pull only."""
+        frames = []
+        with self._lock:
+            if self._conn is not conn or not self._push_staging \
+                    or not self._peer_caps & wire.CAP_PUSH:
+                return
+            for key in self._push_staging:
+                if key in conn.push_subbed:
+                    continue
+                conn.push_subbed.add(key)
+                self._next_id += 1
+                frames.append(wire.encode_push_sub(
+                    self._next_id, job_id=key[0], reduce_id=key[1],
+                    window=self._push_window,
+                    chunk_size=self._push_chunk))
+        for frame in frames:
+            self._post(conn, frame)
+
+    def _handle_push(self, conn: _ClientConn, push_id: int,
+                     payload: bytearray) -> None:
+        """Dispatcher thread: decode, run the staging admission ladder,
+        answer PUSH_ACK or PUSH_NACK."""
+        from uda_tpu_torch.net.push import NACK_UNKNOWN
+        try:
+            (job_id, map_id, reduce_id, offset, raw_length, last,
+             data) = wire.decode_push_take(payload)
+        except UdaError as e:
+            conn.loop.call_soon(conn.die, e)
+            return
+        with self._lock:
+            staging = self._push_staging.get((job_id, int(reduce_id)))
+        if staging is None:
+            metrics.add("push.refused", reason="unknown")
+            verdict = NACK_UNKNOWN
+        else:
+            verdict = staging.offer(map_id, offset, raw_length, last,
+                                    data)
+        frame = (wire.encode_push_ack(push_id) if verdict == 0
+                 else wire.encode_push_nack(push_id, verdict))
+        self._post(conn, frame)
 
     # -- InputClient --------------------------------------------------------
 
@@ -499,6 +704,9 @@ class EvLoopFetchClient(InputClient):
         except TransportError as e:
             on_complete(e)
             return
+        # the tenant plane: the job's MSG_JOB precedes its first REQ on
+        # this connection (TCP order = registration order)
+        self._maybe_bind(conn, req.job_id)
         req_id = self._register(conn, on_complete)
         if req_id is None:
             # the connection died between dial and registration;
@@ -521,13 +729,17 @@ class EvLoopFetchClient(InputClient):
             return
         conn.send_frame(out, len(out) != len(frame))
 
-    def _round_trip(self, frame_of, timeout: float, timed: bool):
+    def _round_trip(self, frame_of, timeout: float, timed: bool,
+                    job_id: str = ""):
         """One blocking request/reply on the connection: the reply, or
-        None on transport trouble or timeout."""
+        None on transport trouble or timeout. A ``job_id`` is bound first
+        (the tenant plane's MSG_JOB discipline)."""
         try:
             conn = self._ensure_connected()
         except TransportError:
             return None
+        if job_id:
+            self._maybe_bind(conn, job_id)
         box: list = [None]
         got = threading.Event()
 
@@ -552,7 +764,7 @@ class EvLoopFetchClient(InputClient):
         result = self._round_trip(
             lambda rid: wire.encode_size_request(rid, job_id, list(map_ids),
                                                  reduce_id),
-            _SIZE_PROBE_TIMEOUT_S, timed=False)
+            _SIZE_PROBE_TIMEOUT_S, timed=False, job_id=job_id)
         return None if isinstance(result, Exception) else result
 
     def fetch_stats(self, timeout: float = _SIZE_PROBE_TIMEOUT_S,

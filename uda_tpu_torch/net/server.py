@@ -45,17 +45,33 @@ consumes it and advertises generation+1 with the warm flag, so resuming
 clients keep their offsets. Without a record the generation is fresh and
 random: a cold restart.
 
-The planes the port lacks answer as the reference's do when they are
-off: MSG_JOB draws the "runs no tenant plane" typed ERR, MSG_PUSH_SUB
-the unknown-frame typed ERR, and a CAP_OBS stats poll gets the sections
-of a disarmed telemetry plane. Turning one on (``uda.tpu.tenant.enable``,
-``uda.tpu.push.enable``, a tenant registry, ``announce_drain(store=)``)
-raises :class:`ConfigError` naming the module.
+**Push plane** (``uda.tpu.push.enable``, :mod:`uda_tpu_torch.net.push`):
+the banner carries CAP_PUSH, MSG_PUSH_SUB subscribes a connection,
+``notify_commit`` (a writer's ``on_commit``) pushes each committed map to
+its subscribers as MSG_PUSH frames through the connection's outbound
+queue, uncredited (PUSH_ACK/PUSH_NACK settle the push plane's own
+window). Off, MSG_PUSH_SUB draws the unknown-frame typed ERR.
+
+**Tenant plane** (``uda.tpu.tenant.enable`` or a ``registry=``,
+:mod:`uda_tpu_torch.tenant`): the banner carries CAP_TENANT; MSG_JOB
+registers, heartbeats or retires a (tenant, job, epoch) and binds it to
+the connection (MSG_JOB_OK, or the registry's typed ERR); every REQ of a
+bound job is validated against the registry, a refused registration
+fences the job's REQs, and unbound jobs ride the default tenant (or are
+refused under ``uda.tpu.tenant.strict``). Requests park in a shared
+``CreditScheduler`` (``uda.tpu.tenant.wqe.total`` credits, weighted
+deficit round-robin in byte quanta) ahead of the per-connection cap, and
+the engine admits each against its tenant's budget share. Off, MSG_JOB
+draws the "runs no tenant plane" typed ERR.
+
+A CAP_OBS stats poll gets the sections of a disarmed telemetry plane
+(the port has none of the reference's rollups, SLI book or anomaly
+engine).
 
 Failpoints: ``net.accept`` per accepted connection, ``net.frame`` per
 outbound frame (applied to its head: a truncated head is a torn frame
 and the connection closes after sending it), ``net.handoff`` around the
-handoff record's load and save.
+handoff record's load and save, ``net.push`` per MSG_PUSH frame.
 """
 
 from __future__ import annotations
@@ -63,6 +79,7 @@ from __future__ import annotations
 import errno
 import json
 import os
+import dataclasses
 import selectors
 import socket
 import threading
@@ -74,8 +91,9 @@ from uda_tpu_torch.mofserver.data_engine import DataEngine, FdSlice
 from uda_tpu_torch.net import wire
 from uda_tpu_torch.net.evloop import EventLoop, loop_callback
 from uda_tpu_torch.utils.config import Config
-from uda_tpu_torch.utils.errors import (ConfigError, ProtocolError,
-                                        TransportError, UdaError)
+from uda_tpu_torch.utils.errors import (ProtocolError, StorageError,
+                                        TenantError, TransportError,
+                                        UdaError)
 from uda_tpu_torch.utils.failpoints import failpoint
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
@@ -245,16 +263,18 @@ class _BufItem:
     mapping; ``slice`` pins it until written)."""
 
     __slots__ = ("bufs", "credited", "t0", "close_after", "slice",
-                 "zc_bytes")
+                 "zc_bytes", "tenant")
 
     def __init__(self, bufs, credited: bool, t0: float,
-                 close_after: bool = False, sl=None, zc_bytes: int = 0):
+                 close_after: bool = False, sl=None, zc_bytes: int = 0,
+                 tenant: str = ""):
         self.bufs = [memoryview(b) for b in bufs]
         self.credited = credited
         self.t0 = t0
         self.close_after = close_after
         self.slice = sl
         self.zc_bytes = zc_bytes
+        self.tenant = tenant  # the credit's scheduler account
 
 
 def _release_item(item) -> None:
@@ -272,9 +292,10 @@ class _FileItem:
     bytes, then ``os.sendfile`` straight from the MOF fd."""
 
     __slots__ = ("head", "slice", "file_off", "remaining", "credited",
-                 "t0", "close_after")
+                 "t0", "close_after", "tenant")
 
-    def __init__(self, head: bytes, sl: FdSlice, t0: float):
+    def __init__(self, head: bytes, sl: FdSlice, t0: float,
+                 tenant: str = ""):
         self.head: Optional[memoryview] = memoryview(head)
         self.slice = sl
         self.file_off = sl.file_offset
@@ -282,6 +303,7 @@ class _FileItem:
         self.credited = True
         self.t0 = t0
         self.close_after = False
+        self.tenant = tenant
 
 
 class _EvConn:
@@ -309,9 +331,18 @@ class _EvConn:
         self._wlock = threading.Lock()
         self._outq: "deque" = deque()
         self._poison = False        # no more writes (torn/failed/closed)
-        self._parked: "deque" = deque()  # decoded reqs waiting for credit
+        # decoded requests waiting for a connection credit; with the
+        # tenant plane on each already holds a tenant credit (_admit)
+        self._parked: "deque" = deque()
         self._credits = server.credit
         self._unparking = False
+        # the tenant plane: this connection's MSG_JOB bindings (job ->
+        # (tenant, epoch)), its tenant (the default one until a job
+        # binds) and how many of its requests wait, creditless, in the
+        # server's CreditScheduler
+        self.tenant = server.default_tenant
+        self.bindings: dict = {}
+        self._tparked = 0
         # byte-path requests of one recv burst / unpark sweep, flushed as
         # one engine.submit_batch
         self._batch: list = []
@@ -435,14 +466,36 @@ class _EvConn:
             self.loop.dispatch(self._do_stats, req_id,
                                wire.decode_stats_request(payload))
         elif msg_type == wire.MSG_JOB:
-            wire.decode_job(payload)  # a malformed frame is a desync
-            metrics.add("net.errors")
-            err = ProtocolError(
-                "this supplier runs no tenant plane "
-                "(uda.tpu.tenant.enable is off); MSG_JOB refused")
-            reply = wire.encode_error(req_id, err)
-            self._enqueue(_BufItem([reply], credited=False,
-                                   t0=time.perf_counter()), reply)
+            # uncredited like HELLO, and inline on the loop thread: TCP
+            # order is the registration contract (a client sends MSG_JOB
+            # and its first REQ back to back)
+            self._on_job(req_id, payload)
+        elif msg_type == wire.MSG_PUSH_SUB \
+                and self.server.push is not None:
+            # uncredited and inline for the same reason: a SUB is
+            # recorded before any REQ behind it is admitted
+            try:
+                job_id, reduce_id, window, chunk = \
+                    wire.decode_push_sub(payload)
+            except UdaError as e:
+                self._drop(e)
+                return
+            self.server.push.subscribe(self, job_id, reduce_id,
+                                       window, chunk)
+        elif msg_type == wire.MSG_PUSH_ACK \
+                and self.server.push is not None:
+            if len(payload):
+                self._drop(TransportError("malformed PUSH_ACK frame"))
+                return
+            self.server.push.on_ack(self, req_id)
+        elif msg_type == wire.MSG_PUSH_NACK \
+                and self.server.push is not None:
+            try:
+                reason = wire.decode_push_nack(payload)
+            except UdaError as e:
+                self._drop(e)
+                return
+            self.server.push.on_nack(self, req_id, reason)
         else:
             # in-range but unknown or unexpected (MSG_PUSH_SUB on a
             # push-less server among them): a typed ERR on the same req
@@ -464,7 +517,8 @@ class _EvConn:
         # clean hangup at a frame boundary: in-flight responses still
         # flush, then the connection closes itself
         self.draining = True
-        self._parked.clear()
+        self._drop_parked()
+        self.server._sweep()
         self._update_interest()
         if self.inflight == 0 and not self._outq:
             self.close()
@@ -475,11 +529,102 @@ class _EvConn:
             metrics.add("net.disconnects", role="server")
         self.close()
 
+    # -- the tenant handshake (loop thread) ----------------------------------
+
+    def _on_job(self, req_id: int, payload) -> None:
+        """MSG_JOB: register, heartbeat or retire one (tenant, job,
+        epoch) and bind it to this connection. The reply is MSG_JOB_OK
+        (the granted epoch) or a typed ERR carrying the registry's
+        refusal, uncredited either way. A malformed payload raises
+        TransportError out of the frame machine (a desync: the caller
+        drops the connection)."""
+        tenant, job, epoch, weight, token, retire = \
+            wire.decode_job(payload)
+        reg = self.server.registry
+        if reg is None:
+            metrics.add("net.errors")
+            err = ProtocolError(
+                "this supplier runs no tenant plane "
+                "(uda.tpu.tenant.enable is off); MSG_JOB refused")
+            reply = wire.encode_error(req_id, err)
+        else:
+            try:
+                if retire:
+                    reg.retire(tenant, job, epoch, token=token)
+                    # the binding is kept: later REQs of the job go on
+                    # through validate (typed "retired" errors), never
+                    # back to the unbound default-tenant pass
+                    reply = wire.encode_job_ok(req_id, epoch)
+                else:
+                    rec = reg.register(tenant, job, epoch,
+                                       weight=weight, token=token)
+                    self.tenant = rec.tenant_id
+                    self.bindings[job] = (rec.tenant_id, rec.epoch)
+                    reply = wire.encode_job_ok(req_id, rec.epoch)
+            except UdaError as e:
+                # a typed refusal, never a teardown. The fence: a refused
+                # registration poisons the job's binding (epoch 0), so a
+                # stale-epoch predecessor cannot slide back onto the
+                # default-tenant pass and read its successor's chunks
+                if not retire:
+                    self.bindings[job] = (tenant, 0)
+                metrics.add("net.errors")
+                reply = wire.encode_error(req_id, e)
+        self._enqueue(_BufItem([reply], credited=False,
+                               t0=time.perf_counter()), reply)
+
+    def _entry_tenant(self, entry) -> str:
+        """The scheduling tenant of one decoded request: its job's
+        MSG_JOB binding, else this connection's tenant."""
+        kind, _rid, body = entry
+        job = body.job_id if kind == "req" else body[0]
+        bound = self.bindings.get(job)
+        return (bound[0] or self.tenant) if bound else self.tenant
+
+    def _entry_cost(self, entry) -> int:
+        """The WDRR charge of one request: its requested bytes under byte
+        quanta (a chunk_size of 0 is charged the engine's default serve
+        size), 1 in request-count mode; SIZE probes cost 1."""
+        if not self.server.quantum_bytes:
+            return 1
+        kind, _rid, body = entry
+        if kind != "req":
+            return 1
+        return max(1, int(body.chunk_size)
+                   or self.server.chunk_bytes_default)
+
     # -- credit + request admission (loop thread) ----------------------------
 
     def _admit(self, entry) -> None:
         if self.draining:
             return
+        if self.server.tenancy:
+            # the tenant gate first: an entry in self._parked always
+            # holds a tenant credit, one in the scheduler's queues never
+            # does. Reading pauses only past the per-connection high
+            # water mark (the wqe.per.conn cap), so several tenants can
+            # hold backlog at once and the weights bite
+            if not self.server._sched.admit(self._entry_tenant(entry),
+                                            (self, entry),
+                                            cost=self._entry_cost(entry)):
+                self._tparked += 1
+                if not self._read_paused \
+                        and self._tparked >= self.server.credit:
+                    self._read_paused = True
+                    self._update_interest()
+                return
+        self._conn_gate(entry)
+
+    def _maybe_resume_read(self) -> None:
+        """Resume reading once nothing is connection-parked and the
+        tenant backlog is under the low water mark (half the cap)."""
+        if self._read_paused and not self._parked \
+                and self._tparked <= self.server.credit // 2:
+            self._read_paused = False
+            self._update_interest()
+
+    def _conn_gate(self, entry) -> None:
+        """The per-connection credit bound."""
         if self._credits <= 0:
             self._parked.append(entry)
             if not self._read_paused:
@@ -490,6 +635,29 @@ class _EvConn:
             return
         self._start(entry)
 
+    def _granted(self, entry) -> None:
+        """A WDRR grant from the server's sweep (loop thread): the entry
+        now holds a tenant credit; run it through the connection gate."""
+        self._tparked -= 1
+        if self.closed or self.draining:
+            self.server._sched.release(self._entry_tenant(entry))
+            return
+        self._conn_gate(entry)
+        self._maybe_resume_read()
+        self._flush_batch()
+
+    def _drop_parked(self) -> None:
+        """Drop every parked entry (EOF, drain, close): connection-parked
+        ones hold tenant credits, which are released; scheduler-parked
+        ones hold none and just leave the queues."""
+        if self.server.tenancy:
+            for entry in self._parked:
+                self.server._sched.release(self._entry_tenant(entry))
+            if self._tparked:
+                self.server._sched.drop_conn(self)
+                self._tparked = 0
+        self._parked.clear()
+
     def _start(self, entry) -> None:
         kind, req_id, body = entry
         self._credits -= 1
@@ -499,40 +667,55 @@ class _EvConn:
             self._start_req(req_id, body)
         else:
             self.loop.dispatch(self._do_size, req_id, body,
-                               time.perf_counter())
+                               time.perf_counter(),
+                               self._entry_tenant(entry)
+                               if self.server.tenancy else "")
 
-    def _settle(self, credited: bool) -> None:
+    def _settle(self, credited: bool, tenant: str = "") -> None:
         """The one credit-settle point (loop thread): every response,
-        written, torn or abandoned, passes here once. The unpark loop is
-        iterative: a parked entry can be served fully inline (try_plan ->
-        enqueue -> send -> settle), which re-enters here; the
-        ``_unparking`` guard turns that into a plain credit increment for
-        the outer loop."""
+        written, torn or abandoned, passes here once. ``tenant`` is the
+        credit's scheduler account (empty: the connection's tenant). The
+        unpark loop is iterative: a parked entry can be served fully
+        inline (try_plan -> enqueue -> send -> settle), which re-enters
+        here; the ``_unparking`` guard turns that into a plain credit
+        increment for the outer loop (the server's sweep has the same
+        guard)."""
         if not credited:
             return
         self._credits += 1
         self.inflight -= 1
         metrics.gauge_add("net.server.inflight", -1)
+        if self.server.tenancy:
+            self.server._sched.release(tenant or self.tenant)
         if self.closed or self.draining or self._unparking:
+            if not self.closed:
+                # the freed tenant credit must still reach parked
+                # neighbours
+                self.server._sweep()
             return
         self._unparking = True
         try:
             while self._credits > 0 and self._parked \
                     and not self.closed and not self.draining:
                 self._start(self._parked.popleft())
-            if self._read_paused and not self._parked:
-                self._read_paused = False
-                self._update_interest()
+            self._maybe_resume_read()
         finally:
             self._unparking = False
         self._flush_batch()
+        # the freed tenant credit may belong to another connection's
+        # parked backlog
+        self.server._sweep()
 
-    def _settle_offloop(self, res) -> None:
+    def _settle_offloop(self, res, tenant: str = "") -> None:
         """Settle a completion for a dead connection (or after the loop
-        stopped), on whatever thread noticed."""
+        stopped), on whatever thread noticed. The tenant credit goes back
+        through the loop (the scheduler is loop-confined)."""
         if isinstance(res, FdSlice):
             res.release()
         metrics.gauge_add("net.server.inflight", -1)
+        if self.server.tenancy and self.loop.alive():
+            self.loop.call_soon(self.server._release_and_sweep,
+                                tenant or self.tenant)
 
     # -- serving -------------------------------------------------------------
 
@@ -541,6 +724,14 @@ class _EvConn:
         t0 = time.perf_counter()
         server = self.server
         try:
+            if server.tenancy:
+                # the per-REQ registry gate; the tenant is stamped from
+                # the connection's authenticated binding, never from the
+                # payload, and before validation, so a refusal settles
+                # the account the admit charged
+                req = dataclasses.replace(
+                    req, tenant=self._entry_tenant(("req", req_id, req)))
+                server._validate_req(self, req)
             if server.zero_copy:
                 # the inline fast path: an index-cache hit plans the
                 # slice on the loop thread, no pool handoff
@@ -592,18 +783,26 @@ class _EvConn:
         err = f.exception()
         res = None if err is not None else f.result(timeout=0)
         if self.closed or not self.loop.alive():
-            self._settle_offloop(res)
+            self._settle_offloop(res, req.tenant)
             return
         self._complete(req_id, res, err, t0, req)
 
     def _complete(self, req_id: int, res, err, t0: float, req) -> None:
         """Engine completion -> outbound item, on the completing thread
         (the inline-write fast path). Responses complete out of order."""
+        tenant = req.tenant
         try:
             if err is not None:
                 head = wire.encode_error(req_id, err)
-                item = _BufItem([head], credited=True, t0=t0)
+                item = _BufItem([head], credited=True, t0=t0,
+                                tenant=tenant)
                 metrics.add("net.errors")
+                if self.server.tenancy and tenant and \
+                        isinstance(err, (StorageError, TenantError)):
+                    # tenant-scoped penalty feedback: repeated admission
+                    # push-back or injected faults box this tenant in the
+                    # WDRR (deprioritized, not starved)
+                    self.loop.call_soon(self.server._note_fault, tenant)
             elif isinstance(res, FdSlice):
                 view = (res.view()
                         if self.server.zc_mode == "mmap" else None)
@@ -626,7 +825,8 @@ class _EvConn:
                         part_length=res.part_length, offset=res.offset,
                         last=res.last, path=res.path, crc=None,
                         data_len=len(data))
-                    item = _BufItem([head, data], credited=True, t0=t0)
+                    item = _BufItem([head, data], credited=True, t0=t0,
+                                    tenant=tenant)
                     metrics.add("net.serve.copy")
                 else:
                     head = wire.encode_result_head(
@@ -637,9 +837,9 @@ class _EvConn:
                     if view is not None:
                         item = _BufItem([head, view], credited=True,
                                         t0=t0, sl=res,
-                                        zc_bytes=res.length)
+                                        zc_bytes=res.length, tenant=tenant)
                     else:
-                        item = _FileItem(head, res, t0)
+                        item = _FileItem(head, res, t0, tenant=tenant)
                     metrics.add("net.serve.fd")
             else:
                 head = wire.encode_result_head(
@@ -647,7 +847,8 @@ class _EvConn:
                     part_length=res.part_length, offset=res.offset,
                     last=res.last, path=res.path, crc=res.crc,
                     data_len=len(res.data))
-                item = _BufItem([head, res.data], credited=True, t0=t0)
+                item = _BufItem([head, res.data], credited=True, t0=t0,
+                                tenant=tenant)
                 metrics.add("net.serve.copy")
         except Exception as e:  # noqa: BLE001 - an unencodable response
             # would strand its credit: settle and drop, the client
@@ -657,17 +858,19 @@ class _EvConn:
             if isinstance(res, FdSlice):
                 res.release()
             self.loop.call_soon(self._abandon_item,
-                                _BufItem([], credited=True, t0=t0), e)
+                                _BufItem([], credited=True, t0=t0,
+                                         tenant=tenant), e)
             return
         if err is None:
             # warm-restart watermark: the highest partition offset served
             # (advisory; the resuming client's own ledger is the truth)
             served = res.length if isinstance(res, FdSlice) \
                 else len(res.data)
-            self.server._mark_served(req, req.offset + served)
+            self.server._mark_served(req, req.offset + served, tenant)
         self._enqueue(item, head)
 
-    def _do_size(self, req_id: int, body, t0: float) -> None:
+    def _do_size(self, req_id: int, body, t0: float,
+                 tenant: str = "") -> None:
         """Dispatcher thread: the size sum through LocalFetchClient, so
         wire and in-process estimates cannot diverge (exact or
         unknown)."""
@@ -679,8 +882,12 @@ class _EvConn:
         frame = wire.encode_size(req_id, total)
         if self.closed or not self.loop.alive():
             metrics.gauge_add("net.server.inflight", -1)
+            if self.server.tenancy and self.loop.alive():
+                self.loop.call_soon(self.server._release_and_sweep,
+                                    tenant or self.tenant)
             return
-        self._enqueue(_BufItem([frame], credited=True, t0=t0), frame)
+        self._enqueue(_BufItem([frame], credited=True, t0=t0,
+                               tenant=tenant), frame)
 
     def _do_stats(self, req_id: int, opt: Optional[tuple]) -> None:
         """Dispatcher thread: build and encode the snapshot; a CAP_OBS
@@ -703,6 +910,14 @@ class _EvConn:
 
     # -- outbound (any thread; _wlock serializes writers) --------------------
 
+    def push_frame(self, frame: bytes, close_after: bool = False) -> None:
+        """Queue one supplier-initiated frame (MSG_PUSH), any thread.
+        Uncredited: the push plane runs its own window (PUSH_ACK settles
+        it), so pushes never take the fetch pipeline's credits."""
+        self._enqueue(_BufItem([frame], credited=False,
+                               t0=time.perf_counter(),
+                               close_after=close_after), frame)
+
     def _enqueue(self, item, head: bytes) -> None:
         """Queue one response and write it now on the calling thread when
         the socket has room. The ``net.frame`` failpoint fires here, once
@@ -717,7 +932,7 @@ class _EvConn:
             # torn frame: send the damaged head, then close
             _release_item(item)
             item = _BufItem([out], credited=item.credited, t0=item.t0,
-                            close_after=True)
+                            close_after=True, tenant=item.tenant)
         abandoned = False
         with self._wlock:
             if self.closed or self._poison:
@@ -788,7 +1003,7 @@ class _EvConn:
             metrics.observe("net.frame.latency_ms",
                             (time.perf_counter() - item.t0) * 1e3,
                             role="server")
-        self._settle(item.credited)
+        self._settle(item.credited, item.tenant)
         if item.close_after and not self.closed:
             log.warn(f"net: frame to {self.peer} torn by failpoint; "
                      f"closing")
@@ -801,7 +1016,7 @@ class _EvConn:
     def _abandon_item(self, item, cause) -> None:
         """Settle a response that will never be written (closed or
         poisoned connection, injected send failure, unencodable)."""
-        self._settle(item.credited)
+        self._settle(item.credited, item.tenant)
         if cause is not None:
             if not self.closed:
                 log.warn(f"net: send to {self.peer} failed: {cause}")
@@ -859,7 +1074,8 @@ class _EvConn:
                     item.slice.release()
                     self._outq[0] = _BufItem([data],
                                              credited=item.credited,
-                                             t0=item.t0)
+                                             t0=item.t0,
+                                             tenant=item.tenant)
                     return self._send_bufs(self._outq[0])
                 raise
             if n == 0:
@@ -881,7 +1097,8 @@ class _EvConn:
         if self.closed or self.draining:
             return
         self.draining = True
-        self._parked.clear()
+        self._drop_parked()
+        self.server._sweep()
         self._update_interest()
         if self.inflight == 0 and not self._outq:
             self.close()
@@ -903,15 +1120,19 @@ class _EvConn:
             self._poison = True
         for item in items:
             _release_item(item)
-            self._settle(item.credited)
+            self._settle(item.credited, item.tenant)
         # batched-but-unflushed requests die with the connection: they
         # were credited at _start, so settle them like torn responses
         batch, self._batch = self._batch, []
-        for _ in batch:
-            self._settle(True)
-        self._parked.clear()
+        for (_req_id, req, _t0) in batch:
+            self._settle(True, req.tenant)
+        self._drop_parked()
+        if self.server.push is not None:
+            # settle the push window and forget the subscriptions
+            self.server.push.drop_conn(self)
         self.server._forget(self)
         metrics.gauge_add("net.server.connections", -1)
+        self.server._sweep()  # freed tenant credits flow to neighbours
 
 
 class EvLoopShuffleServer:
@@ -923,20 +1144,52 @@ class EvLoopShuffleServer:
                  host: Optional[str] = None, port: Optional[int] = None,
                  registry=None):
         cfg = config or Config()
-        if registry is not None or bool(cfg.get("uda.tpu.tenant.enable")):
-            raise ConfigError(
-                "uda.tpu.tenant.enable (a tenant registry) needs "
-                "uda_tpu/tenant/, which is not ported to uda_tpu_torch yet")
-        if bool(cfg.get("uda.tpu.push.enable")):
-            raise ConfigError(
-                "uda.tpu.push.enable needs uda_tpu/net/push.py, which is "
-                "not ported to uda_tpu_torch yet")
         self.engine = engine
         self.bind_host = host if host is not None \
             else str(cfg.get("uda.tpu.net.bind"))
         self.bind_port = int(port if port is not None
                              else cfg.get("uda.tpu.net.port"))
         self.credit = max(1, int(cfg.get("mapred.rdma.wqe.per.conn")))
+        # the tenant plane: on with an injected registry or
+        # uda.tpu.tenant.enable. Off = the single-job data plane, bit for
+        # bit (no registry lookups, no scheduler, empty tenant stamps)
+        self.tenancy = registry is not None \
+            or bool(cfg.get("uda.tpu.tenant.enable"))
+        self.registry = registry
+        self._sched = None
+        self.quantum_bytes = 0
+        self.default_tenant = ""
+        self.strict_tenancy = False
+        self._sweeping = False
+        if self.tenancy:
+            from uda_tpu_torch.tenant import (DEFAULT_TENANT,
+                                              CreditScheduler,
+                                              TenantRegistry)
+            if self.registry is None:
+                self.registry = TenantRegistry.from_config(cfg)
+            self.default_tenant = DEFAULT_TENANT
+            self.strict_tenancy = bool(cfg.get("uda.tpu.tenant.strict"))
+            # the shared credit pool, by default the per-connection cap
+            total = int(cfg.get("uda.tpu.tenant.wqe.total")) \
+                or self.credit
+            # byte-cost quanta (0 = request-count quanta); a REQ of
+            # chunk_size 0 is charged the engine's default serve size
+            self.quantum_bytes = max(
+                0, int(cfg.get("uda.tpu.tenant.quantum.kb"))) * 1024
+            self.chunk_bytes_default = max(1, int(getattr(
+                engine, "chunk_size_default",
+                int(cfg.get("mapred.rdma.buf.size")) * 1024)))
+            self._sched = CreditScheduler(
+                total, weight_of=self.registry.weight_of,
+                quantum=float(self.quantum_bytes or 1),
+                penalty_threshold=int(
+                    cfg.get("uda.tpu.tenant.penalty.threshold")),
+                penalty_ms=int(cfg.get("uda.tpu.tenant.penalty.ms")))
+            # per-tenant read-budget partitions (stub engines without
+            # the seam skip them)
+            wire_registry = getattr(engine, "set_tenant_registry", None)
+            if wire_registry is not None:
+                wire_registry(self.registry)
         self.drain_s = float(cfg.get("uda.tpu.net.drain.s"))
         self.sockbuf_kb = int(cfg.get("uda.tpu.net.sockbuf.kb"))
         self.zero_copy = bool(cfg.get("uda.tpu.net.zerocopy"))
@@ -963,8 +1216,14 @@ class EvLoopShuffleServer:
         # elastic drain: once announce_drain() flips it, every later
         # banner carries CAP_DRAINING (a one-way latch)
         self._draining = False
-        self._marks: dict = {}  # "|job|map|reduce" -> served end
+        self._marks: dict = {}  # "tenant|job|map|reduce" -> served end
         self._marks_lock = threading.Lock()
+        # the push plane (uda.tpu.push.enable). Off = pull only, bit for
+        # bit: no CAP_PUSH in the banner, MSG_PUSH_SUB refused
+        self.push = None
+        if bool(cfg.get("uda.tpu.push.enable")):
+            from uda_tpu_torch.net.push import PushScheduler
+            self.push = PushScheduler(self, engine, cfg)
 
     # -- warm-restart handoff -----------------------------------------------
 
@@ -994,16 +1253,69 @@ class EvLoopShuffleServer:
         gen = int.from_bytes(os.urandom(4), "big") & 0x7FFFFFFF
         return max(1, gen), False
 
+    # -- the weighted-fair credit plane (loop thread) ------------------------
+
+    def _sweep(self) -> None:
+        """The WDRR grant sweep: move freed credits to parked requests
+        across every connection. Iterative like the per-connection unpark
+        loop: a grant served fully inline re-enters through _settle, which
+        the ``_sweeping`` guard turns into a no-op for the outer loop."""
+        if not self.tenancy or self._sweeping:
+            return
+        self._sweeping = True
+        try:
+            while True:
+                granted = self._sched.grant_parked()
+                if not granted:
+                    return
+                for conn, entry in granted:
+                    conn._granted(entry)
+        finally:
+            self._sweeping = False
+
+    def _release_and_sweep(self, tenant: str) -> None:
+        """Loop-marshalled credit return for off-loop settles."""
+        if self.tenancy:
+            self._sched.release(tenant)
+            self._sweep()
+
+    def _note_fault(self, tenant: str) -> None:
+        """Loop-marshalled tenant penalty feedback."""
+        if self.tenancy:
+            self._sched.note_fault(tenant)
+
+    def _validate_req(self, conn: _EvConn, req) -> None:
+        """The per-REQ registry gate: a bound job is validated on every
+        request (typed TenantError when unknown, retired or of a stale
+        epoch); an unbound job rides the default tenant unless
+        ``uda.tpu.tenant.strict`` demands registration."""
+        bound = conn.bindings.get(req.job_id)
+        if bound is None:
+            if self.strict_tenancy:
+                raise TenantError(
+                    f"job {req.job_id!r} is not registered on this "
+                    f"connection and the daemon requires MSG_JOB "
+                    f"registration (uda.tpu.tenant.strict)")
+            return
+        tenant, epoch = bound
+        if epoch <= 0:
+            raise TenantError(
+                f"job {req.job_id!r}: registration was refused on "
+                f"this connection (stale epoch or failed auth); its "
+                f"fetches stay fenced")
+        self.registry.validate(tenant, req.job_id, epoch)
+
     _MARKS_CAP = 4096  # bound the table: oldest partition evicted
 
-    def _mark_served(self, req, end: int) -> None:
-        """The served-offset watermark per partition, keyed as the
-        reference keys it (``tenant|job|map|reduce``, the tenant empty).
-        Advisory: resume correctness rests on the client's ledger; the
-        record is the drain proof a restarted supplier starts from."""
+    def _mark_served(self, req, end: int, tenant: str = "") -> None:
+        """The served-offset watermark per partition, keyed by (tenant,
+        job, map, reduce): two tenants may carry the same job, map and
+        reduce ids. Advisory: resume correctness rests on the client's
+        ledger; the record is the drain proof a restarted supplier starts
+        from."""
         if not self.handoff_path:
             return
-        key = f"|{req.job_id}|{req.map_id}|{req.reduce_id}"
+        key = f"{tenant}|{req.job_id}|{req.map_id}|{req.reduce_id}"
         with self._marks_lock:
             if end > self._marks.get(key, -1):
                 self._marks.pop(key, None)  # refresh insertion order
@@ -1103,7 +1415,10 @@ class EvLoopShuffleServer:
             # the accept banner, the first frame on the connection
             # (uncredited); rides _enqueue so net.frame can tear it
             caps = wire.CAP_TRACE | wire.CAP_OBS | wire.CAP_ELASTIC \
-                | (wire.CAP_DRAINING if self._draining else 0)
+                | (wire.CAP_TENANT if self.tenancy else 0) \
+                | (wire.CAP_DRAINING if self._draining else 0) \
+                | (wire.CAP_PUSH if self.push is not None
+                   and not self._draining else 0)
             hello = wire.encode_hello(self.generation, self.warm_restart,
                                       caps=caps)
             conn._enqueue(_BufItem([hello], credited=False,
@@ -1112,6 +1427,14 @@ class EvLoopShuffleServer:
     def _forget(self, conn: _EvConn) -> None:
         with self._lock:
             self._conns.discard(conn)
+
+    def notify_commit(self, job_id: str, map_id: str) -> None:
+        """The writer's commit seam: a map output just became fetchable;
+        push it to every subscribed reduce connection (wire a writer with
+        ``on_commit=server.notify_commit``). A no-op on a pull-only or
+        draining server, so callers may call it unconditionally."""
+        if self.push is not None and not self._draining:
+            self.push.notify_commit(job_id, map_id)
 
     def _stats_snapshot(self) -> dict:
         """The introspection provider: generation, bound port, loop health
@@ -1122,7 +1445,7 @@ class EvLoopShuffleServer:
         loop = self._loop
         with self._marks_lock:
             nmarks = len(self._marks)
-        return {
+        snap = {
             "generation": self.generation,
             "warm_restart": self.warm_restart,
             "port": (self._listener.getsockname()[1]
@@ -1135,10 +1458,19 @@ class EvLoopShuffleServer:
             "connections": [
                 {"peer": c.peer, "inflight": c.inflight,
                  "parked": len(c._parked), "credits": c._credits,
-                 "tenant": "", "draining": c.draining,
+                 "tenant": c.tenant, "draining": c.draining,
                  "closed": c.closed}
                 for c in conns],
         }
+        if self.tenancy:
+            # a racy glance of loop-owned scheduler state; a walk that
+            # races a sweep answers with a marker, the next poll answers
+            try:
+                snap["tenancy"] = {"registry": self.registry.snapshot(),
+                                   "scheduler": self._sched.stats()}
+            except RuntimeError:
+                snap["tenancy"] = {"racing": True}
+        return snap
 
     def _sendfile_refused_once(self) -> None:
         """The first sendfile refusal (EINVAL class): stop planning
@@ -1155,23 +1487,20 @@ class EvLoopShuffleServer:
         """Begin elastic departure: flip the banner to CAP_DRAINING, so
         every connection accepted from here on learns this supplier is
         leaving (connected peers keep their credits; in-flight serves
-        complete). Idempotent; returns the migration records, empty
-        without a store. Migrating retained MOFs to a blob tier
-        (``store=``) needs the reference's ``mofserver/store.py`` and
-        raises :class:`ConfigError`."""
-        if store is not None:
-            raise ConfigError(
-                "announce_drain(store=...) migrates MOFs through "
-                "uda_tpu/mofserver/store.py, which is not ported to "
-                "uda_tpu_torch yet")
-        del job_id  # the store migration's scope
+        complete), and, with a
+        :class:`~uda_tpu_torch.mofserver.store.StoreManager`, migrate the
+        retained partitions (``job_id``'s, or all) to the blob tier so the
+        job can still fetch them after this process exits. Idempotent;
+        returns the migration records (empty without a store). The caller
+        follows with ``stop(drain=True)`` once its producers are
+        quiet."""
         if not self._draining:
             metrics.add("elastic.drains")
             log.info(f"net: drain announced (generation "
                      f"{self.generation}); new banners carry "
                      f"CAP_DRAINING")
         self._draining = True
-        return []
+        return store.drain(job_id) if store is not None else []
 
     def stop(self, drain: bool = True) -> None:
         """Stop serving. ``drain=True`` completes what the engine already
@@ -1182,6 +1511,8 @@ class EvLoopShuffleServer:
         if self._loop is None:
             return
         self._stopping.set()
+        if self.push is not None:
+            self.push.stop()
         loop = self._loop
         ls, self._listener = self._listener, None
         if ls is not None:

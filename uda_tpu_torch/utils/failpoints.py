@@ -38,8 +38,14 @@ reconstruction's decode), ``ckpt.save`` (the assembled manifest bytes) and
 ``ckpt.load`` (the manifest walk), ``data_engine.preadv`` (a batched
 read's bytes), ``decompress.block`` (one decoded compressed block),
 ``net.accept``, ``net.connect``, ``net.frame`` (each outbound frame's
-head, on both sides) and ``net.handoff`` (the warm-restart record's load
-and save). Every other site the reference knows lives in a module the port lacks: arming it raises
+head, on both sides), ``net.handoff`` (the warm-restart record's load
+and save), ``net.push`` (each MSG_PUSH frame, on the supplier) and
+``push.admit`` (each pushed chunk's admission on the reduce side),
+``tenant.register`` and ``tenant.validate`` (the tenant registry's
+MSG_JOB and per-request gates), and ``store.get``, ``store.put`` and
+``store.migrate`` (the disaggregated store, keyed ``<backend>:<key>``).
+The other sites the reference knows (``exchange.*``, ``bridge.upcall``)
+live in modules the port lacks: arming one raises
 :class:`ConfigError` naming the site and that module, never a schedule
 that could not fire. A name the reference does not know either arms as
 it does there (tests use such names).
@@ -116,13 +122,6 @@ _UNPORTED_SITE_MODULES = {
     "exchange.round": "uda_tpu/parallel/exchange.py",
     "exchange.decode": "uda_tpu/parallel/exchange.py",
     "bridge.upcall": "uda_tpu/bridge/bridge.py",
-    "net.push": "uda_tpu/net/push.py",
-    "push.admit": "uda_tpu/net/push.py",
-    "tenant.register": "uda_tpu/tenant/registry.py",
-    "tenant.validate": "uda_tpu/tenant/registry.py",
-    "store.get": "uda_tpu/mofserver/store.py",
-    "store.put": "uda_tpu/mofserver/store.py",
-    "store.migrate": "uda_tpu/mofserver/store.py",
 }
 
 # the sites whose code the port has

@@ -115,6 +115,11 @@ class Metrics:
         with self._lock:
             self.gauges[name] += delta
 
+    def gauge(self, name: str, value: float) -> None:
+        """Set a gauge to ``value`` (a level, such as a queue's backlog)."""
+        with self._lock:
+            self.gauges[name] = value
+
     def get_gauge(self, name: str) -> float:
         with self._lock:
             return self.gauges.get(name, 0.0)
