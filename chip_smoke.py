@@ -62,7 +62,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``torch.profiler``; the stream is cracked, checked for key order and
    multiset checksum and held byte for byte against the whole-partition
    re-sort (``merge_batches``) on the card; then K1 at each capacity
-   class of the 64 maps' merge tree (the forest 9a and 13a launch, run_len
+   class of the 64 maps' merge tree (the forest 9a launches, run_len
    up to 8,388,608) against its plain version, timed beside its bound;
 9. overlap: the default reduce path on the 64-map tree, each run
    through ``MergeManager.run`` with ``metrics`` and the launch counts
@@ -139,13 +139,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 13. the supplier planes, each run with ``metrics`` and the launch counts
    reset just before and read just after, under ``torch.profiler``: (a)
    push: a port ``ShuffleServer`` with ``uda.tpu.push.enable`` serves
-   the 64 maps; the reduce task (the default ``Config()`` plus
+   run c's 16 maps; the reduce task (the default ``Config()`` plus
    push, over the socket default) calls ``arm_push`` first, a thread
    plays the map phase (``notify_commit`` for one map every 100 ms) and
-   ``run()`` starts after the last commit: the stream equals 9a's, K1 63
-   pairs, at least one pushed prefix adopted (chunks, bytes, adoptions,
-   NACKs by reason, errors, the staging caps and ``run()``'s wall beside
-   9a's printed); (b) the elastic store: run c's 16 maps written again
+   ``run()`` starts after the last commit: the stream equals run c's, K1
+   15 pairs, at least one pushed prefix adopted (chunks, bytes,
+   adoptions, NACKs by reason, errors, the staging caps and ``run()``'s
+   wall beside 12a's, the pull of the same maps, printed); (b) the
+   elastic store: run c's 16 maps written again
    through ``MOFWriter(store=StoreManager)`` into a fresh root, the
    watermark a tenth of the partition's on-disk bytes, so 15 maps spill
    to the blob tier oldest first as they are written (peak retained
@@ -181,11 +182,37 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``fetch_over_message``, GET_STATS's ``emit.bytes`` the stream's length;
    (d) the C-ABI shim and its C++ embedder built with ``g++`` and run as a
    subprocess per reducer of a 3-map, 2-reducer tree, its embedded
-   interpreter merging on the card (K1 2 pairs each, records as written).
+   interpreter merging on the card (K1 2 pairs each, records as written);
+15. the multi-chip path (``uda_tpu_torch.parallel``) on an 8-slot mesh
+   over the one card (``make_mesh(8, devices=[cuda] * 8)``), each run
+   with ``metrics``, the launch counts and the peak memory reset just
+   before and read just after: (a) after phase 7, ``distributed_terasort``
+   of phase 4's 10^8 records (BASELINE.md config 5's shape on one card:
+   uniform splitters, the default capacity 2n/64, "auto" = keys8, K2 and
+   K1 in each slot's local sort), under ``torch.profiler``: slot by slot
+   the valid rows equal the matching rows of the single-chip stable sort
+   (kept on the device), no overflow, each slot in order (wall, idle
+   share, peak memory, launches); (b) 2^22 records, every other one in
+   the first destination range: the fused attempt overflows the default
+   capacity and the windowed multi-round re-run drains every bucket,
+   equal to the single-chip sort, ``exchange.rounds`` and
+   ``.rounds.skipped`` equal to the port's run on 8 CPU slots; (c) 2^22
+   uniform records on ``dcn:2,ici:4`` (``mesh_from_config``) with
+   ``exchange_mode`` flat, hierarchical and coded, ``multiround="always"``:
+   the three outputs equal, ``exchange.dcn.messages``, ``.dcn.coded.bytes``
+   and ``.dcn.saved.bytes`` equal to the CPU slots' runs; (d) 14b's Sort
+   job with ``mesh=`` the 8 slots (``run_reduces_mesh`` ->
+   ``exchange_blobs`` -> ``ExchangeFetchClient`` -> ``MergeManager`` ->
+   K1): outputs equal to the same job without ``mesh=`` (K1 launches and
+   the ``mesh_shuffle`` time printed); (e) a world-size-1 NCCL group on
+   127.0.0.1 with 8 local slots runs 15b's words through
+   ``distributed_sort_step``: each slot equal to 15b's.
 
 Each phase's seconds are printed on a line of their own. The last two
-lines are one JSON object with a record per kernel and the
-contract line ``{"ok": true, "device": {...}}``.
+lines are one JSON object with a record per kernel (K2's, K1's and the
+partition kernel's with their launches in each run of phase 15,
+``distributed_path_launches``) and the contract line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -233,6 +260,10 @@ from uda_tpu_torch.ops import merge as merge_ops
 from uda_tpu_torch.ops import packing, pallas_sort
 from uda_tpu_torch.ops import sort as sort_ops
 from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
+from uda_tpu_torch.parallel import (distributed_sort_step, make_mesh,
+                                    mesh_from_config, uniform_splitters)
+from uda_tpu_torch.parallel import multihost
+from uda_tpu_torch.models.pipeline import MapReduceJob
 from uda_tpu_torch.utils.comparators import get_key_type
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils import vint
@@ -296,6 +327,8 @@ EDGE_CASES = [
     # tiles wider than one K2 block takes: sub-tiles merged by K1
     (8, 2, 7, 1 << 15, 16384, "high"),
     (8, 6, 7, 1 << 14, 8192, "mixed"),
+    # the keys8 layout of the distributed sort: 3 key words + the flag
+    (8, 4, 7, 1 << 14, 1024, "equal"),
 ]
 # K3/K4 at the edges of theirs: key words, n, tile and the kind of keys
 SLIM_EDGE_CASES = [
@@ -375,6 +408,11 @@ SHIM_JOB = "job_shim"      # phase 14d: tests/test_bridge_shim.py's shape
 SHIM_MAPS = 3
 SHIM_REDUCERS = 2
 SHIM_RECORDS = 30
+MESH_SLOTS = 8             # phase 15: the 8-slot mesh over the one card
+MESH_N = 1 << 22           # phase 15b-15e's records
+MESH_POD_SHAPE = "dcn:2,ici:4"
+MESH_MODES = ("flat", "hierarchical", "coded")
+MESH_KERNELS = ("tile_sort", "merge_pass", "merge_partition")
 
 
 def log(msg: str) -> None:
@@ -601,7 +639,8 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
     seeds = itertools.count(SEED + 1)
     worst: dict = {}
     for tile in tiles:
-        cases = [(8, 3, 7, False), (32, 3, 31, False), (4, 3, 3, True)]
+        cases = [(8, 3, 7, False), (8, 4, 7, False), (32, 3, 31, False),
+                 (4, 3, 3, True)]
         for rows, nk, tb, folded in cases:
             x = interop.words_from_numpy(
                 lanes_words(next(seeds), rows, n, nk), dev)
@@ -2403,14 +2442,15 @@ def _series(snap: dict, name: str, label: str) -> dict:
 
 
 def phase_push(dev: torch.device, root: str, mids: list, part_bytes: int,
-               want: tuple, wall_9a: float) -> dict:
+               want: tuple, wall_pull: float) -> dict:
     """Phase 13a: a port ShuffleServer with ``uda.tpu.push.enable`` serves
-    the 64-map tree; the reduce task (the default ``Config()`` plus push,
+    run c's 16 maps; the reduce task (the default ``Config()`` plus push,
     over ``HostRoutingClient``'s socket default) arms push first, then a
     thread plays the map phase, ``notify_commit`` for one map every
     ``PUSH_COMMIT_S``, and ``run()`` starts after the last commit.
     ``metrics`` and the launch counts are reset before the arm; the wall
-    is ``run()``'s. The stream must equal 9a's with a K1 launch pair per
+    is ``run()``'s, printed beside 12a's, the pull of the same maps over
+    the same wire. The stream must equal run c's with a K1 launch pair per
     forest merge and at least one pushed prefix adopted."""
     conf = dict(NET_CONF, **{"uda.tpu.push.enable": True})
     engine, server = serve(root, conf)
@@ -2451,7 +2491,7 @@ def phase_push(dev: torch.device, root: str, mids: list, part_bytes: int,
             f"[push] no pushed prefix adopted: {snap.get('push.chunks', 0)}"
             f" chunks pushed, refused {refused}")
     return _net_report(res, part_bytes, want, len(mids) - 1, PUSH_KEYS, {
-        "phase_9a_wall_s": wall_9a, "caps": {
+        "pull_12a_wall_s": wall_pull, "caps": {
             k: seen[k] for k in ("eager_cap", "staged_cap", "spill")},
         "map_phase_s": seen["map_phase_s"],
         "staged_at_run_bytes": seen["staged_at_run"],
@@ -3079,15 +3119,15 @@ def phase_planes_alone(dev: torch.device, maps: int = MERGE_MAPS,
                        map_bytes: int = MERGE_MAP_BYTES,
                        c_maps: int = OVERLAP_C_MAPS) -> dict:
     """Phase 13 on its own: phase 8's tree written again, each digest the
-    card's re-sort (9a's wall not measured: 0)."""
+    card's re-sort (12a's wall not measured: 0)."""
     parts = tera_partitions(SEED + 3, maps, map_bytes)
     want_c = resort_digest(parts[:c_maps], dev)
     with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
         mids = write_mof_tree(root, parts)
         with phase_seconds("13a push"):
             planes = {"push": phase_push(
-                dev, root, mids, sum(p.nbytes + 2 for p in parts),
-                resort_digest(parts, dev), 0.0)}
+                dev, root, mids[:c_maps],
+                sum(p.nbytes + 2 for p in parts[:c_maps]), want_c, 0.0)}
         with phase_seconds("13c tenants"):
             planes["tenants"] = phase_tenants(dev, root, mids[:c_maps],
                                               parts[:c_maps])
@@ -3125,12 +3165,12 @@ def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
         f"({sum(p.nbytes + 2 for p in parts)} B, "
         f"{sum(p.shape[0] for p in parts)} records) written by "
         f"MOFWriter in {setup_s:.1f} s")
-    # 9a and 13a: the 64 maps' stream, the card's whole-partition
+    # 9a: the 64 maps' stream, the card's whole-partition
     # stable re-sort of them (phase 8 runs on run c's maps)
     want_all = resort_digest(parts, dev)
     merged = phase_merge(dev, root, mids[:c_maps], parts[:c_maps],
                          map_bytes, setup_s)
-    # K1 at every capacity class the 64-map forest of 9a and 13a
+    # K1 at every capacity class the 64-map forest of 9a
     # launches, up to run_len 8,388,608
     with phase_seconds("8 K1 classes"):
         merged["classes"] = merge_classes(parts, dev, reps)
@@ -3149,8 +3189,9 @@ def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
                              overlap["c"]["wall_s"], c_maps)
     with phase_seconds("13a push"):
         planes = {"push": phase_push(
-            dev, root, mids, sum(p.nbytes + 2 for p in parts),
-            want_all, overlap["a"]["wall_s"])}
+            dev, root, mids[:c_maps],
+            sum(p.nbytes + 2 for p in parts[:c_maps]), want_c,
+            net["a"]["wall_s"])}
     with phase_seconds("13c tenants"):
         planes["tenants"] = phase_tenants(dev, root, mids[:c_maps],
                                           parts[:c_maps])
@@ -3163,6 +3204,308 @@ def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
         planes["store"] = phase_store(dev, parts[:c_maps], want_c,
                                       overlap["c"]["wall_s"])
     return merged, overlap, admission, coded, net, planes
+
+
+# --------------------------------------------------------------- phase 15
+def card_mesh(dev: torch.device, slots: int = MESH_SLOTS):
+    """The 8-slot mesh over the one card: ``devices`` names it once a
+    slot (never a default of ``make_mesh``)."""
+    return make_mesh(slots, devices=[dev] * slots)
+
+
+def mesh_run(name: str, fn, profiled: bool = False) -> tuple:
+    """``fn()`` with ``metrics``, the launch counts and the peak memory
+    reset just before and read just after (a synchronise at the end),
+    under ``torch.profiler`` with ``profiled``. Returns (its result, the
+    record: wall, launches, peak bytes, exchange counters, and with
+    ``profiled`` the device's busy ms and idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics.reset()
+    _build.reset_launches()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    with ctx as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rec = {"run": name, "wall_s": wall,
+           "launches": {k: _build.launches[k] for k in KERNELS},
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "exchange": {k: v for k, v in metrics.snapshot().items()
+                        if k.startswith("exchange.")}}
+    if profiled:
+        by_name, busy = device_time(prof)
+        top: dict = {}
+        for k, v in by_name.items():        # names cut to 60 characters
+            top[k[:60]] = top.get(k[:60], 0.0) + v
+        rec.update(device_busy_ms=busy, idle_share=(
+            1.0 - busy / (wall * 1e3) if by_name else None),
+            device_ms_by_kernel=dict(sorted(top.items(),
+                                            key=lambda kv: -kv[1])[:6]))
+    return out, rec
+
+
+def require_mesh_kernels(rec: dict) -> None:
+    """K2, K1 and the partition kernel launched in the run (each slot's
+    local sort under keys8)."""
+    require(all(rec["launches"][k] > 0 for k in MESH_KERNELS),
+            f"[{rec['run']}] a kernel of {MESH_KERNELS} never launched "
+            f"{rec['launches']}")
+
+
+def hold_to_single_chip(res, want: torch.Tensor, what: str) -> None:
+    """Slot by slot, the valid rows equal the matching rows of the
+    single-chip stable sort ``want`` (on the device), no bucket
+    overflowed, and every slot's rows are in order."""
+    require(res.overflow() == 0, f"[{what}] overflow {res.overflow()}")
+    off = 0
+    for k in range(len(res.words)):
+        rows = res.valid_rows(k)
+        require(rows.device == want.device,
+                f"[{what}] slot {k} landed on {rows.device}")
+        terasort.validate_sorted(rows)
+        require(same(rows, want[off:off + rows.shape[0]]),
+                f"[{what}] slot {k}'s rows differ from the single-chip "
+                f"sort's rows {off}..{off + rows.shape[0]}")
+        off += rows.shape[0]
+    require(off == want.shape[0], f"[{what}] {off} valid rows of "
+            f"{want.shape[0]}")
+
+
+def phase_mesh_terasort(words: torch.Tensor) -> dict:
+    """Phase 15a: ``distributed_terasort`` of phase 4's 10^8 records over
+    the 8-slot mesh on the card (uniform splitters, the default capacity
+    2n/64), "auto" resolving to keys8, under ``torch.profiler``; held slot
+    by slot to the single-chip stable sort, kept on the device (it is
+    computed first, so the peak holds the input, it and the mesh's
+    buffers). Slot 0's keys8 input (3 key words and the flag over 2^25
+    lanes) is kept as the run hands it to ``keys8_sort_perm``; after the
+    run K2, K1 and the partition kernel are held on it, launch by launch,
+    against their plain versions."""
+    dev = words.device
+    mesh = card_mesh(dev)
+    n = int(words.shape[0])
+    auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
+    require(auto == "keys8", f'"auto" resolved to {auto!r}, not keys8')
+    slot_keys: list = []
+    keys8_sort_perm = pallas_sort.keys8_sort_perm
+
+    def keeping_slot0(keyrows, *args, **kwargs):
+        if not slot_keys:
+            slot_keys.append(keyrows)       # never written after this call
+        return keys8_sort_perm(keyrows, *args, **kwargs)
+
+    want = yardstick(words)
+    pallas_sort.keys8_sort_perm = keeping_slot0
+    try:
+        res, rec = mesh_run("15a terasort", lambda: terasort.
+                            distributed_terasort(words, mesh),
+                            profiled=True)
+    finally:
+        pallas_sort.keys8_sort_perm = keys8_sort_perm
+    require_mesh_kernels(rec)
+    hold_to_single_chip(res, want, "15a")
+    rec.update(n=n, slots=MESH_SLOTS, engine=auto,
+               capacity=max(1, 2 * n // MESH_SLOTS ** 2),
+               valid_rows=[int(v[0]) for v in res.valid_counts],
+               yardstick="on the device")
+    del res, want
+    rec["max_abs_err"] = check_slot_cascade(slot_keys.pop())
+    log("[15a terasort] " + json.dumps(rec))
+    return rec
+
+
+def check_slot_cascade(keyrows: torch.Tensor) -> dict:
+    """K2, K1 and the partition kernel on one slot's keys8 input, laid
+    out as ``keys8_sort_perm`` lays it (8 rows, the arrival index in row
+    7, tile 1024), each launch held against its plain version; the
+    largest error of each (tolerance 0)."""
+    k, m = keyrows.shape
+    mat8 = u32(torch.cat([i32(keyrows),
+                          i32(fill_words((8 - k, m), keyrows.device))]))
+    errs = check_cascade(mat8, k, 7, MAIN_TILE, False)
+    require(all(v == 0 for v in errs.values()),
+            f"[15a] a kernel differs from its plain version on slot 0's "
+            f"keys8 input: {errs}")
+    log(f"[15a] slot 0's keys8 input [8, {m}], {k} key rows, tile "
+        f"{MAIN_TILE}: max_abs_err against the plain versions {errs} "
+        f"(tolerance 0); cascade equal to the stable sort")
+    return errs
+
+
+def skewed_words(dev: torch.device) -> torch.Tensor:
+    """``MESH_N`` TeraSort records whose first key word sends every other
+    one into the first destination range of 8 uniform splitters ([0,
+    2^29))."""
+    words = terasort.teragen(generator(SEED + 15, dev), MESH_N)
+    i32(words)[::2, 0] &= (1 << 29) - 1
+    return words
+
+
+def cpu_counters(words: torch.Tensor, mesh_cpu, fn) -> tuple:
+    """The port's CPU run of ``fn(words, mesh)`` on 8 CPU slots: its
+    valid rows (numpy) and exchange counters."""
+    cpu = u32(i32(words).cpu())
+    metrics.reset()
+    res = fn(cpu, mesh_cpu)
+    counters = {k: v for k, v in metrics.snapshot().items()
+                if k.startswith("exchange.")}
+    rows = np.concatenate([interop.words_to_numpy(res.valid_rows(k))
+                           for k in range(len(res.words))])
+    return rows, counters
+
+
+def phase_mesh_paths(dev: torch.device) -> dict:
+    """Phases 15b-15e on the 8-slot mesh over the card, each run with the
+    counts reset just before and read just after."""
+    runs: dict = {}
+    cpu8 = make_mesh(MESH_SLOTS, device="cpu")
+    # 15b: skew through the multiround path
+    with phase_seconds("15b skew"):
+        words = skewed_words(dev)
+        want = yardstick(words)
+        mesh = card_mesh(dev)
+        res, rec = mesh_run("15b skew", lambda: terasort.
+                            distributed_terasort(words, mesh))
+        require_mesh_kernels(rec)
+        hold_to_single_chip(res, want, "15b")
+        ex = rec["exchange"]
+        require(ex.get("exchange.rounds", 0) >= 2,
+                f"[15b] the fused attempt did not overflow into the "
+                f"windowed rounds: {ex}")
+        cpu_rows, cpu_ex = cpu_counters(
+            words, cpu8, lambda w, m: terasort.distributed_terasort(w, m))
+        for k in ("exchange.rounds", "exchange.rounds.skipped"):
+            require(ex.get(k, 0) == cpu_ex.get(k, 0),
+                    f"[15b] {k}: card {ex.get(k, 0)}, CPU {cpu_ex.get(k, 0)}")
+        require(np.array_equal(cpu_rows, interop.words_to_numpy(want)),
+                "[15b] the CPU slots' rows differ from the card's sort")
+        skew_out = [res.valid_rows(k).clone() for k in range(len(res.words))]
+        rec.update(n=MESH_N, capacity=max(1, 2 * MESH_N // 64),
+                   valid_rows=[int(v[0]) for v in res.valid_counts],
+                   cpu_exchange=cpu_ex)
+        log("[15b skew] " + json.dumps(rec))
+        runs["15b"] = rec
+        del res, want
+    # 15c: flat, hierarchical and coded on dcn:2,ici:4
+    with phase_seconds("15c pod exchange"):
+        pod = mesh_from_config(Config({"uda.tpu.mesh.shape":
+                                       MESH_POD_SHAPE}),
+                               devices=[dev] * MESH_SLOTS)
+        pod_cpu = mesh_from_config(Config({"uda.tpu.mesh.shape":
+                                           MESH_POD_SHAPE}),
+                                   devices=["cpu"] * MESH_SLOTS)
+        uni = terasort.teragen(generator(SEED + 16, dev), MESH_N)
+        want = yardstick(uni)
+        cap = max(1, 2 * MESH_N // MESH_SLOTS ** 2)
+        outs = {}
+        for mode in MESH_MODES:
+            def run(w, m, mode=mode):
+                return distributed_sort_step(
+                    w, uniform_splitters(MESH_SLOTS), m, ("dcn", "ici"),
+                    cap, terasort.KEY_WORDS, multiround="always",
+                    exchange_mode=mode)
+
+            res, rec = mesh_run(f"15c {mode}", lambda: run(uni, pod))
+            require_mesh_kernels(rec)
+            hold_to_single_chip(res, want, f"15c {mode}")
+            outs[mode] = [res.valid_rows(k) for k in range(len(res.words))]
+            _, cpu_ex = cpu_counters(uni, pod_cpu, run)
+            for k in ("exchange.dcn.messages", "exchange.dcn.coded.bytes",
+                      "exchange.dcn.saved.bytes"):
+                require(rec["exchange"].get(k, 0) == cpu_ex.get(k, 0),
+                        f"[15c {mode}] {k}: card "
+                        f"{rec['exchange'].get(k, 0)}, CPU "
+                        f"{cpu_ex.get(k, 0)}")
+            rec.update(n=MESH_N, capacity=cap, mesh=MESH_POD_SHAPE)
+            log(f"[15c {mode}] " + json.dumps(rec))
+            runs[f"15c {mode}"] = rec
+        require(all(same(a, b) for mode in MESH_MODES[1:]
+                    for a, b in zip(outs["flat"], outs[mode])),
+                "[15c] the three modes' outputs differ")
+        require(runs["15c coded"]["exchange"].get(
+            "exchange.dcn.coded.bytes", 0) > 0, "[15c] no window coded")
+        del outs, want, uni
+    # 15d: a job across the mesh
+    with phase_seconds("15d job"):
+        runs["15d"] = phase_mesh_job(dev)
+    # 15e: the multi-process backend on the card, world size 1
+    with phase_seconds("15e nccl"):
+        runs["15e"] = phase_mesh_nccl(dev, words, skew_out)
+    return runs
+
+
+def phase_mesh_job(dev: torch.device) -> dict:
+    """Phase 15d: 14b's Sort job (64k records of 10 B keys and 90 B
+    values, 8 maps, 4 reducers) with ``mesh=`` the 8-slot mesh:
+    ``run_reduces_mesh`` -> ``exchange_blobs`` -> ``ExchangeFetchClient``
+    -> ``MergeManager`` -> K1; its outputs equal the same job without
+    ``mesh=``, byte for byte."""
+    rng = np.random.default_rng(SEED + 12)
+    records = [(rng.bytes(10), rng.bytes(90)) for _ in range(SORT_RECORDS)]
+    splits = [records[m::WC_MAPS] for m in range(WC_MAPS)]
+    mesh = card_mesh(dev)
+
+    def job(work, m):
+        return MapReduceJob(
+            "sortjob", sort_job._mapper, sort_job._reducer,
+            key_type="org.apache.hadoop.io.BytesWritable",
+            num_reducers=WC_REDUCERS, work_dir=work, device=dev
+        ).run(splits, mesh=m)
+
+    with tempfile.TemporaryDirectory(prefix="uda_job_") as work:
+        local = job(work, None)
+    with tempfile.TemporaryDirectory(prefix="uda_job_") as work:
+        got, rec = mesh_run("15d sort job", lambda: job(work, mesh))
+        rec["mesh_shuffle_s"] = metrics.get("mesh_shuffle_time")
+    require(got == local, "[15d] the job across the mesh differs from the "
+            "same job without mesh=")
+    require_k1(dict(rec, job="15d sort job"), WC_REDUCERS * (WC_MAPS - 1))
+    rec.update(records=SORT_RECORDS, maps=WC_MAPS, reducers=WC_REDUCERS)
+    log("[15d job] " + json.dumps(rec))
+    return rec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh_nccl(dev: torch.device, words: torch.Tensor,
+                    want: list) -> dict:
+    """Phase 15e: a world-size-1 NCCL group (127.0.0.1, any free port)
+    with 8 local slots runs 15b's words through ``distributed_sort_step``
+    (every all-to-all and gather through ``torch.distributed``); each
+    slot's rows equal 15b's. The group is destroyed after."""
+    import torch.distributed as dist
+
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev,
+                         timeout_s=120)
+    try:
+        mesh = multihost.global_mesh(devices=[dev] * MESH_SLOTS)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        require(mesh.distributed and dist.get_backend() == backend,
+                f"[15e] backend {dist.get_backend()}, not {backend}")
+        n = int(words.shape[0])
+        res, rec = mesh_run("15e nccl", lambda: distributed_sort_step(
+            words, uniform_splitters(MESH_SLOTS), mesh, "shuffle",
+            max(1, 2 * n // MESH_SLOTS ** 2), terasort.KEY_WORDS))
+        require_mesh_kernels(rec)
+        require(all(same(res.valid_rows(k), want[k])
+                    for k in range(MESH_SLOTS)),
+                "[15e] the NCCL group's rows differ from 15b's")
+    finally:
+        dist.destroy_process_group()
+    rec.update(backend=backend, world_size=1, slots=MESH_SLOTS, n=n)
+    log("[15e nccl] " + json.dumps(rec))
+    return rec
 
 
 @contextlib.contextmanager
@@ -3184,7 +3527,7 @@ def main() -> int:
     with phase_seconds("2 build"):
         phase_build()
     with phase_seconds("3 kernels"):
-        phase_kernels(dev)
+        kernel_errs = phase_kernels(dev)
     with phase_seconds("4 main path"):
         words, runs = phase_main(dev)
     with phase_seconds("4b tune cache"):
@@ -3197,6 +3540,8 @@ def main() -> int:
     with phase_seconds("7 profile"):
         for path in ("auto", "keys8f"):
             phase_profile(words, path)
+    with phase_seconds("15a mesh terasort"):
+        mesh_runs = {"15a": phase_mesh_terasort(words)}
     del words
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="uda_merge_") as root:
@@ -3215,6 +3560,8 @@ def main() -> int:
                 overlap["b"]["wall_s"])
     with phase_seconds("14d shim"):
         shim = phase_shim(dev)
+    with phase_seconds("15b-15e mesh"):
+        mesh_runs.update(phase_mesh_paths(dev))
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -3225,11 +3572,15 @@ def main() -> int:
             "name": f"{meta['id']} {name}", "route": meta["route"],
             "source": meta["source"], "replaces": meta["replaces"],
             "launches": run["launches"][name],
-            "max_abs_err": t["max_abs_err"],
+            "max_abs_err": max(t["max_abs_err"], kernel_errs.get(name, 0),
+                               mesh_runs["15a"]["max_abs_err"].get(name, 0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if name in MESH_KERNELS:
+            kernels[-1]["distributed_path_launches"] = {
+                k: v["launches"][name] for k, v in mesh_runs.items()}
         if name == "take_lanes":
             kernels[-1].update({k: t[k] for k in (
                 "design", "call_ms", "direct_ms", "records_ms",

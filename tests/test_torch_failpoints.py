@@ -1,8 +1,9 @@
 """The port's failpoint framework (uda_tpu_torch.utils.failpoints) against
 the JAX package's: the spec grammar, its parse errors, the triggers
 (every, once, match, prob with a seed) firing on the same calls, the
-truncated and corrupted bytes, the error classes; a site whose module the
-port lacks refused with ConfigError; the two sites of the fetch path
+truncated and corrupted bytes, the error classes; every site armed from
+the config key (the exchange's two firing in ``shuffle_exchange`` as the
+reference's); the two sites of the fetch path
 (``data_engine.pread``, ``segment.fetch``) armed in both packages, each
 with its own ``scoped(...)``, giving the same stream, or the same error
 class inside FallbackSignal, as the reference."""
@@ -62,7 +63,7 @@ def test_actions_and_triggers_fire_as_the_reference(spec):
     assert got.hits == want.hits
 
 
-@pytest.mark.parametrize("site", tfp.PORTED_SITES)
+@pytest.mark.parametrize("site", tfp.KNOWN_SITES)
 def test_default_error_class_per_site(site):
     got, want = _both("error:every:2", site)
     assert _outcomes(got, site, CALLS[:6]) == _outcomes(want, site,
@@ -81,23 +82,8 @@ def test_parse_errors_match_the_reference(bad):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("site", sorted(set(tfp.KNOWN_SITES)
-                                        - set(tfp.PORTED_SITES)))
-def test_an_unported_site_is_refused(site):
-    """The reference arms the site; the port refuses it, naming the site
-    and the module it lacks, instead of arming a schedule that can never
-    fire."""
-    assert site in jfp.KNOWN_SITES
-    jfp.FailpointRegistry().arm(site, "error")
-    with pytest.raises(errors.ConfigError, match=site.replace(".", r"\.")) \
-            as got:
-        tfp.FailpointRegistry().arm_spec(f"{site}=error")
-    assert "not ported" in str(got.value)
-
-
 def test_the_port_knows_every_site_the_reference_knows():
     assert tfp.KNOWN_SITES == jfp.KNOWN_SITES
-    assert set(tfp.PORTED_SITES) <= set(tfp.KNOWN_SITES)
 
 
 def test_scoped_restores_arming_and_trigger_state():
@@ -128,21 +114,60 @@ def test_delay_sleeps_and_the_environment_arms():
     try:
         tfp._load_env({"UDA_FAILPOINTS": "segment.fetch=error:once"})
         assert tfp.failpoints.active() == {"segment.fetch": "error:once"}
-        with pytest.raises(errors.ConfigError, match="exchange.decode"):
-            tfp._load_env({"UDA_FAILPOINTS": "exchange.decode=error"})
+        tfp._load_env({"UDA_FAILPOINTS": "exchange.decode=error"})
+        assert tfp.failpoints.active() == {"segment.fetch": "error:once",
+                                           "exchange.decode": "error"}
     finally:
         tfp.failpoints = saved
 
 
-@pytest.mark.parametrize("spec", ["exchange.round=error",
-                                  "exchange.decode=truncate"])
-def test_config_key_with_an_unported_site_is_refused(tmp_path, spec):
-    conf = Config({"uda.tpu.failpoints": spec})
-    with tfp.failpoints.scoped(""):
-        with pytest.raises(errors.ConfigError, match="not ported"):
-            DataEngine(DirIndexResolver(str(tmp_path)), conf)
-        with pytest.raises(errors.ConfigError, match="not ported"):
-            MergeManager(LocalFetchClient(None), TEXT, conf, device="cpu")
+@pytest.mark.parametrize("spec", ["exchange.round=error:match:stageB",
+                                  "exchange.decode=error"])
+def test_config_key_arms_an_exchange_site(tmp_path, spec):
+    """``uda.tpu.failpoints`` arms an exchange site from a component's
+    Config, and it fires in ``shuffle_exchange`` as the reference's does:
+    the DCN stage's rung raises TransportError on a pod mesh, a decode
+    failure falls back to the plain tile and is counted."""
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh as JMesh
+
+    from uda_tpu.mofserver import DataEngine as JDataEngine
+    from uda_tpu.mofserver import DirIndexResolver as JResolver
+    from uda_tpu.parallel import shuffle_exchange as jexchange
+    from uda_tpu.utils.config import Config as JConfig
+    from uda_tpu.utils.metrics import metrics as jmetrics
+    from uda_tpu_torch.parallel import shuffle_exchange as texchange
+    from uda_tpu_torch.parallel.mesh import Mesh as TMesh
+    from uda_tpu_torch.utils.metrics import metrics
+
+    site, _, action = spec.partition("=")
+    rng = np.random.default_rng(3)
+    words = rng.integers(0, 2**32, (8 * 32, 3), dtype=np.uint32)
+    dest = rng.integers(0, 8, 8 * 32).astype(np.int32)
+    jm = JMesh(np.asarray(jax.devices()[:8]).reshape(2, 4), ("dcn", "ici"))
+    tm = TMesh(["cpu"] * 8, ("dcn", "ici"), (2, 4))
+    outcomes = []
+    for reg, engine, conf, run, mets in (
+            (tfp.failpoints, lambda c: DataEngine(DirIndexResolver(
+                str(tmp_path)), c), Config, texchange, metrics),
+            (jfp.failpoints, lambda c: JDataEngine(JResolver(
+                str(tmp_path)), c), JConfig, jexchange, jmetrics)):
+        with reg.scoped(""):
+            engine(conf({"uda.tpu.failpoints": spec})).stop()
+            assert reg.active() == {site: action}
+            mets.reset()
+            before = reg.hits[site]
+            try:
+                rounds, _ = run(words, dest, jm if run is jexchange else tm,
+                                ("dcn", "ici"), 4, mode="coded")
+                outcomes.append((len(rounds),
+                                 mets.get("exchange.decode.fallbacks")))
+            except Exception as e:  # noqa: BLE001 - the outcome under test
+                outcomes.append(type(e).__name__)
+            outcomes.append(reg.hits[site] - before)
+    assert outcomes[:2] == outcomes[2:]
+    assert outcomes[1] > 0
 
 
 # -- the fetch path's sites, armed in both packages ---------------------------

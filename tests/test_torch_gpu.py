@@ -865,3 +865,72 @@ def test_bridge_reduce_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     assert streams[None][0] == streams["cpu"][0]
     assert streams[None][1]["merge_pass"] == 4
     assert not streams["cpu"][1].get("merge_pass")
+
+
+def _mesh_words(seed: int, rows: int) -> np.ndarray:
+    """TeraSort-shaped words for an 8-slot mesh, with duplicated keys and
+    all-0xFFFFFFFF keys."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, (8 * rows, 26), dtype=np.uint32)
+    w[:, 0] &= np.uint32(0xFFF0000F)
+    w[:, 2] &= np.uint32(0xFFFF0000)
+    w[::13, :3] = 0xFFFFFFFF
+    return w
+
+
+@pytest.mark.parametrize("path", ["keys8", "lanes"])
+@pytest.mark.parametrize("multiround", ["never", "always"])
+def test_mesh_sort_on_the_card_matches_the_cpu(cuda_device, path,
+                                               multiround):
+    """The 8-slot mesh over the one card (``devices=[cuda]*8``): every
+    slot's output stays on the card, K2 and K1 launch in each slot's
+    local sort, and the bytes are the 8 CPU slots'."""
+    from uda_tpu_torch.parallel import (distributed_sort_step, make_mesh,
+                                        uniform_splitters)
+    from uda_tpu_torch.parallel.multihost import allgather
+
+    words = _mesh_words(21, 4096)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        mesh = make_mesh(8, devices=[dev] * 8)
+        _build.reset_launches()
+        res = distributed_sort_step(words, uniform_splitters(8), mesh,
+                                    "shuffle", 2 * 4096 // 8, 3,
+                                    payload_path=path, multiround=multiround)
+        assert all(w.device.type == dev.type for w in res.words)
+        out[dev.type] = (allgather(mesh, res.words),
+                         allgather(mesh, res.valid_counts),
+                         dict(_build.launches))
+    assert np.array_equal(out["cuda"][0], out["cpu"][0])
+    assert np.array_equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2]["tile_sort"] >= 8
+    assert out["cuda"][2]["merge_pass"] > 0
+    assert out["cuda"][2]["merge_partition"] > 0
+
+
+def test_coded_exchange_on_the_card_matches_the_cpu(cuda_device):
+    """The coded exchange on a dcn:2,ici:4 mesh over the card: the same
+    rounds, counts and coded/saved bytes as on 8 CPU slots."""
+    from uda_tpu_torch.parallel import shuffle_exchange
+    from uda_tpu_torch.parallel.mesh import Mesh
+    from uda_tpu_torch.parallel.multihost import allgather
+    from uda_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(22)
+    words = rng.integers(0, 2**32, (8 * 512, 5), dtype=np.uint32)
+    dest = rng.integers(0, 8, 8 * 512).astype(np.int32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        mesh = Mesh([dev] * 8, ("dcn", "ici"), (2, 4))
+        metrics.reset()
+        rounds, _ = shuffle_exchange(words, dest, mesh, ("dcn", "ici"), 16,
+                                     mode="coded")
+        out[dev.type] = ([(allgather(mesh, w), allgather(mesh, c))
+                          for w, c in rounds],
+                         {k: v for k, v in metrics.snapshot().items()
+                          if k.startswith("exchange.")})
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][1]["exchange.dcn.coded.bytes"] > 0
+    assert len(out["cuda"][0]) == len(out["cpu"][0]) > 1
+    for (a, b), (c, d) in zip(out["cuda"][0], out["cpu"][0]):
+        assert np.array_equal(a, c) and np.array_equal(b, d)

@@ -59,7 +59,13 @@ def test_imports_with_jax_and_uda_tpu_blocked():
             "uda_tpu_torch.compress.lzo", "uda_tpu_torch.net.push",
             "uda_tpu_torch.mofserver.store", "uda_tpu_torch.tenant",
             "uda_tpu_torch.tenant.registry",
-            "uda_tpu_torch.tenant.sched"} <= set(MODULES)
+            "uda_tpu_torch.tenant.sched", "uda_tpu_torch.parallel",
+            "uda_tpu_torch.parallel.mesh", "uda_tpu_torch.parallel.multihost",
+            "uda_tpu_torch.parallel.planner",
+            "uda_tpu_torch.parallel.exchange",
+            "uda_tpu_torch.parallel.bytes_exchange",
+            "uda_tpu_torch.parallel.distributed",
+            "uda_tpu_torch.coding.gfjax"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

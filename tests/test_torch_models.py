@@ -294,17 +294,31 @@ def test_supplier_roots_must_include_work_dir(tmp_path):
                        if job_cls is tpipeline.MapReduceJob else {}))
 
 
-def test_mesh_raises_naming_bytes_exchange(tmp_path):
-    with pytest.raises(errors.ConfigError, match="bytes_exchange"):
-        tmodels.wordcount.run_wordcount(TEXT, work_dir=str(tmp_path),
-                                        mesh=object(), device="cpu")
-    job = tpipeline.MapReduceJob("j", lambda s: [], lambda k, v: [],
-                                 work_dir=str(tmp_path), device="cpu")
-    with pytest.raises(errors.ConfigError, match="bytes_exchange"):
-        job.run([b"x"], mesh=object())
-    assert not os.listdir(tmp_path)  # refused before any map ran
-    with pytest.raises(errors.ConfigError, match="bytes_exchange"):
-        job.run_reduces_mesh(None, object())
+def test_mesh_runs_and_equals_the_reference(tmp_path):
+    """``mesh=`` runs the shuffle across the slot mesh: WordCount and the
+    job's outputs equal the reference's on its 4-device mesh and the same
+    job without ``mesh=``."""
+    from uda_tpu.parallel import make_mesh as jmake_mesh
+    from uda_tpu_torch.parallel import make_mesh
+
+    mesh, jmesh = make_mesh(4, device="cpu"), jmake_mesh(4)
+    got = tmodels.wordcount.run_wordcount(
+        TEXT, work_dir=str(tmp_path / "p"), mesh=mesh, device="cpu")
+    want = jmodels.wordcount.run_wordcount(
+        TEXT, work_dir=str(tmp_path / "r"), mesh=jmesh)
+    assert got == want
+    assert got == tmodels.wordcount.run_wordcount(
+        TEXT, work_dir=str(tmp_path / "l"), device="cpu")
+    records = _sort_records(5, 120)
+    splits = [records[i::3] for i in range(3)]
+    outs = [pkg.MapReduceJob("j", mod._mapper, mod._reducer,
+                             key_type="org.apache.hadoop.io.BytesWritable",
+                             num_reducers=2, work_dir=str(tmp_path / sub),
+                             **kw).run(splits, mesh=m)
+            for pkg, mod, sub, m, kw in (
+                (tpipeline, tmodels.sort_job, "jp", mesh, {"device": "cpu"}),
+                (jpipeline, jmodels.sort_job, "jr", jmesh, {}))]
+    assert outs[0] == outs[1]
 
 
 def test_entry_points_need_a_device_or_cpu(tmp_path, monkeypatch):

@@ -12,15 +12,15 @@ The map side is host Python (mapper, partitioner, a comparator sort per
 partition); the reduce side consumes the merged stream through
 ``grouped_reduce``, Hadoop's grouping contract: consecutive equal keys
 form one reduce call. ``MapReduceJob(device=None)`` merges on the card;
-pass ``device="cpu"`` where there is none. The reference's shuffle across
-a device mesh (``run_reduces_mesh``) waits for
-``uda_tpu/parallel/bytes_exchange.py``: ``mesh=`` raises ``ConfigError``.
+pass ``device="cpu"`` where there is none. With ``mesh=`` the shuffle
+crosses the slot mesh (``run_reduces_mesh``, ``parallel/bytes_exchange``).
 """
 
 from __future__ import annotations
 
 import functools
 import io
+import os
 import tempfile
 import zlib
 from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
@@ -34,22 +34,9 @@ from uda_tpu_torch.utils.errors import ConfigError
 from uda_tpu_torch.utils.ifile import IFileReader
 from uda_tpu_torch.utils.metrics import metrics
 
-__all__ = ["MapReduceJob", "grouped_reduce", "hash_partitioner",
-           "refuse_mesh"]
+__all__ = ["MapReduceJob", "grouped_reduce", "hash_partitioner"]
 
 Record = Tuple[bytes, bytes]
-
-
-_NO_MESH = ("the shuffle across a device mesh lives in "
-            "uda_tpu/parallel/bytes_exchange.py (ExchangeFetchClient, "
-            "exchange_blobs), which is not ported to uda_tpu_torch yet; "
-            "run the job without mesh=")
-
-
-def refuse_mesh(mesh) -> None:
-    """Raise for a shuffle across a device mesh, which the port lacks."""
-    if mesh is not None:
-        raise ConfigError(_NO_MESH)
 
 
 def hash_partitioner(key: bytes, num_reducers: int) -> int:
@@ -199,12 +186,67 @@ class MapReduceJob:
 
     def run_reduces_mesh(self, writer: MOFWriter, mesh,
                          axis: str = "shuffle") -> dict[int, list[Record]]:
-        """The shuffle across a device mesh: not ported (raises)."""
-        raise ConfigError(_NO_MESH)
+        """Shuffle the map-output partitions ACROSS THE SLOT MESH and merge
+        per reducer: map m's outputs live on supplier slot ``m % P``,
+        reducer r is served on slot ``r % P``, and the on-disk partition
+        bytes (compressed or not) cross through
+        ``parallel/bytes_exchange``. Per-(src, dst) blob order is the
+        deterministic (map, reducer) send order, so delivered blobs map
+        back to their (map, reducer) pair positionally. The output is
+        byte-identical to run_reduces."""
+        from uda_tpu_torch.mofserver.index import read_index_file
+        from uda_tpu_torch.parallel.bytes_exchange import (
+            ExchangeFetchClient, exchange_blobs, exchange_group_size)
+
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        missing = [a for a in axes if a not in mesh.shape]
+        if missing:
+            raise ValueError(
+                f"mesh has axes {tuple(mesh.shape)}, not {missing}; pass "
+                f"axis= matching the mesh (e.g. run(..., axis="
+                f"{next(iter(mesh.shape))!r}))")
+        p = exchange_group_size(mesh, axis)
+        blobs: list[list] = [[] for _ in range(p)]
+        meta: list[list] = [[] for _ in range(p)]  # (map_id, r, raw_len)
+        for m, map_id in enumerate(writer.map_ids):
+            d = writer.map_dir(map_id)
+            recs = read_index_file(os.path.join(d, "file.out.index"),
+                                   os.path.join(d, "file.out"))
+            with open(os.path.join(d, "file.out"), "rb") as f:
+                mof = f.read()
+            src = m % p
+            for r in range(self.num_reducers):
+                ir = recs[r]
+                blobs[src].append((r % p,
+                                   mof[ir.start_offset:ir.start_offset
+                                       + ir.part_length]))
+                meta[src].append((map_id, r, ir.raw_length))
+        with metrics.timer("mesh_shuffle"):
+            delivered = exchange_blobs(blobs, mesh, axis)
+        # regroup positionally: delivered[dst][src][k] is the k-th blob
+        # that src addressed to dst, in send order
+        per_reduce: dict[int, dict[str, bytes]] = {
+            r: {} for r in range(self.num_reducers)}
+        raw_lens: dict[int, dict[str, int]] = {
+            r: {} for r in range(self.num_reducers)}
+        for src in range(p):
+            cursors = {d: 0 for d in range(p)}
+            for (map_id, r, raw), (dstdev, _) in zip(meta[src],
+                                                     blobs[src]):
+                k = cursors[dstdev]
+                cursors[dstdev] += 1
+                per_reduce[r][map_id] = delivered[dstdev][src][k]
+                raw_lens[r][map_id] = raw
+        return self._reduce_all(
+            writer, lambda r: ExchangeFetchClient(per_reduce[r],
+                                                  raw_lengths=raw_lens[r]))
 
     def run(self, inputs: Sequence[object], mesh=None,
             axis: str = "shuffle") -> dict[int, list[Record]]:
-        """The whole job, its shuffle on the local DataEngine. ``mesh=``
-        raises ``ConfigError`` before any map runs."""
-        refuse_mesh(mesh)
-        return self.run_reduces(self.run_maps(inputs))
+        """Full job. With ``mesh``, the shuffle crosses the slot mesh
+        (run_reduces_mesh, over ``axis``); otherwise it stays on the
+        local DataEngine."""
+        writer = self.run_maps(inputs)
+        if mesh is not None:
+            return self.run_reduces_mesh(writer, mesh, axis=axis)
+        return self.run_reduces(writer)

@@ -1,6 +1,6 @@
 """TeraSort on one card: the flagship workload (BASELINE.md config 2).
 
-Counterpart of the single-chip half of ``uda_tpu/models/terasort.py``.
+Counterpart of ``uda_tpu/models/terasort.py``.
 Records are ``uint32[n, 26]`` rows: words 0-2 the big-endian packed key
 (10 bytes and 2 zero pad bytes), words 3-25 the 90-byte value (2 pad
 bytes). The shuffle+merge is one stable lexicographic sort of whole
@@ -13,7 +13,9 @@ by the permutation; ``keys8f`` does the same with the slim cascade K3/K4;
 ``carry``/``gather``/``gather2``/``carrychunk`` take the permutation from
 PyTorch's stable sort and move the records by it (whole rows, per column,
 the stacked value columns, or chunks of ``UDA_TPU_CHUNK_COLS`` columns).
-Every engine gives the same bytes.
+Every engine gives the same bytes. ``distributed_terasort`` runs the same
+sort across a slot mesh (``parallel/distributed``, BASELINE.md config 5's
+shape), each slot's local sort on the same engines.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from uda_tpu_torch.ops.sort import (ALL_SORT_PATHS, LANES_ENGINES, _as_i64,
 
 __all__ = ["KEY_WORDS", "VALUE_WORDS", "RECORD_WORDS", "RECORD_BYTES",
            "teragen", "teragen_lanes", "single_chip_sort",
-           "sort_lanes_keys8", "bench_step", "validate_sorted"]
+           "sort_lanes_keys8", "bench_step", "validate_sorted",
+           "distributed_terasort"]
 
 KEY_WORDS = 3        # 10 key bytes -> 3 BE words (2 pad bytes, constant 0)
 VALUE_WORDS = 23     # 90 value bytes -> 23 words (2 pad bytes)
@@ -157,6 +160,28 @@ def sort_lanes_keys8(x: torch.Tensor, tile: int = 1024,
     pad = fill_words((pallas_sort.ROWS - RECORD_WORDS - 1, n), x.device)
     parts = [sk, take_cols(x[KEY_WORDS:RECORD_WORDS], perm), pad, perm[None]]
     return u32(torch.cat([i32(p) for p in parts]))
+
+
+def distributed_terasort(words, mesh, axis=None,
+                         capacity: Optional[int] = None):
+    """Multi-chip TeraSort step over the slot mesh (BASELINE config 5's
+    shape): ``parallel.distributed.distributed_sort_step`` with uniform
+    splitters over every slot and ``num_keys=KEY_WORDS``. ``capacity``
+    defaults to 2x the balanced per-(src, dst) share, ``max(1, 2n //
+    P^2)``; a skew that overflows it re-runs through the multi-round
+    exchange. ``axis`` defaults to the mesh's shuffle axis."""
+    from uda_tpu_torch.parallel.distributed import (_global_rows,
+                                                    distributed_sort_step,
+                                                    uniform_splitters)
+    from uda_tpu_torch.parallel.mesh import SHUFFLE_AXIS
+
+    p = mesh.size
+    n = _global_rows(words, mesh)
+    if capacity is None:
+        capacity = max(1, (2 * n) // (p * p))
+    return distributed_sort_step(words, uniform_splitters(p), mesh,
+                                 SHUFFLE_AXIS if axis is None else axis,
+                                 capacity=capacity, num_keys=KEY_WORDS)
 
 
 def _mul_lo32(col: torch.Tensor, mult: int) -> torch.Tensor:

@@ -13,7 +13,7 @@ import re
 import struct
 from typing import Iterable, Optional
 
-from uda_tpu_torch.models.pipeline import MapReduceJob, Record, refuse_mesh
+from uda_tpu_torch.models.pipeline import MapReduceJob, Record
 from uda_tpu_torch.utils import vint
 from uda_tpu_torch.utils.config import Config
 
@@ -48,9 +48,8 @@ def run_wordcount(text: bytes, num_maps: int = 4, num_reducers: int = 2,
                   work_dir: Optional[str] = None,
                   mesh=None, device=None) -> dict[bytes, int]:
     """Run WordCount over ``text`` split into ``num_maps`` chunks; returns
-    {word: count} merged across reducers. ``mesh=`` raises
-    ``ConfigError`` (the shuffle across a device mesh is not ported)."""
-    refuse_mesh(mesh)
+    {word: count} merged across reducers. With ``mesh``, the shuffle
+    crosses the slot mesh (MapReduceJob.run_reduces_mesh)."""
     n = len(text)
     step = max(1, n // num_maps)
     splits = []
@@ -66,7 +65,7 @@ def run_wordcount(text: bytes, num_maps: int = 4, num_reducers: int = 2,
                        key_type="org.apache.hadoop.io.Text",
                        num_reducers=num_reducers, config=config,
                        work_dir=work_dir, device=device)
-    outputs = job.run(splits)
+    outputs = job.run(splits, mesh=mesh)
     result: dict[bytes, int] = {}
     for recs in outputs.values():
         for k, v in recs:

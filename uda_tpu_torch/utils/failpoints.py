@@ -42,14 +42,14 @@ head, on both sides), ``net.handoff`` (the warm-restart record's load
 and save), ``net.push`` (each MSG_PUSH frame, on the supplier) and
 ``push.admit`` (each pushed chunk's admission on the reduce side),
 ``tenant.register`` and ``tenant.validate`` (the tenant registry's
-MSG_JOB and per-request gates), and ``store.get``, ``store.put`` and
+MSG_JOB and per-request gates), ``store.get``, ``store.put`` and
 ``store.migrate`` (the disaggregated store, keyed ``<backend>:<key>``),
-and ``bridge.upcall`` (each ``data_from_uda`` block of the bridge's merge
-thread). The other sites the reference knows (``exchange.*``) live in
-``uda_tpu/parallel/exchange.py``, which the port lacks: arming one raises
-:class:`ConfigError` naming the site and that module, never a schedule
-that could not fire. A name the reference does not know either arms as
-it does there (tests use such names).
+``bridge.upcall`` (each ``data_from_uda`` block of the bridge's merge
+thread), and ``exchange.round`` (each window of ``shuffle_exchange``,
+keyed ``round<i>``, and ``round<i>.stageB`` on a pod mesh) and
+``exchange.decode`` (a coded window's decode; a fire falls back to the
+plain tile, ``exchange.decode.fallbacks``). A name the reference does not
+know either arms as it does there (tests use such names).
 
 Left out: the flight recorder's record of each fire, the resource
 ledger's accounting of scopes, and ``chaos_spec``/``net_chaos_spec``,
@@ -75,7 +75,7 @@ from uda_tpu_torch.utils.errors import (CompressionError, ConfigError,
 from uda_tpu_torch.utils.metrics import metrics
 
 __all__ = ["Failpoint", "FailpointRegistry", "failpoints", "failpoint",
-           "KNOWN_SITES", "PORTED_SITES"]
+           "KNOWN_SITES"]
 
 _ACTIONS = ("error", "delay", "truncate", "corrupt")
 
@@ -117,16 +117,6 @@ _SITE_ERRORS = {
 }
 
 KNOWN_SITES = tuple(_SITE_ERRORS)
-
-# the reference module behind every known site the port lacks
-_UNPORTED_SITE_MODULES = {
-    "exchange.round": "uda_tpu/parallel/exchange.py",
-    "exchange.decode": "uda_tpu/parallel/exchange.py",
-}
-
-# the sites whose code the port has
-PORTED_SITES = tuple(s for s in KNOWN_SITES
-                     if s not in _UNPORTED_SITE_MODULES)
 
 
 class Failpoint:
@@ -236,13 +226,7 @@ class FailpointRegistry:
     def arm(self, site: str, spec: str) -> None:
         """Arm one site. Re-arming with the identical spec keeps its
         trigger state (every component built from one config re-arms it);
-        ``disarm`` first to restart a schedule. A known site whose module
-        the port lacks is refused."""
-        module = _UNPORTED_SITE_MODULES.get(site)
-        if module is not None:
-            raise ConfigError(
-                f"uda.tpu.failpoints: site {site!r} lives in {module}, "
-                f"which is not ported to uda_tpu_torch yet")
+        ``disarm`` first to restart a schedule."""
         fp = Failpoint(site, spec)  # parse (and fail) before arming
         with self._lock:
             cur = self._sites.get(site)
