@@ -196,7 +196,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the first destination range: the fused attempt overflows the default
    capacity and the windowed multi-round re-run drains every bucket,
    equal to the single-chip sort, ``exchange.rounds`` and
-   ``.rounds.skipped`` equal to the port's run on 8 CPU slots; (c) 2^22
+   ``.rounds.skipped`` equal to the port's run on 8 CPU slots; (c) 2^20
    uniform records on ``dcn:2,ici:4`` (``mesh_from_config``) with
    ``exchange_mode`` flat, hierarchical and coded, ``multiround="always"``:
    the three outputs equal, ``exchange.dcn.messages``, ``.dcn.coded.bytes``
@@ -206,7 +206,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    K1): outputs equal to the same job without ``mesh=`` (K1 launches and
    the ``mesh_shuffle`` time printed); (e) a world-size-1 NCCL group on
    127.0.0.1 with 8 local slots runs 15b's words through
-   ``distributed_sort_step``: each slot equal to 15b's.
+   ``distributed_sort_step``: each slot equal to 15b's;
+16. the runtime observability plane armed on phase 12a's path (run c's 16
+   maps served by a port ShuffleServer on 127.0.0.1, ``MergeManager.run``
+   on the card over ``HostRoutingClient``), ``metrics``, the launch counts
+   and the peak memory reset just before and read just after:
+   ``uda.tpu.stats.enable``, a ``StatsReporter`` at 250 ms writing JSON
+   lines, the sampling profiler at 97 Hz, the flight recorder's dump
+   directory, the rollup ring at 250 ms with the anomaly engine, the
+   OpenMetrics endpoint on a free port, one tenant (so the SLI book
+   attaches), the resource ledger and lockdep armed and ``device_trace``
+   (``UDA_TPU_XPROF``) around the run. Held to run c's digest with K1 15
+   pairs; the trace names K1's two kernels as often as the counters
+   say; ``critpath.analyze`` of the task's exported spans sums to the
+   root's wall within 5%; the reporter's final record carries the trio
+   and ``fetch.latency_ms``'s p50/p95/p99; a windowed MSG_STATS poll finds
+   the ring running with samples; one scrape's ``uda_fetch_bytes`` is
+   ``fetch.bytes`` as the exposition prints it; every ledger drain is empty and lockdep saw no cycle;
+   a forced flight-recorder dump parses with the run's events; the
+   profiler charged samples to ``reduce_task`` (wall, idle share, the
+   partition and the overhead against 12a printed).
 
 Each phase's seconds are printed on a line of their own. The last two
 lines are one JSON object with a record per kernel (K2's, K1's and the
@@ -392,6 +411,7 @@ PUSH_COMMIT_S = 0.1        # phase 13a: the map phase commits a map each
 STORE_WATERMARK_DIV = 10   # phase 13b: the watermark, a tenth of the tree
 TENANT_WQE = 4             # phase 13c: uda.tpu.tenant.wqe.total
 TENANTS = (("t1", 1), ("t3", 3))  # phase 13c: (tenant, weight)
+OBS_TENANT = "t16"         # phase 16: the one tenant the SLI book sees
 SPEC_CONF = {"uda.tpu.fetch.speculate.pn": 95,
              "uda.tpu.fetch.speculate.floor.ms": 50}
 # phase 14a: WordCount (BASELINE config 1) on a seeded Zipf text in place
@@ -409,7 +429,8 @@ SHIM_MAPS = 3
 SHIM_REDUCERS = 2
 SHIM_RECORDS = 30
 MESH_SLOTS = 8             # phase 15: the 8-slot mesh over the one card
-MESH_N = 1 << 22           # phase 15b-15e's records
+MESH_N = 1 << 22           # phase 15b, 15d, 15e's records
+MESH_POD_N = 1 << 20       # phase 15c's records (card and CPU slots)
 MESH_POD_SHAPE = "dcn:2,ici:4"
 MESH_MODES = ("flat", "hierarchical", "coded")
 MESH_KERNELS = ("tile_sort", "merge_pass", "merge_partition")
@@ -1716,7 +1737,8 @@ class CountingEngine(DataEngine):
 
 def drive_task(dev: torch.device, client, engines: list, entries: list,
                conf: dict, name: str, fault: str = "",
-               profiled: bool = False, before_run=None) -> dict:
+               profiled: bool = False, before_run=None, wrap=None,
+               after_run=None) -> dict:
     """One ``MergeManager.run`` over ``entries`` through ``client`` with
     ``fault`` armed in the port's failpoint registry, ``metrics`` and the
     launch counts reset just before and read just after; the stream is
@@ -1725,7 +1747,10 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
     ended in, wall, launches, peak memory, the metrics snapshot and the
     manager; with ``profiled`` (``torch.profiler``) the device's busy ms
     and idle share too. ``before_run(manager)`` runs after the resets and
-    before the timed ``run()`` (13a's map phase)."""
+    before the timed ``run()`` (13a's map phase); ``wrap()``, when given,
+    is the context the run is timed in instead of the profiler (phase
+    16's ``device_trace``); ``after_run(manager)`` runs after the timed
+    run, before the engines stop (phase 16's polls)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = Config(conf)
@@ -1746,7 +1771,8 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
         _build.reset_launches()
         if before_run is not None:
             before_run(mm)
-        ctx = (profile(activities=[ProfilerActivity.CPU,
+        ctx = (wrap() if wrap is not None else
+               profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
                if profiled else contextlib.nullcontext())
         with failpoints.scoped(fault), ctx as prof:
@@ -1759,6 +1785,8 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
             wall = time.perf_counter() - t0
         counts = {k: _build.launches[k] for k in KERNELS}
         peak = torch.cuda.max_memory_allocated()
+        if after_run is not None:
+            after_run(mm)
     finally:
         for e in engines:
             e.stop()
@@ -2193,12 +2221,14 @@ def serve(root: str, conf: dict, port: int = 0) -> tuple:
 
 def net_task(dev: torch.device, root: str, mids: list, conf: dict,
              name: str, codec=None, hold_at=None, bounce=None,
-             profiled: bool = False) -> dict:
+             profiled: bool = False, **drive) -> dict:
     """``drive_task`` over the wire: a port ShuffleServer serves ``root``
     and the reduce task fetches through ``HostRoutingClient``'s socket
     default (through ``DecompressingClient`` when ``codec`` is given).
     With ``hold_at`` one fetch is held and, once ``bounce(servers,
-    router, host)`` has run on a thread of its own, failed."""
+    router, host)`` has run on a thread of its own, failed. ``drive`` goes
+    to ``drive_task`` (``before_run``, ``wrap``, ``after_run``; here
+    ``after_run(manager, host)`` also gets the server's ``host:port``)."""
     cfg = Config(conf)
     engine, server = serve(root, conf)
     servers = Servers([server])
@@ -2207,6 +2237,9 @@ def net_task(dev: torch.device, root: str, mids: list, conf: dict,
     rec = RecordingClient(router, hold_at)
     top = (DecompressingClient(rec, codec, comp_chunk_size=comp_chunk_bytes(
         cfg)) if codec is not None else rec)
+    after = drive.pop("after_run", None)
+    if after is not None:
+        drive["after_run"] = lambda mm: after(mm, host)
     bouncer = None
     if bounce is not None:
         def run_bounce() -> None:
@@ -2221,7 +2254,7 @@ def net_task(dev: torch.device, root: str, mids: list, conf: dict,
     try:
         res = drive_task(dev, top, [top, servers, engine],
                          [(host, m) for m in mids], conf, name,
-                         profiled=profiled)
+                         profiled=profiled, **drive)
     finally:
         rec.release.set()
         servers.stop()
@@ -3153,8 +3186,8 @@ def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
                  map_bytes: int = MERGE_MAP_BYTES, reps: int = TIMED_REPS,
                  c_maps: int = OVERLAP_C_MAPS) -> tuple:
     """Phases 8 (its run on run c's maps, K1's capacity classes on all
-    ``maps``), 9, 10, 12a, 12b, 12e, 13a and 13c on one MOF tree written
-    once under ``root`` (which outlives the call), then phase 11 on run
+    ``maps``), 9, 10, 12a, 12b, 12e, 13a, 13c and 16 on one MOF tree
+    written once under ``root`` (which outlives the call), then phase 11 on run
     c's maps striped over four roots, 12c, 12d on compressed trees and
     13b on run c's maps written again through the store."""
     t0 = time.perf_counter()
@@ -3195,6 +3228,9 @@ def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
     with phase_seconds("13c tenants"):
         planes["tenants"] = phase_tenants(dev, root, mids[:c_maps],
                                           parts[:c_maps])
+    with phase_seconds("16 observability"):
+        planes["observability"] = phase_observability(
+            dev, root, mids[:c_maps], want_c, net["a"]["wall_s"])
     with phase_seconds("11 coded"):
         coded = phase_coded(dev, parts[:c_maps], want_c,
                             overlap["c"]["wall_s"])
@@ -3204,6 +3240,218 @@ def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
         planes["store"] = phase_store(dev, parts[:c_maps], want_c,
                                       overlap["c"]["wall_s"])
     return merged, overlap, admission, coded, net, planes
+
+
+# --------------------------------------------------------------- phase 16
+def free_port() -> int:
+    """A port no one listens on at the moment (127.0.0.1)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def trace_device_busy(events: list, t0_us: float, t1_us: float) -> float:
+    """The union of the card's intervals (kernels, copies, sets) of a
+    Chrome trace inside [t0, t1], in microseconds."""
+    spans = sorted((max(e["ts"], t0_us), min(e["ts"] + e.get("dur", 0),
+                                             t1_us))
+                   for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e.get("ph") == "X")
+    busy, reach = 0.0, t0_us
+    for lo, hi in spans:
+        if hi > max(lo, reach):
+            busy += hi - max(lo, reach)
+            reach = hi
+    return busy
+
+
+def phase_observability(dev: torch.device, root: str, mids: list,
+                        want_c: tuple, wall_12a: float) -> dict:
+    """Phase 16: phase 12a's task with the whole runtime observability
+    plane armed (see the module docstring), held to run c's stream; each
+    check fails the script."""
+    import glob
+    import urllib.request
+
+    from uda_tpu_torch.net import fetch_remote_stats
+    from uda_tpu_torch.tenant import set_current_tenant
+    from uda_tpu_torch.utils import critpath
+    from uda_tpu_torch.utils.flightrec import flightrec
+    from uda_tpu_torch.utils.locks import lockdep
+    from uda_tpu_torch.utils.metrics import device_trace
+    from uda_tpu_torch.utils.profiler import profiler
+    from uda_tpu_torch.utils.resledger import resledger
+    from uda_tpu_torch.utils.stats import (StatsReporter,
+                                           reporter_output_from_env)
+    from uda_tpu_torch.utils.timeseries import disarm_observability_plane
+
+    pairs = len(mids) - 1
+    tmp = tempfile.mkdtemp(prefix="uda_obs_")
+    jsonl = os.path.join(tmp, "stats.jsonl")
+    xprof = os.path.join(tmp, "xprof")
+    http_port = free_port()
+    conf = dict(NET_CONF, **{
+        "uda.tpu.stats.enable": True,
+        "uda.tpu.stats.interval.ms": 250,
+        "uda.tpu.stats.jsonl": jsonl,
+        "uda.tpu.profile.hz": 97,
+        "uda.tpu.flightrec.dir": os.path.join(tmp, "flightrec"),
+        "uda.tpu.ts.interval.s": 0.25,
+        "uda.tpu.anomaly.enable": True,
+        "uda.tpu.metrics.http.port": http_port,
+        "uda.tpu.tenant.enable": True,
+        "uda.tpu.tenant.id": OBS_TENANT})
+    env = {"UDA_TPU_RESLEDGER": "1", "UDA_TPU_LOCKDEP": "1",
+           "UDA_TPU_XPROF": xprof}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    # the process-wide books read their switches at import: arm them here
+    resledger.enabled = lockdep.enabled = True
+    resledger.reset()
+    lockdep.reset()
+    set_current_tenant(OBS_TENANT)
+    reporter: list = []
+    polls: dict = {}
+
+    def before_run(mm) -> None:
+        metrics.enable_stats()  # drive_task's reset restored the default
+        profiler.reset()
+        flightrec.reset()
+        reporter.append(StatsReporter(
+            interval_s=Config(conf).get("uda.tpu.stats.interval.ms") / 1e3,
+            out=reporter_output_from_env(jsonl)).start())
+
+    def after_run(mm, host: str) -> None:
+        # while the server still serves: the final record, the exported
+        # spans, a windowed MSG_STATS poll and one scrape
+        reporter[0].stop(final=True)
+        polls["fetch_bytes"] = metrics.get("fetch.bytes")
+        polls["spans"] = os.path.join(tmp, "spans.jsonl")
+        metrics.export_spans_jsonl(polls["spans"])
+        polls["stats"] = fetch_remote_stats(
+            "127.0.0.1", int(host.rsplit(":", 1)[1]), window_s=30)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{http_port}/metrics", timeout=30) as r:
+            polls["scrape"] = r.read().decode()
+        polls["profile"] = profiler.span_summary()
+        polls["dump"] = flightrec.dump("phase16", extra={"phase": 16})
+
+    try:
+        res = net_task(dev, root, mids, conf, "16 observability",
+                       before_run=before_run, after_run=after_run,
+                       wrap=device_trace)
+        leaks_end = resledger.drain("phase16.end")
+    finally:
+        profiler.stop()
+        disarm_observability_plane()
+        for r in reporter:
+            r.stop(final=False)
+        set_current_tenant("")
+        resledger.enabled = lockdep.enabled = False
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    name = res["run"]
+    require(res["error"] is None, f"[{name}] ended in {res['error']!r}")
+    require((res["sha256"], res["stream_bytes"]) == want_c,
+            f"[{name}] the stream differs from run c's: "
+            f"{res['stream_bytes']} B, sha256 {res['sha256']}")
+    launches = res["launches"]
+    require(launches["merge_pass"] == pairs == launches["merge_partition"],
+            f"[{name}] K1 launched {launches}, not {pairs} pairs")
+    # the trace names K1's kernels as often as the counters say
+    traces = sorted(glob.glob(os.path.join(xprof, "uda_trace_*.json")))
+    require(len(traces) == 1, f"[{name}] device_trace wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    in_trace = {"merge_pass": sum("merge_pass_kernel" in k for k in kernels),
+                "merge_partition": sum("merge_partition_kernel" in k
+                                       for k in kernels)}
+    require(in_trace == {k: launches[k] for k in in_trace},
+            f"[{name}] the trace names {in_trace}, the counters say "
+            f"{launches}")
+    # the time partition of the task's spans
+    with open(polls["spans"]) as f:
+        spans = [json.loads(line) for line in f]
+    ta = critpath.analyze(spans, root_name="reduce_task")
+    require(ta is not None and ta["root"] == "reduce_task",
+            f"[{name}] no reduce_task span among {len(spans)}")
+    parted = sum(b["critical_s"] for b in ta["buckets"].values()) \
+        + ta["idle_s"]
+    require(abs(parted - ta["wall_s"]) <= 0.05 * ta["wall_s"],
+            f"[{name}] buckets + idle {parted} s against the wall "
+            f"{ta['wall_s']} s")
+    # the reporter's final record
+    with open(jsonl) as f:
+        records = [json.loads(line) for line in f]
+    final = records[-1] if records else {}
+    lat = final.get("percentiles", {}).get("fetch.latency_ms", {})
+    trio = ("total_wait_mem_time", "total_fetch_time", "total_merge_time")
+    require(final.get("final") is True
+            and all(k in final["counters"] for k in trio)
+            and all(k in lat for k in ("p50", "p95", "p99")),
+            f"[{name}] final record keys {sorted(final)}, "
+            f"fetch.latency_ms {lat}")
+    ring = (polls["stats"] or {}).get("timeseries", {})
+    require(ring.get("running") is True and ring.get("samples", 0) > 0
+            and "sli" in polls["stats"] and "anomalies" in polls["stats"],
+            f"[{name}] MSG_STATS sections: ring {ring}")
+    m = re.search(r"^uda_fetch_bytes_total (\S+)$", polls["scrape"], re.M)
+    # the exposition prints values as the reference does ("%g": six
+    # significant digits), so the scrape is held to fetch.bytes so printed
+    require(m is not None and m.group(1) == f"{polls['fetch_bytes']:g}"
+            and polls["fetch_bytes"] > 0,
+            f"[{name}] the scrape's uda_fetch_bytes "
+            f"{m and m.group(1)} against {polls['fetch_bytes']}")
+    require(not resledger.leak_reports and not leaks_end,
+            f"[{name}] resource ledger leaks: "
+            f"{[(r['point'], r['pair']) for r in resledger.leak_reports]}")
+    require(not lockdep.cycles,
+            f"[{name}] lockdep cycles: {[c['note'] for c in lockdep.cycles]}")
+    require(polls["dump"] is not None, f"[{name}] no flight-recorder dump")
+    with open(polls["dump"]) as f:
+        dump = json.load(f)
+    require(dump["cause"] == "phase16" and any(
+        e["kind"] == "segment.start" for e in dump["events"]),
+        f"[{name}] dump events {[e['kind'] for e in dump['events']][:8]}")
+    prof = polls["profile"].get("reduce_task", {})
+    require(prof.get("total", 0) > 0,
+            f"[{name}] no profiler samples under reduce_task: "
+            f"{polls['profile']}")
+    # the card's busy share of the run, from the trace's own clock
+    host = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0_us = min(e["ts"] for e in host) if host else 0.0
+    t1_us = t0_us + res["wall_s"] * 1e6
+    busy_us = trace_device_busy(events, t0_us, t1_us)
+    out = {"run": name, "wall_s": res["wall_s"],
+           "idle_share": 1.0 - busy_us / (res["wall_s"] * 1e6),
+           "device_busy_ms": busy_us / 1e3, "launches": launches,
+           "trace_kernels": in_trace, "peak_bytes": res["peak_bytes"],
+           "wall_12a_s": wall_12a,
+           "overhead_vs_12a": res["wall_s"] / wall_12a - 1.0,
+           "reporter_records": len(records), "ring_samples":
+               ring.get("samples"), "flightrec_events": len(dump["events"]),
+           "profile_samples": prof, "spans": len(spans),
+           "trace_bytes": os.path.getsize(traces[0])}
+    log(f"[16 observability] wall {res['wall_s']:.3f} s, idle share "
+        f"{out['idle_share']:.6f}")
+    log("[16 critpath] " + json.dumps(
+        {"wall_s": ta["wall_s"], "idle_s": ta["idle_s"],
+         "critical_s": {b: v["critical_s"] for b, v in ta["buckets"].items()},
+         "busy_s": {b: v["busy_s"] for b, v in ta["buckets"].items()},
+         "critical_path": [c["name"] for c in ta["critical_path"]],
+         "trio": ta["trio"]}))
+    log(f"[16 overhead] {res['wall_s']:.3f} s against 12a's "
+        f"{wall_12a:.3f} s in this call: {out['overhead_vs_12a']:+.3f}")
+    log("[16 observability] " + json.dumps(out))
+    return out
 
 
 # --------------------------------------------------------------- phase 15
@@ -3399,9 +3647,9 @@ def phase_mesh_paths(dev: torch.device) -> dict:
         pod_cpu = mesh_from_config(Config({"uda.tpu.mesh.shape":
                                            MESH_POD_SHAPE}),
                                    devices=["cpu"] * MESH_SLOTS)
-        uni = terasort.teragen(generator(SEED + 16, dev), MESH_N)
+        uni = terasort.teragen(generator(SEED + 16, dev), MESH_POD_N)
         want = yardstick(uni)
-        cap = max(1, 2 * MESH_N // MESH_SLOTS ** 2)
+        cap = max(1, 2 * MESH_POD_N // MESH_SLOTS ** 2)
         outs = {}
         for mode in MESH_MODES:
             def run(w, m, mode=mode):
@@ -3421,7 +3669,7 @@ def phase_mesh_paths(dev: torch.device) -> dict:
                         f"[15c {mode}] {k}: card "
                         f"{rec['exchange'].get(k, 0)}, CPU "
                         f"{cpu_ex.get(k, 0)}")
-            rec.update(n=MESH_N, capacity=cap, mesh=MESH_POD_SHAPE)
+            rec.update(n=MESH_POD_N, capacity=cap, mesh=MESH_POD_SHAPE)
             log(f"[15c {mode}] " + json.dumps(rec))
             runs[f"15c {mode}"] = rec
         require(all(same(a, b) for mode in MESH_MODES[1:]
@@ -3605,6 +3853,8 @@ def main() -> int:
                 k: v["launches"][name] for k, v in planes["store"].items()}
             kernels[-1]["tenant_path_launches"] = \
                 planes["tenants"]["launches"][name]
+            kernels[-1]["observability_path_launches"] = \
+                planes["observability"]["launches"][name]
             kernels[-1]["job_path_launches"] = {
                 "14a wordcount": wc["launches"][name],
                 **{f"14b {k}": v["launches"][name]

@@ -6,7 +6,9 @@ generator of the on-card smoke run, so both draw the same kinds of keys.
 Whether there is a card is decided inside the ``cuda_device`` fixture,
 never at import, so every pytest-xdist worker collects the same tests.
 ``paired_gauges_settle`` is autouse in every port test file that imports
-it (all but ``test_torch_gpu.py``, which imports no ``uda_tpu``)."""
+it (all but ``test_torch_gpu.py``, which imports no ``uda_tpu``);
+``port_plane`` (autouse where imported) leaves the port's observability
+plane pristine around a test, as the conftest does for the reference's."""
 
 import time
 
@@ -42,6 +44,35 @@ def paired_gauges_settle(request):
             break
         time.sleep(0.01)
     assert not left, f"paired gauges left charged on the port's hub: {left}"
+
+
+@pytest.fixture(autouse=True)
+def port_plane():
+    """The port's process-wide observability state, reset before and
+    after a test: the metrics hub, the flight recorder (its dump
+    directory too), the sampling profiler, the rollup ring with its
+    listeners and the HTTP endpoint, the resource ledger's books and
+    lockdep's graph (the conftest resets only the reference's)."""
+    from uda_tpu_torch.utils.flightrec import flightrec
+    from uda_tpu_torch.utils.locks import lockdep
+    from uda_tpu_torch.utils.metrics import metrics
+    from uda_tpu_torch.utils.profiler import profiler
+    from uda_tpu_torch.utils.resledger import resledger
+    from uda_tpu_torch.utils.timeseries import disarm_observability_plane
+
+    def reset():
+        disarm_observability_plane()
+        profiler.stop()
+        profiler.reset()
+        flightrec.reset()
+        flightrec._dump_dir = ""
+        resledger.reset()
+        lockdep.reset()
+        metrics.reset()
+
+    reset()
+    yield
+    reset()
 
 
 @pytest.fixture

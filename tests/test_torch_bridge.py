@@ -6,7 +6,7 @@ up-call sequence (every ``fetch_over_message``, every ``data_from_uda``
 block's bytes, every ``failure_in_uda``'s class). These mirror the tests
 of ``tests/test_bridge.py`` one for one, plus the INIT budget check, the
 short-option argv and the conf pull channel decision by decision, the
-``bridge.upcall`` failpoint and the stats refusal. The port runs on the
+``bridge.upcall`` failpoint and the stats reporter. The port runs on the
 CPU (``device="cpu"``)."""
 
 import functools
@@ -360,16 +360,56 @@ def test_telemetry_block_summaries():
     assert sum(c for _, c in h["buckets"]) == 4
 
 
-def test_stats_reporter_is_refused(tmp_path, monkeypatch):
-    """The reference's StatsReporter is not ported: a bridge asked for it
-    raises, naming it, instead of running without it."""
-    h = Harness(PORT, str(tmp_path))
-    h.conf["uda.tpu.stats.enable"] = "true"
-    with pytest.raises(errors.ConfigError, match="StatsReporter"):
-        PORT.new().start(True, [], h)
-    monkeypatch.setenv("UDA_TPU_STATS", "1")
-    with pytest.raises(errors.ConfigError, match="uda_tpu/utils/stats.py"):
-        PORT.new().start(False, [], Harness(PORT, str(tmp_path)))
+def test_stats_reporter_runs(tmp_path, monkeypatch):
+    """A bridge started with ``uda.tpu.stats.enable=true`` (a NetMerger)
+    and one under ``UDA_TPU_STATS=1`` (a MOFSupplier) run the
+    StatsReporter in both packages: JSON lines land in the configured
+    file, GET_STATS answers with the reporter's latest record (the same
+    keys in both packages), and the reduce task's final record carries
+    the reference's trio."""
+    from uda_tpu.utils.timeseries import (
+        disarm_observability_plane as jdisarm)
+    from uda_tpu_torch.utils.timeseries import disarm_observability_plane
+
+    make_mof_tree(str(tmp_path), "jobSR", 3, 1, 20, seed=17)
+    keys, final_keys = [], []
+    try:
+        for side in SIDES:
+            out = tmp_path / f"{side.name}.jsonl"
+            h, b = _reduce(side, str(tmp_path), "jobSR", 0, 3,
+                           argv=("-w", "4"),
+                           conf={"uda.tpu.stats.enable": "true",
+                                 "uda.tpu.stats.interval.ms": "50",
+                                 "uda.tpu.stats.jsonl": str(out)})
+            assert not h.failures
+            stats = json.loads(b.do_command(side.bridge.form_cmd(
+                side.bridge.Cmd.GET_STATS, [])))
+            # reduce_exit emitted the final record: it is the latest
+            assert stats["final"] is True
+            assert stats["counters"]["emit.bytes"] == len(h.stream)
+            for alias in ("total_wait_mem_time", "total_fetch_time",
+                          "total_merge_time"):
+                assert alias in stats["counters"]
+            assert "fetch.latency_ms" in stats["percentiles"]
+            final_keys.append(sorted(stats))
+            b.do_command(side.bridge.form_cmd(side.bridge.Cmd.EXIT, []))
+            lines = [json.loads(x) for x in out.read_text().splitlines()]
+            assert lines and lines[-1]["final"] is True
+            with monkeypatch.context() as mp:
+                mp.setenv("UDA_TPU_STATS", "1")
+                sup = side.new()
+                sup.start(False, [], Harness(side, str(tmp_path)))
+                stats = json.loads(sup.do_command(side.bridge.form_cmd(
+                    side.bridge.Cmd.GET_STATS, [])))
+                assert "rates" in stats and "final" not in stats
+                keys.append(sorted(stats))
+                sup.do_command(side.bridge.form_cmd(side.bridge.Cmd.EXIT,
+                                                    []))
+    finally:
+        disarm_observability_plane()
+        jdisarm()
+    assert keys[0] == keys[1]
+    assert final_keys[0] == final_keys[1]
 
 
 def test_log_upcall_sink(tmp_path):

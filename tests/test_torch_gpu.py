@@ -934,3 +934,30 @@ def test_coded_exchange_on_the_card_matches_the_cpu(cuda_device):
     assert len(out["cuda"][0]) == len(out["cpu"][0]) > 1
     for (a, b), (c, d) in zip(out["cuda"][0], out["cpu"][0]):
         assert np.array_equal(a, c) and np.array_equal(b, d)
+
+
+def test_device_trace_names_k1(cuda_device, tmp_path):
+    """``device_trace`` around one K1 pair merge writes a Chrome trace that
+    names the merge-pass and partition kernels as often as the launch
+    counters say."""
+    import glob
+    import json
+
+    from uda_tpu_torch.ops import pallas_merge
+    from uda_tpu_torch.utils.metrics import device_trace
+
+    a, b = _sorted_runs(1536 + 7, 1536 - 37, 1536, 7, False)
+    x = pallas_merge.pack_pair(_on_card(a, cuda_device),
+                               _on_card(b, cuda_device), 1536)
+    pallas_sort.merge_pass(x, 1536, 512, 7, 7)  # build and warm up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with device_trace(str(tmp_path)):
+        pallas_sort.merge_pass(x, 1536, 512, 7, 7)
+    (path,) = glob.glob(str(tmp_path / "uda_trace_*.json"))
+    events = json.loads(open(path).read())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("merge_pass_kernel" in k for k in kernels) == \
+        _build.launches["merge_pass"] == 1
+    assert sum("merge_partition_kernel" in k for k in kernels) == \
+        _build.launches["merge_partition"]

@@ -65,7 +65,14 @@ def test_imports_with_jax_and_uda_tpu_blocked():
             "uda_tpu_torch.parallel.exchange",
             "uda_tpu_torch.parallel.bytes_exchange",
             "uda_tpu_torch.parallel.distributed",
-            "uda_tpu_torch.coding.gfjax"} <= set(MODULES)
+            "uda_tpu_torch.coding.gfjax", "uda_tpu_torch.utils.locks",
+            "uda_tpu_torch.utils.resledger", "uda_tpu_torch.utils.metrics",
+            "uda_tpu_torch.utils.flightrec",
+            "uda_tpu_torch.utils.profiler", "uda_tpu_torch.utils.critpath",
+            "uda_tpu_torch.utils.stats", "uda_tpu_torch.utils.timeseries",
+            "uda_tpu_torch.utils.anomaly",
+            "uda_tpu_torch.utils.openmetrics",
+            "uda_tpu_torch.tenant.sli"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

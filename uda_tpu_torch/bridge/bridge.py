@@ -24,10 +24,14 @@ of the same shape:
 
 ``UdaBridge(device=None)`` runs the reduce task's merge on the card (K1's
 merge tree through ``MergeManager``); pass ``device="cpu"`` where there is
-none. The reference's ``StatsReporter`` is not ported: a bridge started
-with ``uda.tpu.stats.enable`` or ``UDA_TPU_STATS=1`` raises
-``ConfigError``, and ``GET_STATS`` answers with a one-shot
-``telemetry_block``. ``csrc/bridge_shim.cc`` is the C ABI over this class.
+none. ``uda.tpu.stats.enable`` or ``UDA_TPU_STATS=1`` runs a
+``StatsReporter`` for the life of the role (JSON lines to
+``uda.tpu.stats.jsonl`` / ``UDA_TPU_STATS_JSONL``, stderr otherwise) and
+arms the observability plane; ``GET_STATS`` answers with the reporter's
+latest record, or with a one-shot ``telemetry_block`` when none runs. The
+flight recorder is configured at start, and each role's EXIT is the
+resource ledger's process-end drain (``bridge.exit``).
+``csrc/bridge_shim.cc`` is the C ABI over this class.
 """
 
 from __future__ import annotations
@@ -43,12 +47,16 @@ from uda_tpu_torch.merger.segment import InputClient
 from uda_tpu_torch.mofserver import DataEngine, IndexRecord, IndexResolver
 from uda_tpu_torch.utils.budget import MemoryBudget
 from uda_tpu_torch.utils.config import Config
-from uda_tpu_torch.utils.errors import (ConfigError, FallbackSignal,
+from uda_tpu_torch.utils.errors import (FallbackSignal,
                                         ProtocolError, UdaError)
 from uda_tpu_torch.utils.failpoints import failpoint
+from uda_tpu_torch.utils.flightrec import flightrec, flightrec_enabled_from_env
 from uda_tpu_torch.utils.logging import get_logger
-from uda_tpu_torch.utils.metrics import stats_enabled_from_env
-from uda_tpu_torch.utils.stats import telemetry_block
+from uda_tpu_torch.utils.metrics import metrics, stats_enabled_from_env
+from uda_tpu_torch.utils.resledger import resledger
+from uda_tpu_torch.utils.stats import (StatsReporter, reporter_output_from_env,
+                                       telemetry_block)
+from uda_tpu_torch.utils.timeseries import arm_observability_plane
 
 __all__ = ["UdaCallable", "UdaBridge"]
 
@@ -146,6 +154,8 @@ class UdaBridge:
         # uda.tpu.tenant.enable: one registry per bridge lifetime, shared
         # across re-INITs
         self._tenant_registry = None
+        # uda.tpu.stats.enable / UDA_TPU_STATS=1: the role's reporter
+        self._stats: Optional[StatsReporter] = None
 
     # -- down-calls ---------------------------------------------------------
 
@@ -160,16 +170,13 @@ class UdaBridge:
         if callable_obj is not None and hasattr(callable_obj, "log_to"):
             get_logger().set_sink(callable_obj.log_to)
         get_logger().set_level(self.cfg.get("uda.log.level"))
-        # the flight recorder's configure (reference bridge.py:161-167) is
-        # left out: the port has no flight recorder
-        if stats_enabled_from_env() or self.cfg.get("uda.tpu.stats.enable"):
-            raise ConfigError(
-                "uda.tpu.stats.enable / UDA_TPU_STATS=1 start the stats "
-                "reporter of uda_tpu/utils/stats.py (StatsReporter), "
-                "which is not ported to uda_tpu_torch yet; GET_STATS "
-                "answers without it")
-        # arm_observability_plane (reference bridge.py:202) rides the
-        # reporter and is left out with it
+        # the flight recorder rides both roles from process start
+        # (uda.tpu.flightrec.*; the env kill switch still wins)
+        flightrec.configure(
+            enabled=(bool(self.cfg.get("uda.tpu.flightrec.enable"))
+                     and flightrec_enabled_from_env()),
+            capacity=int(self.cfg.get("uda.tpu.flightrec.events")),
+            dump_dir=str(self.cfg.get("uda.tpu.flightrec.dir")))
         if not is_net_merger:
             # MOFSupplier_main: the data engine serves fetches; paths
             # resolve through the up-call (the IndexCache round trip).
@@ -181,10 +188,31 @@ class UdaBridge:
                 if d.strip()]
             self._engine = DataEngine(self._resolver, self.cfg,
                                       num_disks=max(1, len(dirs)))
+        self._start_stats()
         self.started = True
         log.info(f"uda_tpu_torch bridge started as "
                  f"{'NetMerger' if is_net_merger else 'MOFSupplier'} "
                  f"on {self.device}")
+
+    def _start_stats(self) -> None:
+        """The observability wiring (``UDA_TPU_STATS=1`` /
+        ``uda.tpu.stats.enable``): switch the optional metrics layers on,
+        run a StatsReporter for the life of the role and arm the live
+        telemetry plane (rollup ring, anomaly detectors, SLI book,
+        optional OpenMetrics endpoint). Off by default: no thread."""
+        if self._stats is not None:  # re-start(): recycle the reporter
+            self._stats.stop(final=False)
+            self._stats = None
+        if not (stats_enabled_from_env()
+                or self.cfg.get("uda.tpu.stats.enable")):
+            return
+        metrics.enable_stats()
+        self._stats = StatsReporter(
+            interval_s=self.cfg.get("uda.tpu.stats.interval.ms") / 1e3,
+            out=reporter_output_from_env(
+                str(self.cfg.get("uda.tpu.stats.jsonl", default="")))
+        ).start()
+        arm_observability_plane(self.cfg)
 
     def _fresh_cfg(self) -> Config:
         """The config rebuilt from the start-time argv and the conf
@@ -232,8 +260,10 @@ class UdaBridge:
         return None
 
     def get_stats(self) -> dict:
-        """The GET_STATS body: a one-shot telemetry block of the metrics
-        hub (the reference answers from its reporter when one runs)."""
+        """The GET_STATS body: the reporter's latest record when one
+        runs, else a one-shot telemetry block of the metrics hub."""
+        if self._stats is not None:
+            return self._stats.latest()
         return telemetry_block()
 
     def _maybe_start_net_server(self, engine: Optional[DataEngine]) -> None:
@@ -282,6 +312,12 @@ class UdaBridge:
             self._owned_engine.stop()
             self._owned_engine = None
         self._merge_thread = None
+        if self._stats is not None:
+            # the per-reduce-task aggregate record (the reference's
+            # teardown-time counter trio, StreamRW.cc:555-569): one
+            # final-flagged record; the reporter keeps running for a
+            # re-INIT on the same bridge
+            self._stats.report_once(final=True)
         if self._dev_error is not None:
             # developer mode: a failure on the merge thread must not
             # vanish with the thread; teardown re-raises it
@@ -374,9 +410,13 @@ class UdaBridge:
                 name="uda-merge-thread")
             self._merge_thread.start()
         elif header == Cmd.EXIT:
-            self.reduce_exit()
-            # the resource ledger's process-end drain (reference
-            # bridge.py:424) is left out: the port has no resource ledger
+            self.reduce_exit()  # emits the final-flagged stats record
+            if self._stats is not None:
+                self._stats.stop(final=False)
+                self._stats = None
+            # the reduce task is over: every obligation (leases, fd pins,
+            # paired-gauge increments, scoped failpoints) must be settled
+            resledger.drain("bridge.exit")
         else:
             raise ProtocolError(f"unexpected command {header.name} for "
                                 "NetMerger role")
@@ -560,8 +600,12 @@ class UdaBridge:
             if self._engine is not None:
                 self._engine.stop()
                 self._engine = None
-            # the resource ledger's process-end drain (reference
-            # bridge.py:621) is left out: the port has no resource ledger
+            if self._stats is not None:
+                self._stats.stop(final=True)
+                self._stats = None
+            # the supplier side of the process-end drain: with the server
+            # stopped and the engine shut down, the books must be empty
+            resledger.drain("bridge.exit")
         else:
             raise ProtocolError(f"unexpected command {header.name} for "
                                 "MOFSupplier role")

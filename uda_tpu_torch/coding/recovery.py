@@ -91,6 +91,10 @@ class _Reconstruction:
         self.k = ctx.scheme.k
         self.n = ctx.scheme.n
         self._lock = threading.Lock()
+        # span attribution: the reconstruction starts under the owning
+        # segment's fetch span (``Segment._try_recover``); capture it here,
+        # because every later shard issue runs on a completion thread
+        self.parent_span = metrics.current_span()
         # chunks grouped by their reported stripe identity (the
         # full-partition length): a STALE shard from a prior map
         # attempt lands in its own group instead of poisoning the
@@ -257,7 +261,11 @@ class _ShardStream:
                 self._issuing = True
                 self._inline = self._PENDING
             try:
-                self.rec.client.start_fetch(req, self._on_complete)
+                # adopt the owning fetch span for this issue: shard streams
+                # chain from completion threads, so the explicit parent is
+                # how their transport spans join the segment's trace tree
+                with metrics.use_span(self.rec.parent_span):
+                    self.rec.client.start_fetch(req, self._on_complete)
             except Exception as e:  # noqa: BLE001 - sync transport
                 # raise == failed stream, same as an error completion
                 with self._mu:

@@ -37,7 +37,7 @@ keeps its run files) -> epoch fence -> per-file length + CRC -> drop and
 fetch again on any mismatch. Saving is best effort: a failed snapshot
 degrades the resume point and never fails the task.
 
-Left out: the flight recorder's records of saves, loads and discards.
+Every save, load and discard is a flight-recorder event.
 """
 
 from __future__ import annotations
@@ -45,7 +45,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import threading
 import time
 import zlib
 from typing import Callable, Optional
@@ -54,7 +53,9 @@ import numpy as np
 
 from uda_tpu_torch.utils.errors import StorageError
 from uda_tpu_torch.utils.failpoints import failpoint
+from uda_tpu_torch.utils.flightrec import flightrec
 from uda_tpu_torch.utils.ifile import EOF_MARKER, crack_partial
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -158,7 +159,7 @@ class TaskCheckpoint:
         self.version = 0          # monotone save-phase counter (watchdog)
         self._seq = 0             # last written manifest sequence number
         self._last_save = 0.0     # monotonic time of the last save
-        self._save_lock = threading.Lock()
+        self._save_lock = TrackedLock("ckpt.save")
 
     # -- save side ----------------------------------------------------------
 
@@ -235,6 +236,10 @@ class TaskCheckpoint:
         metrics.add("ckpt.snapshots")
         metrics.add("ckpt.bytes", total_bytes)
         metrics.observe("ckpt.save_ms", save_ms)
+        flightrec.record("ckpt.save", seq=seq,
+                         runs=len(payload.get("runs") or {}),
+                         ledgers=len(payload.get("ledgers") or {}),
+                         bytes=total_bytes)
 
     def _manifests(self) -> list[tuple[int, str]]:
         """(seq, path) of every live manifest, newest first."""
@@ -336,6 +341,9 @@ class TaskCheckpoint:
             except OSError:
                 pass
             self._seq = max(self._seq, seq)
+            flightrec.record("ckpt.load", seq=seq,
+                             runs=len(payload.get("runs") or {}),
+                             ledgers=len(payload.get("ledgers") or {}))
             return payload
         return None
 
@@ -386,6 +394,7 @@ class TaskCheckpoint:
         """Remove the whole task checkpoint (the task completed: its
         emitted output is the durable artifact now)."""
         shutil.rmtree(self.task_dir, ignore_errors=True)
+        flightrec.record("ckpt.discard", task=self.task)
 
 
 # the manifest's run "length" convention: framed record bytes + the

@@ -89,16 +89,23 @@ from uda_tpu_torch.merger.segment import InputClient, Segment
 from uda_tpu_torch.merger.streaming import RunStore, spill_dirs
 from uda_tpu_torch.ops import merge as merge_ops
 from uda_tpu_torch.ops.pallas_merge import MAX_COLS
+from uda_tpu_torch.tenant import current_tenant
 from uda_tpu_torch.utils.budget import MemoryBudget, stage_inflight_cap
 from uda_tpu_torch.utils.comparators import KeyType, get_key_type
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils.errors import (ConfigError, FallbackSignal,
                                         MergeError, StorageError, UdaError)
+from uda_tpu_torch.utils.critpath import install_stats_provider
 from uda_tpu_torch.utils.failpoints import failpoints
+from uda_tpu_torch.utils.flightrec import flightrec, flightrec_enabled_from_env
 from uda_tpu_torch.utils.ifile import RecordBatch
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils.profiler import profile_hz_from_env, profiler
 from uda_tpu_torch.utils.retry import RetryPolicy, SpeculationPolicy
+from uda_tpu_torch.utils.stats import (register_stats_provider,
+                                       unregister_stats_provider)
 from uda_tpu_torch.utils.watchdog import StallError, StallWatchdog
 
 __all__ = ["MergeManager", "PenaltyBox"]
@@ -163,7 +170,7 @@ class PenaltyBox:
         self.threshold = max(1, threshold)
         self.penalty_s = penalty_s
         self.reset_successes = max(1, reset_successes)
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("penalty_box")
         self._faults: dict[str, int] = {}
         self._until: dict[str, float] = {}
         self._streak: dict[str, int] = {}  # consecutive successes
@@ -178,7 +185,11 @@ class PenaltyBox:
             if n < self.threshold:
                 return False
             self._until[key] = time.monotonic() + self.penalty_s
-        metrics.add("fetch.penalties", supplier=key)
+        tenant = current_tenant()
+        if tenant:
+            metrics.add("fetch.penalties", supplier=key, tenant=tenant)
+        else:
+            metrics.add("fetch.penalties", supplier=key)
         return True
 
     def forgive(self, key: str) -> None:
@@ -292,6 +303,22 @@ class MergeManager:
             failpoints.arm_spec(spec)
         if self.cfg.get("uda.tpu.stats.enable"):
             metrics.enable_stats()
+        # the black box rides every task (utils/flightrec.py): the config
+        # knob and the env kill switch must both say on
+        flightrec.configure(
+            enabled=(bool(self.cfg.get("uda.tpu.flightrec.enable"))
+                     and flightrec_enabled_from_env()),
+            capacity=int(self.cfg.get("uda.tpu.flightrec.events")),
+            dump_dir=str(self.cfg.get("uda.tpu.flightrec.dir")))
+        # the time-accounting plane (utils/profiler, utils/critpath): arm
+        # the sampling profiler when asked (config wins, env otherwise;
+        # arming is sticky: a later manager with the 0 default never
+        # disarms it) and expose the where-time-goes block over MSG_STATS
+        install_stats_provider()
+        prof_hz = (float(self.cfg.get("uda.tpu.profile.hz"))
+                   or profile_hz_from_env())
+        if prof_hz > 0:
+            profiler.start(prof_hz)
         self._stop = threading.Event()
         # admission control and liveness: the budget is built lazily (an
         # explicitly chosen approach never reads the device's memory), the
@@ -399,6 +426,7 @@ class MergeManager:
             if seg is not None and seg.add_host(host):
                 widened += 1
         self.ledger.record("join", supplier=host)
+        flightrec.record("elastic.join", supplier=host, widened=widened)
         log.info(f"elastic: supplier {host!r} joined mid-job; "
                  f"{widened} in-flight segment(s) widened")
         return widened
@@ -411,6 +439,7 @@ class MergeManager:
         if callable(notify):
             notify(host)
         self.ledger.record("drain", supplier=host)
+        flightrec.record("elastic.drain", supplier=host)
 
     def _revalidate_spilled(self, job_id: str) -> None:
         """Resume-side locator revalidation, reachable when the transport
@@ -522,7 +551,7 @@ class MergeManager:
         live_total = len(order)
         nskip = len(segs) - live_total
         credits = threading.Semaphore(self.window)
-        done_lock = threading.Lock()
+        done_lock = TrackedLock("merge.fetch_done")
         done = 0
         all_notified = threading.Event()  # every on_done callback returned
         cb_errors: list[Exception] = []
@@ -692,11 +721,34 @@ class MergeManager:
             self._emit_progress += len(block)
 
         wd = self._start_watchdog(reduce_id)
+
+        # the MSG_STATS / final-stats-record scrape surface of this task:
+        # penalty box, recovery ledger and the last admission decision
+        def _recovery_provider() -> dict:
+            adm = self.last_admission
+            return {"penalty_box": self.penalty_box.snapshot(),
+                    "ledger": self.ledger.snapshot(),
+                    "admission": ({"decision": adm.decision,
+                                   "cause": adm.cause,
+                                   "reason": adm.reason}
+                                  if adm is not None else None)}
+
+        provider_name = f"recovery.r{reduce_id}"
+        register_stats_provider(provider_name, _recovery_provider)
         try:
+            # the trace root: every phase timer and per-segment fetch span
+            # below hangs off this span
             with metrics.span("reduce_task", job=job_id, reduce=reduce_id,
                               maps=len(map_ids)):
                 return self._run(job_id, map_ids, reduce_id,
                                  tracked_consumer)
+        except FallbackSignal as e:
+            # a lower layer already chose fallback: run() is the one dump
+            # point, so a failed task leaves exactly one dump
+            flightrec.dump("fallback", extra={
+                "job": job_id, "reduce": reduce_id,
+                "error": type(e.cause).__name__})
+            raise
         except UdaError as e:
             # a watchdog rescue surfaces through whichever waiter woke
             # first (a failed segment's wait, the stopped fetch loop):
@@ -706,8 +758,15 @@ class MergeManager:
                 e = stall
             metrics.add("fallback.signals")
             log.error(f"merge failed terminally, requesting fallback: {e}")
+            # the post-mortem: the event stream behind this fallback
+            # (injected faults, segment transitions, recovery events)
+            flightrec.dump("fallback", extra={
+                "job": job_id, "reduce": reduce_id,
+                "error": type(e).__name__,
+                "supplier": getattr(e, "supplier", None)})
             raise FallbackSignal(e) from e
         finally:
+            unregister_stats_provider(provider_name, _recovery_provider)
             self._release_push()
             if wd is not None:
                 wd.stop()
@@ -902,6 +961,9 @@ class MergeManager:
                  f"{man.get('seq')}: {len(adopted)} run(s) adopted, "
                  f"{len(preload)} in-flight ledger(s), "
                  f"{len(mids) - len(adopted)} map(s) to fetch")
+        flightrec.record("ckpt.resume", task=ckpt.task,
+                         seq=man.get("seq"), adopted=len(adopted),
+                         ledgers=len(preload))
         return adopted, preload, adopted_records
 
     # -- the task -----------------------------------------------------------
@@ -928,6 +990,11 @@ class MergeManager:
             est, threshold,
             prefer_streaming=bool(str(self.cfg.get("uda.tpu.ckpt.dir"))))
         self.last_admission = adm
+        # the decision and its structured cause go into the black box: a
+        # post-mortem reads why the task took the path it did
+        flightrec.record("admission", decision=adm.decision,
+                         cause=adm.cause, rejected=adm.rejected,
+                         estimate=est)
         if adm.rejected:
             raise UdaError(
                 f"partition refused by admission control: {adm.reason} — "

@@ -50,12 +50,14 @@ No quiet fallback: a failure of the device half (a K1 launch, the
 kernels' build, a CUDA error) is latched and raised by ``finish()`` as
 :class:`MergeError`, never answered by another engine or device.
 
-Left out of the reference because they change no output byte: the
-resource ledger's lease and gauge accounting, the flight recorder's
-``overlap.abort`` record, span adoption and the ``merge.wait`` spans,
-lockdep-tracked locks (``threading`` stands in), the native row merge
-and its split merge (the host engine keeps ``merge_row_pair``'s lexsort,
-as the reference does without its library).
+Observability as in the reference: stage threads adopt the task's span,
+the consumer's blocked time is ``merge.wait`` spans and each K1 run's copy
+a ``merge.device_put`` span; the in-flight budget's condition is the
+lockdep-tracked ``stage.inflight``; every finish and abort is a resource
+ledger drain point of the merger's pool leases, and an abort is a flight
+recorder event. Left out: the native row merge and its split merge (the
+host engine keeps ``merge_row_pair``'s lexsort, as the reference does
+without its library).
 
 Checkpointing (``merger/checkpoint.py``) adds two hooks: ``on_spool`` fires
 with the segment index once its run file is on disk (the snapshot
@@ -88,8 +90,11 @@ from uda_tpu_torch.utils.comparators import KeyType, uses_default_bytewise
 from uda_tpu_torch.utils.errors import MergeError, UdaError
 from uda_tpu_torch.utils.ifile import (EOF_MARKER, RecordBatch,
                                        iter_file_records)
+from uda_tpu_torch.utils.flightrec import flightrec
+from uda_tpu_torch.utils.locks import TrackedCondition, TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils.resledger import resledger
 
 __all__ = ["OverlappedMerger"]
 
@@ -152,6 +157,10 @@ class OverlappedMerger:
         self.device = resolve_device(device)
         self.engine = merge_ops.resolve_run_engine(engine, self.device)
         self.run_store = run_store
+        # staging threads adopt the constructing thread's span (the
+        # reduce-task root), so their pack/stage/merge timers land in the
+        # right trace subtree
+        self._parent_span = metrics.current_span()
         self._q: "queue.Queue" = queue.Queue(maxsize=max_pending)
         # one-way bool latches (a GIL-atomic store; readers may lag one
         # item, by design)
@@ -169,7 +178,7 @@ class OverlappedMerger:
         # the spool/drop path) releases; 0 = unbounded
         self._inflight_cap = max(0, int(inflight_bytes))
         self._inflight = 0
-        self._inflight_cv = threading.Condition()
+        self._inflight_cv = TrackedCondition(TrackedLock("stage.inflight"))
         # K1 runs are built in pool leases (pinned on the card) and copied
         # to the device, where the merger has its own copy and merge
         # streams: PyTorch's current stream would queue each copy behind
@@ -291,7 +300,7 @@ class OverlappedMerger:
     # -- serial merge threads (pipeline=False) -------------------------------
 
     def _loop(self) -> None:
-        with self._on_device():
+        with metrics.use_span(self._parent_span), self._on_device():
             while True:
                 try:
                     item = self._q.get(timeout=0.25)
@@ -327,30 +336,31 @@ class OverlappedMerger:
     def _worker_loop(self) -> None:
         """Stage worker: materialize + pack + row build + spool for ONE
         segment at a time; finished runs queue for the merge consumer."""
-        while True:
-            try:
-                item = self._q.get(timeout=0.25)
-            except queue.Empty:
-                if self._aborted:
+        with metrics.use_span(self._parent_span):
+            while True:
+                try:
+                    item = self._q.get(timeout=0.25)
+                except queue.Empty:
+                    if self._aborted:
+                        return
+                    continue
+                if item is None:
                     return
-                continue
-            if item is None:
-                return
-            seg_index, source, fed_t, charge = item
-            if self._error is not None or self._aborted:
-                self._release_charge(charge)
-                continue
-            try:
-                staged = self._prepare(seg_index, source, fed_t)
-            except Exception as e:  # surfaced at finish()
-                self._error = e
-                self._release_charge(charge)
-                continue
-            if staged is None:
-                self._release_charge(charge)
-                continue
-            staged.charge = charge
-            self._put_staged(staged)
+                seg_index, source, fed_t, charge = item
+                if self._error is not None or self._aborted:
+                    self._release_charge(charge)
+                    continue
+                try:
+                    staged = self._prepare(seg_index, source, fed_t)
+                except Exception as e:  # surfaced at finish()
+                    self._error = e
+                    self._release_charge(charge)
+                    continue
+                if staged is None:
+                    self._release_charge(charge)
+                    continue
+                staged.charge = charge
+                self._put_staged(staged)
 
     def _put_staged(self, staged: _StagedRun) -> None:
         while not self._aborted:
@@ -365,18 +375,25 @@ class OverlappedMerger:
         """The merge loop as a consumer of staged runs: the copy of the
         next run overlaps the merges of the previous one (launches are
         asynchronous); the forest carry serializes here."""
-        with self._on_device():
+        with metrics.use_span(self._parent_span), self._on_device():
+            # merge.wait spans: the consumer's blocked-on-staging time as
+            # a trace lane (the span twin of the merge.wait_ms histogram,
+            # critpath's "wait" bucket), one span per contiguous wait
+            wait = metrics.start_span("merge.wait")
             while True:
                 try:
                     staged = self._staged_q.get(timeout=0.25)
                 except queue.Empty:
                     if self._aborted:
+                        wait.end(aborted=True)
                         return
                     continue
+                wait.end()
                 if staged is None:
                     return
                 if self._error is not None or self._aborted:
                     self._discard(staged)
+                    wait = metrics.start_span("merge.wait")
                     continue
                 try:
                     self._observe_wait(staged.fed_t)
@@ -388,6 +405,7 @@ class OverlappedMerger:
                 finally:
                     self._release_charge(staged.charge)
                     staged.charge = 0
+                wait = metrics.start_span("merge.wait")
 
     def _discard(self, staged: _StagedRun) -> None:
         """Drop a staged run without merging (abort/error drain): release
@@ -609,8 +627,10 @@ class OverlappedMerger:
         """Transfer + forest insert. The merges this triggers launch
         asynchronously; the only wait is the copy that frees a lease."""
         with metrics.timer("overlap_stage"), self._device_errors():
-            rows = (self._upload(staged) if self.engine == "pallas"
-                    else staged.rows)
+            rows = staged.rows
+            if self.engine == "pallas":
+                with metrics.span("merge.device_put", rows=staged.valid):
+                    rows = self._upload(staged)
             self._insert(Run(rows, staged.valid, _next_pow2(staged.valid)))
 
     def _insert(self, run: Run) -> None:
@@ -685,6 +705,25 @@ class OverlappedMerger:
         with self._forest_lock:
             self._forest = {}
 
+    def _finish_cleanup(self) -> None:
+        """The cleanup of every finish flavour's ``finally``: abandoned
+        forest runs go, then the drain point asserts this merger's pool
+        books are empty."""
+        self._release_forest()
+        self._ledger_drain("merger.finish")
+
+    def _ledger_drain(self, point: str) -> None:
+        """ResourceLedger drain point (``UDA_TPU_RESLEDGER=1``): with this
+        merger finished or aborted, its pool leases must all be settled;
+        anything open is reported with its acquire stack. Drained under
+        this merger's pool owner scope, so a concurrent merger's open
+        leases are untouched. The staging gauges are process-global
+        (owner-less) and are drained at the quiescent points instead
+        (the bridge's EXIT, a test's teardown)."""
+        if resledger.enabled and self._buf_pool is not None:
+            resledger.drain(point, pairs=("pool.lease",),
+                            owner=id(self._buf_pool))
+
     def _merge_leftovers(self) -> Optional[Run]:
         """Merge the O(log k) leftover forest runs, smallest first
         (``ops/merge.merge_leftover_runs``). Returns None when nothing was
@@ -756,7 +795,7 @@ class OverlappedMerger:
             return cat.take(offsets[src[:, 0].astype(np.int64)]
                             + src[:, 1].astype(np.int64))
         finally:
-            self._release_forest()
+            self._finish_cleanup()
 
     def emit_stream(self, batches: Sequence[RecordBatch], emitter,
                     consumer) -> int:
@@ -791,7 +830,7 @@ class OverlappedMerger:
 
             return emitter.emit_framed(pieces(), consumer)
         finally:
-            self._release_forest()
+            self._finish_cleanup()
 
     def finish_streaming(self, emitter, consumer,
                          expected_records: Optional[int] = None) -> int:
@@ -836,7 +875,7 @@ class OverlappedMerger:
                                            seg_col=0), consumer)
         finally:
             store.cleanup()
-            self._release_forest()
+            self._finish_cleanup()
 
     def abort(self) -> None:
         """Stop the staging threads without producing output. ``_aborted``
@@ -847,6 +886,11 @@ class OverlappedMerger:
         run store is only cleaned then: never under a concurrent
         write_run."""
         self._aborted = True
+        # black-box state transition: an abort is the merge half of
+        # almost every failure post-mortem
+        st = self.stats
+        flightrec.record("overlap.abort", staged_runs=st.get("staged_runs", 0),
+                         pending=st.get("pending", 0))
         try:
             self._q.put_nowait(None)  # best effort: wake one instantly
         except queue.Full:
@@ -872,4 +916,7 @@ class OverlappedMerger:
         self._reap_pending()
         if self.run_store is not None:
             self.run_store.cleanup()
+        # the abandoned forest goes, then the drain point asserts nothing
+        # else is open (a straggler may still hold leases: no drain then)
         self._release_forest()
+        self._ledger_drain("merger.abort")

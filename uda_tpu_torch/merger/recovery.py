@@ -14,9 +14,11 @@ still.
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Optional, Sequence
+
+from uda_tpu_torch.utils.flightrec import flightrec
+from uda_tpu_torch.utils.locks import TrackedLock
 
 __all__ = ["RecoveryLedger"]
 
@@ -28,7 +30,7 @@ class RecoveryLedger:
 
     def __init__(self, box=None):
         self._box = box  # PenaltyBox (rank source); optional for tests
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("recovery.ledger")
         self._events: deque = deque(maxlen=_MAX_EVENTS)
         self.version = 0  # monotone event counter
 
@@ -42,6 +44,10 @@ class RecoveryLedger:
         with self._lock:
             self._events.append(event)
             self.version += 1
+        # recovery events are what a post-mortem wants in sequence with
+        # the faults that caused them: mirror them into the black box
+        flightrec.record(f"recovery.{kind}", supplier=supplier,
+                         map_id=map_id, error=event["error"])
 
     def rank(self, hosts: Sequence[str]) -> list:
         """``hosts`` healthiest-first by PenaltyBox state (unboxed before

@@ -9,8 +9,9 @@ checkpoint's offset ledger (``ckpt_export``/``ckpt_preload``) and the
 survivable-shuffle rungs: speculative dual-source fetch, the
 transport-retry mid-partition resume and k-of-n stripe reconstruction.
 ``HostRoutingClient``'s default connect dials suppliers over sockets
-(``net/client.py``). The reference's elastic and push planes are not
-ported yet.
+(``net/client.py``). Each segment's fetch is a ``fetch.segment`` span
+under the task's ``reduce_task`` span, the transport's parent for every
+request it issues; its transitions are flight-recorder events.
 
 Equivalent of the reference's Segment/BaseSegment (reference
 src/Merger/StreamRW.cc:334-590): a segment pulls its partition's bytes
@@ -38,11 +39,14 @@ from uda_tpu_torch.coding.recovery import start_recovery
 from uda_tpu_torch.mofserver.data_engine import (DataEngine, FetchResult,
                                                  ShuffleRequest)
 from uda_tpu_torch.merger.streaming import framed_records
+from uda_tpu_torch.tenant import current_tenant
 from uda_tpu_torch.utils.errors import (MergeError, StorageError,
                                         TenantError, TransportError,
                                         attribute_supplier)
 from uda_tpu_torch.utils.failpoints import failpoint
+from uda_tpu_torch.utils.flightrec import flightrec
 from uda_tpu_torch.utils.ifile import RecordBatch, crack_partial
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 from uda_tpu_torch.utils.retry import RetryPolicy, SpeculationPolicy
@@ -172,7 +176,7 @@ class HostRoutingClient(InputClient):
         self._members: set[str] = set()
         self._draining: set[str] = set()
         self._push_regs: dict = {}   # (job, reduce) -> staging
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("host_router")
 
     @staticmethod
     def _socket_factory(config):
@@ -457,6 +461,7 @@ class Segment:
         self.on_fault = None  # callback fired on EVERY transport fault
         # (retried or terminal) — the penalty-box feedback channel
         self.policy = policy or RetryPolicy(retries=max(0, retries))
+        self.trace_span = None
         self._issue_t0 = 0.0
         self._released = False
         self._carry = b""
@@ -483,7 +488,7 @@ class Segment:
         self._error: Optional[Exception] = None
         # the state machine is driven from transport completion threads,
         # retry and speculation timers and the merge thread
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("segment.state")
 
     @property
     def supplier(self) -> str:
@@ -505,6 +510,15 @@ class Segment:
             self.hosts.append(host)
         return True
 
+    def _notify_done(self) -> None:
+        span = self.trace_span
+        if span is not None:
+            err = self._error
+            span.end(**({"error": type(err).__name__} if err else {}))
+        cb = self.on_done
+        if cb is not None:
+            cb(self)
+
     def _finish(self, error: Optional[Exception]) -> bool:
         """The only terminal transition: the first caller wins, so on_done
         fires exactly once."""
@@ -513,9 +527,11 @@ class Segment:
                 return False
             self._error = error
             self._done.set()
-        cb = self.on_done
-        if cb is not None:
-            cb(self)
+        # black-box state transition (per segment, off the chunk path)
+        flightrec.record("segment.done", map=self.map_id,
+                         supplier=self.supplier,
+                         error=type(error).__name__ if error else None)
+        self._notify_done()
         return True
 
     # -- fetch driving ------------------------------------------------------
@@ -529,6 +545,13 @@ class Segment:
         # a replicated segment opens against the healthiest source
         if len(self.hosts) > 1 and self.ledger is not None:
             self.host = self.ledger.rank(self.hosts)[0]
+        # child of the caller's current span (the fetch phase of the
+        # reduce-task trace); ended by _notify_done on any terminal path
+        self.trace_span = metrics.start_span(
+            "fetch.segment", map=self.map_id, supplier=self.supplier,
+            reduce=self.reduce_id)
+        flightrec.record("segment.start", map=self.map_id,
+                         supplier=self.supplier)
         with self._lock:
             resume_at = self._next_offset
         if resume_at > 0:
@@ -538,6 +561,8 @@ class Segment:
             # partition identity through the _resume_check ladder
             metrics.add("fetch.resumed", supplier=self.supplier)
             metrics.add("fetch.resumed.bytes", resume_at)
+            flightrec.record("segment.ckpt_resume", map=self.map_id,
+                             supplier=self.supplier, offset=resume_at)
             log.info(f"fetch of {self.map_id} resuming at offset "
                      f"{resume_at} from a checkpointed ledger")
         self._drive(self._try_issue(resume_at))
@@ -589,8 +614,12 @@ class Segment:
             # key carries map AND source so chaos schedules can target
             # one supplier of a replicated segment (match:@host)
             failpoint("segment.fetch", key=f"{self.map_id}@{host}")
-            self.client.start_fetch(
-                req, lambda res, e=epoch: self._on_complete(res, e))
+            # the segment's span is the transport's parent for this issue:
+            # spans a transport opens (net.fetch) join the fetch span tree
+            # even when the issue happens on a completion thread
+            with metrics.use_span(self.trace_span):
+                self.client.start_fetch(
+                    req, lambda res, e=epoch: self._on_complete(res, e))
         except Exception as e:  # noqa: BLE001 - a sync raise must fail
             # the segment, never escape into the transport's thread
             with self._lock:
@@ -640,7 +669,12 @@ class Segment:
             if epoch not in (self._epoch, spec_epoch) \
                     or self._epoch_settled:
                 return  # the attempt completed first
-        metrics.add("fetch.timeouts", supplier=self.supplier)
+        tenant = current_tenant()
+        if tenant:
+            metrics.add("fetch.timeouts", supplier=self.supplier,
+                        tenant=tenant)
+        else:
+            metrics.add("fetch.timeouts", supplier=self.supplier)
         self._on_complete(TransportError(
             f"fetch of {self.map_id} attempt timed out after "
             f"{self.policy.attempt_timeout_ms:g} ms"), epoch)
@@ -689,6 +723,8 @@ class Segment:
             self._attempt_hosts[spec_epoch] = alt
             self._open_attempts += 1
         metrics.add("fetch.speculated", supplier=alt or self.map_id)
+        flightrec.record("segment.speculate", map=self.map_id,
+                         primary=self.host, alternate=alt)
         # hands off to the speculative epoch: _on_complete settles the
         # winner, _drop_attempt the loser (and the sync-raise path)
         metrics.gauge_add("fetch.on_air", 1)
@@ -699,8 +735,9 @@ class Segment:
                              offset, self.chunk_size, host=alt)
         try:
             failpoint("segment.fetch", key=f"{self.map_id}@{alt}#spec")
-            self.client.start_fetch(
-                req, lambda res, e=spec_epoch: self._on_complete(res, e))
+            with metrics.use_span(self.trace_span):
+                self.client.start_fetch(
+                    req, lambda res, e=spec_epoch: self._on_complete(res, e))
         except Exception as e:  # noqa: BLE001 - a failed spec issue is
             # a dropped duplicate, not a segment failure
             self._drop_attempt(spec_epoch, e)
@@ -920,7 +957,16 @@ class Segment:
                 else:
                     log.warn(f"fetch of {self.map_id} failed ({result}); "
                              f"retrying ({self._retries_left} left)")
-                metrics.add("fetch.retries", supplier=self.supplier)
+                tenant = current_tenant()
+                if tenant:
+                    metrics.add("fetch.retries", supplier=self.supplier,
+                                tenant=tenant)
+                else:
+                    metrics.add("fetch.retries", supplier=self.supplier)
+                flightrec.record("segment.retry", map=self.map_id,
+                                 supplier=self.supplier,
+                                 error=type(result).__name__,
+                                 resume=resume, left=self._retries_left)
                 delay = self.policy.backoff(attempt, self._rng)
                 if self._deadline is not None:
                     delay = min(delay,
@@ -1011,12 +1057,27 @@ class Segment:
                 self._carry = data[consumed:] if not last else b""
                 self._next_offset = res.offset + len(res.data)
             issue_t0 = self._issue_t0
-        metrics.add("fetch.bytes", len(res.data), supplier=self.supplier)
-        metrics.add("fetch.chunks", supplier=self.supplier)
-        metrics.observe("fetch.latency_ms",
-                        (time.perf_counter() - issue_t0) * 1e3,
+        tenant = current_tenant()
+        if tenant:
+            # a tenanted reduce task labels the hot-path fetch counters
+            # (one module-global read per chunk)
+            metrics.add("fetch.bytes", len(res.data),
+                        supplier=self.supplier, tenant=tenant)
+            metrics.add("fetch.chunks", supplier=self.supplier,
+                        tenant=tenant)
+            metrics.observe("fetch.latency_ms",
+                            (time.perf_counter() - issue_t0) * 1e3,
+                            supplier=self.supplier, tenant=tenant)
+            metrics.observe("fetch.chunk.bytes", len(res.data),
+                            tenant=tenant)
+        else:
+            metrics.add("fetch.bytes", len(res.data),
                         supplier=self.supplier)
-        metrics.observe("fetch.chunk.bytes", len(res.data))
+            metrics.add("fetch.chunks", supplier=self.supplier)
+            metrics.observe("fetch.latency_ms",
+                            (time.perf_counter() - issue_t0) * 1e3,
+                            supplier=self.supplier)
+            metrics.observe("fetch.chunk.bytes", len(res.data))
         return last
 
     def _try_recover(self, cause: Exception) -> bool:
@@ -1047,8 +1108,9 @@ class Segment:
         log.warn(f"fetch of {self.map_id} exhausted retries ({cause}); "
                  f"attempting k-of-n stripe reconstruction")
         try:
-            return bool(self.client.recover_partition(
-                req, self.stripe, self._on_recovered))
+            with metrics.use_span(self.trace_span):
+                return bool(self.client.recover_partition(
+                    req, self.stripe, self._on_recovered))
         except Exception as e:  # noqa: BLE001 - a recovery that cannot
             # even start must fall through to the terminal path, not
             # escape into the completion thread
@@ -1114,6 +1176,8 @@ class Segment:
         if not self._finish(exc):
             return False  # a real terminal path won the race
         metrics.add("fetch.failed_admin")
+        flightrec.record("segment.admin_fail", map=self.map_id,
+                         supplier=self.supplier, error=type(exc).__name__)
         return True
 
     # -- consumption --------------------------------------------------------

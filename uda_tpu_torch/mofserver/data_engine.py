@@ -64,6 +64,7 @@ from uda_tpu_torch.utils.errors import ConfigError, StorageError
 from uda_tpu_torch.utils.failpoints import failpoint, failpoints
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils.resledger import resledger
 
 __all__ = ["ShuffleRequest", "FetchResult", "FdSlice", "DataEngine",
            "plan_coalesced", "BATCH_BACKENDS"]
@@ -165,6 +166,23 @@ class FdSlice:
                               self.file_offset + self.length]
 
 
+def _add_served(tenant: str, n: int) -> None:
+    """``supplier.bytes``, tenant-labelled for a tenant-stamped request."""
+    if tenant:
+        metrics.add("supplier.bytes", n, tenant=tenant)
+    else:
+        metrics.add("supplier.bytes", n)
+
+
+def _observe_read(tenant: str, t0: float) -> None:
+    """One ``supplier.read.latency_ms`` sample since ``t0``."""
+    ms = (time.perf_counter() - t0) * 1e3
+    if tenant:
+        metrics.observe("supplier.read.latency_ms", ms, tenant=tenant)
+    else:
+        metrics.observe("supplier.read.latency_ms", ms)
+
+
 class _FdCache:
     """Refcounted fd reuse across requests for the same MOF (reference
     fd_counter, IndexInfo.cc:195-233), with an optional read-only
@@ -187,6 +205,7 @@ class _FdCache:
                 if ent[1] == 0:
                     self._idle.remove(path)
                 ent[1] += 1
+                resledger.acquire("engine.fd", key=path, owner=id(self))
                 return ent[0]
         fd = os.open(path, os.O_RDONLY)
         with self._lock:
@@ -196,8 +215,10 @@ class _FdCache:
                     self._idle.remove(path)
                 ent[1] += 1
                 os.close(fd)
+                resledger.acquire("engine.fd", key=path, owner=id(self))
                 return ent[0]
             self._fds[path] = [fd, 1, None]
+            resledger.acquire("engine.fd", key=path, owner=id(self))
             return fd
 
     def mmap_for(self, path: str):
@@ -244,6 +265,7 @@ class _FdCache:
             if ent is None or ent[1] <= 0:
                 return
             ent[1] -= 1
+            resledger.settle("engine.fd", key=path, owner=id(self))
             if ent[1]:
                 return
             self._idle.append(path)
@@ -330,13 +352,15 @@ class _BatchEntry:
     as the stages (resolve -> read -> finish) run. ``err`` short-circuits
     later stages: one failing request never touches its batch-mates."""
 
-    __slots__ = ("req", "want_admit", "fut", "rec", "want", "file_off",
-                 "fd", "buf", "got", "err")
+    __slots__ = ("req", "want_admit", "fut", "parent_span", "rec", "want",
+                 "file_off", "fd", "buf", "got", "err")
 
-    def __init__(self, req: ShuffleRequest, want_admit: int, fut: Future):
+    def __init__(self, req: ShuffleRequest, want_admit: int, fut: Future,
+                 parent_span=None):
         self.req = req
         self.want_admit = want_admit
         self.fut = fut
+        self.parent_span = parent_span  # the request's serve span
         self.rec = None
         self.want = 0          # actual chunk bytes (clamped to the MOF)
         self.file_off = 0
@@ -467,10 +491,19 @@ class DataEngine:
             raise StorageError("DataEngine is stopped")
         want = req.chunk_size or self.chunk_size_default
         self._admit_bytes(want, req.tenant)
+        # the +1 rides the returned Future: _serve's finally owns the -1
+        # on every outcome; the except below covers the one path where
+        # the pool never ran it
+        metrics.gauge_add("supplier.reads.on_air", 1)
         try:
-            return self._pool.submit(self._serve, req, want)
+            # span adoption across the pool handoff: the submitting
+            # thread's span (net.serve on the wire, fetch.segment in
+            # process) becomes the worker's engine.pread parent
+            return self._pool.submit(self._pooled, self._serve, req, want,
+                                     metrics.current_span())
         except BaseException:  # pool shutdown race: undo the accounting
             self._unadmit(want, req.tenant)
+            metrics.gauge_add("supplier.reads.on_air", -1)
             raise
 
     def attach_store(self, store) -> None:
@@ -498,9 +531,15 @@ class DataEngine:
     def drain_tenant(self, tenant: str) -> int:
         """The retire hook: the bytes ``tenant`` still has admitted (0
         when it is quiescent). Bytes in flight at retirement are live
-        obligations, settled by their own serves, not leaks."""
+        obligations, settled by their own serves, not leaks; a quiescent
+        tenant's ``tenant.admit`` books are a resource-ledger drain
+        point (the engine's stop owns the final sweep)."""
         with self._admit_lock:
-            return max(0, self._tenant_admitted.get(tenant, 0))
+            left = max(0, self._tenant_admitted.get(tenant, 0))
+        if not left:
+            resledger.drain(f"tenant.retire[{tenant}]",
+                            pairs=("tenant.admit",), owner=id(self))
+        return left
 
     def _admit_bytes(self, want: int, tenant: str = "") -> None:
         """The read-budget admission gate (the occupy_chunk pool bound,
@@ -538,8 +577,13 @@ class DataEngine:
             if tenant:
                 self._tenant_admitted[tenant] = \
                     self._tenant_admitted.get(tenant, 0) + want
+        metrics.gauge_add("supplier.read.bytes.on_air", want)
         if tenant:
             metrics.gauge_add("tenant.read.bytes.on_air", want)
+            metrics.gauge_add("tenant.read.bytes.on_air", want,
+                              tenant=tenant)
+            resledger.acquire("tenant.admit", key=tenant, amount=want,
+                              owner=id(self), detail=f"tenant={tenant}")
 
     def _unadmit(self, want: int, tenant: str = "") -> None:
         with self._admit_lock:
@@ -550,8 +594,13 @@ class DataEngine:
                     self._tenant_admitted[tenant] = left
                 else:
                     self._tenant_admitted.pop(tenant, None)
+        metrics.gauge_add("supplier.read.bytes.on_air", -want)
         if tenant:
             metrics.gauge_add("tenant.read.bytes.on_air", -want)
+            metrics.gauge_add("tenant.read.bytes.on_air", -want,
+                              tenant=tenant)
+            resledger.settle("tenant.admit", key=tenant, amount=want,
+                             owner=id(self))
 
     def submit_serve(self, req: ShuffleRequest) -> Future:
         """Like :meth:`submit`, but the Future may resolve to an
@@ -564,10 +613,14 @@ class DataEngine:
             raise StorageError("DataEngine is stopped")
         want = req.chunk_size or self.chunk_size_default
         self._admit_bytes(want, req.tenant)
+        # same handoff as submit(): _serve_plan's finally owns the -1
+        metrics.gauge_add("supplier.reads.on_air", 1)
         try:
-            return self._pool.submit(self._serve_plan, req, want)
+            return self._pool.submit(self._pooled, self._serve_plan, req,
+                                     want, metrics.current_span())
         except BaseException:  # pool shutdown race: undo the accounting
             self._unadmit(want, req.tenant)
+            metrics.gauge_add("supplier.reads.on_air", -1)
             raise
 
     def slice_eligible(self) -> bool:
@@ -580,7 +633,9 @@ class DataEngine:
 
     # -- the batched host-I/O plane ------------------------------------------
 
-    def submit_batch(self, reqs: Sequence[ShuffleRequest]) -> List[Future]:
+    def submit_batch(self, reqs: Sequence[ShuffleRequest],
+                     parent_spans: Optional[Sequence] = None
+                     ) -> List[Future]:
         """Batch submission: the whole burst rides one pool handoff; the
         worker groups per fd, coalesces adjacent and near-adjacent ranges
         (``uda.tpu.read.coalesce.gap.kb``) and issues vectored reads.
@@ -589,11 +644,13 @@ class DataEngine:
         only its own future), and this never raises: a stopped engine or
         a pool-shutdown race fails the futures. One failing range (bad
         offset, short read, injected ``data_engine.preadv`` fault) fails
-        only its request."""
+        only its request. ``parent_spans`` are the requests' serve spans,
+        which each request's ``engine.pread`` span adopts."""
         futs: List[Future] = []
         entries: List[_BatchEntry] = []
+        parents = parent_spans or ()
         stopped = self._stopped
-        for req in reqs:
+        for i, req in enumerate(reqs):
             fut = Future()
             futs.append(fut)
             if stopped:
@@ -605,27 +662,55 @@ class DataEngine:
             except StorageError as e:
                 fut.set_exception(e)
                 continue
-            entries.append(_BatchEntry(req, want, fut))
+            # both +1s ride the batch entry: _serve_batch's finally owns
+            # every -1 (or the except below when the pool never ran it)
+            metrics.gauge_add("supplier.reads.on_air", 1)
+            metrics.gauge_add("io.batch.inflight", 1)
+            entries.append(_BatchEntry(
+                req, want, fut, parents[i] if i < len(parents) else None))
         if not entries:
             return futs
         metrics.add("io.batch.submits")
-        metrics.add("io.batch.requests", len(entries))
+        # tenant labels advance the total and the tenant series;
+        # untenanted entries keep the plain total-only add
+        plain = sum(1 for e in entries if not e.req.tenant)
+        if plain:
+            metrics.add("io.batch.requests", plain)
+        by_tenant: Dict[str, int] = {}
+        for e in entries:
+            if e.req.tenant:
+                by_tenant[e.req.tenant] = by_tenant.get(e.req.tenant, 0) + 1
+        for tenant, n in by_tenant.items():
+            metrics.add("io.batch.requests", n, tenant=tenant)
         try:
             self._pool.submit(self._serve_batch, entries)
         except BaseException as exc:  # pool shutdown race: undo + fail
             for e in entries:
-                self._unadmit(e.want_admit, e.req.tenant)
+                self._settle_batch_entry(e, 0.0, observe=False)
                 err = StorageError("DataEngine is stopped")
                 err.__cause__ = exc
                 e.fut.set_exception(err)
         return futs
 
+    def _settle_batch_entry(self, e: _BatchEntry, t0: float,
+                            observe: bool = True) -> None:
+        """The one settlement point of a batch entry's accounting
+        (admission bytes and both paired gauges), run exactly once per
+        entry on every outcome."""
+        self._unadmit(e.want_admit, e.req.tenant)
+        metrics.gauge_add("supplier.reads.on_air", -1)
+        metrics.gauge_add("io.batch.inflight", -1)
+        if observe:
+            _observe_read(e.req.tenant, t0)
+
     def _serve_batch(self, entries: List[_BatchEntry]) -> None:
         """Worker-side body of submit_batch, on one pool thread for the
         whole batch: resolve each request, read per the backend rung, then
         finish every entry (CRC, failpoints, FetchResult)."""
+        t0 = time.perf_counter()
         try:
-            with metrics.timer("supplier_read"):
+            with metrics.span("engine.read_batch", n=len(entries),
+                              backend=self.io_backend):
                 self._batch_resolve(entries)
                 live = [e for e in entries if e.err is None]
                 if live:
@@ -640,7 +725,7 @@ class DataEngine:
                         else StorageError(f"batch serve failed: {exc}"))
         finally:
             for e in entries:
-                self._unadmit(e.want_admit, e.req.tenant)
+                self._settle_batch_entry(e, t0)
                 if not e.fut.done():
                     e.fut.set_exception(
                         StorageError("batch entry never served"))
@@ -760,7 +845,9 @@ class DataEngine:
     def _batch_finish(self, entries: List[_BatchEntry]) -> None:
         """Per entry: the short-read check, the CRC from the bytes as read
         (before a failpoint can mangle them), the two injection sites, the
-        FetchResult."""
+        FetchResult; each under an ``engine.pread`` span adopting its own
+        request's serve span, so batch-served chunks land in the same
+        trace shape as single-served ones."""
         for e in entries:
             req = e.req
             if e.err is None and e.got != e.want:
@@ -771,17 +858,22 @@ class DataEngine:
                 e.fut.set_exception(e.err)
                 continue
             try:
-                data = e.buf
-                crc = zlib.crc32(data) & 0xFFFFFFFF if self._crc else None
-                data = failpoint("data_engine.preadv", data=data,
-                                 key=f"{e.fd}@{e.file_off}")
-                data = failpoint("data_engine.pread", data=data,
-                                 key=f"{req.map_id}/{req.reduce_id}")
-                metrics.add("supplier.bytes", len(data))
-                e.fut.set_result(FetchResult(
-                    data, e.rec.raw_length, e.rec.part_length, req.offset,
-                    e.rec.path, last=req.offset + len(data)
-                    >= e.rec.part_length, crc=crc))
+                with metrics.use_span(e.parent_span), \
+                        metrics.span("engine.pread", map=req.map_id,
+                                     reduce=req.reduce_id,
+                                     offset=req.offset, batched=True):
+                    data = e.buf
+                    crc = (zlib.crc32(data) & 0xFFFFFFFF
+                           if self._crc else None)
+                    data = failpoint("data_engine.preadv", data=data,
+                                     key=f"{e.fd}@{e.file_off}")
+                    data = failpoint("data_engine.pread", data=data,
+                                     key=f"{req.map_id}/{req.reduce_id}")
+                    _add_served(req.tenant, len(data))
+                    e.fut.set_result(FetchResult(
+                        data, e.rec.raw_length, e.rec.part_length,
+                        req.offset, e.rec.path, last=req.offset + len(data)
+                        >= e.rec.part_length, crc=crc))
             except Exception as exc:  # noqa: BLE001 - injected faults stay
                 # per request: batch-mates complete untouched
                 e.err = exc
@@ -814,11 +906,22 @@ class DataEngine:
             self._unadmit(want_admit, req.tenant)
             raise
 
+    @staticmethod
+    def _pooled(serve, req: ShuffleRequest, admitted: int, parent_span):
+        """A pool worker's body around ``serve(req, admitted)``: an
+        ``engine.pread`` span adopting ``parent_span``, the submitting
+        thread's span (the contextvar does not cross the handoff)."""
+        with metrics.use_span(parent_span), \
+                metrics.span("engine.pread", map=req.map_id,
+                             reduce=req.reduce_id, offset=req.offset):
+            return serve(req, admitted)
+
     def _serve_plan(self, req: ShuffleRequest, admitted: int):
         """Worker-side body of submit_serve: resolve on the pool thread,
         then pin an FdSlice or fall through to the byte serve. An FdSlice
         keeps its admission charge until release(); every other outcome
         settles here."""
+        t0 = time.perf_counter()
         sliced = False
         try:
             if self.slice_eligible():
@@ -828,11 +931,12 @@ class DataEngine:
                     plan = self._build_slice(rec, req, admitted)
                     sliced = True
                     return plan
-            with metrics.timer("supplier_read"):
-                return self._serve_inner(req)
+            return self._serve_inner(req)
         finally:
             if not sliced:
                 self._unadmit(admitted, req.tenant)
+            metrics.gauge_add("supplier.reads.on_air", -1)
+            _observe_read(req.tenant, t0)
 
     def _build_slice(self, rec, req: ShuffleRequest,
                      admitted: int) -> FdSlice:
@@ -846,13 +950,20 @@ class DataEngine:
         want = min(req.chunk_size or self.chunk_size_default,
                    served - req.offset)
         fd = self._fds.acquire(rec.path)
-        metrics.add("supplier.bytes", want)
-        return FdSlice(fd=fd, file_offset=rec.start_offset + req.offset,
-                       length=want, raw_length=rec.raw_length,
-                       part_length=rec.part_length, offset=req.offset,
-                       path=rec.path, last=req.offset + want >= served,
-                       _engine=self, _admitted=admitted,
-                       _tenant=req.tenant)
+        try:
+            _add_served(req.tenant, want)
+            return FdSlice(fd=fd,
+                           file_offset=rec.start_offset + req.offset,
+                           length=want, raw_length=rec.raw_length,
+                           part_length=rec.part_length, offset=req.offset,
+                           path=rec.path, last=req.offset + want >= served,
+                           _engine=self, _admitted=admitted,
+                           _tenant=req.tenant)
+        except BaseException:
+            # the slice never existed, so its release() never runs: the
+            # fd pin unwinds here
+            self._fds.release(rec.path)
+            raise
 
     def fetch(self, req: ShuffleRequest) -> FetchResult:
         """Synchronous fetch, bounded by the fetch retry knobs (the
@@ -867,6 +978,7 @@ class DataEngine:
                 # accounting is undone here
                 self._unadmit(req.chunk_size or self.chunk_size_default,
                               req.tenant)
+                metrics.gauge_add("supplier.reads.on_air", -1)
             raise StorageError(
                 f"synchronous fetch of {req.map_id}/{req.reduce_id} at "
                 f"offset {req.offset} did not complete within "
@@ -874,13 +986,19 @@ class DataEngine:
                 f"mapred.rdma.fetch.* knobs)") from e
 
     def _serve(self, req: ShuffleRequest, admitted: int) -> FetchResult:
+        t0 = time.perf_counter()
         try:
-            with metrics.timer("supplier_read"):
-                return self._serve_inner(req)
+            return self._serve_inner(req)
         finally:
             self._unadmit(admitted, req.tenant)
+            metrics.gauge_add("supplier.reads.on_air", -1)
+            _observe_read(req.tenant, t0)
 
     def _serve_inner(self, req: ShuffleRequest) -> FetchResult:
+        with metrics.timer("supplier_read"):
+            return self._read_one(req)
+
+    def _read_one(self, req: ShuffleRequest) -> FetchResult:
         rec = self.resolver.resolve(req.job_id, req.map_id, req.reduce_id)
         served = rec.part_length  # the on-disk domain
         if req.offset < 0 or req.offset >= max(served, 1):
@@ -912,7 +1030,7 @@ class DataEngine:
         crc = zlib.crc32(data) & 0xFFFFFFFF if self._crc else None
         data = failpoint("data_engine.pread", data=data,
                          key=f"{req.map_id}/{req.reduce_id}")
-        metrics.add("supplier.bytes", len(data))
+        _add_served(req.tenant, len(data))
         return FetchResult(data, rec.raw_length, rec.part_length,
                            req.offset, rec.path,
                            last=req.offset + len(data) >= served, crc=crc)
@@ -921,6 +1039,15 @@ class DataEngine:
         self._stopped = True
         self._pool.shutdown(wait=True)
         self._fds.close_all()
+        # resource-ledger drain points: with the pool drained and the fd
+        # cache closed, every fd pin this engine's cache handed out (owner
+        # scope: a live peer engine's pins are untouched) must be
+        # released; an open one is an FdSlice whose release() never ran.
+        # Every tenant-stamped admission charge must have settled too
+        resledger.drain("data_engine.stop", pairs=("engine.fd",),
+                        owner=id(self._fds))
+        resledger.drain("data_engine.stop", pairs=("tenant.admit",),
+                        owner=id(self))
 
     def __enter__(self) -> "DataEngine":
         return self

@@ -44,16 +44,16 @@ Failpoint sites ``store.get``/``store.put``/``store.migrate`` are keyed
 ``<backend>:<key>`` so a spec's ``match:blob`` trigger kills exactly one
 tier while the other keeps serving.
 
-Left out, as in the port's other modules: the flight recorder's records,
-the resource ledger's fd and migration obligations, and the reference's
-lock-order instrumentation (a plain ``threading.Lock`` stands in).
+Failovers, faults and migrations are flight-recorder events; each
+backend handle is a ``store.fd`` obligation and bytes mid-migration the
+paired gauge ``store.migrate.bytes.on_air``; the locks are lockdep's
+``store.health`` and ``store.manager``.
 """
 
 from __future__ import annotations
 
 import abc
 import os
-import threading
 import time
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -63,8 +63,11 @@ from uda_tpu_torch.mofserver.index import (DirIndexResolver,
                                            write_index_file)
 from uda_tpu_torch.utils.errors import StorageError, StoreError
 from uda_tpu_torch.utils.failpoints import failpoint
+from uda_tpu_torch.utils.flightrec import flightrec
+from uda_tpu_torch.utils.locks import TrackedLock, race_instrument
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils.resledger import resledger
 
 log = get_logger()
 
@@ -113,16 +116,22 @@ class MOFStore(abc.ABC):
         return [self.read(path, off, ln) for off, ln in ranges]
 
     def acquire_fd(self, path: str) -> int:
-        """Open a backend object for reading (paired with
-        :meth:`release_fd`)."""
+        """Open a backend object for reading; the handle is an open
+        obligation (resource-ledger pair ``store.fd``, owner this store)
+        until :meth:`release_fd`."""
         try:
-            return os.open(path, os.O_RDONLY)
+            fd = os.open(path, os.O_RDONLY)
         except OSError as e:
             raise StoreError(f"{self.name}: cannot open {path}: {e}",
                              cause="missing", backend=self.name) from e
+        resledger.acquire("store.fd", key=path, owner=id(self))
+        return fd
 
     def release_fd(self, path: str, fd: int) -> None:
-        os.close(fd)
+        try:
+            os.close(fd)
+        finally:
+            resledger.settle("store.fd", key=path, owner=id(self))
 
     def _pread_full(self, path: str, file_off: int, length: int) -> bytes:
         fd = self.acquire_fd(path)
@@ -142,8 +151,10 @@ class MOFStore(abc.ABC):
         return data
 
     def close(self) -> None:
-        """Nothing is held between calls: every read opens and closes its
-        own handle."""
+        """Drain point: every handle this store handed out must have been
+        released (an open one is the refcount-rot leak class)."""
+        resledger.drain(f"store.close[{self.name}]", pairs=("store.fd",),
+                        owner=id(self))
 
 
 class LocalFdStore(MOFStore):
@@ -290,7 +301,7 @@ class BackendHealth:
     def __init__(self, threshold: int = 2, penalty_s: float = 1.0):
         self.threshold = max(1, threshold)
         self.penalty_s = penalty_s
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("store.health")
         self._faults: Dict[str, int] = {}
         self._until: Dict[str, float] = {}
 
@@ -343,6 +354,7 @@ class BackendHealth:
                               if t > now]}
 
 
+@race_instrument("_migrations")
 class StoreManager:
     """Placement policy + spill ladder + failover router over the two
     tiers. Attach to a DataEngine with ``engine.attach_store(mgr)``:
@@ -364,7 +376,7 @@ class StoreManager:
         self.recovery = recovery  # RecoveryLedger: the storage rung
         self.watermark_bytes = max(0, int(watermark_bytes))
         self.shadow = bool(shadow)
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("store.manager")
         # mof path -> its copy on the other tier (both directions);
         # the failover router's candidate table
         self._twin: Dict[str, str] = {}
@@ -462,6 +474,8 @@ class StoreManager:
             self.health.forgive(backend)
             if backend != primary:
                 metrics.add("store.failover", backend=backend)
+                flightrec.record("store.failover", key=key,
+                                 backend=backend)
             return data
         raise StoreError(
             f"no surviving store tier for {key or path} "
@@ -504,6 +518,8 @@ class StoreManager:
 
     def _fault(self, backend: str, key: str, error: Exception) -> None:
         metrics.add("store.errors", backend=backend)
+        flightrec.record("store.fault", backend=backend, key=key,
+                         error=type(error).__name__)
         if self.health.punish(backend):
             log.warn(f"store: backend {backend!r} penalized after "
                      f"repeated faults ({error})")
@@ -646,6 +662,8 @@ class StoreManager:
         # goes through self._lock
         with self._lock:
             self._migrations.append(entry)
+        flightrec.record("store.migrate", key=key, reason=reason,
+                         bytes=copied, shadow=shadow)
         log.info(f"store: migrated {key} -> blob tier ({copied} bytes, "
                  f"reason={reason}, shadow={shadow}, cutover={cutover})")
         return entry

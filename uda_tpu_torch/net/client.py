@@ -26,8 +26,10 @@ becomes ``FetchResult.data`` (``wire.decode_result_take``): one heap copy
 a chunk. Completion upcalls (a Segment's ``on_complete``, which may block
 on admission) run on the loop's dispatcher thread, never the loop thread.
 
-The port keeps no span trees, so its REQ frames carry no trace tail,
-which is what the reference client sends with no current span.
+Each request is a span (``net.fetch``, ``net.size_probe``, ``net.stats``,
+``net.job_bind``) ended at its completion; a REQ/SIZE_REQ frame to a
+CAP_TRACE peer carries the request span's (trace, span) ids, so the
+supplier's ``net.serve`` span joins the reduce side's tree.
 
 The tenant plane: with ``uda.tpu.tenant.id`` set (or after
 ``bind_tenant``) the first fetch of each job on each connection to a
@@ -67,6 +69,7 @@ from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils.errors import (ProtocolError, TransportError,
                                         UdaError)
 from uda_tpu_torch.utils.failpoints import failpoint
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -81,15 +84,26 @@ _SIZE_PROBE_TIMEOUT_S = 30.0
 
 
 class _Waiter:
-    """One in-flight request's completion slot."""
+    """One in-flight request's completion slot and its span."""
 
-    __slots__ = ("on_complete", "t0", "timed")
+    __slots__ = ("on_complete", "t0", "timed", "span")
 
     def __init__(self, on_complete: Callable, t0: float,
-                 timed: bool = True):
+                 timed: bool = True, span=None):
         self.on_complete = on_complete
         self.t0 = t0
         self.timed = timed
+        self.span = span
+
+    def end_span(self, result=None, error: str = "") -> None:
+        if self.span is None:
+            return
+        if error:
+            self.span.end(error=error)
+        elif isinstance(result, Exception):
+            self.span.end(error=type(result).__name__)
+        else:
+            self.span.end()
 
 
 class _ClientConn:
@@ -103,7 +117,7 @@ class _ClientConn:
         self.sock = sock
         self.dead = False
         # write side: any thread may send inline under _wlock
-        self._wlock = threading.Lock()
+        self._wlock = TrackedLock("net.client.write")
         self._outq: "deque" = deque()  # [memoryview, close_after] pairs
         self._poison = False
         self._mask = 0
@@ -326,7 +340,7 @@ class EvLoopFetchClient(InputClient):
         self.connect_timeout_s = float(
             cfg.get("uda.tpu.net.connect.timeout.s"))
         self.sockbuf_kb = int(cfg.get("uda.tpu.net.sockbuf.kb"))
-        self._lock = threading.Lock()  # table + connection identity
+        self._lock = TrackedLock("net.client")  # table + conn identity
         self._conn: Optional[_ClientConn] = None
         self._pending: dict = {}       # req_id -> _Waiter
         self._next_id = 0              # never reused across connections
@@ -465,6 +479,7 @@ class EvLoopFetchClient(InputClient):
             f"({type(cause).__name__}: {cause}); "
             f"{len(orphans)} fetches in flight")
         for req_id, waiter in orphans:
+            waiter.end_span(error="disconnect")
             conn.loop.dispatch(self._deliver, req_id, waiter, err)
 
     def _complete(self, conn: _ClientConn, req_id: int, result,
@@ -480,6 +495,7 @@ class EvLoopFetchClient(InputClient):
             metrics.observe("net.frame.latency_ms",
                             (time.perf_counter() - waiter.t0) * 1e3,
                             role="client")
+        waiter.end_span(result)
         conn.loop.dispatch(self._deliver, req_id, waiter, result)
 
     @staticmethod
@@ -493,7 +509,7 @@ class EvLoopFetchClient(InputClient):
                      f"raised: {e}")
 
     def _register(self, conn: _ClientConn, on_complete,
-                  timed: bool = True) -> Optional[int]:
+                  timed: bool = True, span=None) -> Optional[int]:
         """A fresh req id and waiter on ``conn``, or None when the
         connection died in between."""
         with self._lock:
@@ -502,8 +518,19 @@ class EvLoopFetchClient(InputClient):
             self._next_id += 1
             req_id = self._next_id
             self._pending[req_id] = _Waiter(on_complete,
-                                            time.perf_counter(), timed)
+                                            time.perf_counter(), timed, span)
         return req_id
+
+    def _trace_of(self, span) -> Optional[tuple]:
+        """The wire trace-context tail of one outbound frame: the request
+        span's own ids (the supplier's serve span becomes its child),
+        sent only when the peer's HELLO advertised ``wire.CAP_TRACE``."""
+        if span is None or span.span_id is None:
+            return None  # spans off (the no-op span)
+        with self._lock:
+            if not self._peer_caps & wire.CAP_TRACE:
+                return None
+        return span.trace_id, span.span_id
 
     # -- the tenant handshake -----------------------------------------------
 
@@ -558,7 +585,9 @@ class EvLoopFetchClient(InputClient):
                                  f"{result}")
 
                 self._pending[req_id] = _Waiter(
-                    on_bound, time.perf_counter(), timed=False)
+                    on_bound, time.perf_counter(), timed=False,
+                    span=metrics.start_span("net.job_bind",
+                                            host=self.host))
             else:
                 req_id = None
         if req_id is None:
@@ -592,8 +621,10 @@ class EvLoopFetchClient(InputClient):
                 self._bound_jobs[job_id] = posted
             self._next_id += 1
             req_id = self._next_id
-            self._pending[req_id] = _Waiter(on_reply, time.perf_counter(),
-                                            timed=False)
+            self._pending[req_id] = _Waiter(
+                on_reply, time.perf_counter(), timed=False,
+                span=metrics.start_span("net.job_bind", host=self.host,
+                                        retire=retire))
         try:
             self._post(conn,
                        self._job_frame(req_id, job_id, retire=retire))
@@ -699,23 +730,29 @@ class EvLoopFetchClient(InputClient):
         """Issue one fetch on the multiplexed connection. The completion
         (FetchResult, typed remote error or disconnect TransportError)
         arrives on the shared dispatcher thread."""
+        span = metrics.start_span(
+            "net.fetch", host=self.host, map=req.map_id,
+            reduce=req.reduce_id, offset=req.offset)
         try:
             conn = self._ensure_connected()
         except TransportError as e:
+            span.end(error=type(e).__name__)
             on_complete(e)
             return
         # the tenant plane: the job's MSG_JOB precedes its first REQ on
         # this connection (TCP order = registration order)
         self._maybe_bind(conn, req.job_id)
-        req_id = self._register(conn, on_complete)
+        req_id = self._register(conn, on_complete, span=span)
         if req_id is None:
             # the connection died between dial and registration;
             # complete outside the lock, the callback may re-issue
+            span.end(error="disconnect")
             on_complete(TransportError(
                 f"connection to {self.host}:{self.port} lost before the "
                 f"fetch was issued"))
             return
-        self._post(conn, wire.encode_request(req_id, req))
+        self._post(conn, wire.encode_request(req_id, req,
+                                             trace=self._trace_of(span)))
 
     def _post(self, conn: _ClientConn, frame: bytes) -> None:
         """Write one frame, inline when the socket has room. ``net.frame``
@@ -730,10 +767,11 @@ class EvLoopFetchClient(InputClient):
         conn.send_frame(out, len(out) != len(frame))
 
     def _round_trip(self, frame_of, timeout: float, timed: bool,
-                    job_id: str = ""):
+                    span_of, job_id: str = ""):
         """One blocking request/reply on the connection: the reply, or
         None on transport trouble or timeout. A ``job_id`` is bound first
-        (the tenant plane's MSG_JOB discipline)."""
+        (the tenant plane's MSG_JOB discipline). ``span_of()`` opens the
+        request's span; ``frame_of(req_id, span)`` encodes the frame."""
         try:
             conn = self._ensure_connected()
         except TransportError:
@@ -747,13 +785,16 @@ class EvLoopFetchClient(InputClient):
             box[0] = result
             got.set()
 
-        req_id = self._register(conn, on_reply, timed)
+        span = span_of()
+        req_id = self._register(conn, on_reply, timed, span)
         if req_id is None:
+            span.end(error="disconnect")
             return None
-        self._post(conn, frame_of(req_id))
+        self._post(conn, frame_of(req_id, span))
         if not got.wait(timeout=timeout):
             with self._lock:
                 self._pending.pop(req_id, None)  # a late reply is orphaned
+            span.end(error="timeout")
             return None
         return box[0]
 
@@ -762,9 +803,14 @@ class EvLoopFetchClient(InputClient):
         """Partition size probe over the wire (SIZE frames). Best effort:
         transport trouble or a timeout is None, never a failed task."""
         result = self._round_trip(
-            lambda rid: wire.encode_size_request(rid, job_id, list(map_ids),
-                                                 reduce_id),
-            _SIZE_PROBE_TIMEOUT_S, timed=False, job_id=job_id)
+            lambda rid, span: wire.encode_size_request(
+                rid, job_id, list(map_ids), reduce_id,
+                trace=self._trace_of(span)),
+            _SIZE_PROBE_TIMEOUT_S, timed=False,
+            span_of=lambda: metrics.start_span(
+                "net.size_probe", host=self.host, reduce=reduce_id,
+                maps=len(map_ids)),
+            job_id=job_id)
         return None if isinstance(result, Exception) else result
 
     def fetch_stats(self, timeout: float = _SIZE_PROBE_TIMEOUT_S,
@@ -772,12 +818,14 @@ class EvLoopFetchClient(InputClient):
         """The supplier's introspection snapshot over MSG_STATS (uncredited
         on the server). ``window_s`` asks a CAP_OBS peer for the
         observability sections too. Best effort: None on trouble."""
-        def frame_of(rid: int) -> bytes:
+        def frame_of(rid: int, _span) -> bytes:
             if window_s is not None and self.peer_caps() & wire.CAP_OBS:
                 return wire.encode_stats_request(rid, window_s=window_s)
             return wire.encode_stats_request(rid)
 
-        result = self._round_trip(frame_of, timeout, timed=True)
+        result = self._round_trip(
+            frame_of, timeout, timed=True,
+            span_of=lambda: metrics.start_span("net.stats", host=self.host))
         return result if isinstance(result, dict) else None
 
     def stop(self) -> None:
@@ -793,6 +841,7 @@ class EvLoopFetchClient(InputClient):
             f"RemoteFetchClient({self.host}) stopped with "
             f"{len(orphans)} fetches in flight")
         for waiter in orphans:
+            waiter.end_span(error="stopped")
             try:
                 waiter.on_complete(err)
             except Exception as e:  # noqa: BLE001

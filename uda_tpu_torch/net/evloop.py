@@ -1,7 +1,6 @@
 """The selector event-loop core of the shuffle data plane.
 
-The port's copy of ``uda_tpu/net/evloop.py`` (``threading.Lock`` stands
-in for the reference's lockdep-tracked lock). The socket analogue of the
+The port's copy of ``uda_tpu/net/evloop.py``. The socket analogue of the
 reference's completion-channel epoll loop (reference
 src/DataNet/RDMAComm.cc ``cm_event_handler``/``comp_event_handler``: one
 thread parked in epoll over the completion channels, dispatching work
@@ -48,6 +47,7 @@ import threading
 from collections import deque
 from typing import Callable, Optional
 
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 
 __all__ = ["EventLoop", "loop_callback", "shared_client_loop"]
@@ -305,7 +305,7 @@ class EventLoop:
 # per peer). Created lazily, daemon threads, never torn down mid-process
 # — like an executor, its lifetime is the process's.
 _shared: Optional[EventLoop] = None
-_shared_lock = threading.Lock()
+_shared_lock = TrackedLock("net.loop")
 
 
 def shared_client_loop() -> EventLoop:

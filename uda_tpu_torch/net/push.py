@@ -34,22 +34,19 @@ plane already has:
 
 ``take()`` claims the map: later pushes for it draw PUSH_NACK(CLAIMED),
 the dedup against the now in-flight fetch.
-
-Left out, as in the port's other planes: the reference's lock-order
-instrumentation (a plain ``threading.Lock`` stands in).
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
-import threading
 from collections import OrderedDict, deque
 from typing import Optional
 
 from uda_tpu_torch.utils.errors import UdaError
 from uda_tpu_torch.utils.failpoints import failpoint
 from uda_tpu_torch.utils.ifile import crack_partial
+from uda_tpu_torch.utils.locks import TrackedLock, race_instrument
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -106,6 +103,7 @@ class _MapStage:
         return len(self.mem) + self.spill_bytes
 
 
+@race_instrument("_maps")
 class PushStaging:
     """Reduce-side staging for one (job, reduce): the landing zone of
     MSG_PUSH chunks and the preload source of the merge's Segments.
@@ -132,7 +130,7 @@ class PushStaging:
         self.spill_ok = bool(cfg.get("uda.tpu.push.spill"))
         from uda_tpu_torch.merger.streaming import spill_dirs
         self._spill_dir = spill_dirs(cfg)[0]
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("push.staging")
         self._maps: "OrderedDict[str, _MapStage]" = OrderedDict()
         self._closed = False
 
@@ -318,6 +316,7 @@ class _ConnSub:
         self.pull_only: set = set()   # {(job_id, reduce_id, map_id)}
 
 
+@race_instrument("_subs", "_commits", "_inflight")
 class PushScheduler:
     """Supplier-side push pump, owned by the ShuffleServer.
 
@@ -332,7 +331,7 @@ class PushScheduler:
         self.engine = engine
         self.window = max(1, int(cfg.get("uda.tpu.push.window")))
         self.chunk = int(cfg.get("mapred.rdma.buf.size")) * 1024
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("push.sched")
         self._subs: dict = {}        # id(conn) -> _ConnSub
         self._commits: dict = {}     # job_id -> OrderedDict[map_id]
         self._inflight: dict = {}    # push_id -> (_ConnSub, _PushTask)

@@ -64,9 +64,13 @@ deficit round-robin in byte quanta) ahead of the per-connection cap, and
 the engine admits each against its tenant's budget share. Off, MSG_JOB
 draws the "runs no tenant plane" typed ERR.
 
-A CAP_OBS stats poll gets the sections of a disarmed telemetry plane
-(the port has none of the reference's rollups, SLI book or anomaly
-engine).
+MSG_STATS answers ``utils/stats.introspection_snapshot`` (every
+registered provider: this server's conn table, the time accounting, a
+running task's recovery state); a CAP_OBS poll also gets the rollup
+window, the SLI book and the anomaly engine's state. ``start`` arms the
+observability plane (``utils/timeseries.arm_observability_plane``) when
+the stats plane is on. Each REQ served is a ``net.serve`` span, a child of
+the client's ``net.fetch`` span when the frame carried its trace tail.
 
 Failpoints: ``net.accept`` per accepted connection, ``net.frame`` per
 outbound frame (applied to its head: a truncated head is a torn frame
@@ -94,11 +98,21 @@ from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils.errors import (ProtocolError, StorageError,
                                         TenantError, TransportError,
                                         UdaError)
+from uda_tpu_torch.tenant.sli import sli_book
+from uda_tpu_torch.utils.anomaly import anomaly_engine
+from uda_tpu_torch.utils.critpath import install_stats_provider
 from uda_tpu_torch.utils.failpoints import failpoint
+from uda_tpu_torch.utils.flightrec import flightrec
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils.stats import (introspection_snapshot,
+                                       register_stats_provider,
+                                       unregister_stats_provider)
+from uda_tpu_torch.utils.timeseries import (arm_observability_plane,
+                                            timeseries)
 
-__all__ = ["ShuffleServer", "EvLoopShuffleServer", "introspection_snapshot"]
+__all__ = ["ShuffleServer", "EvLoopShuffleServer"]
 
 log = get_logger()
 
@@ -113,49 +127,18 @@ _SENDFILE_MAX = 4 << 20    # bytes per sendfile syscall (fairness bound)
 _SENDFILE_FALLBACK_ERRNOS = (errno.EINVAL, errno.ENOSYS, errno.EOPNOTSUPP)
 
 
-# -- the MSG_STATS snapshot ---------------------------------------------------
-
-def introspection_snapshot(providers: dict) -> dict:
-    """The live record served over MSG_STATS: counters, gauges, histogram
-    summaries, the time and pid, and each of ``providers``' blocks
-    (name -> callable; one that raises degrades to an error marker)."""
-    snap = {"counters": metrics.snapshot(),
-            "gauges": metrics.gauges_snapshot(),
-            "histograms": {}}
-    for name in list(metrics.histograms):
-        h = metrics.histogram(name)
-        if h["count"]:
-            snap["histograms"][name] = h
-    snap["ts"] = round(time.time(), 3)
-    snap["pid"] = os.getpid()
-    blocks = {}
-    for name, fn in providers.items():
-        try:
-            blocks[name] = fn()
-        except Exception as e:  # noqa: BLE001 - the poll must answer
-            blocks[name] = {"error": type(e).__name__}
-    snap["providers"] = blocks
-    return snap
-
-
-def _disarmed_sections(sections: int) -> dict:
-    """The CAP_OBS sections a disarmed telemetry plane answers (the
-    reference's rollup ring, SLI book and anomaly engine, never armed:
-    the port has none of them)."""
-    out: dict = {}
-    if sections & wire.STATS_SEC_TS:
-        out["timeseries"] = {"running": False, "interval_s": 1.0,
-                             "window": 120, "samples": 0, "last_seq": 0,
-                             "last_ts": 0.0, "rollups": []}
-    if sections & wire.STATS_SEC_SLI:
-        out["sli"] = {"armed": False, "objective": 0.99,
-                      "targets": {"fetch_p99_ms": 0.0,
-                                  "serve_p99_ms": 0.0, "share": 0.5},
-                      "tenants": {}}
-    if sections & wire.STATS_SEC_ANOMALY:
-        out["anomalies"] = {"armed": False, "fired": 0, "dumps": 0,
-                            "dump_enabled": False, "active": []}
-    return out
+def _count_serve(name: str, tenant: str) -> None:
+    """The serve-path counters, tenant-labelled when the request is
+    tenant-stamped (the total and the series both advance)."""
+    if name == "net.serve.fd":
+        if tenant:
+            metrics.add("net.serve.fd", tenant=tenant)
+        else:
+            metrics.add("net.serve.fd")
+    elif tenant:
+        metrics.add("net.serve.copy", tenant=tenant)
+    else:
+        metrics.add("net.serve.copy")
 
 
 # -- the zero-copy mechanism probe --------------------------------------------
@@ -328,7 +311,7 @@ class _EvConn:
         self._payload: Optional[bytearray] = None
         self._pay_got = 0
         self._cur = (0, 0)  # (msg_type, req_id) of the frame being read
-        self._wlock = threading.Lock()
+        self._wlock = TrackedLock("net.conn.write")
         self._outq: "deque" = deque()
         self._poison = False        # no more writes (torn/failed/closed)
         # decoded requests waiting for a connection credit; with the
@@ -453,13 +436,12 @@ class _EvConn:
         self._payload = None
         self._hdr_got = 0
         if msg_type == wire.MSG_REQ:
-            # a trace tail is accepted and ignored: the port keeps no
-            # span trees
-            req, _trace = wire.decode_request_ex(payload)
-            self._admit(("req", req_id, req))
+            # the body carries the optional wire trace context, which
+            # the serve span adopts as its remote parent
+            self._admit(("req", req_id, wire.decode_request_ex(payload)))
         elif msg_type == wire.MSG_SIZE_REQ:
-            body, _trace = wire.decode_size_request_ex(payload)
-            self._admit(("size", req_id, body))
+            self._admit(("size", req_id,
+                         wire.decode_size_request_ex(payload)))
         elif msg_type == wire.MSG_STATS:
             # uncredited, like HELLO: a poll must answer even when the
             # data pipeline holds every credit
@@ -576,7 +558,7 @@ class _EvConn:
     def _entry_tenant(self, entry) -> str:
         """The scheduling tenant of one decoded request: its job's
         MSG_JOB binding, else this connection's tenant."""
-        kind, _rid, body = entry
+        kind, _rid, (body, _trace) = entry
         job = body.job_id if kind == "req" else body[0]
         bound = self.bindings.get(job)
         return (bound[0] or self.tenant) if bound else self.tenant
@@ -587,7 +569,7 @@ class _EvConn:
         size), 1 in request-count mode; SIZE probes cost 1."""
         if not self.server.quantum_bytes:
             return 1
-        kind, _rid, body = entry
+        kind, _rid, (body, _trace) = entry
         if kind != "req":
             return 1
         return max(1, int(body.chunk_size)
@@ -706,23 +688,33 @@ class _EvConn:
         # parked backlog
         self.server._sweep()
 
-    def _settle_offloop(self, res, tenant: str = "") -> None:
+    def _settle_offloop(self, res, span, tenant: str = "") -> None:
         """Settle a completion for a dead connection (or after the loop
         stopped), on whatever thread noticed. The tenant credit goes back
         through the loop (the scheduler is loop-confined)."""
         if isinstance(res, FdSlice):
             res.release()
         metrics.gauge_add("net.server.inflight", -1)
+        span.end(error="closed")
         if self.server.tenancy and self.loop.alive():
             self.loop.call_soon(self.server._release_and_sweep,
                                 tenant or self.tenant)
 
     # -- serving -------------------------------------------------------------
 
-    def _start_req(self, req_id: int, req) -> None:
+    def _start_req(self, req_id: int, body) -> None:
+        req, trace = body
         metrics.add("net.requests")
         t0 = time.perf_counter()
         server = self.server
+        # wire trace adoption: a REQ that carried (trace_id,
+        # parent_span_id) makes this serve span a child of the remote
+        # reduce task's fetch span, in one trace tree across processes
+        parent = (metrics.remote_parent(*trace) if trace is not None
+                  else None)
+        span = metrics.start_span("net.serve", parent=parent,
+                                  map=req.map_id, reduce=req.reduce_id,
+                                  offset=req.offset, peer=self.peer)
         try:
             if server.tenancy:
                 # the per-REQ registry gate; the tenant is stamped from
@@ -730,31 +722,35 @@ class _EvConn:
                 # payload, and before validation, so a refusal settles
                 # the account the admit charged
                 req = dataclasses.replace(
-                    req, tenant=self._entry_tenant(("req", req_id, req)))
+                    req, tenant=self._entry_tenant(("req", req_id, body)))
                 server._validate_req(self, req)
-            if server.zero_copy:
-                # the inline fast path: an index-cache hit plans the
-                # slice on the loop thread, no pool handoff
-                plan = server.engine.try_plan(req)
-                if plan is not None:
-                    self._complete(req_id, plan, None, t0, req)
+            # the engine adopts the serve span across its pool handoff,
+            # so engine.pread and the plan work are children of net.serve
+            with metrics.use_span(span):
+                if server.zero_copy:
+                    # the inline fast path: an index-cache hit plans the
+                    # slice on the loop thread, no pool handoff
+                    plan = server.engine.try_plan(req)
+                    if plan is not None:
+                        self._complete(req_id, plan, None, t0, span, req)
+                        return
+                if server.batch_reads and not (
+                        server.zero_copy
+                        and server.engine.slice_eligible()):
+                    # the byte path will be taken: accumulate the burst
+                    # for one submit_batch
+                    self._batch.append((req_id, req, t0, span))
                     return
-            if server.batch_reads and not (
-                    server.zero_copy and server.engine.slice_eligible()):
-                # the byte path will be taken: accumulate the burst for
-                # one submit_batch
-                self._batch.append((req_id, req, t0))
-                return
-            if server.zero_copy:
-                fut = server.engine.submit_serve(req)
-            else:
-                fut = server.engine.submit(req)
+                if server.zero_copy:
+                    fut = server.engine.submit_serve(req)
+                else:
+                    fut = server.engine.submit(req)
         except Exception as e:  # noqa: BLE001 - sync rejection (stopped
             # engine, admission push-back, bad offset) -> typed ERR
-            self._complete(req_id, None, e, t0, req)
+            self._complete(req_id, None, e, t0, span, req)
             return
         fut.add_done_callback(
-            lambda f: self._engine_done(req_id, f, t0, req))
+            lambda f: self._engine_done(req_id, f, t0, span, req))
 
     def _flush_batch(self) -> None:
         """Submit the accumulated byte-path burst (loop thread);
@@ -769,25 +765,28 @@ class _EvConn:
                 for i in range(0, len(entries), bmax):
                     part = entries[i:i + bmax]
                     futs = self.server.engine.submit_batch(
-                        [ent[1] for ent in part])
-                    for (req_id, req, t0), fut in zip(part, futs):
+                        [ent[1] for ent in part],
+                        parent_spans=[ent[3] for ent in part])
+                    for (req_id, req, t0, span), fut in zip(part, futs):
                         fut.add_done_callback(
-                            lambda f, req_id=req_id, t0=t0, req=req:
-                            self._engine_done(req_id, f, t0, req))
+                            lambda f, req_id=req_id, t0=t0, span=span,
+                            req=req:
+                            self._engine_done(req_id, f, t0, span, req))
         finally:
             self._batch_flushing = False
 
-    def _engine_done(self, req_id: int, f, t0: float, req) -> None:
+    def _engine_done(self, req_id: int, f, t0: float, span, req) -> None:
         """Engine worker thread (or the loop, when the future was already
         resolved at callback registration)."""
         err = f.exception()
         res = None if err is not None else f.result(timeout=0)
         if self.closed or not self.loop.alive():
-            self._settle_offloop(res, req.tenant)
+            self._settle_offloop(res, span, req.tenant)
             return
-        self._complete(req_id, res, err, t0, req)
+        self._complete(req_id, res, err, t0, span, req)
 
-    def _complete(self, req_id: int, res, err, t0: float, req) -> None:
+    def _complete(self, req_id: int, res, err, t0: float, span,
+                  req) -> None:
         """Engine completion -> outbound item, on the completing thread
         (the inline-write fast path). Responses complete out of order."""
         tenant = req.tenant
@@ -797,6 +796,7 @@ class _EvConn:
                 item = _BufItem([head], credited=True, t0=t0,
                                 tenant=tenant)
                 metrics.add("net.errors")
+                span.end(error=type(err).__name__)
                 if self.server.tenancy and tenant and \
                         isinstance(err, (StorageError, TenantError)):
                     # tenant-scoped penalty feedback: repeated admission
@@ -827,7 +827,8 @@ class _EvConn:
                         data_len=len(data))
                     item = _BufItem([head, data], credited=True, t0=t0,
                                     tenant=tenant)
-                    metrics.add("net.serve.copy")
+                    _count_serve("net.serve.copy", tenant)
+                    span.end(bytes=len(data))
                 else:
                     head = wire.encode_result_head(
                         req_id, raw_length=res.raw_length,
@@ -840,7 +841,8 @@ class _EvConn:
                                         zc_bytes=res.length, tenant=tenant)
                     else:
                         item = _FileItem(head, res, t0, tenant=tenant)
-                    metrics.add("net.serve.fd")
+                    _count_serve("net.serve.fd", tenant)
+                    span.end(bytes=res.length, zero_copy=True)
             else:
                 head = wire.encode_result_head(
                     req_id, raw_length=res.raw_length,
@@ -849,7 +851,8 @@ class _EvConn:
                     data_len=len(res.data))
                 item = _BufItem([head, res.data], credited=True, t0=t0,
                                 tenant=tenant)
-                metrics.add("net.serve.copy")
+                _count_serve("net.serve.copy", tenant)
+                span.end(bytes=len(res.data))
         except Exception as e:  # noqa: BLE001 - an unencodable response
             # would strand its credit: settle and drop, the client
             # re-fetches on the disconnect
@@ -857,6 +860,7 @@ class _EvConn:
                       f"{e}; dropping the connection")
             if isinstance(res, FdSlice):
                 res.release()
+            span.end(error="encode_failed")
             self.loop.call_soon(self._abandon_item,
                                 _BufItem([], credited=True, t0=t0,
                                          tenant=tenant), e)
@@ -876,9 +880,17 @@ class _EvConn:
         unknown)."""
         from uda_tpu_torch.merger.segment import LocalFetchClient
 
-        job_id, mids, reduce_id = body
-        total = LocalFetchClient(self.server.engine) \
-            .estimate_partition_bytes(job_id, mids, reduce_id)
+        (job_id, mids, reduce_id), trace = body
+        # a wire-carried trace context parents the serve span under the
+        # remote net.size_probe, as in _start_req
+        parent = (metrics.remote_parent(*trace) if trace is not None
+                  else None)
+        span = metrics.start_span("net.serve", parent=parent, kind="size",
+                                  reduce=reduce_id, peer=self.peer)
+        with metrics.use_span(span):
+            total = LocalFetchClient(self.server.engine) \
+                .estimate_partition_bytes(job_id, mids, reduce_id)
+        span.end(known=total is not None)
         frame = wire.encode_size(req_id, total)
         if self.closed or not self.loop.alive():
             metrics.gauge_add("net.server.inflight", -1)
@@ -890,15 +902,23 @@ class _EvConn:
                                tenant=tenant), frame)
 
     def _do_stats(self, req_id: int, opt: Optional[tuple]) -> None:
-        """Dispatcher thread: build and encode the snapshot; a CAP_OBS
-        poll (``opt`` = window seconds, section bits) also gets the
-        sections it asked for."""
+        """Dispatcher thread: build and encode the introspection snapshot
+        (``utils/stats.introspection_snapshot``: every registered
+        provider, this server's conn table among them); a CAP_OBS poll
+        (``opt`` = window seconds, section bits) also gets the sections
+        it asked for: the rollup window, the SLI book, the anomalies."""
         metrics.add("net.stats.requests")
         try:
-            snap = introspection_snapshot(
-                {"net.server": self.server._stats_snapshot})
+            snap = introspection_snapshot()
             if opt is not None:
-                snap.update(_disarmed_sections(opt[1]))
+                window_s, sections = opt
+                if sections & wire.STATS_SEC_TS:
+                    snap["timeseries"] = timeseries.wire_block(
+                        seconds=window_s or None)
+                if sections & wire.STATS_SEC_SLI:
+                    snap["sli"] = sli_book.snapshot()
+                if sections & wire.STATS_SEC_ANOMALY:
+                    snap["anomalies"] = anomaly_engine.snapshot()
             frame = wire.encode_stats_reply(req_id, snap)
         except Exception as e:  # noqa: BLE001 - degrade to a typed ERR
             log.warn(f"net: stats snapshot failed: {e}")
@@ -1144,6 +1164,7 @@ class EvLoopShuffleServer:
                  host: Optional[str] = None, port: Optional[int] = None,
                  registry=None):
         cfg = config or Config()
+        self._cfg = cfg
         self.engine = engine
         self.bind_host = host if host is not None \
             else str(cfg.get("uda.tpu.net.bind"))
@@ -1208,7 +1229,7 @@ class EvLoopShuffleServer:
         self._listener: Optional[socket.socket] = None
         self._loop: Optional[EventLoop] = None
         self._conns: set = set()
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("net.server")
         self._stopping = threading.Event()
         self.handoff_path = str(cfg.get("uda.tpu.net.handoff.path"))
         self.generation = 0
@@ -1357,11 +1378,24 @@ class EvLoopShuffleServer:
         # listen succeeded: a transient EADDRINUSE must not turn a retry
         # cold
         self.generation, self.warm_restart = self._load_generation()
+        metrics.gauge("net.server.generation", self.generation)
         self._listener = ls
         self._stopping.clear()
         self._loop = EventLoop("uda-net-loop").start()
         self._loop.call_soon(self._loop.register, ls, _READ,
                              self._on_accept)
+        # the MSG_STATS scrape surface: this server's conn table and
+        # generation, plus the time-accounting block, so both roles
+        # answer where their time goes
+        register_stats_provider("net.server", self._stats_snapshot)
+        install_stats_provider()
+        # the live telemetry plane (rollup ring, anomaly detectors, SLI
+        # book, optional OpenMetrics endpoint), armed once per process
+        # and gated on the stats plane like the StatsReporter
+        arm_observability_plane(self._cfg)
+        if self.tenancy and self._sched is not None:
+            # the fairness audit reads the scheduler's granted bytes
+            sli_book.attach(scheduler=self._sched, registry=self.registry)
         log.info(f"shuffle server listening on {self.address[0]}:"
                  f"{self.address[1]} (credit/conn={self.credit}, "
                  f"zerocopy={self.zero_copy}, "
@@ -1496,6 +1530,7 @@ class EvLoopShuffleServer:
         quiet."""
         if not self._draining:
             metrics.add("elastic.drains")
+            flightrec.record("elastic.drain", generation=self.generation)
             log.info(f"net: drain announced (generation "
                      f"{self.generation}); new banners carry "
                      f"CAP_DRAINING")
@@ -1513,6 +1548,9 @@ class EvLoopShuffleServer:
         self._stopping.set()
         if self.push is not None:
             self.push.stop()
+        unregister_stats_provider("net.server", self._stats_snapshot)
+        if self.tenancy and self._sched is not None:
+            sli_book.detach(self._sched)  # only if still ours
         loop = self._loop
         ls, self._listener = self._listener, None
         if ls is not None:

@@ -45,7 +45,7 @@ Frame types::
                                            process's live counters,
                                            gauges, histograms and its
                                            server's conn table —
-                                           net/server.py
+                                           utils/stats.py
                                            introspection_snapshot)
     JOB        tenant handshake           (bind this connection to a
                                            (tenant, job, epoch) in the
@@ -93,10 +93,8 @@ and SIZE_REQ payloads may carry an optional trailing
 ``(trace_id, parent_span_id)`` pair (two u64s). An old decoder never
 sees it — new clients append the block only to peers whose HELLO
 banner advertises :data:`CAP_TRACE` — and a new decoder accepts both
-shapes (exactly-zero or exactly-16 trailing bytes). The reference's
-supplier adopts the pair as the parent of its ``net.serve`` span; the
-port keeps no span trees, so its client sends no tail and its server
-accepts one and ignores it.
+shapes (exactly-zero or exactly-16 trailing bytes). The supplier adopts
+the pair as the parent of its ``net.serve`` span, in both packages.
 
 Decoding is STRICT: a bad magic, an unknown version, an out-of-range
 type, a length over :data:`MAX_FRAME`, a short buffer or trailing
@@ -508,7 +506,7 @@ def decode_stats_request(payload) -> Optional[tuple]:
 
 def encode_stats_reply(req_id: int, snapshot: dict) -> bytes:
     """The introspection snapshot as UTF-8 JSON (the shape is
-    ``uda_tpu_torch.net.server.introspection_snapshot``)."""
+    ``uda_tpu_torch.utils.stats.introspection_snapshot``)."""
     import json
 
     return encode_frame(MSG_STATS_REPLY, req_id,

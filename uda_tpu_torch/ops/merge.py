@@ -27,7 +27,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import heapq
-import threading
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,7 +39,9 @@ from uda_tpu_torch.ops.sort import fill_words, i32, u32
 from uda_tpu_torch.utils.comparators import KeyType, uses_default_bytewise
 from uda_tpu_torch.utils.errors import MergeError
 from uda_tpu_torch.utils.ifile import RecordBatch
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils.resledger import resledger
 
 __all__ = ["merge_batches", "merge_batches_host", "merge_iter_host",
            "merge_record_streams", "sorted_batch_order",
@@ -104,6 +105,12 @@ def merge_split_point(a_rows: np.ndarray, b_rows: np.ndarray,
     return lo
 
 
+def _buf_key(flat: np.ndarray) -> int:
+    """Ledger identity of a pool buffer: its data pointer (the same for
+    every view a lease hands out and its release walks back)."""
+    return int(flat.__array_interface__["data"][0])
+
+
 class RowBufferPool:
     """Reusable pre-allocated host uint32 row buffers.
 
@@ -116,13 +123,15 @@ class RowBufferPool:
     exists. Buffers are flat arrays reshaped per lease, so one big early
     buffer serves every later request that fits; the free list is bounded
     so a pathological size spread cannot hoard host memory. ``leased``
-    counts the leases not yet released."""
+    counts the leases not yet released; with ``UDA_TPU_RESLEDGER=1`` each
+    lease is a ``pool.lease`` obligation of this pool (owner ``id(self)``,
+    keyed by the buffer's data pointer) that its release settles."""
 
     MAX_FREE = 8
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, lock_class: str = "stage.bufpool"):
         self.pinned = resolve_device(device).type == "cuda"
-        self._lock = threading.Lock()
+        self._lock = TrackedLock(lock_class)
         self._free: list[np.ndarray] = []
         self.leased = 0
 
@@ -145,6 +154,8 @@ class RowBufferPool:
             got = self._alloc(need)
         with self._lock:
             self.leased += 1
+        resledger.acquire("pool.lease", key=_buf_key(got), owner=id(self),
+                          amount=need * 4)
         return got[:need].reshape(rows, cols)
 
     def release(self, view: Optional[np.ndarray]) -> None:
@@ -156,6 +167,7 @@ class RowBufferPool:
         while isinstance(base.base, np.ndarray):
             base = base.base
         flat = base.view(np.uint32).reshape(-1)
+        resledger.settle("pool.lease", key=_buf_key(flat), owner=id(self))
         with self._lock:
             self.leased -= 1
             self._free.append(flat)

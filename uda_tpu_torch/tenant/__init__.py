@@ -13,14 +13,13 @@ rather than a per-job plugin (the Exoshuffle thesis, arXiv:2203.05072):
   per-tenant ``MemoryBudget`` shares on the reduce side
   (``uda.tpu.tenant.budget.share``).
 
-``current_tenant()`` is the process-local tenant identity. The reference
-stamps it onto hot-path metric labels; the port keeps no tenant labels
-there, and a client's ``MSG_JOB`` binding always comes from its own
-``Config``, never from this global.
+- :class:`~uda_tpu_torch.tenant.sli.SliBook`: the per-tenant SLI/SLO
+  ledger over the time-series rollups (``utils/timeseries``).
 
-Not ported yet: ``tenant/sli.py``, the per-tenant SLI book, which
-subscribes to the time-series plane (``utils/timeseries``) the port
-does not have.
+``current_tenant()`` is the process-local tenant identity the reduce side
+stamps onto its hot-path metric labels (set at bridge INIT from
+``uda.tpu.tenant.id``). A client's ``MSG_JOB`` binding always comes from
+its own ``Config``, never from this global.
 """
 
 from __future__ import annotations

@@ -29,9 +29,6 @@ unauthenticated rdma_cm plane).
 Thread-safety: every method is safe from any thread (one registry
 serves the event loop, the engine's pool workers and the MSG_STATS
 dispatcher); the lock is a leaf.
-
-Left out, as in the port's other planes: the reference's lock-order
-instrumentation (a plain ``threading.Lock`` stands in).
 """
 
 from __future__ import annotations
@@ -39,12 +36,12 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import hmac
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from uda_tpu_torch.utils.errors import TenantError
 from uda_tpu_torch.utils.failpoints import failpoint
+from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -95,7 +92,7 @@ class TenantRegistry:
         self.secret = str(secret or "")
         self.ttl_s = float(ttl_s)
         self.max_jobs = int(max_jobs)
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("tenant.registry")
         self._jobs: Dict[Tuple[str, str], TenantRecord] = {}
         # tenant -> weight, maintained INCREMENTALLY (set on register,
         # recomputed-or-dropped for the affected tenant on retire and

@@ -61,6 +61,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
+from uda_tpu_torch.utils.locks import race_instrument
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -82,6 +83,7 @@ class _TenantQ:
         # grant (cost/weight units) — the force-serve pick's clock
 
 
+@race_instrument("_tenants")
 class CreditScheduler:
     """``total`` credits shared across tenants; ``weight_of(tenant)``
     supplies the live weights (the registry's view, consulted at each

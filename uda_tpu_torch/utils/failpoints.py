@@ -51,9 +51,10 @@ keyed ``round<i>``, and ``round<i>.stageB`` on a pod mesh) and
 plain tile, ``exchange.decode.fallbacks``). A name the reference does not
 know either arms as it does there (tests use such names).
 
-Left out: the flight recorder's record of each fire, the resource
-ledger's accounting of scopes, and ``chaos_spec``/``net_chaos_spec``,
-which wait for their callers.
+Every fire is a flight-recorder event; an armed ``scoped(...)`` block is
+a ``ctx.failpoints.scoped`` obligation in the resource ledger. Left out:
+``chaos_spec``/``net_chaos_spec`` and ``quiesced``, which wait for their
+callers.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ from uda_tpu_torch.utils.errors import (CompressionError, ConfigError,
                                         StorageError, StoreError,
                                         TenantError, TransportError,
                                         UdaError)
+from uda_tpu_torch.utils.flightrec import flightrec
 from uda_tpu_torch.utils.metrics import metrics
 
 __all__ = ["Failpoint", "FailpointRegistry", "failpoints", "failpoint",
@@ -265,15 +267,21 @@ class FailpointRegistry:
     @contextlib.contextmanager
     def scoped(self, spec: str) -> Iterator["FailpointRegistry"]:
         """Arm ``spec`` for the duration of a with-block, restoring the
-        previous arming (trigger state included) on exit."""
+        previous arming (trigger state included) on exit. The armed
+        scope is an open ``ctx.failpoints.scoped`` obligation: a scope
+        that never unwinds leaves the process armed."""
+        from uda_tpu_torch.utils.resledger import resledger
+
         with self._lock:
             saved = dict(self._sites)
         try:
             self.arm_spec(spec)
+            resledger.acquire("ctx.failpoints.scoped", key=spec)
             yield self
         finally:
             with self._lock:
                 self._sites = saved
+            resledger.settle("ctx.failpoints.scoped", key=spec)
 
     def evaluate(self, site: str, data: Optional[bytes],
                  key: str) -> Optional[bytes]:
@@ -295,6 +303,10 @@ class FailpointRegistry:
             else:
                 positions = []
         metrics.add(f"failpoint.{site}")
+        # the black box records every fire: a post-mortem dump shows
+        # which injected fault preceded the fallback
+        flightrec.record("failpoint", site=site, action=fp.action,
+                         key=key)
         if fp.action == "delay":
             time.sleep(fp.delay_ms / 1000.0)
             return data

@@ -6,8 +6,9 @@ Equivalent of the reference logger (reference src/CommUtils/IOUtility.cc:
 application through a registered sink (the ``logToJava`` up-call path,
 UdaBridge.cc:440-452) or written to stderr. Every message carries a
 ``(file:line)`` suffix like the reference (IOUtility.cc:514-536), computed
-only for messages that emit. The reference's private log files and named
-child loggers are not ported yet.
+only for messages that emit. Named child loggers (``get_logger("uda.stats")``)
+share the root's output and carry their own level. The reference's private
+log files are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import sys
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 __all__ = ["LogLevel", "Logger", "get_logger"]
 
@@ -48,29 +49,50 @@ def _caller_suffix() -> str:
 
 class Logger:
     """Process-wide logger with an optional up-call sink: ``sink``
-    receives ``(level, message)``; when unset, messages go to stderr."""
+    receives ``(level, message)``; when unset, messages go to stderr.
+    A child logger (``parent`` set) writes through its parent and
+    inherits its level until :meth:`set_level` is called."""
 
-    def __init__(self, name: str = "uda_tpu_torch") -> None:
+    def __init__(self, name: str = "uda_tpu_torch",
+                 parent: Optional["Logger"] = None) -> None:
         self.name = name
-        self.level = LogLevel.INFO
+        self.parent = parent
+        self.level: Optional[LogLevel] = None if parent else LogLevel.INFO
         self.sink: Optional[Callable[[int, str], None]] = None
         self._lock = threading.Lock()
 
+    def effective_level(self) -> LogLevel:
+        node: Optional[Logger] = self
+        while node is not None:
+            if node.level is not None:
+                return node.level
+            node = node.parent
+        return LogLevel.INFO
+
     def set_level(self, level: int) -> None:
         self.level = LogLevel(max(0, min(6, int(level))))
+
+    def clear_level(self) -> None:
+        """Child loggers only: drop the override, inherit the root's."""
+        if self.parent is not None:
+            self.level = None
 
     def set_sink(self, sink: Optional[Callable[[int, str], None]]) -> None:
         self.sink = sink
 
     def log(self, level: LogLevel, msg: str) -> None:
-        if level > self.level or self.level == LogLevel.NONE:
+        eff = self.effective_level()
+        if level > eff or eff == LogLevel.NONE:
             return
         text = f"{msg}{_caller_suffix()}"
-        if self.sink is not None:
-            self.sink(int(level), text)
+        out: Logger = self
+        while out.parent is not None and out.sink is None:
+            out = out.parent
+        if out.sink is not None:
+            out.sink(int(level), text)
             return
         stamp = time.strftime("%Y-%m-%d %H:%M:%S")
-        with self._lock:
+        with out._lock:
             sys.stderr.write(f"{stamp} {level.name:5s} {self.name}: {text}\n")
 
     def fatal(self, msg: str) -> None:
@@ -93,8 +115,17 @@ class Logger:
 
 
 _LOGGER = Logger()
+_NAMED: Dict[str, Logger] = {}
+_NAMED_LOCK = threading.Lock()
 
 
-def get_logger() -> Logger:
-    """The root logger."""
-    return _LOGGER
+def get_logger(name: Optional[str] = None) -> Logger:
+    """The root logger (no name) or a named child sharing the root's
+    output with a level of its own."""
+    if name is None or name == _LOGGER.name:
+        return _LOGGER
+    with _NAMED_LOCK:
+        lg = _NAMED.get(name)
+        if lg is None:
+            lg = _NAMED[name] = Logger(name, parent=_LOGGER)
+        return lg

@@ -4,11 +4,14 @@ The port's copy of ``uda_tpu/utils/watchdog.py``. The reference could hang
 forever when a supplier stopped answering: the completion never arrived
 and the merge thread sat in a wait with nothing watching it. A
 :class:`StallWatchdog` thread samples a *progress token* (any value that
-changes while work moves). When the token stops changing for ``stall_s``
-seconds it
+changes while work moves); every sample is a flight-recorder event. When
+the token stops changing for ``stall_s`` seconds it
 
-1. dumps the live diagnosis to the log: every thread's current stack and
-   the non-zero counters and gauges;
+1. dumps the live diagnosis to the log: every thread's current stack, the
+   held-lock table and lockdep's cycles (``UDA_TPU_LOCKDEP=1``), the
+   recorded span tree, the armed profiler's last 30 s, the span-derived
+   time accounting and the non-zero counters and gauges, and dumps the
+   flight recorder (cause ``stall``);
 2. fires ``on_stall(StallError)`` once, the hook ``MergeManager`` uses to
    fail the in-flight segments so its waiters wake and the failure flows
    through the ``FallbackSignal`` contract instead of hanging.
@@ -17,10 +20,6 @@ Knobs: ``uda.tpu.watchdog.stall.s`` (0 = off) and
 ``uda.tpu.watchdog.fallback`` (dump only when false). The poll period is
 ``stall_s / 4`` clamped to [0.05 s, 5 s], so detection takes at most
 ``stall_s + poll``.
-
-Left out of the dump because the port has no such module yet: the span
-tree, the lock table, the sampling profile and the time accounting; and
-the flight recorder's record of each sample.
 """
 
 from __future__ import annotations
@@ -32,6 +31,8 @@ import traceback
 from typing import Callable, Optional
 
 from uda_tpu_torch.utils.errors import UdaError
+from uda_tpu_torch.utils.flightrec import flightrec
+from uda_tpu_torch.utils.locks import lockdep
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -45,9 +46,11 @@ class StallError(UdaError):
 
 
 def dump_diagnostics(reason: str = "") -> str:
-    """The stall dump: every thread's stack and the non-zero counters and
-    gauges, as one log-ready string."""
+    """The stall dump: all thread stacks + the recorded span tree +
+    non-zero counters, as one log-ready string. Also usable standalone
+    (e.g. from a signal handler or a debug command)."""
     lines = [f"=== stall diagnostics{': ' + reason if reason else ''} ==="]
+    # thread stacks (the py-spy a wedged job can't run on itself)
     frames = sys._current_frames()
     names = {t.ident: t.name for t in threading.enumerate()}
     lines.append(f"--- {len(frames)} thread stacks ---")
@@ -55,6 +58,81 @@ def dump_diagnostics(reason: str = "") -> str:
         lines.append(f"thread {names.get(tid, '?')} (ident {tid}):")
         lines.extend("  " + ln.rstrip("\n").replace("\n", "\n  ")
                      for ln in traceback.format_stack(frame))
+    # the lockdep view (UDA_TPU_LOCKDEP=1): who holds which tracked
+    # locks right now, and any order cycles seen so far — a wedged
+    # thread's stack says WHERE it sits, the lock table says WHAT it
+    # sits on
+    if lockdep.enabled:
+        held = lockdep.held_by_thread()
+        lines.append(f"--- tracked locks held ({len(held)} threads) ---")
+        lines.extend(f"  {who}: {' -> '.join(classes)}"
+                     for who, classes in sorted(held.items()))
+        if lockdep.cycles:
+            lines.append(f"--- lockdep cycles "
+                         f"({len(lockdep.cycles)} reported) ---")
+            lines.extend(f"  [{c['kind']}] {c['note']}"
+                         for c in lockdep.cycles)
+    # the span tree: completed spans, rendered parent->child (the live
+    # subtree is whatever has not ended yet — its absence under a parent
+    # with children is itself the wedge signature)
+    spans = list(metrics.spans)
+    if spans:
+        lines.append(f"--- span tree ({len(spans)} recorded spans) ---")
+        children: dict = {}
+        known = {s["id"] for s in spans}
+        for s in spans:
+            parent = s.get("parent")
+            # a parent id this process never recorded is a REMOTE
+            # parent (wire-carried trace context) or an un-ended span:
+            # render the child as a local root rather than dropping the
+            # whole subtree from the dump
+            if parent is not None and parent not in known:
+                parent = None
+            children.setdefault(parent, []).append(s)
+
+        def walk(parent_id, depth):
+            for s in children.get(parent_id, []):
+                attrs = s.get("attrs") or {}
+                a = (" " + ",".join(f"{k}={v}" for k, v in attrs.items())
+                     if attrs else "")
+                lines.append(f"{'  ' * depth}{s['name']} "
+                             f"dur={s['dur'] * 1e3:.1f}ms{a}")
+                walk(s["id"], depth + 1)
+
+        walk(None, 1)
+    # the last-30-seconds span-attributed profile: WHAT the threads
+    # were executing as progress flatlined, next to WHERE they sit now
+    # (the stacks above). Armed profiler only — a dump never arms it —
+    # and total: any profiler error degrades to omission, because this
+    # renders inside a failure path
+    try:
+        from uda_tpu_torch.utils.profiler import profiler
+
+        if profiler.armed:
+            recent = profiler.recent_summary(30.0)
+            lines.append(f"--- sampling profile (last "
+                         f"{recent['window_s']:g}s, "
+                         f"{recent['samples']} samples) ---")
+            lines.extend(f"  {name}: {n}"
+                         for name, n in recent["spans"].items())
+    except Exception:  # udalint: disable=UDA006 - dump must stay total
+        pass
+    # where the wall went so far (span-derived; spans on only)
+    try:
+        from uda_tpu_torch.utils.critpath import time_accounting_block
+
+        ta = time_accounting_block()
+        if ta is not None:
+            lines.append(f"--- time accounting (wall "
+                         f"{ta['wall_s']:.3f}s, root "
+                         f"{ta['root'] or 'none'}) ---")
+            lines.extend(
+                f"  {b}: critical {rec['critical_s']:.3f}s "
+                f"({rec['share'] * 100:.1f}%), busy {rec['busy_s']:.3f}s"
+                for b, rec in ta["buckets"].items() if rec["busy_s"])
+            lines.append(f"  idle: {ta['idle_s']:.3f}s")
+    except Exception:  # udalint: disable=UDA006 - dump must stay total
+        pass
     counters = {k: v for k, v in metrics.snapshot().items() if v}
     if counters:
         lines.append("--- non-zero counters ---")
@@ -67,9 +145,9 @@ def dump_diagnostics(reason: str = "") -> str:
 
 
 class StallWatchdog:
-    """One watcher thread per guarded task. ``progress`` is called from the
-    watchdog thread and must be cheap and non-blocking; any value
-    supporting ``==`` works as the token."""
+    """One watcher thread per guarded task. ``progress`` is called from
+    the watchdog thread and must be cheap and non-blocking (counter
+    reads); any value supporting ``==`` works as the token."""
 
     def __init__(self, stall_s: float, progress: Callable[[], object],
                  on_stall: Optional[Callable[[StallError], None]] = None,
@@ -92,8 +170,8 @@ class StallWatchdog:
 
     def stop(self) -> None:
         self._stop.set()
-        # never join from the watchdog's own thread (an on_stall hook that
-        # tears its manager down would deadlock on a self-join)
+        # never join from the watchdog's own thread (an on_stall hook
+        # that tears its manager down would deadlock on self-join)
         if threading.current_thread() is not self._thread:
             self._thread.join(timeout=2.0)
 
@@ -107,7 +185,14 @@ class StallWatchdog:
                 log.warn(f"watchdog progress probe failed: {e}")  # not
                 continue                                          # kill us
             now = time.monotonic()
-            if now_token != token:
+            changed = now_token != token
+            # every sample lands in the black box: a post-mortem dump
+            # shows exactly when progress flatlined, not just that it
+            # eventually did (bounded rate — poll_s >= 0.05 s)
+            flightrec.record("watchdog", changed=changed,
+                             idle_s=round(0.0 if changed
+                                          else now - last_change, 3))
+            if changed:
                 token, last_change = now_token, now
                 continue
             if now - last_change < self.stall_s:
@@ -122,12 +207,16 @@ class StallWatchdog:
             f"(stall deadline {self.stall_s:g} s)")
         self.last_dump = dump_diagnostics(str(err))
         log.error(self.last_dump)
+        # the stall IS a black-box trigger: the ring holds the
+        # flatlining watchdog samples and whatever faults preceded them
+        flightrec.dump("stall", extra={"stalled_s": round(stalled_for, 3),
+                                       "deadline_s": self.stall_s})
         hook = self.on_stall
         if hook is not None:
             try:
                 hook(err)
-            except Exception as e:  # noqa: BLE001 - the hook is rescue code
-                log.error(f"watchdog on_stall hook failed: {e}")
-        # set last: an observer seeing fired=True may rely on the dump
+            except Exception as e:  # noqa: BLE001 - the hook is rescue
+                log.error(f"watchdog on_stall hook failed: {e}")  # code
+        # set LAST: an observer seeing fired=True may rely on the dump
         # being written and the rescue hook having run
         self.fired = True
