@@ -9,7 +9,8 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every kernel of ``uda_tpu_torch/csrc`` compiled with ``nvcc``;
+2. build: every kernel of ``uda_tpu_torch/csrc`` compiled with ``nvcc``
+   and, at the same time, the native host runtime with ``g++`` (18a);
 3. kernels: K2/K1 (with the partition kernel) through ``sort_lanes`` at 8
    and 32 rows (``two_phase`` off and on) and K3/K4 (with the partition
    kernel at K4's width) through ``sort_lanes_folded4``, at 2^20 records
@@ -239,7 +240,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``two_phase=True`` and the default at phase 8's largest K1 class
    (8,388,608 rows a side, its 7-word rows, 5 key words with many ties):
    the three give the same bytes, equal to K1's plain version and to a
-   stable re-sort (each call's launches and device ms printed).
+   stable re-sort (each call's launches and device ms printed);
+18. the native host runtime (``uda_tpu_torch/native`` over
+   ``csrc/{codec,reader,merge,lzo}.cc``), on which every reduce phase
+   above runs (``uda.tpu.use.native`` is on by default; each of their
+   runs must show native calls, ``native_calls`` in its record): (a) its
+   ``g++`` build, in phase 2 beside the kernels', and a second build in
+   the process that must be a no-op; (b) on the card's host, against the
+   port's pure-Python forms: crack, ``write_records`` and ``frame_batch``
+   over run c's 16 MOF partitions (host seconds of each), the k-way
+   loser tree against the heap merge for each of the 11 key types of its
+   table on small spill files, ``merge_rows_split_into`` with 1 to 4
+   parts against ``merge_rows_native`` and the lexsort engine (2^20 rows
+   a side), the span gather against the numpy gather on one slab; (c)
+   phase 12a's task (run c's 16 maps over the wire, the default Config)
+   with ``uda.tpu.use.native`` on and off in turns, 2 pairs, each held to
+   run c's stream, with wall, fetch and emit seconds, K1 launches, idle
+   share and native calls (> 0 on, 0 off); (d) phase 10a's hybrid task
+   (4 LPQs of 4 maps) on and off: the same stream, spill framing and
+   RPQ seconds, the loser tree's calls; (e) the read pool's backend on
+   the card's kernel, a batched read of the 16 maps under
+   ``uda.tpu.read.backend=io_uring`` against ``preadv`` (the same
+   bytes), and one 1 MiB MOF partition through the LZO ladder's
+   ``builtin`` rung (ratio printed), decoded by ``lzo1x_decompress_py``.
 
 Each phase's seconds are printed on a line of their own. The last two
 lines are one JSON object with a record per kernel (K2's, K1's and the
@@ -269,13 +292,14 @@ import zlib
 import numpy as np
 import torch
 
-from uda_tpu_torch import graft_entry, interop
+from uda_tpu_torch import graft_entry, interop, native
 from uda_tpu_torch.bridge import Cmd, UdaBridge, form_cmd
 from uda_tpu_torch.device import generator
 from uda_tpu_torch.coding import parse_scheme
 from uda_tpu_torch.compress import (BLOCK_HEADER, Codec, DecompressingClient,
                                     get_codec)
-from uda_tpu_torch.compress.lzo import native_lzo_source
+from uda_tpu_torch.compress.lzo import (lzo1x_decompress_py,
+                                        native_lzo_source)
 from uda_tpu_torch.merger import (HostRoutingClient, LocalFetchClient,
                                   MergeManager, checkpoint)
 from uda_tpu_torch.merger import streaming as stream_mod
@@ -305,7 +329,9 @@ from uda_tpu_torch.utils import vint
 from uda_tpu_torch.utils.errors import (FallbackSignal, TenantError,
                                         TransportError)
 from uda_tpu_torch.utils.failpoints import failpoints
-from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, crack
+from uda_tpu_torch.utils.ifile import (EOF_MARKER, RecordBatch, crack,
+                                       iter_file_records, native_enabled,
+                                       set_native_enabled, write_records)
 from uda_tpu_torch.utils.metrics import metrics
 from uda_tpu_torch.utils import tuncache
 
@@ -475,6 +501,20 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def native_calls(what: str, emitted: bool = True) -> dict:
+    """The native host runtime's calls since ``native.reset_calls()``.
+    With ``uda.tpu.use.native`` on, a run that emitted records must have
+    made some; with it off, none."""
+    calls = dict(native.calls)
+    if not native_enabled():
+        require(not calls, f"[{what}] native calls {calls} with "
+                           f"uda.tpu.use.native off")
+    elif emitted:
+        require(sum(calls.values()) > 0,
+                f"[{what}] no native call with uda.tpu.use.native on")
+    return calls
+
+
 def time_ms(fn, reps: int = TIMED_REPS, warmup: int = 1) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
     for _ in range(warmup):
@@ -531,11 +571,29 @@ def phase_device() -> dict:
 
 
 # ---------------------------------------------------------------- phase 2
-def phase_build() -> float:
+def phase_build() -> dict:
+    """The kernels (``nvcc``, one process a source) and, at the same time,
+    the native host runtime (``g++``, phase 18a). Returns the seconds of
+    each."""
+    host: dict = {}
+
+    def build_host() -> None:
+        try:
+            host["path"], host["s"] = _build_host.build_native()
+        except Exception as e:  # noqa: BLE001 - raised below
+            host["error"] = e
+
+    t = threading.Thread(target=build_host, name="uda-native-build")
+    t.start()
     secs = _build.build_all()
+    t.join()
+    if "error" in host:
+        raise host["error"]
     log(f"[build] nvcc sm_90a, {len(list(_build.CSRC.glob('*.cu')))} "
-        f"sources: {secs:.1f} s")
-    return secs
+        f"sources: {secs:.1f} s; g++ native host runtime "
+        f"{host['path']}: {host['s']:.1f} s")
+    return {"kernels_s": secs, "native_s": host["s"],
+            "native_path": host["path"]}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1440,6 +1498,7 @@ def phase_merge(dev: torch.device, root: str, mids: list, parts: list,
         torch.cuda.reset_peak_memory_stats()
         metrics.reset()
         _build.reset_launches()
+        native.reset_calls()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
@@ -1447,6 +1506,7 @@ def phase_merge(dev: torch.device, root: str, mids: list, parts: list,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
         counts = {k: _build.launches[k] for k in KERNELS}
+        ncalls = native_calls("merge")
         peak = torch.cuda.max_memory_allocated()
     finally:
         engine.stop()
@@ -1474,7 +1534,7 @@ def phase_merge(dev: torch.device, root: str, mids: list, parts: list,
     res = {"maps": maps, "map_bytes": map_bytes,
            "partition_bytes": part_bytes, "records": checks["records"],
            "wall_s": wall, "mb_per_s": part_bytes / wall / 1e6,
-           "split": split, "launches": counts,
+           "split": split, "launches": counts, "native_calls": ncalls,
            "k1_device_ms": k1_device_ms(by_name), "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (wall * 1e3) if by_name else None,
            "peak_bytes": peak, "setup_s": setup_s, "checks": checks,
@@ -1541,6 +1601,7 @@ def overlap_run(dev: torch.device, root: str, mids: list, part_bytes: int,
         metrics.reset()
         metrics.enable_stats()   # the run's histograms below
         _build.reset_launches()
+        native.reset_calls()
         ctx = (profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
                if profiled else contextlib.nullcontext())
@@ -1550,6 +1611,7 @@ def overlap_run(dev: torch.device, root: str, mids: list, part_bytes: int,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = {k: _build.launches[k] for k in KERNELS}
+        ncalls = native_calls(f"overlap {name}")
         peak = torch.cuda.max_memory_allocated()
     finally:
         engine.stop()
@@ -1582,7 +1644,7 @@ def overlap_run(dev: torch.device, root: str, mids: list, part_bytes: int,
         "merge_time"]
     res = {"run": name, "maps": len(mids), "partition_bytes": part_bytes,
            "wall_s": wall, "mb_per_s": part_bytes / wall / 1e6,
-           "split": split, "launches": counts,
+           "split": split, "launches": counts, "native_calls": ncalls,
            "merge_wait_ms": hist("merge.wait_ms"),
            "put_ms": hist("merge.pipeline.put_ms"),
            "pipeline_runs": snap.get("merge.pipeline.runs", 0),
@@ -1632,10 +1694,10 @@ def varlen_batches(parts: list) -> list:
 
 def gather_times(cat: RecordBatch, reps: int = 3) -> dict:
     """One emission slab of variable-length records (SLAB_RECORDS spans of
-    key and value, in a random order) gathered by the port's
-    ``_gather_spans`` (by size class) and by an int64 index per byte (the
-    reference's numpy form), on the same spans: equal bytes, host ms of
-    each, best of ``reps``."""
+    key and value, in a random order) gathered by the native host
+    runtime, by the port's numpy gather by size class (the switch off)
+    and by an int64 index per byte (the reference's numpy form), on the
+    same spans: equal bytes, host ms of each, best of ``reps``."""
     rng = np.random.default_rng(SEED + 9)
     pick = rng.choice(cat.num_records,
                       min(stream_mod.SLAB_RECORDS, cat.num_records),
@@ -1646,7 +1708,13 @@ def gather_times(cat: RecordBatch, reps: int = 3) -> dict:
 
     def by_class():
         out = np.empty(int(lens.sum()), np.uint8)
-        stream_mod._gather_spans(cat.data, src_off, lens, out, dst_off)
+        stream_mod._gather_spans_numpy(cat.data, src_off, lens, out,
+                                       dst_off)
+        return out
+
+    def by_native():
+        out = np.empty(int(lens.sum()), np.uint8)
+        native.gather_spans_native(cat.data, src_off, lens, out, dst_off)
         return out
 
     def index(off):
@@ -1658,10 +1726,12 @@ def gather_times(cat: RecordBatch, reps: int = 3) -> dict:
         out[index(dst_off)] = cat.data[index(src_off)]
         return out
 
-    require(np.array_equal(by_class(), by_byte()),
-            "the span gather differs from the per-byte index")
+    require(np.array_equal(by_class(), by_byte())
+            and np.array_equal(by_native(), by_byte()),
+            "the span gathers differ from the per-byte index")
     times = {}
-    for name, fn in (("size_class_ms", by_class), ("byte_index_ms", by_byte)):
+    for name, fn in (("size_class_ms", by_class), ("byte_index_ms", by_byte),
+                     ("native_ms", by_native)):
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -1790,6 +1860,7 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
         torch.cuda.reset_peak_memory_stats()
         metrics.reset()
         _build.reset_launches()
+        native.reset_calls()
         if before_run is not None:
             before_run(mm)
         ctx = (wrap() if wrap is not None else
@@ -1805,6 +1876,7 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = {k: _build.launches[k] for k in KERNELS}
+        ncalls = native_calls(name, emitted=length > 0)
         peak = torch.cuda.max_memory_allocated()
         if after_run is not None:
             after_run(mm)
@@ -1812,6 +1884,7 @@ def drive_task(dev: torch.device, client, engines: list, entries: list,
         for e in engines:
             e.stop()
     res = {"run": name, "wall_s": wall, "launches": counts,
+           "native_calls": ncalls,
            "peak_bytes": peak, "sha256": digest.hexdigest(),
            "stream_bytes": length, "error": error, "mm": mm,
            "metrics": metrics.snapshot()}
@@ -1836,8 +1909,8 @@ def task_run(dev: torch.device, root: str, mids: list, conf: dict,
 def _report(res: dict, part_bytes: int, keys=()) -> dict:
     """The printable part of a task_run record: wall, MB/s, launches, peak
     memory, stream or cause, and the named metrics."""
-    out = {k: res[k] for k in ("run", "wall_s", "launches", "peak_bytes",
-                               "sha256", "stream_bytes")}
+    out = {k: res[k] for k in ("run", "wall_s", "launches", "native_calls",
+                               "peak_bytes", "sha256", "stream_bytes")}
     out["mb_per_s"] = part_bytes / res["wall_s"] / 1e6
     if res["error"] is not None:
         out["cause"] = type(res["error"].cause).__name__
@@ -2298,8 +2371,8 @@ def _net_report(res: dict, part_bytes: int, want: tuple, pairs: int,
             == res["launches"]["merge_partition"],
             f"[net {res['run']}] K1 launched {res['launches']}, not "
             f"{pairs} pairs")
-    out = {k: res[k] for k in ("run", "wall_s", "launches", "peak_bytes",
-                               "sha256", "stream_bytes")}
+    out = {k: res[k] for k in ("run", "wall_s", "launches", "native_calls",
+                               "peak_bytes", "sha256", "stream_bytes")}
     out["mb_per_s"] = part_bytes / res["wall_s"] / 1e6
     out["zerocopy_mode"] = res["servers"][0].zc_mode
     out.update({k: res["metrics"].get(k, 0.0) for k in keys})
@@ -2715,6 +2788,7 @@ def phase_tenants(dev: torch.device, root: str, mids: list,
         torch.cuda.synchronize()
         metrics.reset()
         _build.reset_launches()
+        native.reset_calls()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2728,6 +2802,7 @@ def phase_tenants(dev: torch.device, root: str, mids: list,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = {k: _build.launches[k] for k in KERNELS}
+        ncalls = native_calls("tenants")
         snap = metrics.snapshot()
         granted = dict(server._sched.granted_cost)
         for tenant_id, (job, _, _, want, _) in jobs.items():
@@ -2821,6 +2896,7 @@ def job_run(dev: torch.device, name: str, fn, profiled: bool = False
         torch.cuda.reset_peak_memory_stats()
         metrics.reset()
         _build.reset_launches()
+        native.reset_calls()
         ctx = (profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
                if profiled else contextlib.nullcontext())
@@ -2830,13 +2906,14 @@ def job_run(dev: torch.device, name: str, fn, profiled: bool = False
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = {k: _build.launches[k] for k in KERNELS}
+        ncalls = native_calls(name)
         peak = torch.cuda.max_memory_allocated()
     rec = {"job": name, "wall_s": wall,
            "map_phase_s": metrics.get("map_phase_time"),
            "reduce_phase_s": metrics.get("reduce_phase_time"),
            "fetch_s": metrics.get("fetch_time"),
            "merge_s": metrics.get("merge_time"),
-           "launches": counts, "peak_bytes": peak}
+           "launches": counts, "native_calls": ncalls, "peak_bytes": peak}
     if profiled:
         by_name, busy = device_time(prof)
         rec.update(device_busy_ms=busy, idle_share=(
@@ -3017,6 +3094,7 @@ def phase_bridge(dev: torch.device, root: str, want: tuple,
         torch.cuda.reset_peak_memory_stats()
         metrics.reset()
         _build.reset_launches()
+        native.reset_calls()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3031,6 +3109,7 @@ def phase_bridge(dev: torch.device, root: str, want: tuple,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = {k: _build.launches[k] for k in KERNELS}
+        ncalls = native_calls("14c bridge")
         peak = torch.cuda.max_memory_allocated()
         stats = json.loads(merger.do_command(form_cmd(Cmd.GET_STATS, [])))
         merger.do_command(form_cmd(Cmd.EXIT, []))
@@ -3054,6 +3133,7 @@ def phase_bridge(dev: torch.device, root: str, want: tuple,
     by_name, busy = device_time(prof)
     res = {"maps": B_MAPS, "wall_s": wall, "run_b_wall_s": wall_b,
            "fetch_over_messages": emb.fetch_overs, "launches": counts,
+           "native_calls": ncalls,
            "get_stats": {k: counters.get(k, 0.0) for k in (
                "fetch.bytes", "emit.bytes", "total_fetch_time",
                "total_merge_time")},
@@ -3069,12 +3149,15 @@ def phase_bridge(dev: torch.device, root: str, want: tuple,
 # task's kernel launches (stderr) when the embedder calls reduce_exit
 SHIM_BOOTSTRAP = (
     "import json, sys, torch, uda_tpu_torch.bridge as b\n"
+    "from uda_tpu_torch import native\n"
     "from uda_tpu_torch.ops import _build\n"
     "class Counted(b.UdaBridge):\n"
     "    def reduce_exit(self):\n"
     "        super().reduce_exit()\n"
     "        torch.cuda.synchronize()\n"
     "        sys.stderr.write('LAUNCHES ' + json.dumps(dict(_build.launches))"
+    " + '\\n')\n"
+    "        sys.stderr.write('NATIVE ' + json.dumps(dict(native.calls))"
     " + '\\n')\n"
     "b.UdaBridge = Counted\n")
 
@@ -3126,9 +3209,14 @@ def phase_shim(dev: torch.device) -> dict:
             require_k1({"job": f"14d shim reducer {r}",
                         "launches": {k: launches.get(k, 0)
                                      for k in KERNELS}}, SHIM_MAPS - 1)
+            line = next(ln for ln in proc.stderr.splitlines()
+                        if ln.startswith("NATIVE "))
+            ncalls = json.loads(line[len("NATIVE "):])
+            require(sum(ncalls.values()) > 0,
+                    f"[14d shim] reducer {r}: no native call")
             runs.append({"reducer": r, "wall_s": wall,
                          "merged_bytes": int(out[1]), "records": want[r],
-                         "launches": launches})
+                         "launches": launches, "native_calls": ncalls})
     res = {"build_s": build_s, "maps": SHIM_MAPS,
            "reducers": SHIM_REDUCERS, "runs": runs}
     log("[14d shim] " + json.dumps(res))
@@ -3883,6 +3971,293 @@ def phase_pair_forms(dev: torch.device, n: int = PAIR_RUN_LEN) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 18
+NATIVE_PAIRS = 2            # 18c: native on / off, in turns
+NATIVE_ROWS = 1 << 20       # 18b: rows a side of the row merge
+NATIVE_ROW_COLS = 7         # 18b: phase 8's rows (4 key words + 3)
+KWAY_CLASSES = {            # 18b: the 11 key types of the loser tree's table
+    "raw": "uda.tpu.RawBytes",
+    "boolean": "org.apache.hadoop.io.BooleanWritable",
+    "byte": "org.apache.hadoop.io.ByteWritable",
+    "short": "org.apache.hadoop.io.ShortWritable",
+    "int": "org.apache.hadoop.io.IntWritable",
+    "long": "org.apache.hadoop.io.LongWritable",
+    "text": "org.apache.hadoop.io.Text",
+    "bytes": "org.apache.hadoop.io.BytesWritable",
+    "ibytes": "org.apache.hadoop.hbase.io.ImmutableBytesWritable",
+    "int_numeric": "uda.tpu.IntNumeric",
+    "long_numeric": "uda.tpu.LongNumeric",
+}
+
+
+def kway_keys(name: str, rng, n: int) -> list:
+    """``n`` serialized keys of key type ``name``, with repeats."""
+    keys = []
+    for i in range(n):
+        r = int(rng.integers(0, 40))
+        if name in ("boolean", "byte"):
+            k = bytes([r])
+        elif name == "short":
+            k = int(rng.integers(0, 1 << 16)).to_bytes(2, "big")
+        elif name in ("int", "int_numeric"):
+            k = int(rng.integers(0, 1 << 32)).to_bytes(4, "big")
+        elif name in ("long", "long_numeric"):
+            k = int(rng.integers(0, 1 << 63)).to_bytes(8, "big")
+        elif name == "text":
+            body = rng.bytes(r % 12)
+            k = vint.encode_vlong(len(body)) + body
+        elif name in ("bytes", "ibytes"):
+            body = rng.bytes(r % 12)
+            k = len(body).to_bytes(4, "big") + body
+        else:
+            k = rng.bytes(r % 12)
+        keys.append(keys[0] if keys and r < 6 else k)
+    return keys
+
+
+def host_s(fn):
+    """(fn's result, its host seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def python_form(fn):
+    """``fn()`` with ``uda.tpu.use.native`` off (the pure-Python forms)."""
+    set_native_enabled(False)
+    try:
+        return fn()
+    finally:
+        set_native_enabled(True)
+
+
+def partition_bytes_of(root: str, mid: str) -> bytes:
+    rec = DirIndexResolver(root).resolve(MERGE_JOB, mid, 0)
+    with open(rec.path, "rb") as f:
+        f.seek(rec.start_offset)
+        return f.read(rec.part_length)
+
+
+def phase_native_codec(root: str, mids: list) -> dict:
+    """Phase 18b: each native entry point against the port's Python form
+    on the card's host."""
+    out = collections.Counter()
+    records = 0
+    cat = None
+    for mid in mids:
+        data = partition_bytes_of(root, mid)
+        nb, t = host_s(lambda: native.crack_native(data))
+        out["crack_native_s"] += t
+        pb, t = host_s(lambda: python_form(lambda: crack(data)))
+        out["crack_python_s"] += t
+        require(all(np.array_equal(getattr(nb, c), getattr(pb, c))
+                    for c in ("key_off", "key_len", "val_off", "val_len")),
+                f"[18b] {mid}: the native crack differs from Python's")
+        framed, t = host_s(lambda: native.write_records_native(nb))
+        out["write_records_native_s"] += t
+        framed_py, t = host_s(lambda: frame_batch(pb))
+        out["frame_batch_python_s"] += t
+        require(framed == framed_py == data and
+                native.frame_batch(nb) == data,
+                f"[18b] {mid}: the framers differ from the MOF's bytes")
+        records += nb.num_records
+        if cat is None:
+            cat = nb
+    res = {k: float(v) for k, v in out.items()}
+    res.update(maps=len(mids), records=records,
+               crack_us_a_record={
+                   "native": res["crack_native_s"] / records * 1e6,
+                   "python": res["crack_python_s"] / records * 1e6},
+               frame_us_a_record={
+                   "native": res["write_records_native_s"] / records * 1e6,
+                   "python": res["frame_batch_python_s"] / records * 1e6})
+    kway = {}
+    rng = np.random.default_rng(SEED + 18)
+    with tempfile.TemporaryDirectory(prefix="uda_kway_") as spill:
+        for name, cls in KWAY_CLASSES.items():
+            kt = get_key_type(cls)
+            require(kt.name == name and native.kway_supported(kt),
+                    f"[18b] {cls} is not the loser tree's {name}")
+            paths = []
+            for r in range(4):
+                recs = [(k, rng.bytes(int(rng.integers(0, 60))))
+                        for k in kway_keys(name, rng, 0 if r == 0 else 500)]
+                recs.sort(key=lambda kv: kt.content(kv[0]))
+                path = os.path.join(spill, f"{name}-{r}")
+                with open(path, "wb") as f:
+                    f.write(write_records(recs))
+                paths.append(path)
+            got, t_native = host_s(lambda: b"".join(
+                native.kway_merge_paths(paths, kt, block_bytes=4096)))
+            heap, t_heap = host_s(lambda: write_records(
+                merge_ops.merge_record_streams(
+                    [iter_file_records(p) for p in paths], kt)))
+            require(got == heap, f"[18b] the loser tree differs from the "
+                                 f"heap merge on {name}")
+            kway[name] = {"bytes": len(got), "native_ms": t_native * 1e3,
+                          "heap_ms": t_heap * 1e3}
+    res["kway"] = kway
+    a = row_run(rng, NATIVE_ROWS)
+    b = row_run(rng, NATIVE_ROWS)
+    want, t = host_s(lambda: native.merge_rows_native(a, b))
+    lex, t_lex = host_s(lambda: merge_ops.merge_row_pair(
+        a, b, len(a), len(b), "host"))
+    require(np.array_equal(want, lex),
+            "[18b] the native row merge differs from the lexsort engine")
+    split = {"merge_rows_native_ms": t * 1e3, "lexsort_ms": t_lex * 1e3}
+    for parts in (1, 2, 3, 4):
+        got = np.empty_like(want)
+        _, t = host_s(lambda: merge_ops.merge_rows_split_into(a, b, got,
+                                                              parts))
+        require(np.array_equal(got, want),
+                f"[18b] merge_rows_split_into with {parts} parts differs")
+        split[f"parts_{parts}_ms"] = t * 1e3
+    res["merge_rows"] = split
+    res["gather"] = gather_times(cat)
+    log("[18b native codec] " + json.dumps(res))
+    return res
+
+
+def row_run(rng, n: int) -> np.ndarray:
+    """A sorted uint32[n, NATIVE_ROW_COLS] run with many equal rows."""
+    rows = rng.integers(0, 4, (n, NATIVE_ROW_COLS)).astype(np.uint32)
+    rows[:, 0] = rng.integers(0, 1 << 16, n)
+    order = np.lexsort(tuple(rows[:, c] for c in range(NATIVE_ROW_COLS - 1,
+                                                       -1, -1)))
+    return np.ascontiguousarray(rows[order])
+
+
+def phase_native_pairs(dev: torch.device, root: str, mids: list,
+                       part_bytes: int, want_c: tuple) -> list:
+    """Phase 18c: phase 12a's task with the native host runtime on and off,
+    in turns."""
+    runs = []
+    try:
+        for i in range(NATIVE_PAIRS):
+            for flag in (True, False):
+                name = f"18c {'on' if flag else 'off'} {i}"
+                conf = dict(NET_CONF, **{"uda.tpu.use.native": flag})
+                res = net_task(dev, root, mids, conf, name, profiled=True)
+                snap = res["metrics"]
+                rec = _net_report(res, part_bytes, want_c, len(mids) - 1,
+                                  ("fetch_time", "merge_time"), {
+                                      "native": flag,
+                                      "emit_and_rest_s": res["wall_s"]
+                                      - snap.get("fetch_time", 0.0)
+                                      - snap.get("merge_time", 0.0)})
+                runs.append(rec)
+    finally:
+        set_native_enabled(True)
+    return runs
+
+
+def phase_native_hybrid(dev: torch.device, root: str, mids: list,
+                        part_bytes: int, want_c: tuple) -> dict:
+    """Phase 18d: phase 10a's hybrid task with the native host runtime on
+    (spill framing and the RPQ's loser tree in C++) and off."""
+    runs = {}
+    try:
+        for flag in (True, False):
+            with tempfile.TemporaryDirectory(prefix="uda_lpq_") as spill:
+                conf = {"mapred.netmerger.merge.approach": 2,
+                        "mapred.netmerger.hybrid.lpq.size": HYBRID_LPQ_MAPS,
+                        "mapred.rdma.num.parallel.lpqs": HYBRID_PARALLEL,
+                        "uda.tpu.spill.dirs": spill,
+                        "uda.tpu.use.native": flag}
+                name = f"18d hybrid {'on' if flag else 'off'}"
+                res = task_run(dev, root, mids, conf, name)
+                _require_stream(res, want_c)
+                if flag:
+                    require(res["native_calls"].get("kway_create", 0) == 1,
+                            f"[{name}] the RPQ did not run the loser tree")
+                runs["on" if flag else "off"] = _report(
+                    res, part_bytes, ("lpq_phase_time", "lpq_spill_time",
+                                      "rpq_phase_time", "fetch_time",
+                                      "merge_time"))
+    finally:
+        set_native_enabled(True)
+    return runs
+
+
+def phase_native_io(root: str, mids: list) -> dict:
+    """Phase 18e: the read pool's backend, a batched read on the io_uring
+    rung against preadv, and the LZO ladder's builtin rung."""
+    with native.ReadPool(2) as pool:
+        backend = pool.backend()
+    chunk = 1 << 20
+    served = {}
+    for want in ("io_uring", "preadv"):
+        engine = DataEngine(DirIndexResolver(root),
+                            Config({"uda.tpu.read.backend": want}))
+        try:
+            native.reset_calls()
+            reqs = [ShuffleRequest(MERGE_JOB, mid, 0, off, chunk)
+                    for mid in mids for off in range(0, min(
+                        4 * chunk, engine.resolver.resolve(
+                            MERGE_JOB, mid, 0).part_length), chunk)]
+            (data, t) = host_s(lambda: [f.result(timeout=120).data
+                                        for f in engine.submit_batch(reqs)])
+            served[want] = {"rung": engine.io_backend, "requests": len(reqs),
+                            "bytes": sum(len(d) for d in data),
+                            "sha256": hashlib.sha256(b"".join(
+                                bytes(d) for d in data)).hexdigest(),
+                            "host_s": t,
+                            "native_calls": dict(native.calls)}
+        finally:
+            engine.stop()
+    require(served["io_uring"]["sha256"] == served["preadv"]["sha256"],
+            "[18e] the io_uring rung served other bytes than preadv")
+    require(served["io_uring"]["rung"] == ("io_uring"
+                                           if backend == "io_uring"
+                                           else "preadv"),
+            f"[18e] the ladder took {served['io_uring']['rung']} with the "
+            f"pool on {backend}")
+    if backend == "io_uring":
+        require(served["io_uring"]["native_calls"].get(
+            "pool_submit_batch", 0) > 0, "[18e] no batch entered the ring")
+    part = tera_partitions(SEED + 18, 1, LZO_MAP_BYTES)[0]
+    raw = part.tobytes() + EOF_MARKER
+    source = native_lzo_source()
+    codec = get_codec("lzo")
+    comp, t_comp = host_s(lambda: codec.compress(raw))
+    back, t_py = host_s(lambda: lzo1x_decompress_py(comp, len(raw)))
+    require(back == raw, "[18e] the builtin LZO stream does not decode")
+    res = {"pool_backend": backend, "batched_read": served,
+           "lzo": {"rung": source, "raw_bytes": len(raw),
+                   "compressed_bytes": len(comp),
+                   "ratio": len(comp) / len(raw),
+                   "compress_s": t_comp, "decode_python_s": t_py}}
+    require(source in ("liblzo2", "builtin"),
+            f"[18e] the LZO ladder is on {source!r}, not a native rung")
+    log("[18e native io] " + json.dumps(res))
+    return res
+
+
+def phase_native(dev: torch.device, root: str, build: dict,
+                 want_c: tuple, c_maps: int = OVERLAP_C_MAPS) -> dict:
+    """Phase 18 on phase 8's tree (run c's maps, stream ``want_c``)."""
+    path, secs = _build_host.build_native()
+    require(path == build["native_path"] and secs < 1.0,
+            f"[18a] a second build took {secs:.2f} s ({path})")
+    res = {"build": {"first_s": build["native_s"], "second_s": secs}}
+    log("[18a native build] " + json.dumps(res["build"]))
+    mids = [map_id(m) for m in range(c_maps)]
+    resolver = DirIndexResolver(root)
+    part_bytes = sum(resolver.resolve(MERGE_JOB, m, 0).part_length
+                     for m in mids)
+    with phase_seconds("18b native codec"):
+        res["codec"] = phase_native_codec(root, mids)
+    with phase_seconds("18c native pairs"):
+        res["pairs"] = phase_native_pairs(dev, root, mids, part_bytes,
+                                          want_c)
+    with phase_seconds("18d native hybrid"):
+        res["hybrid"] = phase_native_hybrid(dev, root, mids, part_bytes,
+                                            want_c)
+    with phase_seconds("18e native io"):
+        res["io"] = phase_native_io(root, mids)
+    return res
+
+
 @contextlib.contextmanager
 def phase_seconds(name: str):
     """Prints the seconds a phase took, on a line of its own."""
@@ -3900,7 +4275,7 @@ def main() -> int:
     with phase_seconds("1 device"):
         info = phase_device()
     with phase_seconds("2 build"):
-        phase_build()
+        build = phase_build()
     with phase_seconds("3 kernels"):
         kernel_errs = phase_kernels(dev)
     with phase_seconds("4 main path"):
@@ -3933,6 +4308,9 @@ def main() -> int:
                 dev, root, (overlap["b"]["sha256"],
                             overlap["b"]["stream_bytes"]),
                 overlap["b"]["wall_s"])
+        with phase_seconds("18 native host runtime"):
+            phase_native(dev, root, build, (overlap["c"]["sha256"],
+                                            overlap["c"]["stream_bytes"]))
     with phase_seconds("14d shim"):
         shim = phase_shim(dev)
     with phase_seconds("15b-15e mesh"):

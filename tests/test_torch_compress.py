@@ -40,6 +40,7 @@ from uda_tpu_torch.merger.recovery import RecoveryLedger
 from uda_tpu_torch.mofserver import (DataEngine, DirIndexResolver,
                                      FetchResult, ShuffleRequest, writer)
 from uda_tpu_torch.utils import comparators, errors
+from uda_tpu_torch.utils import ifile as tifile
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils.errors import (CompressionError, FallbackSignal,
                                         StorageError, TransportError)
@@ -210,16 +211,29 @@ def test_lzo_decoder_reads_the_reference_native_streams(name):
 
 
 def test_lzo_ladder_is_liblzo2_then_pure_python():
-    """The port's ladder has no C++ rung: liblzo2 where the reference
-    finds it too, else pure Python."""
+    """The port's ladder is the reference's: liblzo2 where it is found,
+    else the builtin C++ codec, and pure Python only with
+    uda.tpu.use.native off. Each rung round-trips; without liblzo2 the
+    builtin rungs of both packages write the same bytes."""
     has_lib = ctypes.util.find_library("lzo2") is not None
-    assert lzo.native_lzo_source() == ("liblzo2" if has_lib else "")
-    assert lzo.native_lzo_available() == has_lib
-    codec = compress.get_codec("lzo")
+    assert lzo.native_lzo_source() == jlzo.native_lzo_source() == \
+        ("liblzo2" if has_lib else "builtin")
+    assert lzo.native_lzo_available()
     data = b"block payload " * 1000
+    codec = compress.get_codec("lzo")
     assert codec.decompress(codec.compress(data), len(data)) == data
     if not has_lib:
-        assert codec.compress(data) == lzo.lzo1x_compress_py(data)
+        assert codec.compress(data) == jcompress.get_codec("lzo").compress(
+            data)
+    tifile.set_native_enabled(False)
+    try:
+        assert lzo.native_lzo_source() == ("liblzo2" if has_lib else "")
+        codec = compress.get_codec("lzo")
+        assert codec.decompress(codec.compress(data), len(data)) == data
+        if not has_lib:
+            assert codec.compress(data) == lzo.lzo1x_compress_py(data)
+    finally:
+        tifile.set_native_enabled(True)
 
 
 # -- MOFWriter(codec=) ---------------------------------------------------------

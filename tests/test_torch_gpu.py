@@ -410,6 +410,32 @@ def test_merge_manager_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     assert streams["cuda"][2] > 0 and streams["cpu"][2] == 0
 
 
+def test_reduce_on_the_card_runs_the_native_host_runtime(cuda_device,
+                                                         tmp_path):
+    """A small reduce task on the card: K1 merges the forest and the host
+    half (reads, crack, framing) runs in the native host runtime; with
+    uda.tpu.use.native off the same task emits the same bytes and makes
+    no native call."""
+    from uda_tpu_torch import native
+    from uda_tpu_torch.utils import ifile
+
+    mids = _text_mofs(tmp_path)
+    conf = {"mapred.rdma.buf.size": 1}
+    runs = {}
+    try:
+        for flag in (True, False):
+            native.reset_calls()
+            stream, launches = _reduce_on(
+                "cuda", tmp_path, mids,
+                dict(conf, **{"uda.tpu.use.native": flag}))
+            runs[flag] = (stream, launches, sum(native.calls.values()))
+    finally:
+        ifile.set_native_enabled(True)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1]["merge_pass"] == 4
+    assert runs[True][2] > 0 and runs[False][2] == 0
+
+
 @pytest.mark.parametrize("mode", [{}, {"uda.tpu.stage.pipeline": False},
                                   {"uda.tpu.online.streaming": True}],
                          ids=["default", "pipeline_off", "streaming"])

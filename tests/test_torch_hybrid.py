@@ -97,7 +97,7 @@ def test_hybrid_lpqs_through_k1_match_reference(tmp_path, monkeypatch,
     real = tmerge.merge_row_pair
 
     def counted(*args, **kwargs):
-        calls.append(args[-1] if len(args) > 4 else kwargs.get("engine"))
+        calls.append(args[4] if len(args) > 4 else kwargs.get("engine"))
         return real(*args, **kwargs)
 
     monkeypatch.setattr(tmerge, "resolve_run_engine",

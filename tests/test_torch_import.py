@@ -79,7 +79,32 @@ def test_imports_with_jax_and_uda_tpu_blocked():
             "uda_tpu_torch.analysis.__main__",
             "uda_tpu_torch.utils.compile_cache",
             "uda_tpu_torch.graft_entry",
-            "uda_tpu_torch.multichip_scale"} <= set(MODULES)
+            "uda_tpu_torch.multichip_scale",
+            "uda_tpu_torch.native"} <= set(MODULES)
+
+
+def test_native_library_builds_at_first_use_not_at_import(tmp_path):
+    """Importing every module builds nothing; the first native call
+    builds the host runtime into the build cache."""
+    cache = tmp_path / "cache"
+    code = ("import importlib\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import os, sys\n"
+            "cache = sys.argv[1]\n"
+            "assert not os.path.exists(cache) or not os.listdir(cache)\n"
+            "from uda_tpu_torch.utils import ifile\n"
+            "ifile.crack(b'\\x01\\x01kv' * 3000 + b'\\xff\\xff')\n"
+            "from uda_tpu_torch import native\n"
+            "assert native.calls['crack'] == 1\n"
+            "print(sorted(os.listdir(cache)))\n")
+    env = dict(os.environ, UDA_TPU_COMPILE_CACHE=str(cache))
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", code, str(cache)], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().startswith("['native-")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

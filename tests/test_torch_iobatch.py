@@ -5,14 +5,13 @@ package's on the same files: the same coalesced runs, the same bytes as
 the single-pread path and as the reference's batch plane, per-request
 error isolation (bad offset, admission, injected ``data_engine.preadv``
 faults), and a burst over the wire byte-identical with batching on and
-off. The io_uring rung needs the reference's native reader, which the
-port leaves out: the port's ladder lands on preadv."""
+off. The ladder lands on the rung the reference's does on the same host:
+the native reader's io_uring where the kernel grants it, else preadv."""
 
 import hashlib
 import os
 import sys
 import threading
-import types
 import zlib
 
 import numpy as np
@@ -22,11 +21,13 @@ from port_helpers import paired_gauges_settle  # noqa: F401
 from uda_tpu.mofserver import data_engine as jde
 from uda_tpu.mofserver.index import IndexRecord as JIndexRecord
 from uda_tpu.utils.config import Config as JConfig
+from uda_tpu.utils import ifile as jifile
 from uda_tpu.utils.failpoints import failpoints as jfailpoints
 from uda_tpu_torch.mofserver import data_engine as de
 from uda_tpu_torch.mofserver.data_engine import (DataEngine, ShuffleRequest,
                                                  plan_coalesced)
 from uda_tpu_torch.mofserver.index import IndexRecord
+from uda_tpu_torch.utils import ifile as tifile
 from uda_tpu_torch.utils import tuncache
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils.errors import ConfigError, StorageError
@@ -248,23 +249,40 @@ def test_submit_batch_crc_stamped_from_disk_bytes(tmp_path):
         engine.stop()
 
 
+def _reference_rung(path, conf) -> str:
+    """The rung the reference's ladder lands on on this host."""
+    engine = jde.DataEngine(SyntheticResolver(path, 1024, JIndexRecord),
+                            JConfig(conf))
+    engine.stop()
+    return engine.io_backend
+
+
 def test_backend_ladder_and_io_backend_recorded(tmp_path):
-    """The port's ladder has no native reader, so "auto" and "io_uring"
-    both land on preadv (what the reference lands on without its native
-    build); explicit rungs walk down, typos fail loudly in both
+    """The port's ladder lands where the reference's does on this host:
+    with the native reader, "auto" and "io_uring" take the ring where
+    the kernel grants it (else preadv); with uda.tpu.use.native off both
+    land on preadv. Explicit rungs walk down, typos fail loudly in both
     packages."""
     path = _write(str(tmp_path), "f.mof", 1024)
-    for want, got in (("auto", "preadv"), ("io_uring", "preadv"),
-                      ("preadv", "preadv"), ("pread", "pread")):
-        engine = DataEngine(SyntheticResolver(path, 1024),
-                            Config({"uda.tpu.read.backend": want}))
-        engine.stop()
-        assert engine.io_backend == got
-        # the reference's ladder without its native reader lands alike
-        assert got == jde.DataEngine._walk_backend_ladder(
-            types.SimpleNamespace(_native=None), want)
-    assert metrics.get("io.backend", backend="preadv") == 3
-    assert metrics.get("io.backend", backend="pread") == 1
+    landed = []
+    try:
+        for use_native in (True, False):
+            for want in ("auto", "io_uring", "preadv", "pread"):
+                conf = {"uda.tpu.read.backend": want,
+                        "uda.tpu.use.native": use_native}
+                engine = DataEngine(SyntheticResolver(path, 1024),
+                                    Config(conf))
+                engine.stop()
+                assert engine.io_backend == _reference_rung(path, conf)
+                landed.append(engine.io_backend)
+                if not use_native:
+                    assert engine.io_backend == ("pread" if want == "pread"
+                                                 else "preadv")
+    finally:
+        tifile.set_native_enabled(True)
+        jifile.set_native_enabled(True)
+    for rung in set(landed):
+        assert metrics.get("io.backend", backend=rung) == landed.count(rung)
     for bad in ({"uda.tpu.read.backend": "io_urng"},
                 {"uda.tpu.read.batch": "sometimes"}):
         with pytest.raises(ConfigError) as got:
@@ -328,7 +346,8 @@ def test_io_plane_invalid_winner_values_ignored(tmp_path, cache_at):
     assert engine.batch_enabled is True           # the default, auto
     assert engine.coalesce_gap_bytes == 64 << 10  # the flag defaults
     assert engine.batch_max == 256
-    assert engine.io_backend == "preadv"
+    # the top of the ladder this host grants, as in the reference
+    assert engine.io_backend == _reference_rung(engine.resolver._rec.path, {})
 
 
 def test_config_path_installs_process_default(tmp_path, cache_at,
@@ -483,12 +502,14 @@ def test_wire_crc_requests_ride_the_batch_plane(tmp_path):
 @pytest.mark.faults
 def test_iobatch_partial_failure_only_targets_request(tmp_path):
     """An injected data_engine.preadv fault (keyed <fd>@<file offset>)
-    fails exactly the targeted request of a coalesced batch; its
-    batch-mates complete byte-correct and every charge settles."""
+    fails exactly the targeted request of a coalesced batch (the preadv
+    rung); its batch-mates complete byte-correct and every charge
+    settles."""
     data_len = 1 << 20
     path = _write(str(tmp_path), "f.mof", data_len, seed=5)
     blob = _blob(path)
-    engine = DataEngine(SyntheticResolver(path, data_len), Config())
+    engine = DataEngine(SyntheticResolver(path, data_len),
+                        Config({"uda.tpu.read.backend": "preadv"}))
     try:
         offs = [0, 16384, 32768, 49152]  # one coalesced vectored read
         with failpoints.scoped("data_engine.preadv=error:match:@32768"):

@@ -151,8 +151,11 @@ def test_crack_refuses_what_reference_refuses(bad):
 
 def test_frame_batch_matches_reference_framer():
     """The port's pure-Python framer and the reference's (its C++ framer
-    where built) give the same bytes, with and without the EOF marker."""
+    where built) give the same bytes, with and without the EOF marker,
+    whole and in chunks (the port's chunked framer with the native switch
+    off)."""
     from uda_tpu import native
+    from uda_tpu_torch import native as tnative
 
     recs = text_records(2, 500)
     data = jifile.write_records(recs)
@@ -161,8 +164,12 @@ def test_frame_batch_matches_reference_framer():
     for eof in (True, False):
         assert temitter.frame_batch(batch.take(order), eof) == \
             native.frame_batch(jbatch.take(order), write_eof=eof)
-    assert b"".join(temitter.iter_framed_chunks(batch, 64)) == \
-        b"".join(native.iter_framed_chunks(jbatch, 64))
+    tifile.set_native_enabled(False)
+    try:
+        chunked = b"".join(tnative.iter_framed_chunks(batch, 64))
+    finally:
+        tifile.set_native_enabled(True)
+    assert chunked == b"".join(native.iter_framed_chunks(jbatch, 64))
 
 
 # the key classes the reference registers (uda_tpu/utils/comparators.py:

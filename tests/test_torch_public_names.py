@@ -3,8 +3,9 @@ to the reference on the same inputs: the bulk VInt codec, ``write_records``,
 the chaos schedules and ``FailpointRegistry.quiesced``, ``Config.as_dict``,
 the metrics hub's span toggles, the logger's private file, ``PenaltyBox.
 boxed``, ``RunStore.dir`` and ``emit_framed_records``. An AST diff keeps
-the two packages' public names in step: what the port lacks is the
-native-only list below (``native/`` is not ported) and nothing else."""
+the two packages' public names in step, ``native/`` included: what the
+port lacks is the list below (a JAX backend's selection) and nothing
+else."""
 
 import ast
 import io
@@ -37,13 +38,9 @@ from uda_tpu_torch.utils.errors import StorageError
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# reference names with no counterpart: they front the C++ of native/,
-# which the port leaves out (the numpy and pure-Python forms give the
-# same bytes), or select a JAX backend (device.py decides the device)
+# reference names with no counterpart: they select a JAX backend
+# (device.py decides the device)
 NO_COUNTERPART = {
-    "uda_tpu/ops/merge.py": {"merge_rows_split_into",
-                             "resolve_native_rows_merge"},
-    "uda_tpu/utils/ifile.py": {"native_enabled", "set_native_enabled"},
     "uda_tpu/utils/compile_cache.py": {"apply_platform_env"},
 }
 
@@ -64,8 +61,7 @@ def _public_names(path: Path) -> set:
 
 
 def _reference_modules():
-    return sorted(p for p in (ROOT / "uda_tpu").rglob("*.py")
-                  if "native" not in p.parts)
+    return sorted((ROOT / "uda_tpu").rglob("*.py"))
 
 
 @pytest.mark.parametrize("path", _reference_modules(),

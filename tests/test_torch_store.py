@@ -23,6 +23,7 @@ a patched clock. Only loopback sockets are used."""
 import os
 import shutil
 import threading
+import time
 import types
 
 import numpy as np
@@ -536,11 +537,47 @@ def test_validate_spilled_detects_damage(tmp_path):
         engine.stop()
 
 
+class _ArmAfterManifest(merger.LocalFetchClient):
+    """A local transport that arms ``segment.fetch=error:match:<map>``
+    only once the task's checkpoint holds a manifest: before it starts
+    the second map's fetch it waits for the first map's run to spool and
+    save. A failed task's abort drops the runs still queued for spooling,
+    so a fault armed from the start could end an attempt before any run
+    was spooled and leave no manifest to resume."""
+
+    def __init__(self, engine, ckdir: str, fault_map: str):
+        super().__init__(engine)
+        self._ckdir = ckdir
+        self._fault_map = fault_map
+        self._first = None
+        self._armed = False
+
+    def _has_manifest(self) -> bool:
+        return any(name.startswith("manifest-") and name.endswith(".uckp")
+                   for _, _, names in os.walk(self._ckdir)
+                   for name in names)
+
+    def start_fetch(self, req, on_complete) -> None:
+        if self._first is None:
+            self._first = req.map_id
+        elif not self._armed and req.map_id != self._first:
+            assert self._first != self._fault_map
+            deadline = time.monotonic() + 60.0
+            while not self._has_manifest():
+                assert time.monotonic() < deadline, "no manifest was saved"
+                time.sleep(0.005)
+            failpoints.arm("segment.fetch",
+                           f"error:match:{self._fault_map}")
+            self._armed = True
+        super().start_fetch(req, on_complete)
+
+
 def test_a_checkpoint_resume_revalidates_spilled_partitions(tmp_path):
     """Attempt 1 checkpoints and dies; three partitions spill while the
     task is down; attempt 2 revalidates them before trusting the manifest
     and emits the reference's stream; a damaged spilled object then makes
-    the next resume fail typed."""
+    the next resume fail typed. The failing attempts fault ``m_000005``
+    only after a manifest is on disk (``_ArmAfterManifest``)."""
     job = "jobCK"
     local = os.path.join(str(tmp_path), "mof")
     blob = os.path.join(str(tmp_path), "blob")
@@ -558,11 +595,12 @@ def test_a_checkpoint_resume_revalidates_spilled_partitions(tmp_path):
         if mgr is not None:
             engine.attach_store(mgr)
             engine.resolver.roots = list(mgr.resolver.roots)
-        mm = merger.MergeManager(merger.LocalFetchClient(engine), KT, cfg,
-                                 device="cpu")
+        client = (_ArmAfterManifest(engine, ckdir, fault) if fault
+                  else merger.LocalFetchClient(engine))
+        mm = merger.MergeManager(client, KT, cfg, device="cpu")
         out = bytearray()
         try:
-            with failpoints.scoped(fault):
+            with failpoints.scoped(""):
                 mm.run(job, mids, 0, out.extend)
             return bytes(out), None
         except FallbackSignal as e:
@@ -570,7 +608,7 @@ def test_a_checkpoint_resume_revalidates_spilled_partitions(tmp_path):
         finally:
             engine.stop()
 
-    _, err1 = run(None, "segment.fetch=error:match:m_000005")
+    _, err1 = run(None, "m_000005")
     assert isinstance(err1, FallbackSignal)
     spill = StoreManager(DirIndexResolver(local), blob)
     for mid in mids[:3]:
@@ -578,7 +616,7 @@ def test_a_checkpoint_resume_revalidates_spilled_partitions(tmp_path):
     out, err2 = run(spill)
     assert err2 is None and out == want
     assert metrics.get("store.revalidated") == 3
-    _, err3 = run(spill, "segment.fetch=error:match:m_000004")
+    _, err3 = run(spill, "m_000005")
     assert isinstance(err3, FallbackSignal)
     with open(spill.migrations()[0]["dst"], "r+b") as f:
         f.write(b"\x00" * 8)

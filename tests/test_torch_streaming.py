@@ -221,29 +221,31 @@ def _span_lengths(kind: str, rng, n: int) -> np.ndarray:
 @pytest.mark.parametrize("lengths", ["fixed", "few", "many", "zeros",
                                      "text_values", "class_edges"])
 def test_gather_spans_matches_reference(lengths):
-    """The span gather, by size class, against the reference's (its
-    native memcpy loop or its per-byte index): spans of one length, of a
-    few, of hundreds, of a thousand (Text values of 1 to 1000 bytes), at
-    the edges of the power-of-two classes, empty ones, repeated and
-    overlapping sources."""
+    """The span gather, the native one and the one by size class, against
+    the reference's (its native memcpy loop or its per-byte index): spans
+    of one length, of a few, of hundreds, of a thousand (Text values of 1
+    to 1000 bytes), at the edges of the power-of-two classes, empty ones,
+    repeated and overlapping sources."""
     rng = np.random.default_rng(len(lengths))
     n = 3000
     lens = _span_lengths(lengths, rng, n)
     src = rng.integers(0, 256, int(lens.max()) * 50 + 7, dtype=np.uint8)
     src_off = rng.integers(0, src.size - int(lens.max()) + 1, n)
     dst_off = np.cumsum(lens) - lens
-    got = np.zeros(int(lens.sum()), np.uint8)
-    want = np.zeros_like(got)
-    tstream._gather_spans(src, src_off, lens, got, dst_off)
+    want = np.zeros(int(lens.sum()), np.uint8)
     jstream._gather_spans(src, src_off, lens, want, dst_off)
-    assert np.array_equal(got, want)
-    tstream._gather_spans(src, src_off[:0], lens[:0], got, dst_off[:0])
+    for gather in (tstream._gather_spans, tstream._gather_spans_numpy):
+        got = np.zeros_like(want)
+        gather(src, src_off, lens, got, dst_off)
+        assert np.array_equal(got, want)
+        gather(src, src_off[:0], lens[:0], got, dst_off[:0])
 
 
 @pytest.mark.parametrize("lengths", ["fixed", "text_values"])
 def test_gather_spans_cost_does_not_follow_the_length_mix(monkeypatch,
                                                           lengths):
-    """A thousand distinct lengths cost no more numpy work than their ten
+    """A thousand distinct lengths cost the numpy gather (the one taken
+    with ``uda.tpu.use.native`` off) no more work than their ten
     power-of-two classes: one source and one target window view a class,
     each class moved in at most two gathers."""
     rng = np.random.default_rng(7)
@@ -262,7 +264,7 @@ def test_gather_spans_cost_does_not_follow_the_length_mix(monkeypatch,
     got = np.zeros_like(src)
     perm = rng.permutation(n)
     dst_off = (np.cumsum(lens[perm]) - lens[perm])[np.argsort(perm)]
-    tstream._gather_spans(src, src_off, lens, got, dst_off)
+    tstream._gather_spans_numpy(src, src_off, lens, got, dst_off)
     want = np.zeros_like(src)
     jstream._gather_spans(src, src_off, lens, want, dst_off)
     assert np.array_equal(got, want)

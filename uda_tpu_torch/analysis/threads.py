@@ -72,6 +72,9 @@ THREAD_ROOTS: Tuple[ThreadRoot, ...] = (
     ThreadRoot("net.drain", "net/server.py", "drain",
                "per-connection drain helper thread (warm handoff)"),
     # -- supplier storage / MOF plane ------------------------------------
+    ThreadRoot("engine.router", "mofserver/data_engine.py", "_route",
+               "the native-read completion router thread "
+               "(_NativeReads: wakes submitters by tag)"),
     ThreadRoot("app.producer", "mofserver/writer.py", "write",
                "map-task producer thread(s): MOFWriter.write -> "
                "account_write -> spill ladder runs on each concurrent "
@@ -80,10 +83,9 @@ THREAD_ROOTS: Tuple[ThreadRoot, ...] = (
                "operator control-plane entry: the elastic drain API is "
                "invoked from the application main thread, concurrent "
                "with the data plane it drains"),
-    # -- merge/overlap pools (pool workers are detected at their submit()
-    # sites; the reference's native split-merge workers, ops/merge.py
-    # _part, and native-read router, data_engine.py _route, have no
-    # counterpart: native/ is not ported) --------------------------------
+    # -- merge/overlap pools ---------------------------------------------
+    ThreadRoot(POOL_ROOT, "ops/merge.py", "_part",
+               "merge pool worker threads"),
     ThreadRoot("merge.overlap.worker", "merger/overlap.py",
                "_worker_loop", "overlap stage pool workers"),
     ThreadRoot("merge.overlap.consumer", "merger/overlap.py",

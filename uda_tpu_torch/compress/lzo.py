@@ -1,11 +1,12 @@
 """LZO1X block codec for the compressed fetch path.
 
-The port's copy of ``uda_tpu/compress/lzo.py``. Its ladder is liblzo2,
-then pure Python: the reference's middle rung, the in-tree C++ codec
-(``uda_tpu/native/lzo.cc``), is not ported. The rungs write different
-streams (the pure-Python compressor emits literal runs only, liblzo2 and
-the reference's C++ codec real ``lzo1x_1`` matches), so a compressed MOF
-depends on the rung that wrote it; every rung decodes every stream.
+The port's copy of ``uda_tpu/compress/lzo.py``. Its ladder is the
+reference's: liblzo2, then the in-tree C++ codec (``csrc/lzo.cc``, the
+``builtin`` rung, taken while ``uda.tpu.use.native`` is on), then pure
+Python. Without liblzo2 both packages compress through their builtin
+codec and write the same bytes. The pure-Python compressor emits literal
+runs only, so a stream written with the switch off differs; every rung
+decodes every stream.
 
 Equivalent of the reference's LzoDecompressor (reference
 src/Merger/LzoDecompressor.cc:83-127): ``liblzo2.so`` is dlopen'd at
@@ -23,8 +24,8 @@ implementation of the same stream format:
 - ``lzo1x_compress_py`` emits valid LZO1X streams using literal runs
   only (one initial/extended run + end marker) — decodable by any
   conforming decoder including liblzo2 itself. Compression ratio is
-  ~1.0 (this is a compatibility encoder, not an optimizer); when
-  liblzo2 is present the native lzo1x_1 compressor is used instead.
+  ~1.0 (this is a compatibility encoder, not an optimizer); the
+  native rungs compress with real lzo1x_1 matching.
 
 The codec registers under Hadoop's LZO codec class names (the
 createInputClient dispatch of reference src/Merger/reducer.cc:412-450).
@@ -261,12 +262,34 @@ def _load_lzo2():
         return lib
 
 
+def _load_builtin():
+    """The port's in-tree C++ LZO1X codec (``uda_tpu_torch/csrc/lzo.cc``,
+    the reference's ``uda_tpu/native/lzo.cc``): same stream format,
+    uda_-prefixed symbols. Refused with ``CompressionError`` while
+    ``uda.tpu.use.native`` is off; with it on, a library that cannot be
+    built raises its ``RuntimeError`` (the port does not degrade)."""
+    from uda_tpu_torch import native as native_mod
+    from uda_tpu_torch.utils.ifile import native_enabled
+
+    if not native_enabled():
+        raise CompressionError("builtin native LZO unavailable "
+                               "(uda.tpu.use.native is off)")
+    native_mod.build()
+    return native_mod
+
+
 def native_lzo_source() -> str:
     """Which native LZO implementation serves: "liblzo2" (the
-    reference's dlopen target) or "" (pure Python only)."""
+    reference's dlopen target), "builtin" (``csrc/lzo.cc``), or ""
+    (pure Python only)."""
     try:
         _load_lzo2()
         return "liblzo2"
+    except CompressionError:
+        pass
+    try:
+        _load_builtin()
+        return "builtin"
     except CompressionError:
         return ""
 
@@ -276,7 +299,10 @@ def native_lzo_available() -> bool:
 
 
 def _native_compress(data: bytes) -> bytes:
-    lib = _load_lzo2()
+    try:
+        lib = _load_lzo2()
+    except CompressionError:
+        return _builtin_compress(data)
     out = ctypes.create_string_buffer(len(data) + len(data) // 16 + 67)
     out_len = ctypes.c_size_t(len(out))
     wrk = ctypes.create_string_buffer(_LZO1X_1_MEM_COMPRESS)
@@ -288,7 +314,10 @@ def _native_compress(data: bytes) -> bytes:
 
 
 def _native_decompress(data: bytes, uncompressed_len: int) -> bytes:
-    lib = _load_lzo2()
+    try:
+        lib = _load_lzo2()
+    except CompressionError:
+        return _builtin_decompress(data, uncompressed_len)
     out = ctypes.create_string_buffer(max(uncompressed_len, 1))
     out_len = ctypes.c_size_t(uncompressed_len)
     rc = lib.lzo1x_decompress_safe(data, len(data), out,
@@ -301,14 +330,35 @@ def _native_decompress(data: bytes, uncompressed_len: int) -> bytes:
     return out.raw[: out_len.value]
 
 
+def _builtin_compress(data: bytes) -> bytes:
+    rc, out = _load_builtin().lzo1x_1_compress(data)
+    if rc != 0:
+        raise CompressionError(f"builtin lzo compress failed: {rc}")
+    return out
+
+
+def _builtin_decompress(data: bytes, uncompressed_len: int) -> bytes:
+    rc, out = _load_builtin().lzo1x_decompress_safe(data, uncompressed_len)
+    if rc != 0:
+        raise CompressionError(f"builtin lzo decompress failed: {rc}")
+    if len(out) != uncompressed_len:
+        raise CompressionError(
+            f"lzo length mismatch: {len(out)} != {uncompressed_len}")
+    return out
+
+
 def lzo_codec():
-    """Codec factory: native liblzo2 when loadable, else the pure-Python
-    LZO1X implementation (the same stream format). The pair is bound once
-    here: per-block calls never re-probe for liblzo2."""
+    """Codec factory: native liblzo2 when loadable, else the in-tree C++
+    codec, else the pure-Python LZO1X implementation (the same stream
+    format in all three). The pair is bound once here: per-block calls
+    never re-probe for liblzo2."""
     from uda_tpu_torch.compress import Codec
 
-    if native_lzo_source() == "liblzo2":
+    source = native_lzo_source()
+    if source == "liblzo2":
         return Codec("lzo", _native_compress, _native_decompress)
+    if source == "builtin":
+        return Codec("lzo", _builtin_compress, _builtin_decompress)
     return Codec("lzo",
                  lzo1x_compress_py,
                  lambda data, length: lzo1x_decompress_py(data, length))

@@ -1,9 +1,12 @@
 """Framed emission: sorted records -> consumer blocks via the staging
 arena.
 
-The port's copy of ``uda_tpu/merger/emitter.py``, with its own pure-Python
-``frame_batch`` and ``iter_framed_chunks`` (the reference's live in
-``uda_tpu/native/__init__.py:235-279``, beside its C++ framer). The one
+The port's copy of ``uda_tpu/merger/emitter.py``. ``emit_batch`` frames
+through the native host runtime (``native.iter_framed_chunks``, one C pass
+a chunk) while ``uda.tpu.use.native`` is on. The pure-Python
+``frame_batch`` and ``iter_framed_chunks`` here are the plain versions the
+C++ framer is held to, and ``native.frame_batch`` runs them with the
+switch off. The one
 place that implements the dataFromUda hand-off contract (reference
 src/Merger/MergeManager.cc:155-182 + UdaPlugin.java:368-402): records are
 IFile-framed into staging buffers of at most the configured block size
@@ -19,15 +22,16 @@ the duration of the call.
 from __future__ import annotations
 
 import io
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
+from uda_tpu_torch import native
 from uda_tpu_torch.merger.arena import BufferArena
 from uda_tpu_torch.utils import vint
 from uda_tpu_torch.utils.ifile import EOF_MARKER, IFileWriter, RecordBatch
 from uda_tpu_torch.utils.metrics import metrics
 
-__all__ = ["FramedEmitter", "frame_batch", "iter_framed_chunks",
-           "emit_framed_records", "NUM_STAGE_BUFFERS"]
+__all__ = ["FramedEmitter", "frame_batch", "emit_framed_records",
+           "NUM_STAGE_BUFFERS"]
 
 NUM_STAGE_BUFFERS = 2  # reference NUM_STAGE_MEM / 2x1MB kv pool
 
@@ -61,22 +65,6 @@ def frame_batch(batch: RecordBatch, write_eof: bool = True) -> bytes:
     if write_eof:
         put(EOF_MARKER)
     return b"".join(parts)
-
-
-def iter_framed_chunks(batch: RecordBatch, chunk_records: int = 1 << 16,
-                       write_eof: bool = True) -> Iterator[bytes]:
-    """Frame a RecordBatch in bounded chunks: yields IFile byte pieces
-    whose concatenation equals ``frame_batch(batch)``."""
-    n = batch.num_records
-    for start in range(0, n, max(1, chunk_records)):
-        stop = min(start + chunk_records, n)
-        sub = RecordBatch(batch.data, batch.key_off[start:stop],
-                          batch.key_len[start:stop],
-                          batch.val_off[start:stop],
-                          batch.val_len[start:stop])
-        yield frame_batch(sub, write_eof=False)
-    if write_eof:
-        yield EOF_MARKER
 
 
 class FramedEmitter:
@@ -164,11 +152,13 @@ class FramedEmitter:
 
     def emit_batch(self, batch: RecordBatch,
                    consumer: Callable[[memoryview], None]) -> int:
-        """Bulk emission of a RecordBatch: records framed in chunk passes
-        (:func:`iter_framed_chunks`), streamed through emit_framed."""
+        """Bulk emission of a RecordBatch: records framed in native chunk
+        passes (``native.frame_batch``, the C++ twin of the reference's
+        write_kv_to_stream loop, StreamRW.cc:151-225), streamed through
+        emit_framed."""
         return self.emit_framed(
-            iter_framed_chunks(batch, FRAME_CHUNK_RECORDS, write_eof=True),
-            consumer)
+            native.iter_framed_chunks(batch, FRAME_CHUNK_RECORDS,
+                                      write_eof=True), consumer)
 
 
 def emit_framed_records(records: Iterable[Tuple[bytes, bytes]],

@@ -14,11 +14,12 @@ at once.
 Each LPQ merge is ``MergeManager.merge_segments``: on the card the
 two-phase merge tree on K1, launched from the LPQ's pool thread on its
 current stream (each pair merge allocates its own buffers). The RPQ is
-host-side by contract, as the reference's final merge feeding Java: a
-heap merge of one buffered cursor per spill file
-(``ops/merge.merge_record_streams``, the reference's fallback when its
-native loser tree is not built; the bytes are the same). The spill is
-framed by the port's ``emitter.iter_framed_chunks`` in bounded chunks.
+host-side by contract, as the reference's final merge feeding Java: the
+native host runtime's loser tree over one buffered cursor per spill file
+(``native.kway_merge_paths``) while ``uda.tpu.use.native`` is on and the
+key type is in its table, else a heap merge
+(``ops/merge.merge_record_streams``); the bytes are the same. The spill is
+framed by ``native.iter_framed_chunks`` in bounded chunks.
 Every spill path is registered before its file is opened, and every spill
 file is deleted when the task fails or the RPQ has read it.
 """
@@ -31,10 +32,10 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Sequence
 
-from uda_tpu_torch.merger.emitter import iter_framed_chunks
+from uda_tpu_torch import native
 from uda_tpu_torch.merger.streaming import spill_dirs as _spill_dirs
 from uda_tpu_torch.ops import merge as merge_ops
-from uda_tpu_torch.utils.ifile import iter_file_records
+from uda_tpu_torch.utils.ifile import iter_file_records, native_enabled
 from uda_tpu_torch.utils.logging import get_logger
 from uda_tpu_torch.utils.metrics import metrics
 
@@ -103,7 +104,7 @@ def run_hybrid(mm, job_id: str, map_ids: Sequence, reduce_id: int,
             with open(path, "wb") as f:
                 # framed in bounded chunks: peak memory is one chunk, not
                 # the spill
-                for piece in iter_framed_chunks(merged):
+                for piece in native.iter_framed_chunks(merged):
                     f.write(piece)
         return SuperSegment(path)
 
@@ -122,9 +123,16 @@ def run_hybrid(mm, job_id: str, map_ids: Sequence, reduce_id: int,
 
     # RPQ: one buffered cursor per spill file, so peak memory is one read
     # buffer per file, never the shuffle (compression off by contract,
-    # MergeManager.cc:240-288)
+    # MergeManager.cc:240-288); the native loser tree is the reference's
+    # C++ final merge (MergeQueue.h:276-427 + StreamRW.cc:151-225)
     try:
         with metrics.timer("rpq_phase"):
+            if native_enabled() and native.kway_supported(mm.key_type):
+                log.info(f"RPQ: native loser-tree merge of "
+                         f"{len(supers)} spills")
+                pieces = native.kway_merge_paths(
+                    [s.path for s in supers], mm.key_type)
+                return mm.emitter.emit_framed(pieces, consumer)
             streams = [s.stream() for s in supers]
             merged = merge_ops.merge_record_streams(streams, mm.key_type)
             return mm.emitter.emit(merged, consumer)

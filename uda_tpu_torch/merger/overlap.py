@@ -55,9 +55,13 @@ the consumer's blocked time is ``merge.wait`` spans and each K1 run's copy
 a ``merge.device_put`` span; the in-flight budget's condition is the
 lockdep-tracked ``stage.inflight``; every finish and abort is a resource
 ledger drain point of the merger's pool leases, and an abort is a flight
-recorder event. Left out: the native row merge and its split merge (the
-host engine keeps ``merge_row_pair``'s lexsort, as the reference does
-without its library).
+recorder event. The host engine merges runs with the native host
+runtime's linear row merge while ``uda.tpu.use.native`` is on (resolved
+once, at construction, outside every lock), splitting a large merge of the
+pipelined forest across threads at merge-path points
+(``ops/merge.merge_rows_split_into``); with the switch off it keeps
+``merge_row_pair``'s lexsort. The reference also leases the host merge
+outputs from a buffer pool; the port allocates each output.
 
 Checkpointing (``merger/checkpoint.py``) adds two hooks: ``on_spool`` fires
 with the segment index once its run file is on disk (the snapshot
@@ -80,8 +84,8 @@ import numpy as np
 import torch
 
 from uda_tpu_torch.device import resolve_device
+from uda_tpu_torch import native
 from uda_tpu_torch.merger import streaming as stream_mod
-from uda_tpu_torch.merger.emitter import frame_batch
 from uda_tpu_torch.ops import merge as merge_ops
 from uda_tpu_torch.ops import packing
 from uda_tpu_torch.ops.merge import Run
@@ -89,7 +93,7 @@ from uda_tpu_torch.ops.sort import u32
 from uda_tpu_torch.utils.comparators import KeyType, uses_default_bytewise
 from uda_tpu_torch.utils.errors import MergeError, UdaError
 from uda_tpu_torch.utils.ifile import (EOF_MARKER, RecordBatch,
-                                       iter_file_records)
+                                       iter_file_records, native_enabled)
 from uda_tpu_torch.utils.flightrec import flightrec
 from uda_tpu_torch.utils.locks import TrackedCondition, TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
@@ -105,6 +109,8 @@ _next_pow2 = merge_ops.next_run_capacity
 # widest per-key content the vectorized overflow lexsort materializes
 # as an n-by-width matrix; rarer/wider keys keep the comparator loop
 _LEXSORT_MAX_KEY = 4096
+# a pipelined host merge of at least this many rows splits across threads
+_MERGE_SPLIT_MIN_ROWS = 1 << 18
 
 
 class _StagedRun:
@@ -187,6 +193,15 @@ class OverlappedMerger:
         # the merges already launched
         self._buf_pool = (merge_ops.RowBufferPool(self.device)
                           if self.engine == "pallas" else None)
+        # the host engine's native row merge, resolved here so a cold
+        # library builds before any carry runs under _forest_lock; the
+        # pipelined forest splits large merges over the cores the stage
+        # half leaves idle
+        self._native_rows_merge = (merge_ops.resolve_native_rows_merge()
+                                   if self.engine == "host" else None)
+        self._merge_parts = (max(2, min(4, os.cpu_count() or 2))
+                             if pipeline and self._native_rows_merge
+                             is not None else 1)
         self._copy_stream = self._merge_stream = None
         if self.engine == "pallas" and self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
@@ -643,7 +658,17 @@ class OverlappedMerger:
 
     def _merge(self, a: Run, b: Run) -> Run:
         with metrics.timer("overlap_device_merge"):
-            merged = merge_ops.merge_run_pair(a, b, self.engine)
+            total = a.valid + b.valid
+            if self._merge_parts > 1 and total >= _MERGE_SPLIT_MIN_ROWS:
+                out = np.empty((total, int(a.rows.shape[1])), np.uint32)
+                merge_ops.merge_rows_split_into(
+                    np.ascontiguousarray(a.rows[:a.valid]),
+                    np.ascontiguousarray(b.rows[:b.valid]), out,
+                    self._merge_parts)
+                merged = Run(out, total, 2 * max(a.bucket, b.bucket))
+            else:
+                merged = merge_ops.merge_run_pair(a, b, self.engine,
+                                                  self._native_rows_merge)
         with self._state_lock:
             self._merges += 1
         return merged
@@ -827,7 +852,7 @@ class OverlappedMerger:
                     sub = stream_mod.slab_batch(
                         batches, src[:, 0].astype(np.int64),
                         src[:, 1].astype(np.int64))
-                    yield frame_batch(sub, write_eof=False)
+                    yield native.frame_batch(sub, write_eof=False)
                 yield EOF_MARKER
 
             return emitter.emit_framed(pieces(), consumer)
@@ -866,8 +891,12 @@ class OverlappedMerger:
                 else:
                     log.info("bounded-device streaming: k-way merge over "
                              "run files (no device forest)")
-                streams = [iter_file_records(store.run_path(s))
-                           for s in sorted(store.counts)]
+                paths = [store.run_path(s) for s in sorted(store.counts)]
+                if native_enabled() and native.kway_supported(self.key_type):
+                    return emitter.emit_framed(
+                        native.kway_merge_paths(paths, self.key_type),
+                        consumer)
+                streams = [iter_file_records(p) for p in paths]
                 return emitter.emit(
                     merge_ops.merge_record_streams(streams, self.key_type),
                     consumer)

@@ -35,10 +35,10 @@ import time
 import zlib
 from typing import Optional
 
+from uda_tpu_torch import native
 from uda_tpu_torch.coding.recovery import start_recovery
 from uda_tpu_torch.mofserver.data_engine import (DataEngine, FetchResult,
                                                  ShuffleRequest)
-from uda_tpu_torch.merger.streaming import framed_records
 from uda_tpu_torch.tenant import current_tenant
 from uda_tpu_torch.utils.errors import (MergeError, StorageError,
                                         TenantError, TransportError,
@@ -1242,7 +1242,8 @@ class Segment:
                      "raw_length": self.raw_length,
                      "num_records": self.num_records,
                      "carry_len": len(carry)}
-        framed = b"".join(framed_records(b) for b in batches)
+        framed = b"".join(native.frame_batch(b, write_eof=False)
+                          for b in batches)
         state["data"] = framed + bytes(carry)
         return state
 

@@ -1,9 +1,10 @@
 """Streaming bounded-memory emission for the online merge.
 
-The port's copy of ``uda_tpu/merger/streaming.py``, in a numpy form (the
-reference hands the span gather and the framing to its C++ library when
-built; the bytes are the same; the port gathers spans by size class,
-see :func:`_gather_spans`). The reference's online merge never
+The port's copy of ``uda_tpu/merger/streaming.py``. As in the reference,
+the span gather and the framing run in the native host runtime while
+``uda.tpu.use.native`` is on (read per call); with it off the spans move
+by size class in numpy (:func:`_gather_spans_numpy`) and the framing is
+pure Python, with the same bytes. The reference's online merge never
 materialized the shuffle on the host: records flowed RDMA chunk buffers ->
 k-way heap -> 2 x 1 MB staging buffers -> consumer (reference
 src/Merger/MergeManager.cc:155-182, src/Merger/StreamRW.cc:151-225), so
@@ -46,14 +47,13 @@ import numpy as np
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
-from uda_tpu_torch.merger.emitter import frame_batch, iter_framed_chunks
+from uda_tpu_torch import native
 from uda_tpu_torch.ops.sort import i32
 from uda_tpu_torch.utils.errors import MergeError, StorageError
-from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch
+from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, native_enabled
 from uda_tpu_torch.utils.metrics import metrics
 
-__all__ = ["RunStore", "framed_lengths", "framed_records",
-           "interleave_runs", "slab_batch",
+__all__ = ["RunStore", "framed_lengths", "interleave_runs", "slab_batch",
            "iter_row_slabs", "spill_dirs", "SLAB_RECORDS",
            "MAX_OPEN_CURSORS"]
 
@@ -85,8 +85,20 @@ def framed_lengths(key_len: np.ndarray, val_len: np.ndarray) -> np.ndarray:
 
 def _gather_spans(src: np.ndarray, src_off: np.ndarray, lens: np.ndarray,
                   dst: np.ndarray, dst_off: np.ndarray) -> None:
-    """dst[dst_off_i : +len_i] = src[src_off_i : +len_i] per record (the
-    reference's native memcpy loop), by power-of-two size class. The
+    """dst[dst_off_i : +len_i] = src[src_off_i : +len_i] per record: the
+    native memcpy loop (``native.gather_spans_native``) while the
+    ``uda.tpu.use.native`` switch is on, read per call, else
+    :func:`_gather_spans_numpy`."""
+    if native_enabled():
+        native.gather_spans_native(src, src_off, lens, dst, dst_off)
+    else:
+        _gather_spans_numpy(src, src_off, lens, dst, dst_off)
+
+
+def _gather_spans_numpy(src: np.ndarray, src_off: np.ndarray,
+                        lens: np.ndarray, dst: np.ndarray,
+                        dst_off: np.ndarray) -> None:
+    """The span gather in numpy, by power-of-two size class. The
     spans of class c (lengths in [2^c, 2^(c+1))) move as rows of the two
     buffers' sliding windows of the class's shortest length w: a span's
     first w bytes, then its last w, which together cover it since its
@@ -132,17 +144,6 @@ def _group_ranks(seg: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     ranks = np.empty(seg.shape[0], np.int64)
     ranks[order] = ranks_sorted
     return unique, ranks, counts
-
-
-def framed_records(batch: RecordBatch) -> bytes:
-    """The batch's records IFile-framed, without the EOF marker: a copy of
-    its own bytes when they sit framed back to back in its buffer (every
-    cracked chunk), else framed anew. The same bytes either way."""
-    span = RunStore._contiguous_framed_span(
-        batch, framed_lengths(batch.key_len, batch.val_len))
-    if span is None:
-        return frame_batch(batch, write_eof=False)
-    return bytes(batch.data[span[0]:span[1]])
 
 
 def spill_dirs(cfg) -> list[str]:
@@ -256,7 +257,8 @@ class RunStore:
                     f.write(EOF_MARKER)
                     crc = zlib.crc32(EOF_MARKER, crc)
                 else:
-                    for piece in iter_framed_chunks(sub, write_eof=True):
+                    for piece in native.iter_framed_chunks(
+                            sub, write_eof=True):
                         f.write(piece)
                         crc = zlib.crc32(piece, crc)
                 if self.fixed:

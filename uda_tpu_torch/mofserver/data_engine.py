@@ -28,11 +28,19 @@ passes the ``data_engine.pread`` failpoint, and each batched read the
 ``data_engine.preadv`` one too (``uda.tpu.failpoints`` arms the port's
 registry at construction, as the reference's does).
 
+Native reads (``uda.tpu.use.native``, on by default): the engine runs its
+reads through the native host runtime's ``ReadPool`` (``csrc/reader.cc``:
+io_uring where the running kernel grants it, else pread worker threads),
+a router thread waking each waiter by tag (:class:`_NativeReads`). A set
+``uda.tpu.use.native`` also sets the process-wide switch
+(``utils.ifile.set_native_enabled``). A library that cannot be built
+raises; a pool that cannot start is counted (``io.native.unavailable``)
+and the engine reads with ``os.pread``.
+
 The batched plane's backend ladder is the reference's io_uring -> preadv
 -> pread, entered at ``uda.tpu.read.backend`` or the tune cache's
-``io.read`` winner. The io_uring rung needs the reference's native
-reader (C++, not ported), so the ladder never finds it here and lands on
-preadv: served bytes are the same on every rung.
+``io.read`` winner. The io_uring rung is taken when the native pool runs
+the ring; served bytes are the same on every rung.
 
 Two planes attach to a running engine. ``attach_store`` hands it a
 :class:`~uda_tpu_torch.mofserver.store.StoreManager`: every serve path
@@ -72,10 +80,29 @@ __all__ = ["ShuffleRequest", "FetchResult", "FdSlice", "DataEngine",
 log = get_logger()
 
 # The batched-read backend ladder, best rung first: "io_uring" = the
-# reference's native ring reader (never present in the port); "preadv" =
-# one os.preadv per coalesced run; "pread" = per-request os.pread on the
-# batch worker (one pool handoff per batch).
+# native ReadPool's kernel ring (compiled in where the build host has the
+# uapi header, taken only when the running kernel accepts io_uring_setup);
+# "preadv" = one os.preadv per coalesced run; "pread" = per-request
+# os.pread on the batch worker (one pool handoff per batch).
 BATCH_BACKENDS = ("io_uring", "preadv", "pread")
+
+# the native-reader-unavailable fallback is warned once per process (a
+# fleet of engines must not spam the log); every occurrence still counts
+# io.native.unavailable
+_native_warn_lock = threading.Lock()
+_native_warned = False
+
+
+def _warn_native_unavailable(cause: Exception) -> None:
+    global _native_warned
+    metrics.add("io.native.unavailable")
+    with _native_warn_lock:
+        first = not _native_warned
+        _native_warned = True
+    if first:
+        log.warn(f"native reader unavailable, using os.pread: {cause}")
+    else:
+        log.debug(f"native reader unavailable (counted): {cause}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,6 +397,86 @@ class _BatchEntry:
         self.err: Optional[Exception] = None
 
 
+class _NativeReads:
+    """Routes blocking reads through the native ReadPool: a router thread
+    drains the pool's completion queue (the io_getevents analogue) and
+    wakes the submitting thread by tag. Submit and waiter registration
+    are atomic under the lock the router needs to deliver, so a
+    completion can never beat its waiter's registration."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self._lock = threading.Lock()
+        self._waiters: dict[int, list] = {}   # tag -> [Event, data|None]
+        # udarace: lockfree=_stop - one-way bool latch read by the router
+        self._stop = False
+        self._router = threading.Thread(target=self._route, daemon=True,
+                                        name="uda-native-router")
+        self._router.start()
+
+    def _route(self) -> None:
+        while not self._stop:
+            events = self.pool.poll(min_events=1, timeout=0.2)
+            with self._lock:
+                for tag, result in events:
+                    w = self._waiters.pop(tag, None)
+                    if w is not None:
+                        w[1] = result
+                        w[0].set()
+
+    def read(self, fd: int, offset: int, length: int) -> bytes:
+        waiter = [threading.Event(), None]
+        with self._lock:
+            tag = self.pool.submit(fd, offset, length)
+            self._waiters[tag] = waiter
+        if not waiter[0].wait(timeout=60.0):
+            with self._lock:
+                self._waiters.pop(tag, None)  # don't leak the entry
+            raise StorageError("native read timed out")
+        result = waiter[1]
+        if isinstance(result, Exception):
+            raise result
+        return result.tobytes()
+
+    def read_batch(self, jobs: Sequence[tuple]) -> list:
+        """Batched reads: every ``(fd, offset, length)`` job enters the
+        pool in one native call (one lock round / ring doorbell for the
+        burst), then every completion is awaited. Results in job order; a
+        failed read is its own job's StorageError, never its batch-mates'."""
+        waiters = []
+        with self._lock:
+            tags = self.pool.submit_batch(jobs)
+            for tag in tags:
+                w = [threading.Event(), None]
+                self._waiters[tag] = w
+                waiters.append((tag, w))
+        deadline = time.monotonic() + 60.0
+        out = []
+        for tag, w in waiters:
+            if not w[0].wait(timeout=max(0.0,
+                                         deadline - time.monotonic())):
+                with self._lock:
+                    self._waiters.pop(tag, None)
+                out.append(StorageError("native batch read timed out"))
+                continue
+            result = w[1]
+            out.append(result if isinstance(result, Exception)
+                       else result.tobytes())
+        return out
+
+    def close(self) -> None:
+        self._stop = True
+        self._router.join(timeout=2.0)
+        if self._router.is_alive():
+            # the router may still be inside pool.poll: freeing the
+            # native pool under it would be a use-after-free, so leaking
+            # the pool is the safe failure
+            log.warn("native read router did not exit in 2s; "
+                     "leaking the native pool instead of freeing it")
+            return
+        self.pool.close()
+
+
 class DataEngine:
     """Threaded chunk server over local map-output files."""
 
@@ -407,6 +514,21 @@ class DataEngine:
                                         thread_name_prefix="uda-data-engine")
         self._fds = _FdCache()
         self._stopped = False
+        # the native read path; the flag also sets the process-wide
+        # native switch, but only when set explicitly, so a
+        # default-config engine never reconfigures other jobs
+        if cfg.is_set("uda.tpu.use.native"):
+            from uda_tpu_torch.utils.ifile import set_native_enabled
+            set_native_enabled(bool(cfg.get("uda.tpu.use.native")))
+        self._native: Optional[_NativeReads] = None
+        if cfg.get("uda.tpu.use.native"):
+            from uda_tpu_torch import native
+
+            native.build()  # a library that cannot be built raises
+            try:
+                self._native = _NativeReads(native.ReadPool(threads))
+            except StorageError as e:
+                _warn_native_unavailable(e)
         self._resolve_batch_plane(cfg)
 
     def _resolve_batch_plane(self, cfg: Config) -> None:
@@ -470,17 +592,22 @@ class DataEngine:
         self.io_backend = self._walk_backend_ladder(want_backend)
         metrics.add("io.backend", backend=self.io_backend)
 
-    @staticmethod
-    def _walk_backend_ladder(want: str) -> str:
+    def _walk_backend_ladder(self, want: str) -> str:
         """The io_uring -> preadv -> pread ladder, entered at ``want``
         ("auto" = the top): a rung is taken only when this process can
-        drive it. io_uring needs the reference's native ring reader,
-        which the port does not have, so it is always passed over."""
+        drive it. io_uring needs the native pool running the ring (a
+        kernel that refuses io_uring_setup lands on preadv), preadv needs
+        os.preadv."""
         start = 0 if want == "auto" else BATCH_BACKENDS.index(want)
         for rung in BATCH_BACKENDS[start:]:
-            if rung == "preadv" and hasattr(os, "preadv"):
-                return rung
-            if rung == "pread":
+            if rung == "io_uring":
+                if self._native is not None \
+                        and self._native.pool.backend() == "io_uring":
+                    return rung
+            elif rung == "preadv":
+                if hasattr(os, "preadv"):
+                    return rung
+            else:
                 return rung
         return "pread"
 
@@ -714,7 +841,11 @@ class DataEngine:
                 self._batch_resolve(entries)
                 live = [e for e in entries if e.err is None]
                 if live:
-                    self._read_batch_runs(live)
+                    if self.io_backend == "io_uring" \
+                            and self._native is not None:
+                        self._read_batch_native(live)
+                    else:
+                        self._read_batch_runs(live)
                 self._batch_finish(entries)
         except BaseException as exc:  # a worker bug must still resolve
             # every future (callers wait on them)
@@ -787,6 +918,50 @@ class DataEngine:
                                 f"read failed at {path}:{e.file_off}: "
                                 f"{exc}")
             finally:
+                self._fds.release(path)
+
+    def _read_batch_native(self, live: List[_BatchEntry]) -> None:
+        """The io_uring rung: each request's range goes straight into the
+        native ring (no gap reads: the submission array is the batch),
+        fds pinned per MOF for the duration."""
+        by_path: Dict[str, List[_BatchEntry]] = {}
+        for e in live:
+            by_path.setdefault(e.rec.path, []).append(e)
+        pinned: List[str] = []
+        order: List[_BatchEntry] = []
+        jobs: List[tuple] = []
+        try:
+            for path, group in by_path.items():
+                if self.store is not None and self.store.manages(path):
+                    # store-managed groups keep the router (failpoints,
+                    # health, failover) on every rung
+                    self._read_batch_store(path, group)
+                    continue
+                try:
+                    # released by the pinned-list sweep in this
+                    # function's finally
+                    fd = self._fds.acquire(path)  # udalint: disable=UDA101 - the pinned list's sweep releases it
+                except OSError as exc:
+                    for e in group:
+                        e.err = StorageError(f"cannot open {path}: {exc}")
+                    continue
+                pinned.append(path)
+                for e in group:
+                    e.fd = fd
+                    order.append(e)
+                    jobs.append((fd, e.file_off, e.want))
+            if not jobs:
+                return
+            results = self._native.read_batch(jobs)
+            metrics.add("io.batch.reads", len(jobs), backend="io_uring")
+            for e, res in zip(order, results):
+                if isinstance(res, Exception):
+                    e.err = res
+                else:
+                    e.buf = res
+                    e.got = len(res)
+        finally:
+            for path in pinned:
                 self._fds.release(path)
 
     def _read_batch_store(self, path: str,
@@ -1017,7 +1192,11 @@ class DataEngine:
         else:
             fd = self._fds.acquire(rec.path)
             try:
-                data = os.pread(fd, want, rec.start_offset + req.offset)
+                if self._native is not None:
+                    data = self._native.read(
+                        fd, rec.start_offset + req.offset, want)
+                else:
+                    data = os.pread(fd, want, rec.start_offset + req.offset)
             finally:
                 self._fds.release(rec.path)
         if len(data) != want:
@@ -1038,6 +1217,8 @@ class DataEngine:
     def stop(self) -> None:
         self._stopped = True
         self._pool.shutdown(wait=True)
+        if self._native is not None:
+            self._native.close()
         self._fds.close_all()
         # resource-ledger drain points: with the pool drained and the fd
         # cache closed, every fd pin this engine's cache handed out (owner

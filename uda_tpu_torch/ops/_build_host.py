@@ -1,4 +1,13 @@
-"""Build the bridge's C-ABI shim and its embedder with the host compiler.
+"""Build the port's host C++ with the host compiler.
+
+``build_native()`` builds the native host runtime: ``csrc/codec.cc``,
+``reader.cc``, ``merge.cc`` and ``lzo.cc`` (with ``vlong.h``) become
+``libuda_tpu_native.so``, with the flags of the reference's
+``uda_tpu/native/Makefile``, into ``native-<hash>/`` of the build
+directory. The hash covers the sources and the flags. The library is
+linked into a temporary file that is then renamed, under an exclusive
+``fcntl.flock`` of a lock file beside it, so processes that start at
+once (xdist workers) compile once and every one loads a whole library.
 
 ``csrc/bridge_shim.cc`` becomes ``libuda_tpu_bridge.so`` (it embeds
 CPython, so it compiles against ``Python.h`` and links ``libpython``) and
@@ -13,6 +22,7 @@ is neither read nor written.
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import shutil
@@ -22,7 +32,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["build_shim", "SHIM_SOURCES"]
+__all__ = ["build_shim", "build_native", "SHIM_SOURCES", "NATIVE_SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,6 +40,10 @@ BUILD_DIR = _PKG / "_build"
 SHIM_SOURCES = (CSRC / "bridge_shim.cc", CSRC / "bridge_shim_test.cc")
 LIB_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
              "-shared")
+NATIVE_SOURCES = tuple(CSRC / n for n in ("codec.cc", "reader.cc",
+                                          "merge.cc", "lzo.cc"))
+NATIVE_HEADERS = (CSRC / "vlong.h",)
+NATIVE_LIB = "libuda_tpu_native.so"
 EMBEDDER_FLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-pthread")
 
 
@@ -91,3 +105,45 @@ def build_shim() -> tuple:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return str(exe), time.perf_counter() - start
+
+
+def native_path() -> Path:
+    """Where ``build_native`` puts the library for the current sources."""
+    digest = hashlib.sha256(" ".join(LIB_FLAGS).encode())
+    for src in NATIVE_SOURCES + NATIVE_HEADERS:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"native-{digest.hexdigest()[:16]}" / NATIVE_LIB
+
+
+def build_native() -> tuple:
+    """Build ``libuda_tpu_native.so`` unless built already. Returns (path
+    of the library, seconds taken). Raises ``RuntimeError`` with the
+    compiler's stderr if ``g++`` is missing or the build fails."""
+    from uda_tpu_torch.utils import compile_cache
+
+    start = time.perf_counter()
+    compile_cache.enable()
+    lib = native_path()
+    if lib.exists():
+        return str(lib), time.perf_counter() - start
+    if shutil.which("g++") is None:
+        raise RuntimeError("uda_tpu_torch: g++ not found; the native host "
+                           "runtime cannot be built")
+    try:
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        lock = open(lib.parent / ".lock", "w")
+    except OSError as e:
+        raise RuntimeError(f"uda_tpu_torch: cannot write the native build "
+                           f"directory {lib.parent}: {e}") from e
+    with lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not lib.exists():  # another process may have built it meanwhile
+            tmp = lib.with_name(f"{NATIVE_LIB}.{os.getpid()}.tmp")
+            try:
+                _run(["g++", *LIB_FLAGS, "-o", str(tmp),
+                      *map(str, NATIVE_SOURCES)])
+                os.replace(tmp, lib)  # a dlopen never sees half a file
+            finally:
+                tmp.unlink(missing_ok=True)
+    return str(lib), time.perf_counter() - start

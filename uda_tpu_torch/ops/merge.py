@@ -16,7 +16,10 @@ check: Hadoop map outputs arrive comparator-sorted) and the runs then fold
 through a pairwise merge tree on the device, so every record moves through
 at most log2(k) merges. Its run merge engine ``"pallas"`` is K1
 (``uda_tpu_torch/ops/pallas_merge.merge_sorted_pair``; the name is the
-reference's, so callers pass the same strings), ``"host"`` a numpy merge.
+reference's, so callers pass the same strings), ``"host"`` the native
+host runtime's linear row merge while ``uda.tpu.use.native`` is on
+(:func:`resolve_native_rows_merge`, split across threads by
+:func:`merge_rows_split_into`), a numpy lexsort with it off.
 
 Every entry point takes ``device`` (``None`` = the card, ``"cpu"`` on
 request); the host-side parts stay numpy, as in the reference.
@@ -27,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import heapq
+import threading
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,7 +54,8 @@ __all__ = ["merge_batches", "merge_batches_host", "merge_iter_host",
            "fill_run_rows", "merge_row_pair", "merge_split_point",
            "next_run_capacity", "pad_rows_to", "RowBufferPool", "PAD_WORD",
            "MIN_RUN_CAPACITY", "ROW_EXTRA_COLS", "Run", "merge_run_pair",
-           "carry_run", "merge_leftover_runs"]
+           "carry_run", "merge_leftover_runs", "resolve_native_rows_merge",
+           "merge_rows_split_into"]
 
 # Padding word for device runs: all-0xFFFFFFFF rows sort strictly after
 # every real row (a real row's length column is a content length < 2^31),
@@ -84,6 +89,19 @@ def resolve_run_engine(engine: str, device=None) -> str:
     return engine
 
 
+def resolve_native_rows_merge():
+    """The native linear two-pointer row merge while ``uda.tpu.use.native``
+    is on (the library built here, raising if it cannot be), else None.
+    Resolved once per consumer, so a cold library compiles before any
+    merge runs under a forest lock."""
+    from uda_tpu_torch import native
+    from uda_tpu_torch.utils.ifile import native_enabled
+
+    if native_enabled() and native.build():
+        return native.merge_rows_native
+    return None
+
+
 def merge_split_point(a_rows: np.ndarray, b_rows: np.ndarray,
                       m: int) -> int:
     """Merge-path partition with the ties-to-``a`` rule: the unique
@@ -103,6 +121,53 @@ def merge_split_point(a_rows: np.ndarray, b_rows: np.ndarray,
         else:
             hi = ia
     return lo
+
+
+def merge_rows_split_into(a_rows: np.ndarray, b_rows: np.ndarray,
+                          out: np.ndarray, parts: int = 2) -> bool:
+    """Native linear merge of two sorted row runs into a caller-owned
+    ``out``, split across ``parts`` threads at merge-path partition points
+    (each part merges contiguous slices; the native call releases the GIL,
+    so the parts run at once). Ties go to ``a`` by construction, see
+    :func:`merge_split_point`. Returns True; a part's error is raised."""
+    from uda_tpu_torch import native
+
+    na, nb = int(a_rows.shape[0]), int(b_rows.shape[0])
+    total = na + nb
+    parts = max(1, min(int(parts), max(1, total)))
+    if parts == 1:
+        return native.merge_rows_native_into(a_rows, b_rows, out)
+    cuts_a = [0]
+    for p in range(1, parts):
+        cuts_a.append(merge_split_point(a_rows, b_rows, total * p // parts))
+    cuts_a.append(na)
+    errors: list = []
+
+    def _part(a: np.ndarray, b: np.ndarray, o: np.ndarray) -> None:
+        try:
+            native.merge_rows_native_into(a, b, o)
+        except Exception as e:  # noqa: BLE001 - raised on the caller
+            errors.append(e)
+
+    threads = []
+    for p in range(parts):
+        mlo = total * p // parts if p else 0
+        mhi = total * (p + 1) // parts if p < parts - 1 else total
+        alo, ahi = cuts_a[p], cuts_a[p + 1]
+        blo, bhi = mlo - alo, mhi - ahi
+        args = (a_rows[alo:ahi], b_rows[blo:bhi], out[mlo:mhi])
+        if p < parts - 1:
+            t = threading.Thread(target=_part, args=args, daemon=True,
+                                 name=f"uda-merge-part-{p}")
+            t.start()
+            threads.append(t)
+        else:
+            _part(*args)  # last part inline
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return True
 
 
 def _buf_key(flat: np.ndarray) -> int:
@@ -227,13 +292,18 @@ def fill_run_rows(rows: np.ndarray, packed: packing.PackedKeys,
 
 
 def merge_row_pair(a_rows, b_rows, a_valid: int, b_valid: int,
-                   engine: str):
+                   engine: str, native_merge=None):
     """Merge two sorted composite-key row runs into one. Host engine
-    (numpy rows): a stable lexsort of the two valid prefixes. Pallas
+    (numpy rows): ``native_merge`` when given (the linear native merge,
+    ties to ``a`` = the earlier run), else a stable lexsort of the two
+    valid prefixes. Pallas
     engine (uint32 tensors with their pad rows): K1 over every column —
     the columns (words, len, seg, row) are a total order, so K1's
     internal tie-break never decides between real rows."""
     if engine == "host":
+        if native_merge is not None:
+            return native_merge(np.asarray(a_rows[:a_valid]),
+                                np.asarray(b_rows[:b_valid]))
         rows = np.concatenate([a_rows[:a_valid], b_rows[:b_valid]])
         order = np.lexsort(tuple(rows[:, c]
                                  for c in range(rows.shape[1] - 1, -1, -1)))
@@ -393,6 +463,7 @@ def merge_batches_two_phase(batches: Sequence[RecordBatch], kt: KeyType,
     if sum(b.num_records for b in batches) == 0 or len(batches) < 2:
         return merge_batches(batches, kt, width, dev)
     engine = resolve_run_engine(engine, dev)
+    native_merge = resolve_native_rows_merge() if engine == "host" else None
     runs: list[tuple] = []  # (rows, valid) per non-empty segment
     kw = width // 4
     with metrics.timer("merge.rows"):
@@ -412,7 +483,7 @@ def merge_batches_two_phase(batches: Sequence[RecordBatch], kt: KeyType,
     metrics.add("merge.pipeline.two_phase")
     with metrics.timer("merge.fold"), \
             _device_time(dev, "merge.fold.device_ms"):
-        rows, valid = _fold_runs(runs, engine)
+        rows, valid = _fold_runs(runs, engine, native_merge)
     with metrics.timer("merge.gather"):
         src = rows[:valid, kw + 1:kw + 3]
         if engine == "pallas":
@@ -461,10 +532,11 @@ class Run:
         return int(self.rows.shape[0])
 
 
-def merge_run_pair(a: Run, b: Run, engine: str) -> Run:
+def merge_run_pair(a: Run, b: Run, engine: str, native_merge=None) -> Run:
     """Merge two forest runs (``a``'s rows first on equal keys) into one
     of twice the larger size class."""
-    return Run(merge_row_pair(a.rows, b.rows, a.valid, b.valid, engine),
+    return Run(merge_row_pair(a.rows, b.rows, a.valid, b.valid, engine,
+                              native_merge),
                a.valid + b.valid, 2 * max(a.bucket, b.bucket))
 
 
@@ -493,12 +565,13 @@ def merge_leftover_runs(runs: Sequence[Run], engine: str,
     return acc
 
 
-def _fold_runs(runs: list, engine: str):
+def _fold_runs(runs: list, engine: str, native_merge=None):
     """Binary-counter fold of sorted (rows, valid) runs: equal size
     classes merge at once (:func:`carry_run`), the leftovers smallest
     first (:func:`merge_leftover_runs`). The reference's fold,
     ``uda_tpu/ops/merge.py:_fold_runs``."""
-    merge = functools.partial(merge_run_pair, engine=engine)
+    merge = functools.partial(merge_run_pair, engine=engine,
+                              native_merge=native_merge)
     forest: dict[int, Run] = {}
     for rows, valid in runs:
         carry_run(forest, Run(rows, valid, next_run_capacity(valid)), merge)

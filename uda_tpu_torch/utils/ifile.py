@@ -1,8 +1,10 @@
 """IFile record streams: Hadoop map-output segment format.
 
-The port's copy of ``uda_tpu/utils/ifile.py`` in its pure-Python form (the
-reference hands buffers past 4 KiB to its C++ library; the bytes are the
-same either way). Byte-exact implementation of the record framing the
+The port's copy of ``uda_tpu/utils/ifile.py``. As in the reference, a
+buffer of 4 KiB or more is cracked by the native host runtime
+(``uda_tpu_torch/native``) while ``uda.tpu.use.native`` is on
+(``set_native_enabled``); the pure-Python form below is the plain version
+it is held to, and the one taken with the switch off. Byte-exact implementation of the record framing the
 reference reads and writes (reference src/Merger/StreamRW.cc): each record
 is ``VInt(keyLen) VInt(valLen) key value``; end-of-stream is the marker
 pair ``(-1, -1)`` (two 0xFF bytes).
@@ -32,9 +34,38 @@ from uda_tpu_torch.utils.errors import StorageError
 
 __all__ = ["IFileWriter", "IFileReader", "RecordBatch", "crack",
            "crack_partial", "iter_file_records", "write_records",
-           "EOF_MARKER"]
+           "set_native_enabled", "native_enabled", "EOF_MARKER"]
 
 EOF_MARKER = b"\xff\xff"  # VInt(-1) VInt(-1)
+
+# native codec dispatch: the C++ library (uda_tpu_torch/native) takes over
+# the bulk scan for buffers past this size
+_NATIVE_THRESHOLD = 4096
+_native_enabled = True
+
+
+def set_native_enabled(enabled: bool) -> None:
+    """Toggle the native host runtime process-wide (the
+    ``uda.tpu.use.native`` flag's hook)."""
+    global _native_enabled
+    _native_enabled = enabled
+
+
+def native_enabled() -> bool:
+    """Whether native dispatch is on (the switch's state; says nothing
+    about whether the library is built)."""
+    return _native_enabled
+
+
+def _native_mod():
+    """The native module while the switch is on (built at first use; a
+    build failure raises), else None."""
+    if not _native_enabled:
+        return None
+    from uda_tpu_torch import native
+
+    native.build()
+    return native
 
 
 class IFileWriter:
@@ -183,6 +214,14 @@ def crack(buf: bytes | np.ndarray, expect_eof: bool = True) -> RecordBatch:
     columns.
     """
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
+    nat = _native_mod() if len(arr) >= _NATIVE_THRESHOLD else None
+    if nat is not None:
+        batch, consumed, saw = nat.crack_partial_native(arr)
+        if expect_eof and not saw:
+            raise StorageError("IFile segment missing EOF marker")
+        if not saw and consumed != len(arr):
+            raise StorageError(f"truncated IFile segment at offset {consumed}")
+        return batch
     mem = memoryview(arr)
     n = len(arr)
     key_off, key_len, val_off, val_len = [], [], [], []
@@ -225,6 +264,9 @@ def crack_partial(data: bytes, expect_eof: bool = False
         batch = crack(data, expect_eof=True)
         return batch, len(data), True
     arr = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) else data
+    nat = _native_mod() if len(arr) >= _NATIVE_THRESHOLD else None
+    if nat is not None:
+        return nat.crack_partial_native(arr)
     mem = memoryview(arr)
     n = len(arr)
     key_off, key_len, val_off, val_len = [], [], [], []
