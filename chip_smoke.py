@@ -20,7 +20,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    all-0xFFFFFFFF and high keys, tiles wider than one K2 block takes);
    K3/K4 at theirs (tile 256, n == tile, 1, 2 and 3 key words, the same
    kinds of keys, tiles 8192 and 16384, past one K3 block) and K4 on runs
-   that hold equal records; K5 (``take_lanes``) at the probe's three
+   that hold equal records; the partition kernel on two sorted runs of
+   2^20 records (its deepest searches) at K1's width and K4's, with first
+   key words all equal, every key word equal and mixed keys; K5
+   (``take_lanes``) at the probe's three
    shapes and at 3, 26 and 33 rows, each of its two designs launched on
    its own too; every launch held byte for byte against its plain
    PyTorch version on the same input, and each cascade against PyTorch's
@@ -43,7 +46,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    against ``keys8`` and ``keys8f`` at 2^16 and 2^19 rows (equal bytes);
 6. times, with CUDA events at the main path's shapes: each kernel (K1, K4
    and the partition kernel at each one's width per pass and summed over
-   the cascade; K5 on the keys8 matrix by the main path's permutation and
+   the cascade; the partition also in device time, queued behind a sleep,
+   beside the floor its dependent round trips set: the deepest search's
+   steps times one step's round trip to device memory, plus one launch,
+   both measured on the last pass after an L2 flush; K5 on the keys8 matrix by the main path's permutation and
    by a merge permutation, its own device time in turns with torch
    indexing and its other design, the whole wrapper call, its scratch
    and peak memory), its plain version, PyTorch's call computing the same
@@ -262,7 +268,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the card's kernel, a batched read of the 16 maps under
    ``uda.tpu.read.backend=io_uring`` against ``preadv`` (the same
    bytes), and one 1 MiB MOF partition through the LZO ladder's
-   ``builtin`` rung (ratio printed), decoded by ``lzo1x_decompress_py``.
+   ``builtin`` rung (ratio printed), decoded by ``lzo1x_decompress_py``;
+   (f) one of run c's MOF partitions written again with the IFile CRC
+   trailer and cracked natively with ``verify_crc`` (trailer bytes
+   printed; a flipped byte and a missing trailer raise the reference's
+   messages).
 
 Each phase's seconds are printed on a line of their own. The last two
 lines are one JSON object with a record per kernel (K2's, K1's and the
@@ -278,6 +288,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import hashlib
+import io
 import itertools
 import json
 import os
@@ -326,12 +337,13 @@ from uda_tpu_torch.models.pipeline import MapReduceJob
 from uda_tpu_torch.utils.comparators import get_key_type
 from uda_tpu_torch.utils.config import Config
 from uda_tpu_torch.utils import vint
-from uda_tpu_torch.utils.errors import (FallbackSignal, TenantError,
-                                        TransportError)
+from uda_tpu_torch.utils.errors import (FallbackSignal, StorageError,
+                                        TenantError, TransportError)
 from uda_tpu_torch.utils.failpoints import failpoints
-from uda_tpu_torch.utils.ifile import (EOF_MARKER, RecordBatch, crack,
-                                       iter_file_records, native_enabled,
-                                       set_native_enabled, write_records)
+from uda_tpu_torch.utils.ifile import (EOF_MARKER, IFileWriter, RecordBatch,
+                                       crack, iter_file_records,
+                                       native_enabled, set_native_enabled,
+                                       write_records)
 from uda_tpu_torch.utils.metrics import metrics
 from uda_tpu_torch.utils import tuncache
 
@@ -407,6 +419,11 @@ SLIM_EDGE_CASES = [
 # K4 on runs whose records have equal twins in the other run: key words,
 # n, run_len
 EQUAL_RUN_CASES = [(1, 1 << 13, 1024), (3, 1 << 13, 256)]
+# the partition kernel on one pass over two sorted runs of this many
+# records (its deepest searches: 2^20 candidates), at K1's width and K4's,
+# with first key words all equal, every key word equal, and mixed keys
+DEEP_PARTITION_RUN = 1 << 20
+DEEP_PARTITION_KINDS = ("first", "equal", "mixed")
 PROBE_SHAPES = ((32, 2048), (8, 2048), (8, 512))  # scripts/probe_gather.py
 # K5 in phase 3: the probe's shapes, then records of 3, 26 and 33 words
 # (26: n not a multiple of 4, so rows are moved a word a thread)
@@ -603,7 +620,9 @@ def lanes_words(seed: int, rows: int, n: int, num_keys: int,
     mixing random words with a small alphabet (duplicates, words >= 2^31,
     all-0xFFFFFFFF keys). Another ``kind`` sets every key word: "equal" (one
     value, so the arrival index orders them), "ones" (all-0xFFFFFFFF) or
-    "high" (top bit set). The port's tests draw their inputs here too."""
+    "high" (top bit set); "first" sets only the first key word to one value
+    (the other words decide). The port's tests draw their inputs here
+    too."""
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 2**32, size=(rows, n), dtype=np.uint32)
     alphabet = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
@@ -616,6 +635,8 @@ def lanes_words(seed: int, rows: int, n: int, num_keys: int,
         x[:num_keys] = np.uint32(_ALL_ONES)
     elif kind == "high":
         x[:num_keys] |= np.uint32(0x80000000)
+    elif kind == "first":
+        x[0] = np.uint32(0x80000001)
     elif kind != "mixed":
         raise ValueError(kind)
     return x
@@ -711,6 +732,21 @@ def check_partition(y: torch.Tensor, run_len: int, num_keys: int,
     return max_abs_err(got, want)
 
 
+def deep_runs(seed: int, rows: int, run_len: int, num_keys: int, kind: str,
+              dev: torch.device) -> torch.Tensor:
+    """uint32[rows, 2 * run_len]: two ascending runs of ``run_len`` records
+    (each half stably sorted), the tie-break row the arrival index over
+    both."""
+    x = interop.words_from_numpy(
+        lanes_words(seed, rows, 2 * run_len, num_keys, kind), dev)
+    tb = rows - 1
+    halves = [stable_reference(u32(i32(x)[:, h:h + run_len].contiguous()),
+                               num_keys, tb)
+              for h in (0, run_len)]
+    i32(halves[1])[tb] += run_len
+    return u32(torch.cat([i32(h) for h in halves], dim=1))
+
+
 def check_take_lanes(gen: torch.Generator, rows: int, n: int) -> int:
     """K5 against ``x[:, perm]`` on random words and a permutation, through
     the wrapper and through each design launched on its own; the largest
@@ -734,7 +770,8 @@ def check_take_lanes(gen: torch.Generator, rows: int, n: int) -> int:
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
-                  take_shapes=TAKE_SHAPES) -> dict:
+                  take_shapes=TAKE_SHAPES, deep_run=DEEP_PARTITION_RUN,
+                  deep_kinds=DEEP_PARTITION_KINDS) -> dict:
     gen = generator(SEED + 1, dev)
     seeds = itertools.count(SEED + 1)
     worst: dict = {}
@@ -786,6 +823,18 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                                          err)
         log(f"[kernels] K4 on runs with equal records, keys={nk} "
             f"run_len={run_len} n={n_eq}: max_abs_err {err} (tolerance 0)")
+    for kind in deep_kinds:
+        for rows, folded in ((8, False), (4, True)):
+            nk, tb = terasort.KEY_WORDS, rows - 1
+            y = deep_runs(next(seeds), rows, deep_run, nk, kind, dev)
+            err = check_partition(y, deep_run, nk, tb, folded)
+            worst["merge_partition"] = max(worst.get("merge_partition", 0),
+                                           err)
+            width = merge_width(rows, nk, 2 * deep_run, deep_run, folded)
+            log(f"[kernels] partition on two runs of {deep_run} at "
+                f"{'K4' if folded else 'K1'}'s width {width}, {kind} keys: "
+                f"max_abs_err {err} against merge_partition_plain "
+                f"(tolerance 0)")
     for rows, n_take in take_shapes:
         err = check_take_lanes(gen, rows, n_take)
         worst["take_lanes"] = max(worst.get("take_lanes", 0), err)
@@ -972,6 +1021,38 @@ def library_sort(x: torch.Tensor, seg: int, num_keys: int,
     return out
 
 
+def partition_latency(y: torch.Tensor, run_len: int, num_keys: int,
+                      tb_row: int, reps: int = 20) -> dict:
+    """One launch of the partition kernel and one dependent step of its
+    search, on the card, over two runs of ``run_len`` (``y`` holds just
+    them): the device time of a launch whose one boundary needs no search
+    (width 2 * run_len: d = 0), and of one whose second boundary (width
+    run_len: d = run_len) runs the deepest search of the pass alone, each
+    after the L2 cache is flushed, so every step waits for device memory;
+    their difference over that search's steps is one step's round trip."""
+    require(y.shape[1] == 2 * run_len, "partition_latency takes one run pair")
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=y.device)
+
+    def median_ms(width: int) -> float:
+        times = []
+        for _ in range(reps):
+            flush.zero_()  # 256 MB: the 50 MB L2 holds none of y after it
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pallas_sort.merge_partition(y, run_len, width, num_keys, tb_row)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    launch = median_ms(2 * run_len)
+    deep = median_ms(run_len)
+    steps = run_len.bit_length()
+    return {"launch_ms": launch, "deep_ms": deep, "steps": steps,
+            "step_us": max(0.0, deep - launch) / steps * 1e3}
+
+
 def partition_work(m: int, run_len: int, width: int) -> tuple:
     """Bytes and compares the partition kernel needs on one pass: per
     block boundary a binary search over the diagonal's range, each step
@@ -1014,12 +1095,19 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     errs = 0
     plain_total = library_total = 0.0
     part = {"ms": 0.0, "per_pass_ms": [], "plain_ms": 0.0, "bytes": 0,
-            "ops": 0, "max_abs_err": 0, "library_ms": None}
+            "ops": 0, "max_abs_err": 0, "library_ms": None,
+            "per_pass_device_ms": [], "steps": []}
     for lvl in range((m // tile).bit_length() - 1):
         L = tile << lvl
         width = merge_width(rows, nk, m, L, folded)
         part["per_pass_ms"].append(time_ms(
             lambda: pallas_sort.merge_partition(y, L, width, nk, tb), reps))
+        part["per_pass_device_ms"].append(device_ms(
+            lambda: pallas_sort.merge_partition(y, L, width, nk, tb), reps))
+        # the deepest boundary's dependent steps (its span is L)
+        part["steps"].append(L.bit_length() if width < 2 * L else 0)
+        if 2 * L == m:
+            part["latency"] = partition_latency(y, L, nk, tb)
         part["plain_ms"] += time_ms(
             lambda: pallas_sort.merge_partition_plain(y, L, width, nk, tb),
             1, warmup=0)
@@ -1040,6 +1128,13 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
                 f"{names[1]}: PyTorch's sort of each run pair differs")
         y, spare = z, y
     part["ms"] = sum(part["per_pass_ms"])
+    part["device_ms"] = sum(part["per_pass_device_ms"])
+    lat = part["latency"]
+    # the floor the search's dependent round trips set: its steps, each
+    # one round trip to device memory, and one launch, per pass
+    part["floor_per_pass_ms"] = [s * lat["step_us"] / 1e3 + lat["launch_ms"]
+                                 for s in part["steps"]]
+    part["floor_ms"] = sum(part["floor_per_pass_ms"])
     res[names[1]] = {
         "ms": sum(per_pass), "per_pass_ms": per_pass,
         "plain_ms": plain_total, "library_ms": library_total,
@@ -1254,6 +1349,9 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
                 f"{p['plain_ms']:.3f} ms, max_abs_err {p['max_abs_err']}; "
                 f"per pass (ms): "
                 + " ".join(f"{v:.3f}" for v in p["per_pass_ms"]))
+        if "floor_ms" in t or "partition" in t:
+            log_partition_floor(f"{name}'s partition" if "partition" in t
+                                else name, t.get("partition", t))
     keys = list(keyr)
     casc = {
         "keys8_cascade_ms": time_ms(
@@ -1277,6 +1375,23 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
     log("[times] cascades " + json.dumps(casc))
     return {"kernels": times, "cascades": casc, "ab": ab,
             "take_lanes_sweep": sweep}
+
+
+def log_partition_floor(what: str, p: dict) -> None:
+    """The partition's device time per pass (queued behind a sleep, so the
+    host's launch cost is hidden) beside the floor its dependent round trips
+    set (steps x one round trip + one launch, measured by
+    partition_latency)."""
+    lat = p["latency"]
+    log(f"[times] {what} device per pass (ms): "
+        + " ".join(f"{v:.4f}" for v in p["per_pass_device_ms"])
+        + f"; summed {p['device_ms']:.4f}")
+    log(f"[times] {what} round-trip floor per pass (ms): "
+        + " ".join(f"{v:.4f}" for v in p["floor_per_pass_ms"])
+        + f"; summed {p['floor_ms']:.4f} (one dependent step "
+        f"{lat['step_us']:.3f} us after an L2 flush, one launch "
+        f"{lat['launch_ms'] * 1e3:.3f} us, {lat['steps']} steps at the "
+        f"deepest pass in {lat['deep_ms'] * 1e3:.3f} us)")
 
 
 def phase_profile(words: torch.Tensor, path: str) -> dict:
@@ -4038,6 +4153,51 @@ def partition_bytes_of(root: str, mid: str) -> bytes:
         return f.read(rec.part_length)
 
 
+def phase_crc_trailer(root: str, mid: str) -> dict:
+    """Phase 18f: one of run c's MOF partitions written again with the IFile
+    CRC trailer (``IFileWriter(with_crc=True)``) and cracked by the native
+    crack with ``verify_crc``: the same records, the trailer the CRC32 of
+    everything before it; a flipped value byte and a missing trailer raise
+    the reference's ``StorageError`` messages. Host work only."""
+    require(native_enabled(), "[18f] uda.tpu.use.native is off")
+    batch = crack(partition_bytes_of(root, mid))
+    out = io.BytesIO()
+    w = IFileWriter(out, with_crc=True)
+    for k, v in batch.iter_records():
+        w.append(k, v)
+    w.close()
+    raw = out.getvalue()
+    trailer = raw[-4:]
+    require(w.bytes_written == len(raw)
+            and int.from_bytes(trailer, "big") == zlib.crc32(raw[:-4]),
+            "[18f] the trailer is not the CRC32 of the segment")
+    native.reset_calls()
+    got = crack(raw, verify_crc=True)
+    calls = dict(native.calls)
+    require(calls.get("crack", 0) >= 1, f"[18f] no native crack: {calls}")
+    require(got.num_records == batch.num_records
+            and all(np.array_equal(getattr(got, c), getattr(batch, c))
+                    for c in ("key_off", "key_len", "val_off", "val_len")),
+            "[18f] the trailed segment cracks to other records")
+    flipped = bytearray(raw)
+    flipped[-8] ^= 1  # a value byte of the last record
+    raised = {}
+    for what, buf in (("flipped", bytes(flipped)),
+                      ("missing", raw[:-4])):
+        try:
+            crack(buf, verify_crc=True)
+        except StorageError as e:
+            raised[what] = str(e)
+    require("CRC mismatch" in raised.get("flipped", "")
+            and "missing CRC trailer" in raised.get("missing", ""),
+            f"[18f] the CRC checks did not raise as the reference's: {raised}")
+    res = {"map": mid, "bytes": len(raw), "records": got.num_records,
+           "trailer": trailer.hex(), "native_calls": calls,
+           "raised": raised}
+    log("[18f crc trailer] " + json.dumps(res))
+    return res
+
+
 def phase_native_codec(root: str, mids: list) -> dict:
     """Phase 18b: each native entry point against the port's Python form
     on the card's host."""
@@ -4255,6 +4415,8 @@ def phase_native(dev: torch.device, root: str, build: dict,
                                             want_c)
     with phase_seconds("18e native io"):
         res["io"] = phase_native_io(root, mids)
+    with phase_seconds("18f crc trailer"):
+        res["crc"] = phase_crc_trailer(root, mids[0])
     return res
 
 

@@ -72,15 +72,36 @@ def test_k2_k1_edges_match_plain(cuda_device, rows, nk, tb, n, tile, kind):
                                   oracle(x_np, nk, tb))
 
 
-@pytest.mark.parametrize("rows,nk,tb,tile,folded", [
-    (8, 3, 7, 128, False), (32, 30, 31, 128, False), (4, 1, 3, 1024, False),
-    (4, 1, 3, 256, True), (4, 2, 3, 256, True), (4, 3, 3, 256, True)])
+def _partition_case(rows, nk, tb, tile, folded, n=1 << 13, kind="mixed"):
+    case = (rows, nk, tb, tile, folded, n, kind)
+    if n == 1 << 13 and kind == "mixed":  # the first cases keep their ids
+        return pytest.param(*case, id=f"{rows}-{nk}-{tb}-{tile}-{folded}")
+    return pytest.param(*case)
+
+
+@pytest.mark.parametrize("rows,nk,tb,tile,folded,n,kind", [
+    _partition_case(8, 3, 7, 128, False),
+    _partition_case(32, 30, 31, 128, False),
+    _partition_case(4, 1, 3, 1024, False),
+    _partition_case(4, 1, 3, 256, True), _partition_case(4, 2, 3, 256, True),
+    _partition_case(4, 3, 3, 256, True),
+    # deep runs: the last pass merges two runs of 2^20, so a boundary's
+    # search spans 2^20 candidates (5 and more rounds)
+    _partition_case(8, 3, 7, 1024, False, 1 << 21),
+    _partition_case(4, 3, 3, 1024, True, 1 << 21),
+    # all-equal first key words, all-equal keys (the tie-break row alone
+    # orders them) and single-word keys that tie everywhere
+    _partition_case(8, 3, 7, 1024, False, 1 << 21, "first"),
+    _partition_case(8, 3, 7, 1024, False, 1 << 21, "equal"),
+    _partition_case(4, 3, 3, 1024, True, 1 << 21, "first"),
+    _partition_case(4, 3, 3, 1024, True, 1 << 21, "equal"),
+    _partition_case(4, 1, 3, 256, True, 1 << 16, "equal")])
 def test_merge_partition_matches_merge_splits(cuda_device, rows, nk, tb,
-                                              tile, folded):
+                                              tile, folded, n, kind):
     """The partition kernel against the plain version's merge_splits, at
     K1's width (or K4's, ``folded``), on every pass of a cascade."""
     fold = pallas_fold if folded else None
-    x = _on_card(words(rows, rows, 1 << 13, nk), cuda_device)
+    x = _on_card(words(rows, rows, n, nk, kind), cuda_device)
     y = (fold.tile_sort_folded(x, tile, nk) if fold
          else pallas_sort.tile_sort(x, tile, nk, tb))
     run = tile

@@ -560,3 +560,70 @@ def test_empty_partitions_match_reference(tmp_path):
                            reduce_id=reduce_id)
             assert got == reference_run(str(tmp_path), ["m0", "m1", "m2"],
                                         TEXT, conf, reduce_id=reduce_id)
+
+
+def _count_lease_pairs(monkeypatch, ledger) -> dict:
+    """Arm ``ledger`` and count its ``pool.lease`` acquires and settles."""
+    calls = {"acquire": 0, "settle": 0}
+
+    def counted(kind, fn):
+        def call(pair, *args, **kwargs):
+            if pair == "pool.lease":
+                calls[kind] += 1
+            return fn(pair, *args, **kwargs)
+        return call
+
+    monkeypatch.setattr(ledger, "enabled", True)
+    monkeypatch.setattr(ledger, "acquire", counted("acquire", ledger.acquire))
+    monkeypatch.setattr(ledger, "settle", counted("settle", ledger.settle))
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["default", "streaming"])
+def test_host_forest_pool_leases_match_reference(tmp_path, monkeypatch,
+                                                 mode):
+    """One host-engine ``run()`` in pipeline mode stages its runs and merges
+    into pool leases as the reference does: the same ``pool.lease``
+    acquires and settles (each run and each merge output one pair), the
+    same bytes, and no lease left open at the finish's drain point."""
+    from uda_tpu.utils.resledger import resledger as jledger
+    from uda_tpu_torch.utils.resledger import resledger as tledger
+
+    mids = text_tree(str(tmp_path), "job", 6, 90, seed=31)
+    jcalls = _count_lease_pairs(monkeypatch, jledger)
+    tcalls = _count_lease_pairs(monkeypatch, tledger)
+    got = port_run(str(tmp_path), mids, TEXT,
+                   _mode_conf(tmp_path, mode, "port"))
+    want = reference_run(str(tmp_path), mids, TEXT,
+                         _mode_conf(tmp_path, mode, "ref"))
+    assert got == want
+    # 6 staged runs and 5 merges, each one lease and one release
+    assert tcalls == jcalls == {"acquire": 11, "settle": 11}
+    assert tledger.outstanding(pairs=("pool.lease",)) == []
+    assert [r for r in tledger.leak_reports
+            if r["pair"] == "pool.lease"] == []
+
+
+def test_manager_takes_the_references_positional_arguments(tmp_path):
+    """``MergeManager(client, key_type, config, progress)`` as the reference
+    is called: the fourth argument is the fetch-progress callback, which
+    the run calls with (done, total), as the reference's does."""
+    mids = mof_tree(str(tmp_path), TEXT, seed=3)
+    seen = {"port": [], "ref": []}
+    engine = DataEngine(DirIndexResolver(str(tmp_path)), Config(BASE))
+    jengine = JDataEngine(JDirIndexResolver(str(tmp_path)), JConfig(BASE))
+    try:
+        out, jout = bytearray(), bytearray()
+        mm = MergeManager(LocalFetchClient(engine), TEXT, Config(BASE),
+                          lambda d, t: seen["port"].append((d, t)),
+                          device="cpu")
+        jmm = JMergeManager(JLocalFetchClient(jengine), TEXT, JConfig(BASE),
+                            lambda d, t: seen["ref"].append((d, t)))
+        assert mm.seed == jmm.seed == 0
+        mm.run("job", mids, 1, out.extend)
+        jmm.run("job", mids, 1, jout.extend)
+    finally:
+        engine.stop()
+        jengine.stop()
+    assert bytes(out) == bytes(jout)
+    assert seen["port"] == seen["ref"] and seen["port"][-1] == (4, 4)

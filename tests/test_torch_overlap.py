@@ -391,7 +391,7 @@ def test_merger_device_rule(monkeypatch):
 
 
 def test_row_buffer_pool_reuses_and_bounds():
-    pool = tmerge.RowBufferPool("cpu")
+    pool = tmerge.RowBufferPool(device="cpu")
     assert not pool.pinned
     before = metrics.get("stage.buffer.reuses")
     a = pool.lease(100, 7)
@@ -446,3 +446,58 @@ def test_overflow_order_and_bytewise_rule_match_reference():
     assert np.array_equal(slow._overflow_order(port[0], 120), expect)
     for om in (want, fast, slow):
         om.abort()
+
+
+@pytest.mark.parametrize("how", ["finish", "emit_stream", "abort"])
+def test_host_forest_leases_go_home(monkeypatch, how):
+    """The pipelined host forest stages runs and merges into pool leases,
+    as the reference does: a finish makes the reference's ``pool.lease``
+    acquires and settles (7 runs and 6 merges), and after a finish or an
+    abort no lease is open in either package's ledger or pool."""
+    from uda_tpu.utils.resledger import resledger as jledger
+    from uda_tpu_torch.utils.resledger import resledger as tledger
+
+    counts = {}
+    for side, ledger in (("ref", jledger), ("port", tledger)):
+        calls = counts[side] = {"acquire": 0, "settle": 0}
+        for kind in calls:
+            def call(pair, *a, _fn=getattr(ledger, kind), _kind=kind,
+                     _calls=calls, **kw):
+                _calls[_kind] += pair == "pool.lease"
+                return _fn(pair, *a, **kw)
+            monkeypatch.setattr(ledger, kind, call)
+        monkeypatch.setattr(ledger, "enabled", True)
+    ref, port = _segments(seed=5, k=7)
+    jom = JOverlappedMerger(jcmp.get_key_type(KT), 16, engine="host",
+                            pipeline=True)
+    tom = OverlappedMerger(tcmp.get_key_type(KT), 16, pipeline=True,
+                           device="cpu")
+    assert tom.engine == "host" and tom._buf_pool is not None
+    out = {}
+    for side, om, batches, emitter in (
+            ("ref", jom, ref, JFramedEmitter(BLOCK)),
+            ("port", tom, port, FramedEmitter(BLOCK))):
+        _feed(om, batches, 3, 2)
+        if how == "abort":
+            # abort with runs in the forest: every segment staged first
+            deadline = time.monotonic() + 30
+            while (om.stats["staged_runs"] < len(batches)
+                   or om.stats["pending"]) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            om.abort()
+        elif how == "finish":
+            out[side] = list(om.finish(batches).iter_records())
+        else:
+            buf = io.BytesIO()
+            om.emit_stream(batches, emitter, lambda b: buf.write(bytes(b)))
+            out[side] = buf.getvalue()
+    assert out.get("port") == out.get("ref")
+    assert tom._buf_pool.leased == 0
+    for side, ledger in (("ref", jledger), ("port", tledger)):
+        assert ledger.outstanding(pairs=("pool.lease",)) == []
+        assert not [r for r in ledger.leak_reports
+                    if r["pair"] == "pool.lease"]
+        assert counts[side]["acquire"] == counts[side]["settle"] > 0
+    if how != "abort":
+        assert counts["port"] == counts["ref"] == {"acquire": 13,
+                                                   "settle": 13}

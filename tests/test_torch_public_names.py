@@ -74,6 +74,77 @@ def test_port_has_every_public_name(path):
     assert missing == NO_COUNTERPART.get(rel, set())
 
 
+# reference functions whose positional parameters the port translates on
+# purpose (the check below fails on any other difference, and on an entry
+# here that no longer differs)
+_INTERPRET = ("interpret=: interpret-mode Pallas is JAX-only; the port runs "
+              "a kernel's plain version on a CPU tensor instead")
+SIGNATURE_TRANSLATIONS = {
+    "uda_tpu/models/terasort.py::teragen":
+        "key: a JAX PRNG key becomes a torch.Generator",
+    "uda_tpu/models/terasort.py::teragen_lanes":
+        "key: a JAX PRNG key becomes a torch.Generator",
+    "uda_tpu/models/terasort.py::single_chip_sort": _INTERPRET,
+    "uda_tpu/models/terasort.py::sort_lanes_keys8": _INTERPRET,
+    "uda_tpu/models/terasort.py::bench_step": _INTERPRET,
+    "uda_tpu/ops/merge.py::merge_row_pair": _INTERPRET,
+    "uda_tpu/ops/merge.py::merge_batches_two_phase": _INTERPRET,
+    "uda_tpu/ops/pallas_fold.py::sort_lanes_folded4": _INTERPRET,
+    "uda_tpu/ops/pallas_fold.py::sort_lanes_folded": _INTERPRET,
+    "uda_tpu/ops/pallas_merge.py::merge_sorted_pair": _INTERPRET,
+    "uda_tpu/ops/pallas_sort.py::keys8_sort_perm": _INTERPRET,
+    "uda_tpu/ops/pallas_sort.py::sort_lanes": _INTERPRET,
+    "uda_tpu/parallel/exchange.py::window_round_body":
+        "w, d, q: a shard_map body's arrays become the mesh and a source",
+    "uda_tpu/parallel/exchange.py::hierarchical_round_body":
+        "w, d, q: a shard_map body's arrays become the mesh and a source",
+    "uda_tpu/parallel/exchange.py::coded_round_body":
+        "w, d, q: a shard_map body's arrays become the mesh and a source",
+    "uda_tpu/parallel/exchange.py::run_round_body":
+        "w, d, q: a shard_map body's arrays become the mesh and a source",
+    "uda_tpu/parallel/multihost.py::allgather":
+        "arr: the port's mesh is a list of slots, not a jax.Array",
+}
+
+
+def _signatures(path: Path) -> dict:
+    """Public functions, and public classes' ``__init__`` and public
+    methods, by name -> their positional parameter names."""
+    def positional(fn) -> list:
+        return [a.arg for a in fn.args.posonlyargs + fn.args.args]
+
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, funcs) and node.name[0] != "_":
+            out[node.name] = positional(node)
+        elif isinstance(node, ast.ClassDef) and node.name[0] != "_":
+            for m in node.body:
+                if isinstance(m, funcs) and (m.name[0] != "_"
+                                             or m.name == "__init__"):
+                    out[f"{node.name}.{m.name}"] = positional(m)
+    return out
+
+
+@pytest.mark.parametrize("path", _reference_modules(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_reference_positional_parameters_are_a_prefix(path):
+    """A call written for the reference means the same on the port: every
+    public function's and method's positional parameters in the reference
+    are, by name, a prefix of the port's (the port may add parameters
+    after them), but for the listed translations."""
+    rel = str(path.relative_to(ROOT))
+    port = _signatures(ROOT / rel.replace("uda_tpu/", "uda_tpu_torch/", 1))
+    differ = {}
+    for name, params in _signatures(path).items():
+        if name in port and port[name][:len(params)] != params:
+            differ[f"{rel}::{name}"] = (params, port[name])
+    allowed = {k for k in SIGNATURE_TRANSLATIONS
+               if k.startswith(rel + "::")}
+    assert {k: v for k, v in differ.items() if k not in allowed} == {}
+    assert allowed <= set(differ), "a listed translation no longer differs"
+
+
 # -- utils/vint ---------------------------------------------------------------
 
 def _vlong_values(seed: int) -> np.ndarray:

@@ -148,7 +148,7 @@ def armed(monkeypatch):
 
 
 def test_pool_leases_settle_and_leak(armed):
-    pool = RowBufferPool("cpu")
+    pool = RowBufferPool(device="cpu")
     a = pool.lease(8, 4)
     b = pool.lease(16, 4)
     assert {(r["pair"], r["amount"]) for r in armed.outstanding(

@@ -150,6 +150,24 @@ def test_interleave_runs_guards_lost_records(tmp_path):
         b"".join(tstream.interleave_runs(iter([bad]), tstore, seg_col=0))
 
 
+@pytest.mark.parametrize("slab", [1 << 16, 37])
+def test_interleave_runs_takes_the_references_arguments(tmp_path, slab):
+    """``interleave_runs(slabs, store, num_key_words)`` called as the
+    reference is called, on whole rows: the segment is read from column
+    ``num_key_words + 1`` in both packages and the bytes are equal."""
+    jstore, tstore, rows = _spooled(tmp_path, rotate=2)
+    want = b"".join(jstream.interleave_runs(
+        jstream.iter_row_slabs(rows, rows.shape[0], slab), jstore, KW))
+    got = b"".join(tstream.interleave_runs(
+        tstream.iter_row_slabs(rows, rows.shape[0], slab), tstore, KW))
+    assert got == want and got.endswith(b"\xff\xff")
+    with pytest.raises(TypeError, match="not both"):
+        b"".join(tstream.interleave_runs(iter([rows]), tstore, KW,
+                                         seg_col=KW + 1))
+    jstore.cleanup()
+    tstore.cleanup()
+
+
 @pytest.mark.parametrize("split", [False, True])
 def test_slab_batch_matches_reference(split):
     """The same records in the same order as the reference's slab, each

@@ -6,8 +6,8 @@ systematic Reed-Solomon stripe — k data chunks + (n-k) parity chunks over
 GF(2^8) (``coding/rs``, host numpy) — spread over n suppliers, and the
 reduce side can rebuild the partition from any k of them when the primary
 is dead or penalized (``coding/recovery``, the post-retry rung of the
-Segment ladder). The reference's ``coding/gfjax.py`` (the same field on
-the device, for the coded exchange of ``parallel/``) is not ported.
+Segment ladder). ``coding/gfjax`` is the same field on the device, for the
+coded exchange of ``parallel/``.
 
 Layout contract (shared with ``mofserver``):
 

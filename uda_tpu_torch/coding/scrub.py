@@ -1,7 +1,7 @@
 """Background stripe scrub: proactive verification (and optional
 repair) of the k-of-n coded map-output layout (the port's copy of
-``uda_tpu/coding/scrub.py``; its caller in the reference, the map phase of
-``models/pipeline``, is not ported yet).
+``uda_tpu/coding/scrub.py``; the map phase of ``models/pipeline`` calls
+it, as in the reference).
 
 The coding layer's reconstruction only ever DECODES on demand — a shard lost
 months before the fetch is discovered at reconstruction time, when it

@@ -99,16 +99,33 @@ __device__ __forceinline__ bool smem_lt(const uint64_t* s, int ps, int a,
   return false;
 }
 
-// Record a < record b in global memory, by (key rows, tie-break row).
+// Record a < record b in global memory, by (key rows, tie-break row). The
+// first key words decide almost every compare; on equal first words the
+// other key words and the tie-break are loaded four at a time, so a tie
+// (TeraSort's all-0xFFFFFFFF padding records tie on every key word) costs
+// one more round trip, not one a word.
 __device__ __forceinline__ bool global_lt(const uint32_t* __restrict__ x,
                                           size_t n, int nk, int tb_row,
                                           size_t a, size_t b) {
-  for (int w = 0; w < nk; ++w) {
-    const uint32_t u = __ldg(x + (size_t)w * n + a);
-    const uint32_t v = __ldg(x + (size_t)w * n + b);
-    if (u != v) return u < v;
+  const uint32_t a0 = __ldg(x + a);
+  const uint32_t b0 = __ldg(x + b);
+  if (a0 != b0) return a0 < b0;
+  for (int w0 = 1; w0 <= nk; w0 += 4) {  // word nk is the tie-break
+    uint32_t u[4], v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int w = w0 + k;
+      if (w <= nk) {
+        const size_t row = (size_t)(w < nk ? w : tb_row) * n;
+        u[k] = __ldg(x + row + a);
+        v[k] = __ldg(x + row + b);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (w0 + k <= nk && u[k] != v[k]) return u[k] < v[k];
   }
-  return __ldg(x + (size_t)tb_row * n + a) < __ldg(x + (size_t)tb_row * n + b);
+  return false;
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -352,9 +369,20 @@ inline int merge_width(int rows, int nk, size_t n, size_t run_len,
 
 // The partition: for every block boundary b (output column b * width), the
 // merge-path split of its run pair's diagonal d: i0 = the number of A-run
-// records among the pair's first d merged records, ties to A. One thread
-// per boundary, a binary search in global memory; the same search and tie
-// rule as the plain version's merge_splits.
+// records among the pair's first d merged records, ties to A, the largest i
+// in [lo, hi] with !(B[d - i] < A[i - 1]) (a predicate true, then false,
+// as i grows); the same answer as the plain version's merge_splits.
+//
+// What bounds it: scattered reads, each its own 32-byte sector, and how many
+// the card has in flight; not the bytes (4 a probe) and not the chain of
+// dependent steps alone (PERF.md, PR 16). So: one thread per boundary (all
+// of a pass's boundaries search at once: 65,536 at m = 2^27), and every
+// candidate on a power-of-two grid: a step's candidate is the first
+// multiple above lo of the largest power of two S <= hi - lo. The coarse
+// steps of every boundary of a run pair then read the same few records (on
+// the grid of the block width, which every diagonal d is a multiple of), so
+// they hit the L1 and L2 caches and only the last steps, inside one block
+// width, reach device memory. Ties cost one extra round trip (global_lt).
 __global__ void merge_partition_kernel(const uint32_t* __restrict__ x,
                                        uint32_t* __restrict__ splits,
                                        size_t n, int nk, int tb_row,
@@ -370,11 +398,12 @@ __global__ void merge_partition_kernel(const uint32_t* __restrict__ x,
   size_t lo = d > L ? d - L : 0;
   size_t hi = d < L ? d : L;
   while (lo < hi) {
-    const size_t mid = (lo + hi + 1) / 2;  // candidate: A records taken
-    if (!global_lt(x, n, nk, tb_row, b_base + d - mid, a_base + mid - 1)) {
-      lo = mid;
+    const int sh = 63 - __clzll((long long)(hi - lo));  // S = 2^sh <= span
+    const size_t c = ((lo >> sh) + 1) << sh;  // A records taken, in (lo, hi]
+    if (!global_lt(x, n, nk, tb_row, b_base + d - c, a_base + c - 1)) {
+      lo = c;
     } else {
-      hi = mid - 1;
+      hi = c - 1;
     }
   }
   splits[b] = (uint32_t)lo;

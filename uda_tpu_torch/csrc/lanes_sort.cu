@@ -6,7 +6,8 @@
 //   K2  uda_tpu/ops/pallas_sort.py::_tile_sort_kernel   (launcher _tile_sort)
 //   K1  uda_tpu/ops/pallas_sort.py::_merge_pass_kernel  (launcher _merge_pass)
 //       and its window table _pass_splits, which merge_partition_kernel
-//       computes on the card, one thread per block boundary
+//       computes on the card, one thread per block boundary searching on a
+//       power-of-two grid (lanes_common.cuh)
 //
 // The device code (layout, order, packed planes, the kernels themselves) is
 // in lanes_common.cuh, shared with K3/K4; this file instantiates it for

@@ -277,9 +277,9 @@ class MergeManager:
     runs; without a card pass ``device="cpu"``."""
 
     def __init__(self, client: InputClient, key_type: KeyType | str,
-                 config: Optional[Config] = None, seed: int = 0,
-                 device=None,
-                 progress: Optional[Callable[[int, int], None]] = None):
+                 config: Optional[Config] = None,
+                 progress: Optional[Callable[[int, int], None]] = None,
+                 seed: int = 0, device=None):
         self.cfg = config or Config()
         self.device = resolve_device(device)
         self.client = client

@@ -60,8 +60,9 @@ runtime's linear row merge while ``uda.tpu.use.native`` is on (resolved
 once, at construction, outside every lock), splitting a large merge of the
 pipelined forest across threads at merge-path points
 (``ops/merge.merge_rows_split_into``); with the switch off it keeps
-``merge_row_pair``'s lexsort. The reference also leases the host merge
-outputs from a buffer pool; the port allocates each output.
+``merge_row_pair``'s lexsort. As in the reference, that pipelined forest
+stages its runs and merges into ``RowBufferPool`` leases, each recycled
+when its run merges into a larger one, so no merge allocates its output.
 
 Checkpointing (``merger/checkpoint.py``) adds two hooks: ``on_spool`` fires
 with the segment index once its run file is on disk (the snapshot
@@ -115,8 +116,9 @@ _MERGE_SPLIT_MIN_ROWS = 1 << 18
 
 class _StagedRun:
     """A stage worker's output awaiting the merge consumer: sorted host
-    rows (a pool lease for K1 runs), fed timestamp (the merge.wait_ms
-    anchor) and the in-flight byte charge it releases once merged."""
+    rows (a pool lease for K1 runs and the pipelined host forest's), fed
+    timestamp (the merge.wait_ms anchor) and the in-flight byte charge it
+    releases once merged."""
 
     __slots__ = ("rows", "valid", "lease", "fed_t", "charge")
 
@@ -150,7 +152,7 @@ class OverlappedMerger:
     def __init__(self, key_type: KeyType, width: int, engine: str = "auto",
                  run_store=None, max_pending: int = 0, stagers: int = 0,
                  device_runs: bool = True, pipeline: bool = False,
-                 inflight_bytes: int = 0, device=None, on_spool=None):
+                 inflight_bytes: int = 0, on_spool=None, device=None):
         self.key_type = key_type
         self.width = width
         # the run-spool boundary hook (the checkpoint trigger); it never
@@ -187,21 +189,23 @@ class OverlappedMerger:
         self._inflight_cap = max(0, int(inflight_bytes))
         self._inflight = 0
         self._inflight_cv = TrackedCondition(TrackedLock("stage.inflight"))
-        # K1 runs are built in pool leases (pinned on the card) and copied
-        # to the device, where the merger has its own copy and merge
-        # streams: PyTorch's current stream would queue each copy behind
-        # the merges already launched
-        self._buf_pool = (merge_ops.RowBufferPool(self.device)
-                          if self.engine == "pallas" else None)
         # the host engine's native row merge, resolved here so a cold
         # library builds before any carry runs under _forest_lock; the
         # pipelined forest splits large merges over the cores the stage
         # half leaves idle
         self._native_rows_merge = (merge_ops.resolve_native_rows_merge()
                                    if self.engine == "host" else None)
+        host_pool = pipeline and self._native_rows_merge is not None
         self._merge_parts = (max(2, min(4, os.cpu_count() or 2))
-                             if pipeline and self._native_rows_merge
-                             is not None else 1)
+                             if host_pool else 1)
+        # K1 runs are built in pool leases (pinned on the card) and copied
+        # to the device, where the merger has its own copy and merge
+        # streams: PyTorch's current stream would queue each copy behind
+        # the merges already launched. The pipelined host forest's runs
+        # and merge outputs lease too, each recycled when its run merges
+        # away (a fresh output per merge would page-fault every byte)
+        self._buf_pool = (merge_ops.RowBufferPool(device=self.device)
+                          if self.engine == "pallas" or host_pool else None)
         self._copy_stream = self._merge_stream = None
         if self.engine == "pallas" and self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
@@ -508,16 +512,18 @@ class OverlappedMerger:
     def _run_rows(self, packed, order: Optional[np.ndarray], seg_index: int,
                   fed_t: float) -> _StagedRun:
         """A run's composite-key rows, staged for the merge: exact-sized
-        numpy for the host engine, a pool lease padded to a power-of-two
-        capacity (a bounded set of shapes) for K1."""
+        for the host engine (a pool lease in the pipelined forest, else
+        numpy), a pool lease padded to a power-of-two capacity (a bounded
+        set of shapes) for K1."""
         n = packed.num_records
         cols = packed.key_words.shape[1] + merge_ops.ROW_EXTRA_COLS
         if self._buf_pool is None:
             rows = np.empty((n, cols), np.uint32)
             merge_ops.fill_run_rows(rows, packed, order, seg_index)
             return _StagedRun(rows, n, None, fed_t, 0)
+        cap = _next_pow2(n) if self.engine == "pallas" else n
         with self._device_errors():
-            lease = self._buf_pool.lease(_next_pow2(n), cols)
+            lease = self._buf_pool.lease(cap, cols)
         try:
             merge_ops.fill_run_rows(lease, packed, order, seg_index)
             return _StagedRun(lease, n, lease, fed_t, 0)
@@ -648,7 +654,12 @@ class OverlappedMerger:
             if self.engine == "pallas":
                 with metrics.span("merge.device_put", rows=staged.valid):
                     rows = self._upload(staged)
-            self._insert(Run(rows, staged.valid, _next_pow2(staged.valid)))
+            # a host run KEEPS its pool lease (recycled when it merges
+            # away); ownership moves to the Run, so an error path's
+            # _recycle can never release it twice
+            lease, staged.lease = staged.lease, None
+            self._insert(Run(rows, staged.valid, _next_pow2(staged.valid),
+                             lease))
 
     def _insert(self, run: Run) -> None:
         # binary-counter carry: equal size classes merge immediately. The
@@ -658,20 +669,34 @@ class OverlappedMerger:
 
     def _merge(self, a: Run, b: Run) -> Run:
         with metrics.timer("overlap_device_merge"):
-            total = a.valid + b.valid
-            if self._merge_parts > 1 and total >= _MERGE_SPLIT_MIN_ROWS:
-                out = np.empty((total, int(a.rows.shape[1])), np.uint32)
-                merge_ops.merge_rows_split_into(
-                    np.ascontiguousarray(a.rows[:a.valid]),
-                    np.ascontiguousarray(b.rows[:b.valid]), out,
-                    self._merge_parts)
-                merged = Run(out, total, 2 * max(a.bucket, b.bucket))
+            if self.engine == "host" and self._buf_pool is not None:
+                merged = self._merge_into_lease(a, b)
             else:
                 merged = merge_ops.merge_run_pair(a, b, self.engine,
                                                   self._native_rows_merge)
         with self._state_lock:
             self._merges += 1
         return merged
+
+    def _merge_into_lease(self, a: Run, b: Run) -> Run:
+        """The pipelined host forest's merge: into a pool-leased output,
+        split across threads at merge-path points when it is large (the
+        native call releases the GIL). The output's lease moves to the
+        returned Run; the inputs' recycle once it is done, and a failed
+        merge returns only the output's."""
+        total = a.valid + b.valid
+        out = self._buf_pool.lease(total, int(a.rows.shape[1]))  # udalint: disable=UDA101 - handed to the returned Run
+        parts = self._merge_parts if total >= _MERGE_SPLIT_MIN_ROWS else 1
+        try:
+            merge_ops.merge_rows_split_into(
+                np.ascontiguousarray(a.rows[:a.valid]),
+                np.ascontiguousarray(b.rows[:b.valid]), out, parts)
+        except BaseException:
+            self._buf_pool.release(out)
+            raise
+        self._release_run(a)
+        self._release_run(b)
+        return Run(out, total, 2 * max(a.bucket, b.bucket), out)
 
     # -- consumer side -------------------------------------------------------
 
@@ -726,16 +751,26 @@ class OverlappedMerger:
         if self._error is not None:
             raise self._error
 
-    def _release_forest(self) -> None:
-        """Drop every forest run (abort and fallback paths abandon the
-        forest without merging it)."""
-        with self._forest_lock:
-            self._forest = {}
+    def _release_run(self, run: Optional[Run]) -> None:
+        """Recycle a run's pool lease (idempotent: the lease goes to
+        None)."""
+        if run is not None and run.lease is not None:
+            self._buf_pool.release(run.lease)
+            run.lease = None
 
-    def _finish_cleanup(self) -> None:
-        """The cleanup of every finish flavour's ``finally``: abandoned
-        forest runs go, then the drain point asserts this merger's pool
-        books are empty."""
+    def _release_forest(self) -> None:
+        """Drop every forest run and recycle its lease (abort and fallback
+        paths abandon the forest without merging it)."""
+        with self._forest_lock:
+            runs, self._forest = list(self._forest.values()), {}
+        for run in runs:
+            self._release_run(run)
+
+    def _finish_cleanup(self, acc: Optional[Run]) -> None:
+        """The cleanup of every finish flavour's ``finally``: the merged
+        run's lease and abandoned forest runs' go home, then the drain
+        point asserts this merger's pool books are empty."""
+        self._release_run(acc)
         self._release_forest()
         self._ledger_drain("merger.finish")
 
@@ -806,6 +841,7 @@ class OverlappedMerger:
         """Drain, merge the leftover forest, and materialize the sorted
         batch. ``batches`` must be ALL segments' batches in original
         segment-index order (the indices fed to :meth:`feed`)."""
+        acc = None
         try:
             self._drain()
             if self._overflow:
@@ -822,7 +858,7 @@ class OverlappedMerger:
             return cat.take(offsets[src[:, 0].astype(np.int64)]
                             + src[:, 1].astype(np.int64))
         finally:
-            self._finish_cleanup()
+            self._finish_cleanup(acc)
 
     def emit_stream(self, batches: Sequence[RecordBatch], emitter,
                     consumer) -> int:
@@ -831,10 +867,10 @@ class OverlappedMerger:
         concatenating the shuffle: each output slab's bytes are gathered
         straight from the per-segment batches and framed, so transient
         host memory is one slab."""
+        merged = acc = None
         try:
             with metrics.timer("merge"):
                 self._drain()
-                merged = acc = None
                 if self._overflow:
                     self._warn_overflow("global device re-sort")
                     merged = merge_ops.merge_batches(
@@ -857,7 +893,7 @@ class OverlappedMerger:
 
             return emitter.emit_framed(pieces(), consumer)
         finally:
-            self._finish_cleanup()
+            self._finish_cleanup(acc)
 
     def finish_streaming(self, emitter, consumer,
                          expected_records: Optional[int] = None) -> int:
@@ -868,6 +904,7 @@ class OverlappedMerger:
         store = self.run_store
         if store is None:
             raise MergeError("finish_streaming without a run store")
+        acc = None
         try:
             with metrics.timer("merge"):
                 self._drain()
@@ -906,7 +943,7 @@ class OverlappedMerger:
                                            seg_col=0), consumer)
         finally:
             store.cleanup()
-            self._finish_cleanup()
+            self._finish_cleanup(acc)
 
     def abort(self) -> None:
         """Stop the staging threads without producing output. ``_aborted``

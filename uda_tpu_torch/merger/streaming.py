@@ -408,16 +408,23 @@ def iter_row_slabs(rows, valid: int,
 
 
 def interleave_runs(slabs: Iterator[np.ndarray], store: RunStore,
-                    seg_col: int) -> Iterator[bytes]:
+                    num_key_words: Optional[int] = None, *,
+                    seg_col: Optional[int] = None) -> Iterator[bytes]:
     """Permutation-driven k-way interleave of the sorted runs.
 
-    ``slabs`` yields merged rows whose column ``seg_col`` is the segment
-    index (the reference names the key width instead: its column is
-    ``num_key_words + 1`` of the whole row). Each slab becomes one framed
-    output piece; runs are read strictly sequentially. The concatenation
-    of the yielded pieces is the complete merged IFile stream, EOF marker
-    included.
+    ``slabs`` yields merged rows whose column ``num_key_words + 1`` is
+    the segment index (the OverlappedMerger row layout), as in the
+    reference; narrow slabs that carry only some columns name the
+    segment's column with ``seg_col`` instead. Each slab becomes one
+    framed output piece; runs are read strictly sequentially. The
+    concatenation of the yielded pieces is the complete merged IFile
+    stream, EOF marker included.
     """
+    if (num_key_words is None) == (seg_col is None):
+        raise TypeError("interleave_runs takes num_key_words or seg_col, "
+                        "not both or neither")
+    if seg_col is None:
+        seg_col = num_key_words + 1
     cursors: dict[int, _RunCursor] = {}
     open_lru: dict[int, None] = {}  # insertion-ordered set of open segs
 

@@ -184,7 +184,8 @@ class RowBufferPool:
     done. On the card the buffers are pinned (page-locked) host memory, so
     that copy runs asynchronously on the merger's copy stream (a copy from
     pageable memory would wait for the host); on the CPU they are plain
-    numpy. Pinned memory is slow to allocate, which is why the pool
+    numpy (``device``, keyword-only, ``None`` = the card, decides which).
+    Pinned memory is slow to allocate, which is why the pool
     exists. Buffers are flat arrays reshaped per lease, so one big early
     buffer serves every later request that fits; the free list is bounded
     so a pathological size spread cannot hoard host memory. ``leased``
@@ -194,7 +195,7 @@ class RowBufferPool:
 
     MAX_FREE = 8
 
-    def __init__(self, device=None, lock_class: str = "stage.bufpool"):
+    def __init__(self, lock_class: str = "stage.bufpool", *, device=None):
         self.pinned = resolve_device(device).type == "cuda"
         self._lock = TrackedLock(lock_class)
         self._free: list[np.ndarray] = []
@@ -518,14 +519,17 @@ class Run:
     which sort after every real row, so valid rows stay a prefix through
     any merge; host runs are exact-sized numpy. ``bucket`` is the
     binary-counter size class: next_run_capacity(valid) at first, doubled
-    by each merge."""
+    by each merge. ``lease`` is the :class:`RowBufferPool` buffer backing
+    ``rows`` (the pipelined host forest's), recycled when the run merges
+    into a larger one or the merger finishes."""
 
-    __slots__ = ("rows", "valid", "bucket")
+    __slots__ = ("rows", "valid", "bucket", "lease")
 
-    def __init__(self, rows, valid: int, bucket: int):
+    def __init__(self, rows, valid: int, bucket: int, lease=None):
         self.rows = rows
         self.valid = valid
         self.bucket = bucket
+        self.lease = lease
 
     @property
     def capacity(self) -> int:

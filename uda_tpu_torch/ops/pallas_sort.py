@@ -231,8 +231,10 @@ def merge_partition(x: torch.Tensor, run_len: int, width: int,
     """The partition kernel of K1 and K4 (replaces the window table
     ``uda_tpu/ops/pallas_sort.py::_pass_splits``): per block of ``width``
     output records of one pass, the number of A-run records merged before
-    it, one thread per block boundary. The kernel on a CUDA tensor,
-    :func:`merge_partition_plain` on a CPU one."""
+    it, one thread per block boundary searching on a power-of-two grid (so
+    the boundaries of a run pair share their coarse probes in the caches).
+    The kernel on a CUDA tensor, :func:`merge_partition_plain` on a CPU
+    one."""
     if x.device.type == "cpu":
         return merge_partition_plain(x, run_len, width, num_keys, tb_row)
     rows, n = _build.cuda_words(x).shape

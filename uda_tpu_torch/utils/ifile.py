@@ -17,14 +17,16 @@ Two access styles:
   converts a segment buffer into offset/length arrays over the raw
   bytes, the host-side preparation for packing keys into device columns.
 
-The reference's CRC32 trailer for its spill files is not ported yet (the
-spilling merges are not).
+As in the reference, an optional CRC32 trailer (``IFileWriter(with_crc=
+True)``, ``crack(verify_crc=True)``) covers every record and the EOF
+marker, 4 bytes big-endian after the marker.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import zlib
 from typing import BinaryIO, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -74,8 +76,9 @@ class IFileWriter:
     Mirrors ``write_kv_to_stream`` framing (reference StreamRW.cc:151-225).
     """
 
-    def __init__(self, out: BinaryIO):
+    def __init__(self, out: BinaryIO, with_crc: bool = False):
         self._out = out
+        self._crc = zlib.crc32(b"") if with_crc else None
         self.records = 0
         self.bytes_written = 0
         self._closed = False
@@ -84,6 +87,8 @@ class IFileWriter:
         rec = (vint.encode_vlong(len(key)) + vint.encode_vlong(len(value))
                + key + value)
         self._out.write(rec)
+        if self._crc is not None:
+            self._crc = zlib.crc32(rec, self._crc)
         self.records += 1
         self.bytes_written += len(rec)
 
@@ -92,6 +97,10 @@ class IFileWriter:
             return
         self._out.write(EOF_MARKER)
         self.bytes_written += len(EOF_MARKER)
+        if self._crc is not None:
+            self._crc = zlib.crc32(EOF_MARKER, self._crc)
+            self._out.write(self._crc.to_bytes(4, "big"))
+            self.bytes_written += 4
         self._closed = True
 
     def __enter__(self) -> "IFileWriter":
@@ -206,12 +215,16 @@ def _batch(arr: np.ndarray, key_off, key_len, val_off, val_len
                        np.asarray(val_len, dtype=np.int64))
 
 
-def crack(buf: bytes | np.ndarray, expect_eof: bool = True) -> RecordBatch:
+def crack(buf: bytes | np.ndarray, expect_eof: bool = True,
+          verify_crc: bool = False) -> RecordBatch:
     """One-pass columnar crack of an IFile segment buffer.
 
     Replaces per-record parsing in the merge hot loop (reference
     StreamRW.cc:334-449) with a single host pass producing offset/length
-    columns.
+    columns. With ``verify_crc`` the 4 bytes after the EOF marker are
+    checked as a big-endian CRC32 of everything before them (the trailer
+    ``IFileWriter(with_crc=True)`` writes), after the native crack and the
+    Python one alike.
     """
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
     nat = _native_mod() if len(arr) >= _NATIVE_THRESHOLD else None
@@ -221,6 +234,8 @@ def crack(buf: bytes | np.ndarray, expect_eof: bool = True) -> RecordBatch:
             raise StorageError("IFile segment missing EOF marker")
         if not saw and consumed != len(arr):
             raise StorageError(f"truncated IFile segment at offset {consumed}")
+        if verify_crc:
+            _check_crc_trailer(arr, consumed, saw)
         return batch
     mem = memoryview(arr)
     n = len(arr)
@@ -246,7 +261,21 @@ def crack(buf: bytes | np.ndarray, expect_eof: bool = True) -> RecordBatch:
         pos = p + klen + vlen
     if expect_eof and not saw_eof:
         raise StorageError("IFile segment missing EOF marker")
+    if verify_crc:
+        _check_crc_trailer(arr, pos, saw_eof)
     return _batch(arr, key_off, key_len, val_off, val_len)
+
+
+def _check_crc_trailer(arr: np.ndarray, pos: int, saw_eof: bool) -> None:
+    """Verify the 4-byte big-endian CRC32 trailer after the EOF marker."""
+    if not saw_eof or pos + 4 > len(arr):
+        raise StorageError("IFile segment missing CRC trailer")
+    mem = memoryview(arr)
+    want = int.from_bytes(mem[pos:pos + 4], "big")
+    got = zlib.crc32(mem[:pos])
+    if want != got:
+        raise StorageError(f"IFile CRC mismatch: trailer {want:#010x}, "
+                           f"computed {got:#010x}")
 
 
 def crack_partial(data: bytes, expect_eof: bool = False

@@ -8,9 +8,8 @@ routes the other. A small persisted winner table is
 - **written** by fly-off probes (any in-process probe can call
   :meth:`TuneCache.record`),
 - **consulted** by ``ops.sort.route_engine`` (engine choice per
-  (backend, row-bucket, lanes-capability)); the reference's second
-  consumer, the batched host-I/O plane of ``mofserver/data_engine.py``,
-  is not ported,
+  (backend, row-bucket, lanes-capability)) and by the batched host-I/O
+  plane of ``mofserver/data_engine.py``,
 - **refreshed** by a background re-probe rung: entries older than a
   horizon are re-measured by a registered probe on a daemon thread
   (:func:`ensure_fresh`).
