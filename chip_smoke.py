@@ -273,13 +273,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    trailer and cracked natively with ``verify_crc`` (trailer bytes
    printed; a flipped byte and a missing trailer raise the reference's
    messages).
+19. the operator tools (``uda_tpu_torch/tools``), the launch counts
+   reset just before each and read just after: (a) ``tune_probe`` at full
+   size (both domains, 2^16 and 2^20 rows) into a temporary cache: K1-K4
+   and the partition kernel launched, the four ``gpu|rows{17,21}|lanes{0,1}``
+   keys and ``io.read|linux`` written, all eight engines timed with no
+   error for the lanes-capable keys, a second run probes nothing; under
+   the cache "auto" at 2^20 rows routes to the crowned engine and equals
+   the yardstick; at 2^16 rows whether the small-batch rule overrode the
+   crowned engine is printed (the rule stays); one fly-off call broken
+   down (the whole ``bench_step``, teragen, one checksum, the order check,
+   the sort by carry and by keys8; ms as issued and device ms); (b)
+   ``net_smoke --spans`` on the card: exit 0, K1 launched, and
+   ``scripts/trace_merge.py`` stitches the span file; (c) one reduce over
+   the wire from a port ShuffleServer with the stats plane armed, then
+   ``udatop --once --json`` carries its served bytes and ``udafleet
+   --once --json`` renders it ``ok`` and an unused port ``down``.
 
 Each phase's seconds are printed on a line of their own. The last two
 lines are one JSON object with a record per kernel (K2's, K1's and the
 partition kernel's with their launches in each run of phase 15,
 ``distributed_path_launches``, and of phase 17a, ``dryrun_path_launches``;
 K1's and the partition kernel's in phase 17b's keys8 call,
-``pair_keys8_launches``) and the contract line ``{"ok": true,
+``pair_keys8_launches``; every kernel's in phase 19a's probe,
+``tune_probe_path_launches``, and 19b's smoke,
+``net_smoke_path_launches``) and the contract line ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -333,6 +351,7 @@ from uda_tpu_torch.ops.sort import _as_i64, fill_words, i32, u32, words_of
 from uda_tpu_torch.parallel import (distributed_sort_step, make_mesh,
                                     mesh_from_config, uniform_splitters)
 from uda_tpu_torch.parallel import multihost
+from uda_tpu_torch.tools import net_smoke, tune_probe, udafleet, udatop
 from uda_tpu_torch.models.pipeline import MapReduceJob
 from uda_tpu_torch.utils.comparators import get_key_type
 from uda_tpu_torch.utils.config import Config
@@ -896,30 +915,42 @@ def phase_main(dev: torch.device, n: int = N_MAIN) -> tuple:
 
 
 @contextlib.contextmanager
-def tune_cache_naming(engine: str, n: int, dev: torch.device):
-    """A temporary tune cache, the process default for the block
-    (``UDA_TPU_TUNE_CACHE``), whose winner for ``n`` rows of lanes-capable
-    callers on ``dev`` is ``engine``; the cold default is back after."""
-    key = (f"{sort_ops.cache_backend(dev)}|rows{tuncache.rows_bucket(n)}"
-           f"|lanes1")
+def process_tune_cache(path: str):
+    """The tune cache at ``path`` as the process default for the block
+    (``UDA_TPU_TUNE_CACHE``); the cold default is back after."""
     saved_cache = tuncache.tune_cache
     saved_env = os.environ.get("UDA_TPU_TUNE_CACHE")
+    os.environ["UDA_TPU_TUNE_CACHE"] = path
+    tuncache.tune_cache = tuncache.TuneCache(tuncache.cache_path_from_env())
+    try:
+        yield
+    finally:
+        tuncache.tune_cache = saved_cache
+        if saved_env is None:
+            os.environ.pop("UDA_TPU_TUNE_CACHE", None)
+        else:
+            os.environ["UDA_TPU_TUNE_CACHE"] = saved_env
+
+
+def sort_key(n: int, lanes: int, dev: torch.device) -> str:
+    """The tune-cache key of ``n`` rows on ``dev`` (domain sort.engine)."""
+    return (f"{sort_ops.cache_backend(dev)}|rows{tuncache.rows_bucket(n)}"
+            f"|lanes{lanes}")
+
+
+@contextlib.contextmanager
+def tune_cache_naming(engine: str, n: int, dev: torch.device):
+    """A temporary tune cache, the process default for the block, whose
+    winner for ``n`` rows of lanes-capable callers on ``dev`` is
+    ``engine``."""
+    key = sort_key(n, 1, dev)
     with tempfile.TemporaryDirectory(prefix="uda_tune_") as d:
         path = os.path.join(d, "tune.json")
         tuncache.TuneCache(path).record("sort.engine", key,
                                         {"engine": engine},
                                         probe="chip_smoke phase 4b")
-        os.environ["UDA_TPU_TUNE_CACHE"] = path
-        tuncache.tune_cache = tuncache.TuneCache(
-            tuncache.cache_path_from_env())
-        try:
+        with process_tune_cache(path):
             yield key
-        finally:
-            tuncache.tune_cache = saved_cache
-            if saved_env is None:
-                os.environ.pop("UDA_TPU_TUNE_CACHE", None)
-            else:
-                os.environ["UDA_TPU_TUNE_CACHE"] = saved_env
 
 
 def phase_tune_cache(words: torch.Tensor, runs: list) -> dict:
@@ -3942,14 +3973,6 @@ def phase_mesh_job(dev: torch.device) -> dict:
     return rec
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def phase_mesh_nccl(dev: torch.device, words: torch.Tensor,
                     want: list) -> dict:
     """Phase 15e: a world-size-1 NCCL group (127.0.0.1, any free port)
@@ -4420,6 +4443,203 @@ def phase_native(dev: torch.device, root: str, build: dict,
     return res
 
 
+# ---------------------------------------------------------------- phase 19
+PROBE_KERNELS = ("tile_sort", "merge_pass", "merge_partition",
+                 "tile_sort_folded", "merge_pass_folded")   # K1-K4
+CONSOLE_CONF = {"uda.tpu.stats.enable": True, "uda.tpu.ts.interval.s": 0.1}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def tool_run(main, argv: list, echo: bool = True) -> tuple:
+    """(exit code, standard output) of a tool's ``main(argv)``; with
+    ``echo`` its lines are logged."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        for line in buf.getvalue().splitlines() if echo else ():
+            log(f"  {line}")
+    return rc, buf.getvalue()
+
+
+def phase_probe(dev: torch.device, smi: str) -> dict:
+    """Phase 19a: ``tools.tune_probe`` at full size, both domains, into a
+    temporary cache, the launch counts reset just before and read just
+    after; every key measured, all eight engines timed for lanes-capable
+    callers; a second run probes nothing; "auto" under the cache routes to
+    the crowned engine and equals the yardstick at 2^20 rows; at 2^16 rows
+    whether the small-batch rule overrode a faster winner is reported
+    (the rule is not changed)."""
+    small_n, big_n = tune_probe.SIZES
+    with tempfile.TemporaryDirectory(prefix="uda_probe_") as d:
+        path = os.path.join(d, "tune.json")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc, _ = tool_run(tune_probe.main, ["--cache", path])
+        probe_s = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        require(rc == 0, f"[19a] tune_probe exited {rc}")
+        missing = [k for k in PROBE_KERNELS if not launches.get(k)]
+        require(not missing, f"[19a] tune_probe launched no {missing}: "
+                             f"{launches}")
+        entries = tuncache.TuneCache(path).entries()
+        keys = [sort_key(n, lanes, dev) for n in tune_probe.SIZES
+                for lanes in (0, 1)]
+        want = [f"sort.engine|{k}" for k in keys] + [f"io.read|{sys.platform}"]
+        require(sorted(entries) == sorted(want),
+                f"[19a] cache keys {sorted(entries)}, want {sorted(want)}")
+        table = {}
+        for key in keys:
+            rec = entries[f"sort.engine|{key}"]
+            times = rec["winner"]["times_s"]
+            if key.endswith("lanes1"):
+                require(set(times) == set(sort_ops.ALL_SORT_PATHS),
+                        f"[19a] {key} timed {sorted(times)}")
+            bad = {p: t for p, t in times.items() if not isinstance(t, float)}
+            require(not bad, f"[19a] {key}: {bad}")
+            table[key] = {"engine": rec["winner"]["engine"],
+                          "gb_s": rec["metric"], "times_s": times}
+            log(f"[probe] {key}: winner {rec['winner']['engine']} "
+                f"({rec['metric']} GB/s); times_s {json.dumps(times)}; "
+                f"{smi}")
+        io_rec = entries[f"io.read|{sys.platform}"]
+        log(f"[probe] io.read|{sys.platform}: {json.dumps(io_rec['winner'])}"
+            f" ({io_rec['metric']} MiB/s); {smi}")
+        rc, text = tool_run(tune_probe.main, ["--cache", path])
+        require(rc == 0 and text.splitlines()[-1].startswith(
+            "tune_probe: 0 probe(s) run"), f"[19a] second run: {text!r}")
+        big, small = sort_key(big_n, 1, dev), sort_key(small_n, 1, dev)
+        with process_tune_cache(path):
+            auto = sort_ops.route_engine(big_n, "auto", lanes_ok=True,
+                                         device=dev)
+            require(auto == table[big]["engine"],
+                    f'[19a] "auto" at 2^20 rows resolved to {auto!r}, the '
+                    f'cache crowned {table[big]["engine"]!r}')
+            words = terasort.teragen(generator(SEED + 19, dev), big_n)
+            require(same(terasort.single_chip_sort(words, path="auto",
+                                                   device=dev),
+                         yardstick(words)),
+                    f"[19a] auto ({auto}) at 2^20 rows differs from the "
+                    f"yardstick")
+            routed = sort_ops.route_engine(small_n, "auto", lanes_ok=True,
+                                           device=dev)
+    times = table[small]["times_s"]
+    winner = table[small]["engine"]
+    steer = {"winner": winner, "routed": routed,
+             "overrode": routed != winner,
+             "winner_s": times[winner], "routed_s": times[routed],
+             "routed_over_winner": times[routed] / times[winner]}
+    out = {"probe_s": probe_s, "launches": launches, "table": table,
+           "io_read": io_rec, "auto_2^20": auto, "steer_2^16": steer}
+    log("[probe] 2^16 small-batch rule: " + json.dumps(steer))
+    log(f"[probe] tune_probe {probe_s:.1f} s; launches {launches}")
+    out["breakdown"] = probe_breakdown(dev)
+    return out
+
+
+def probe_breakdown(dev: torch.device, engines=("carry", "keys8")) -> dict:
+    """What one fly-off call spends, at each of tune_probe's sizes: the
+    whole ``bench_step`` and its parts (teragen, one multiset checksum,
+    the order check, the sort by each of ``engines``), each by CUDA events
+    around the calls as they are issued (``time_ms``: the host's launch
+    cost included) and queued behind a sleep (``device_ms``: the card's
+    work alone)."""
+    out = {}
+    for n in tune_probe.SIZES:
+        words = terasort.teragen(generator(SEED + 19, dev), n)
+        parts = {
+            "bench_step keys8": lambda: terasort.bench_step(
+                SEED, n, 1, path="keys8", tile=min(MAIN_TILE, n),
+                device=dev),
+            "teragen": lambda: terasort.teragen(generator(SEED, dev), n),
+            "checksum": lambda: terasort._checksum_cols(words.T),
+            "order check": lambda: terasort._violations_cols(
+                *words.T[:terasort.KEY_WORDS]),
+            **{f"sort {p}": (lambda p=p: terasort.single_chip_sort(
+                words, path=p, device=dev)) for p in engines}}
+        out[n] = {name: {"ms": time_ms(fn), "device_ms": device_ms(fn)}
+                  for name, fn in parts.items()}
+    log("[probe] one fly-off call, broken down: " + json.dumps(out))
+    return out
+
+
+def phase_net_smoke() -> dict:
+    """Phase 19b: ``tools.net_smoke`` on the card with ``--spans``, the
+    launch counts reset just before and read just after: exit 0, K1
+    launched, and ``scripts/trace_merge.py`` stitches the span file."""
+    with tempfile.TemporaryDirectory(prefix="uda_net_smoke_") as d:
+        spans = os.path.join(d, "spans.jsonl")
+        _build.reset_launches()
+        try:
+            rc, _ = tool_run(net_smoke.main, ["--spans", spans])
+        finally:
+            metrics.disable_spans()
+        launches = dict(_build.launches)
+        require(rc == 0, f"[19b] net_smoke exited {rc}")
+        require(launches.get("merge_pass", 0) > 0,
+                f"[19b] net_smoke launched no K1: {launches}")
+        res = subprocess.run(
+            [sys.executable, os.path.join(REPO, "scripts", "trace_merge.py"),
+             spans, "--out", os.path.join(d, "trace.json")],
+            capture_output=True, text=True, timeout=120)
+        require(res.returncode == 0,
+                f"[19b] trace_merge exited {res.returncode}: {res.stderr}")
+    log(f"[net smoke] launches {launches}; {res.stdout.strip()}")
+    return {"launches": launches}
+
+
+def phase_consoles(dev: torch.device) -> dict:
+    """Phase 19c: one reduce over the wire from a port ShuffleServer with
+    the stats plane armed, then ``tools.udatop --once --json`` carries the
+    server's counters and ``tools.udafleet --once --json`` renders it
+    ``ok`` and an unused port ``down``."""
+    from uda_tpu_torch.utils.timeseries import disarm_observability_plane
+
+    with tempfile.TemporaryDirectory(prefix="uda_consoles_") as root:
+        net_smoke.write_tree(root)
+        engine = DataEngine(DirIndexResolver(root), Config(CONSOLE_CONF))
+        server = ShuffleServer(engine, Config(CONSOLE_CONF),
+                               host="127.0.0.1", port=0)
+        server.start()
+        try:
+            spec = f"127.0.0.1:{server.port}"
+            router = HostRoutingClient(config=Config())
+            try:
+                MergeManager(router, net_smoke.KEY_TYPE, Config(),
+                             device=dev).run(
+                    net_smoke.JOB,
+                    [(spec, m) for m in net_smoke.map_ids(
+                        net_smoke.JOB, net_smoke.NUM_MAPS)],
+                    0, lambda b: None)
+            finally:
+                router.stop()
+            rc, text = tool_run(udatop.main, [spec, "--once", "--json"],
+                                echo=False)
+            require(rc == 0, f"[19c] udatop exited {rc}")
+            snap = json.loads(text.strip().splitlines()[-1])[spec]
+            served = snap["counters"].get("net.bytes.out{role=server}", 0)
+            require(served > 0, f"[19c] udatop: no bytes served in "
+                                f"{sorted(snap['counters'])[:20]}")
+            dead = f"127.0.0.1:{free_port()}"
+            rc, text = tool_run(udafleet.main, [
+                spec, dead, "--once", "--json", "--window", "30",
+                "--timeout", "5"], echo=False)
+            require(rc == 0, f"[19c] udafleet exited {rc}")
+            fleet = json.loads(text.strip().splitlines()[-1])
+            require(fleet["daemons"] == {spec: "ok", dead: "down"},
+                    f"[19c] udafleet daemons {fleet['daemons']}")
+        finally:
+            server.stop()
+            engine.stop()
+            disarm_observability_plane()
+            metrics.disable_stats()
+    out = {"served_bytes": served, "daemons": fleet["daemons"],
+           "throughput": fleet["throughput"]}
+    log("[consoles] " + json.dumps(out))
+    return out
+
+
 @contextlib.contextmanager
 def phase_seconds(name: str):
     """Prints the seconds a phase took, on a line of its own."""
@@ -4481,6 +4701,9 @@ def main() -> int:
         dryrun = phase_dryrun(dev)
     with phase_seconds("17b pair forms"):
         pair = phase_pair_forms(dev)
+    with phase_seconds("19 operator tools"):
+        tools = {"19a": phase_probe(dev, info["smi"]),
+                 "19b": phase_net_smoke(), "19c": phase_consoles(dev)}
     kernels = []
     for name, meta in KERNELS.items():
         t = timed["kernels"][name]
@@ -4497,6 +4720,10 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        kernels[-1]["tune_probe_path_launches"] = \
+            tools["19a"]["launches"].get(name, 0)
+        kernels[-1]["net_smoke_path_launches"] = \
+            tools["19b"]["launches"].get(name, 0)
         if name in MESH_KERNELS:
             kernels[-1]["distributed_path_launches"] = {
                 k: v["launches"][name] for k, v in mesh_runs.items()}

@@ -80,7 +80,10 @@ def test_imports_with_jax_and_uda_tpu_blocked():
             "uda_tpu_torch.utils.compile_cache",
             "uda_tpu_torch.graft_entry",
             "uda_tpu_torch.multichip_scale",
-            "uda_tpu_torch.native"} <= set(MODULES)
+            "uda_tpu_torch.native", "uda_tpu_torch.tools.tune_probe",
+            "uda_tpu_torch.tools.udatop", "uda_tpu_torch.tools.udafleet",
+            "uda_tpu_torch.tools.critpath",
+            "uda_tpu_torch.tools.net_smoke"} <= set(MODULES)
 
 
 def test_native_library_builds_at_first_use_not_at_import(tmp_path):

@@ -94,6 +94,9 @@ THREAD_ROOTS: Tuple[ThreadRoot, ...] = (
                "overlap feeder thread"),
     ThreadRoot("bridge.merge", "bridge/bridge.py", "_merge_main",
                "bridge-side merge thread"),
+    ThreadRoot("bridge.merge", "tools/net_smoke.py", "run_reduce",
+               "the net smoke's reduce-task threads: each drives its own "
+               "MergeManager, the role of the bridge's merge thread"),
     # -- daemons ---------------------------------------------------------
     ThreadRoot("coding.scrub", "coding/scrub.py", "_run",
                "background parity scrub daemon"),

@@ -534,7 +534,8 @@ class DataEngine:
     def _resolve_batch_plane(self, cfg: Config) -> None:
         """Resolve the batched host-I/O plane's parameters. Per knob:
         explicit config > tune-cache winner (domain ``io.read``, key
-        ``sys.platform``) > built-in default. An explicit
+        ``sys.platform``, written by ``python -m
+        uda_tpu_torch.tools.tune_probe``) > built-in default. An explicit
         ``uda.tpu.tune.cache.path`` also installs that cache as the
         process default (``set_default_cache``), as the reference does.
         The backend ladder walks down from the wanted rung to one this

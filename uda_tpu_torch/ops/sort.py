@@ -100,7 +100,8 @@ def cache_backend(device=None) -> str:
 
 def _cached_engine(n_rows: int, lanes_ok: bool, device=None) -> "str | None":
     """The tune-cache consult for "auto" routing (``utils/tuncache``): a
-    fly-off winner persisted per (backend, row bucket, lanes capability).
+    fly-off winner persisted per (backend, row bucket, lanes capability)
+    by ``python -m uda_tpu_torch.tools.tune_probe``.
     None (the built-in default) on a cold cache, an unreadable file, or a
     winner this caller cannot run: a stale or hand-edited cache can never
     force an invalid engine onto a sort surface."""

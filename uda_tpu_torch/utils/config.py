@@ -320,7 +320,8 @@ _FLAG_LIST = [
          "persisted per-(key-shape, platform, backend) fly-off winner "
          "table (JSON) consulted by ops.sort.route_engine and the "
          "batched-I/O plane's parameters; populated by "
-         "scripts/tune_probe.py. Corrupt/truncated/version-bumped "
+         "python -m uda_tpu_torch.tools.tune_probe. "
+         "Corrupt/truncated/version-bumped "
          "files are ignored (tune.cache.invalid), never fatal; "
          "env-var winners (UDA_TPU_SORT_PATH) still override the "
          "cache. Setting this explicitly also installs the path as "
@@ -332,7 +333,8 @@ _FLAG_LIST = [
     Flag("uda.tpu.tune.reprobe.s", 0.0, float,
          "tuning-cache staleness horizon in seconds: an entry older "
          "than this is re-measured by the background re-probe rung "
-         "(tune_probe.py --reprobe-age, or a registered in-process "
+         "(python -m uda_tpu_torch.tools.tune_probe --reprobe-age, "
+         "or a registered in-process "
          "probe via tuncache.ensure_fresh). 0 = winners never expire"),
     # --- multi-tenant service plane (uda_tpu/tenant/) -------------------
     Flag("uda.tpu.tenant.enable", False, bool,

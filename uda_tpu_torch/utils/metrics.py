@@ -333,7 +333,8 @@ METRICS_REGISTRY: Dict[str, tuple] = {
     "tune.cache.writes": ("counter", "winner records persisted to the "
                                      "tuning cache"),
     "tune.probes": ("counter", "fly-off probes executed "
-                               "(scripts/tune_probe.py) "
+                               "(python -m "
+                               "uda_tpu_torch.tools.tune_probe) "
                                "[labels: domain]"),
     "tune.reprobes": ("counter", "stale winners re-measured by the "
                                  "background re-probe rung"),
