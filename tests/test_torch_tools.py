@@ -27,6 +27,7 @@ from uda_tpu.mofserver import DataEngine as JDataEngine
 from uda_tpu.mofserver import DirIndexResolver as JDirIndexResolver
 from uda_tpu.net import ShuffleServer as JShuffleServer
 from uda_tpu.ops import sort as jsort
+from uda_tpu.utils import critpath as jcritpath
 from uda_tpu.utils import errors as jerrors
 from uda_tpu.utils import tuncache as jtuncache
 from uda_tpu.utils.config import Config as JConfig
@@ -36,6 +37,7 @@ from uda_tpu_torch.net import ShuffleServer
 from uda_tpu_torch.ops import sort as tsort
 from uda_tpu_torch.tools import (critpath, net_smoke, tune_probe, udafleet,
                                  udatop)
+from uda_tpu_torch.utils import critpath as port_critpath
 from uda_tpu_torch.utils import errors as terrors
 from uda_tpu_torch.utils import tuncache
 from uda_tpu_torch.utils.config import Config
@@ -530,21 +532,40 @@ def port_spans(tmp_path):
     return path
 
 
+# the reference's critpath script with the port's own bucket table added
+# (the port's export carries the emit's timers, which only the port maps)
+_REF_CRITPATH_PORT_TABLE = (
+    "import runpy, sys; from uda_tpu.utils import critpath as c; "
+    "from uda_tpu_torch.utils.critpath import PORT_SPAN_BUCKETS as p; "
+    "c.SPAN_BUCKETS.update(p); sys.argv = sys.argv[1:]; "
+    "runpy.run_path(sys.argv[0], run_name='__main__')")
+
+
 @pytest.mark.parametrize("args", [["--json"], [], ["--root", "nope"],
                                   ["--json", "--root", "fetch"]])
 def test_critpath_cli_matches_reference(port_spans, monkeypatch, args):
+    """The port's CLI against the reference script, on a port export, the
+    reference given the port's table for the spans only the port has."""
     argv = [str(port_spans)] + args
+    for name, bucket in port_critpath.PORT_SPAN_BUCKETS.items():
+        monkeypatch.setitem(jcritpath.SPAN_BUCKETS, name, bucket)
     rc_ref, ref = _console(_script("critpath"), argv, monkeypatch)
     rc_port, port = _console(critpath, argv, monkeypatch)
     assert rc_port == rc_ref == 0
     assert port == ref
     if "--json" in args and "--root" not in args:
-        assert json.loads(port)["root"] == "reduce_task"
+        block = json.loads(port)
+        assert block["root"] == "reduce_task"
+        assert block["buckets"]["serve"]["critical_s"] > 0
 
 
 def test_critpath_cli_runs_as_a_module(port_spans):
-    """``python -m`` against ``scripts/critpath.py --json``, as processes."""
-    out = {pkg: _run(_cmd(pkg, "critpath") + [str(port_spans), "--json"])
+    """``python -m`` against ``scripts/critpath.py --json``, as processes
+    (the reference's with the port's table, as above)."""
+    ref = [sys.executable, "-c", _REF_CRITPATH_PORT_TABLE,
+           str(ROOT / "scripts" / "critpath.py")]
+    out = {pkg: _run((ref if pkg == "ref" else _cmd(pkg, "critpath"))
+                     + [str(port_spans), "--json"])
            for pkg in ("ref", "port")}
     assert out["port"].returncode == out["ref"].returncode == 0
     assert json.loads(out["port"].stdout) == json.loads(out["ref"].stdout)

@@ -17,12 +17,22 @@ The staging buffers come from a 2-slot BufferArena — the reference's
 2 x 1 MB KV staging pool (NETLEV_KV_POOL_EXPO, src/include/NetlevComm.h:33).
 The consumer receives a read-only memoryview of the slot, valid only for
 the duration of the call.
+
+Timers (``metrics.timer``; port-only, mapped by ``utils.critpath.
+PORT_SPAN_BUCKETS``): ``emit_phase`` covers a whole delivery loop of
+:meth:`FramedEmitter.emit` or :meth:`FramedEmitter.emit_framed`, the
+pulls of the piece generator included, so the stages that generator
+times (``emit_readback``, ``emit_gather``, ``emit_frame``) nest under
+it; ``emit_deliver`` covers the port's own block handling (cutting a
+block out of the framed bytes, the arena slot's acquire, write and
+release) and the reference's ``emit`` the consumer's call. No timer is
+held across a ``yield``, so the stages partition the phase.
 """
 
 from __future__ import annotations
 
 import io
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 from uda_tpu_torch import native
 from uda_tpu_torch.merger.arena import BufferArena
@@ -75,18 +85,38 @@ class FramedEmitter:
         self.block_size = block_size
         self.arena = arena or BufferArena(NUM_STAGE_BUFFERS, block_size)
 
-    def _deliver(self, piece: bytes, held: list,
-                 consumer: Callable[[memoryview], None]) -> int:
-        """Hand one <= block_size piece to the consumer through an arena
-        slot, releasing the previous slot one call late (double-buffer:
-        a pipelined consumer may still hold the prior block)."""
+    def _stage(self, piece: bytes, held: list) -> memoryview:
+        """Copy one <= block_size piece into an arena slot, releasing the
+        previous slot one call late (double-buffer: a pipelined consumer
+        may still hold the prior block); returns the slot's read-only
+        view."""
         slot = self.arena.acquire()
         held.append(slot)
         slot.write(piece)
         if len(held) > 1:
             self.arena.release(held.pop(0))
+        return slot.view().data.toreadonly()
+
+    def _deliver(self, piece: bytes, held: list,
+                 consumer: Callable[[memoryview], None]) -> int:
+        """Hand one <= block_size piece to the consumer through an arena
+        slot."""
+        with metrics.timer("emit_deliver"):
+            view = self._stage(piece, held)
         with metrics.timer("emit"):
-            consumer(slot.view().data.toreadonly())
+            consumer(view)
+        return len(piece)
+
+    def _deliver_head(self, buf: bytearray, held: list,
+                      consumer: Callable[[memoryview], None]) -> int:
+        """Cut the first (at most block_size) bytes out of ``buf`` and
+        hand them to the consumer through an arena slot."""
+        with metrics.timer("emit_deliver"):
+            piece = bytes(buf[:self.block_size])
+            del buf[:self.block_size]
+            view = self._stage(piece, held)
+        with metrics.timer("emit"):
+            consumer(view)
         return len(piece)
 
     def emit(self, records: Iterable[Tuple[bytes, bytes]],
@@ -101,25 +131,27 @@ class FramedEmitter:
 
         def flush() -> None:
             nonlocal total
-            block = out.getvalue()
-            out.seek(0)
-            out.truncate()
+            with metrics.timer("emit_deliver"):
+                block = out.getvalue()
+                out.seek(0)
+                out.truncate()
             # a single oversized record may exceed the block size
             for start in range(0, len(block), self.block_size):
                 total += self._deliver(block[start:start + self.block_size],
                                        held, consumer)
 
-        try:
-            for key, value in records:
-                writer.append(key, value)
-                if out.tell() >= self.block_size:
+        with metrics.timer("emit_phase"):
+            try:
+                for key, value in records:
+                    writer.append(key, value)
+                    if out.tell() >= self.block_size:
+                        flush()
+                writer.close()
+                if out.tell():
                     flush()
-            writer.close()
-            if out.tell():
-                flush()
-        finally:
-            for slot in held:
-                self.arena.release(slot)
+            finally:
+                for slot in held:
+                    self.arena.release(slot)
         metrics.add("emit.bytes", total)
         return total
 
@@ -133,20 +165,18 @@ class FramedEmitter:
         total = 0
         held: list = []
         buf = bytearray()
-        try:
-            for piece in pieces:
-                buf += piece
-                while len(buf) >= self.block_size:
-                    total += self._deliver(bytes(buf[:self.block_size]),
-                                           held, consumer)
-                    del buf[:self.block_size]
-            while buf:
-                total += self._deliver(bytes(buf[:self.block_size]),
-                                       held, consumer)
-                del buf[:self.block_size]
-        finally:
-            for slot in held:
-                self.arena.release(slot)
+        with metrics.timer("emit_phase"):
+            try:
+                for piece in pieces:
+                    with metrics.timer("emit_deliver"):
+                        buf += piece
+                    while len(buf) >= self.block_size:
+                        total += self._deliver_head(buf, held, consumer)
+                while buf:
+                    total += self._deliver_head(buf, held, consumer)
+            finally:
+                for slot in held:
+                    self.arena.release(slot)
         metrics.add("emit.bytes", total)
         return total
 
@@ -157,8 +187,20 @@ class FramedEmitter:
         write_kv_to_stream loop, StreamRW.cc:151-225), streamed through
         emit_framed."""
         return self.emit_framed(
-            native.iter_framed_chunks(batch, FRAME_CHUNK_RECORDS,
-                                      write_eof=True), consumer)
+            _timed_pulls("emit_frame", native.iter_framed_chunks(
+                batch, FRAME_CHUNK_RECORDS, write_eof=True)), consumer)
+
+
+def _timed_pulls(name: str, pieces: Iterable[bytes]) -> Iterator[bytes]:
+    """``pieces``, each pull timed under ``metrics.timer(name)``; the
+    timer is closed before the piece is yielded."""
+    it = iter(pieces)
+    while True:
+        with metrics.timer(name):
+            piece = next(it, None)
+        if piece is None:
+            return
+        yield piece
 
 
 def emit_framed_records(records: Iterable[Tuple[bytes, bytes]],

@@ -1114,7 +1114,9 @@ class MergeManager:
                          f"failed: {cleanup_err}")
             raise
         # the "merge" timer covers drain + leftover merges inside the
-        # finish paths; emission stays under the emitter's "emit" timer
+        # finish paths; emission runs under the emitter's "emit_phase"
+        # timer (readback, gather, frame and deliver stages inside it,
+        # the consumer's calls under "emit")
         if streaming:
             out = om.finish_streaming(
                 self.emitter, consumer,

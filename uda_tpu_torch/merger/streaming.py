@@ -398,13 +398,16 @@ def iter_row_slabs(rows, valid: int,
     """Yield the first ``valid`` merged rows in bounded host slabs of
     ``np.uint32``. ``rows`` is a numpy array or a uint32 tensor, possibly
     on the card (or a column slice of one): each slab is read back on its
-    own, through the int32 view."""
+    own, through the int32 view, under the ``emit_readback`` timer
+    (closed before the slab is yielded)."""
     for start in range(0, valid, slab):
         stop = min(start + slab, valid)
-        if isinstance(rows, torch.Tensor):
-            yield i32(rows[start:stop]).cpu().numpy().view(np.uint32)
-        else:
-            yield np.asarray(rows[start:stop])
+        with metrics.timer("emit_readback"):
+            if isinstance(rows, torch.Tensor):
+                out = i32(rows[start:stop]).cpu().numpy().view(np.uint32)
+            else:
+                out = np.asarray(rows[start:stop])
+        yield out
 
 
 def interleave_runs(slabs: Iterator[np.ndarray], store: RunStore,
@@ -418,7 +421,8 @@ def interleave_runs(slabs: Iterator[np.ndarray], store: RunStore,
     segment's column with ``seg_col`` instead. Each slab becomes one
     framed output piece; runs are read strictly sequentially. The
     concatenation of the yielded pieces is the complete merged IFile
-    stream, EOF marker included.
+    stream, EOF marker included. Each slab's gather runs under the
+    ``emit_gather`` timer (closed before its piece is yielded).
     """
     if (num_key_words is None) == (seg_col is None):
         raise TypeError("interleave_runs takes num_key_words or seg_col, "
@@ -440,38 +444,41 @@ def interleave_runs(slabs: Iterator[np.ndarray], store: RunStore,
         for rows in slabs:
             if rows.shape[0] == 0:
                 continue
-            seg = rows[:, seg_col].astype(np.int64)
-            unique, ranks, counts = _group_ranks(seg)
-            spans: dict[int, np.ndarray] = {}
-            starts: dict[int, np.ndarray] = {}
-            lens: dict[int, np.ndarray] = {}
-            for s, c in zip(unique.tolist(), counts.tolist()):
-                cur = cursors.get(s)
-                if cur is None:
-                    if s not in store.counts:
-                        raise MergeError(
-                            f"merged rows reference unstaged segment {s}")
-                    cur = cursors[s] = _RunCursor(*store._paths(s))
-                span, ln = cur.next_span(c)
-                _touch(s)
-                spans[s] = span
-                lens[s] = ln
-                starts[s] = np.cumsum(ln) - ln
-            # per-record framed length and source offset in its span
-            rec_len = np.empty(seg.shape[0], np.int64)
-            src_off = np.empty(seg.shape[0], np.int64)
-            for s in unique.tolist():
-                m = seg == s
-                rec_len[m] = lens[s][ranks[m]]
-                src_off[m] = starts[s][ranks[m]]
-            out = np.empty(int(rec_len.sum()), np.uint8)
-            dst_end = np.cumsum(rec_len)
-            dst_start = dst_end - rec_len
-            for s in unique.tolist():
-                m = seg == s
-                _gather_spans(spans[s], src_off[m], rec_len[m],
-                              out, dst_start[m])
-            yield out.tobytes()
+            with metrics.timer("emit_gather"):
+                seg = rows[:, seg_col].astype(np.int64)
+                unique, ranks, counts = _group_ranks(seg)
+                spans: dict[int, np.ndarray] = {}
+                starts: dict[int, np.ndarray] = {}
+                lens: dict[int, np.ndarray] = {}
+                for s, c in zip(unique.tolist(), counts.tolist()):
+                    cur = cursors.get(s)
+                    if cur is None:
+                        if s not in store.counts:
+                            raise MergeError(
+                                f"merged rows reference unstaged segment "
+                                f"{s}")
+                        cur = cursors[s] = _RunCursor(*store._paths(s))
+                    span, ln = cur.next_span(c)
+                    _touch(s)
+                    spans[s] = span
+                    lens[s] = ln
+                    starts[s] = np.cumsum(ln) - ln
+                # per-record framed length and source offset in its span
+                rec_len = np.empty(seg.shape[0], np.int64)
+                src_off = np.empty(seg.shape[0], np.int64)
+                for s in unique.tolist():
+                    m = seg == s
+                    rec_len[m] = lens[s][ranks[m]]
+                    src_off[m] = starts[s][ranks[m]]
+                out = np.empty(int(rec_len.sum()), np.uint8)
+                dst_end = np.cumsum(rec_len)
+                dst_start = dst_end - rec_len
+                for s in unique.tolist():
+                    m = seg == s
+                    _gather_spans(spans[s], src_off[m], rec_len[m],
+                                  out, dst_start[m])
+                piece = out.tobytes()
+            yield piece
     finally:
         for cur in cursors.values():
             cur.close()

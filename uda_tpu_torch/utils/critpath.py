@@ -5,6 +5,7 @@ priority order unchanged, so the port's spans (which carry the
 reference's names) map the same way: ``overlap_stage`` and
 ``merge.device_put`` (the port's host-to-card staging) are
 ``device_put``, ``overlap_device_merge`` (K1's forest) is ``merge``.
+The port's own emit timers (:data:`PORT_SPAN_BUCKETS`) are ``serve``.
 
 - **wall partition**: sweep the root span's timeline; at every instant
   the active spans map to buckets and exactly one bucket is charged, by
@@ -33,7 +34,7 @@ from uda_tpu_torch.utils.metrics import metrics as global_metrics
 
 __all__ = ["analyze", "time_accounting_block", "buckets_from_counters",
            "install_stats_provider", "SPAN_BUCKETS", "BUCKET_PRIORITY",
-           "TRIO_MAP"]
+           "TRIO_MAP", "PORT_SPAN_BUCKETS"]
 
 # span name -> stage bucket. Timer spans carry their timer name
 # (metrics.timer); names absent here land in "other". Kept in lockstep
@@ -68,6 +69,14 @@ SPAN_BUCKETS: Dict[str, str] = {
 BUCKET_PRIORITY = ("merge", "device_put", "decompress_pack", "serve",
                    "fetch", "other", "wait")
 
+# timer spans only the port has -> stage bucket, consulted after
+# SPAN_BUCKETS (disjoint from it): the emit's phase and its stages
+# (merger/emitter.py) are emission, the reference's bucket for "emit"
+PORT_SPAN_BUCKETS: Dict[str, str] = {
+    "emit_phase": "serve", "emit_readback": "serve", "emit_gather": "serve",
+    "emit_frame": "serve", "emit_deliver": "serve",
+}
+
 # bucket -> the reference trio alias it reconciles onto (reducer.h:80-90)
 TRIO_MAP: Dict[str, str] = {
     "fetch": "total_fetch_time",
@@ -81,7 +90,7 @@ _MAX_CHAIN = 32
 
 
 def _bucket_of(name: str) -> str:
-    return SPAN_BUCKETS.get(name, "other")
+    return SPAN_BUCKETS.get(name) or PORT_SPAN_BUCKETS.get(name, "other")
 
 
 def _pick_root(spans: Sequence[Dict], root_name: str) -> Optional[Dict]:
@@ -230,7 +239,9 @@ def buckets_from_counters(counters: Dict[str, float]) -> Dict:
     """Coarse busy-seconds bucketing from the ``<timer>_time`` counters
     alone — the fallback where no span tree exists (chaos-rung session
     telemetry, stats-off runs). These are BUSY sums (overlap not
-    removed), so they do not sum to wall; the block says so."""
+    removed), so they do not sum to wall; the block says so. The emit's
+    stage timers count as serve; ``emit_phase_time``, which holds them
+    and ``emit_time``, does not."""
     table = (("fetch", ("fetch_time",)),
              ("wait", ("wait_mem_time",)),
              ("decompress_pack", ("overlap_pack_time", "pack_time",
@@ -239,7 +250,9 @@ def buckets_from_counters(counters: Dict[str, float]) -> Dict:
              ("merge", ("merge_time", "overlap_device_merge_time",
                         "device_sort_time", "lpq_spill_time",
                         "lpq_phase_time", "rpq_phase_time")),
-             ("serve", ("supplier_read_time", "emit_time")))
+             ("serve", ("supplier_read_time", "emit_time",
+                        "emit_readback_time", "emit_gather_time",
+                        "emit_frame_time", "emit_deliver_time")))
     out = {b: round(sum(counters.get(k, 0.0) for k in keys), 6)
            for b, keys in table}
     return {"kind": "busy_seconds_from_counters", "buckets": out,

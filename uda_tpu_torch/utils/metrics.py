@@ -1201,16 +1201,10 @@ class Metrics:
         the tree reconstructed."""
         with self._lock:
             spans = list(self.spans)
-        events = []
-        for s in spans:
-            args = dict(s.get("attrs") or {})
-            for k, arg in (("trace", "trace_id"), ("id", "span_id"),
-                           ("parent", "parent_id")):
-                if s.get(k) is not None:
-                    args[arg] = s[k]
-            events.append({"name": s["name"], "ph": "X", "pid": 0,
-                           "tid": s["tid"], "ts": s["ts"] * 1e6,
-                           "dur": s["dur"] * 1e6, "args": args})
+        events = [{"name": s["name"], "ph": "X", "pid": 0,
+                   "tid": s["tid"], "ts": s["ts"] * 1e6,
+                   "dur": s["dur"] * 1e6, "args": _span_args(s)}
+                  for s in spans]
         with open(path, "w") as f:
             json.dump({"traceEvents": events}, f)
 
@@ -1256,14 +1250,67 @@ def stats_enabled_from_env() -> bool:
 _TRACE_SEQ = [0]
 
 
+def _span_args(span: dict) -> dict:
+    """A span record's Chrome-trace ``args``: its attributes plus the
+    trace, span and parent ids, so the tree can be rebuilt."""
+    args = dict(span.get("attrs") or {})
+    for k, arg in (("trace", "trace_id"), ("id", "span_id"),
+                   ("parent", "parent_id")):
+        if span.get(k) is not None:
+            args[arg] = span[k]
+    return args
+
+
+# the two zero-length profiler ranges that tie the program's spans
+# (perf_counter seconds) to the profiler's clock in a device_trace file
+TRACE_ANCHOR = "uda.trace_anchor"
+TRACE_ANCHOR_END = "uda.trace_anchor_end"
+
+
+def _spans_onto_trace(path: str, spans: list, anchor_ns: int,
+                      anchor_end_ns: int) -> None:
+    """Add ``spans`` (the hub's records) to the Chrome trace at ``path``
+    as complete events of a process lane of their own, on the profiler's
+    clock: the two anchor ranges' starts in the file against the
+    ``perf_counter_ns`` read just before each was entered give the
+    offset and the rate (the clocks' rates differ by about a part in a
+    thousand)."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    marks = {e["name"]: float(e["ts"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") in (TRACE_ANCHOR, TRACE_ANCHOR_END)}
+    if len(marks) != 2 or anchor_end_ns <= anchor_ns:
+        return
+    # profiler microseconds per perf_counter nanosecond
+    rate = (marks[TRACE_ANCHOR_END] - marks[TRACE_ANCHOR]) \
+        / (anchor_end_ns - anchor_ns)
+    pid = 1 + max([e["pid"] for e in events
+                   if isinstance(e.get("pid"), int)], default=0)
+    events.append({"name": "process_name", "ph": "M", "pid": pid,
+                   "args": {"name": "uda_tpu_torch spans"}})
+    events.extend({"name": sp["name"], "ph": "X", "cat": "uda_span",
+                   "pid": pid, "tid": sp["tid"],
+                   "ts": marks[TRACE_ANCHOR]
+                   + (sp["ts"] * 1e9 - anchor_ns) * rate,
+                   "dur": sp["dur"] * 1e9 * rate, "args": _span_args(sp)}
+                  for sp in spans)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str | None = None) -> Iterator[None]:
     """Capture a ``torch.profiler`` trace (host ops and, with a card, its
     kernels and copies) around a block and write it as a Chrome trace,
     ``uda_trace_<pid>_<seq>.json``, into ``log_dir`` or
-    ``UDA_TPU_XPROF=<dir>``; a no-op when neither is set. Stacks and
-    shapes are not recorded. A profiler that cannot start or stop is
-    logged, never raised: profiling must not take down the job."""
+    ``UDA_TPU_XPROF=<dir>``; a no-op when neither is set. The spans the
+    hub records during the block (spans on: stats enabled) join the
+    trace on the profiler's clock, in a lane of their own, through the
+    ``TRACE_ANCHOR`` and ``TRACE_ANCHOR_END`` ranges. Stacks and shapes
+    are not recorded. A profiler that cannot start or stop is logged,
+    never raised: profiling must not take down the job."""
     d = log_dir or os.environ.get("UDA_TPU_XPROF")
     if not d:
         yield
@@ -1272,7 +1319,7 @@ def device_trace(log_dir: str | None = None) -> Iterator[None]:
 
     try:
         import torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
 
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
@@ -1284,17 +1331,34 @@ def device_trace(log_dir: str | None = None) -> Iterator[None]:
         get_logger().warn(f"device trace unavailable: {e}")
         yield
         return
+    first = len(metrics.spans)
+    # a range's start is stamped as it is entered: read the clock just
+    # before
+    anchor_ns = time.perf_counter_ns()
+    with record_function(TRACE_ANCHOR):
+        pass
     try:
         yield
     finally:
         try:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
+            anchor_end_ns = time.perf_counter_ns()
+            with record_function(TRACE_ANCHOR_END):
+                pass
             prof.__exit__(None, None, None)
             _TRACE_SEQ[0] += 1
             os.makedirs(d, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(
-                d, f"uda_trace_{os.getpid()}_{_TRACE_SEQ[0]}.json"))
+            path = os.path.join(
+                d, f"uda_trace_{os.getpid()}_{_TRACE_SEQ[0]}.json")
+            prof.export_chrome_trace(path)
+            with metrics._lock:
+                # a reset inside the block leaves only the block's spans
+                spans = list(metrics.spans[first:]
+                             if len(metrics.spans) >= first
+                             else metrics.spans)
+            if spans:
+                _spans_onto_trace(path, spans, anchor_ns, anchor_end_ns)
         except Exception as e:  # noqa: BLE001
             get_logger().warn(f"device trace stop failed: {e}")
 
