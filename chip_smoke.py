@@ -30,16 +30,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    stable sort;
 4. main path: ``single_chip_sort`` of 100,000,000 TeraSort records
    (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``, padded to 2^27
-   inside) with ``path="auto"``, which resolves to ``keys8`` (K2, K1 and
-   the partition kernel), then the same records through ``keys8f`` (K3,
-   K4 and the partition kernel); each checked for order, multiset
+   inside) with ``path="auto"``, which resolves to ``keys8f`` (K3, K4
+   and the partition kernel: the 3 key words fit its 4 rows), then the
+   same records through ``keys8`` (K2, K1 and the partition kernel); each
+   checked for order, multiset
    checksum and byte identity with the stable-sort yardstick, with the
    launches of every kernel counted; 4b: a temporary tune cache
    (``UDA_TPU_TUNE_CACHE``, written by the port's ``TuneCache``) names
    ``keys8f`` for the 10^8-row bucket (``gpu|rows27|lanes1``): "auto"
    routes to it, one "auto" call equals the yardstick with K3 and K4
    launched and K2 not, timed beside phase 4's calls; the cache is
-   cleared after;
+   cleared after, and "auto" is the built-in keys8f again;
 5. engines: all eight engines on 2^22 records give the same bytes, and
    ``bench_step`` runs 2 rounds of ``keys8``; the small-batch steering:
    at 2^16 rows a cold cache's "auto" resolves to ``carrychunk``, timed
@@ -58,7 +59,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    input and of K4's block width (2048 against 4096 records); and K5's
    two designs from 16 KB to 1 GB of ``x`` (the small-shape rule);
 7. profile: device time by kernel and the device's idle share over one
-   ``keys8`` ("auto") and one ``keys8f`` call (``torch.profiler``);
+   ``keys8f`` ("auto") and one ``keys8`` call (``torch.profiler``);
 8. merge: the tree of 64 map outputs of 16 MiB of sorted TeraSort
    records (Text keys of 10 bytes, Text values of 90) written by
    ``MOFWriter``, then one TeraSort reduce task through
@@ -195,11 +196,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    with ``metrics``, the launch counts and the peak memory reset just
    before and read just after: (a) after phase 7, ``distributed_terasort``
    of phase 4's 10^8 records (BASELINE.md config 5's shape on one card:
-   uniform splitters, the default capacity 2n/64, "auto" = keys8, K2 and
-   K1 in each slot's local sort), under ``torch.profiler``: slot by slot
-   the valid rows equal the matching rows of the single-chip stable sort
-   (kept on the device), no overflow, each slot in order (wall, idle
-   share, peak memory, launches); (b) 2^22 records, every other one in
+   uniform splitters, the default capacity 2n/64, "auto" = keys8 for the
+   3 key words and the invalid flag, K2 and K1 in each slot's local
+   sort), under ``torch.profiler``: slot by slot the valid rows equal
+   the matching rows of the single-chip stable sort (kept on the
+   device), no overflow, each slot in order (wall, idle share, peak
+   memory, launches); (b) 2^22 records, every other one in
    the first destination range: the fused attempt overflows the default
    capacity and the windowed multi-round re-run drains every bucket,
    equal to the single-chip sort, ``exchange.rounds`` and
@@ -402,6 +404,7 @@ KERNELS = {
         replaces="scripts/probe_gather.py:62"),
 }
 MAIN_PATH = ("tile_sort", "merge_pass", "merge_partition")
+FOLDED_PATH = ("tile_sort_folded", "merge_pass_folded", "merge_partition")
 # K2/K1 at the edges of their design: rows, key words, tie-break row, n,
 # tile and the kind of keys (lanes_words)
 EDGE_CASES = [
@@ -904,13 +907,15 @@ def yardstick(words: torch.Tensor) -> torch.Tensor:
 
 def phase_main(dev: torch.device, n: int = N_MAIN) -> tuple:
     words = terasort.teragen(generator(SEED, dev), n)
-    auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
-    require(auto == "keys8", f'"auto" resolved to {auto!r}, not keys8')
+    auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev,
+                                 key_rows=terasort.KEY_WORDS)
+    require(auto == "keys8f", f'"auto" resolved to {auto!r}, not keys8f')
     reference = yardstick(words)
-    runs = [run_path(words, "auto", MAIN_PATH, reference),
-            run_path(words, "keys8f", ("tile_sort_folded",
-                                       "merge_pass_folded",
-                                       "merge_partition"), reference)]
+    runs = [run_path(words, "auto", FOLDED_PATH, reference),
+            run_path(words, "keys8", MAIN_PATH, reference)]
+    require(runs[0]["launches"]["tile_sort"] == 0
+            and runs[0]["launches"]["merge_pass"] == 0,
+            f'"auto" launched K2 or K1: {runs[0]["launches"]}')
     return words, runs
 
 
@@ -964,9 +969,7 @@ def phase_tune_cache(words: torch.Tensor, runs: list) -> dict:
         auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
         require(auto == "keys8f",
                 f'"auto" under the cache {key} resolved to {auto!r}')
-        res = run_path(words, "auto", ("tile_sort_folded",
-                                       "merge_pass_folded",
-                                       "merge_partition"), reference)
+        res = run_path(words, "auto", FOLDED_PATH, reference)
         require(res["launches"]["tile_sort"] == 0,
                 f"K2 launched under the cached keys8f: {res['launches']}")
         hits = metrics.get("tune.cache.hits", domain="sort.engine")
@@ -976,7 +979,7 @@ def phase_tune_cache(words: torch.Tensor, runs: list) -> dict:
             call["auto"], call["keys8f"], call["keys8"], reps=2)
     del reference
     cold = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
-    require(cold == "keys8", f'"auto" after the cache resolved to {cold!r}')
+    require(cold == "keys8f", f'"auto" after the cache resolved to {cold!r}')
     out = {"key": key, "engine": auto, "launches": res["launches"],
            "first_call_s": res["seconds"], "cache_hits": hits,
            "auto_ms": auto_ms, "keys8f_ms": keys8f_ms, "keys8_ms": keys8_ms,
@@ -3782,7 +3785,8 @@ def hold_to_single_chip(res, want: torch.Tensor, what: str) -> None:
 def phase_mesh_terasort(words: torch.Tensor) -> dict:
     """Phase 15a: ``distributed_terasort`` of phase 4's 10^8 records over
     the 8-slot mesh on the card (uniform splitters, the default capacity
-    2n/64), "auto" resolving to keys8, under ``torch.profiler``; held slot
+    2n/64), "auto" resolving to keys8 (3 keys and the invalid flag are 4
+    key rows), under ``torch.profiler``; held slot
     by slot to the single-chip stable sort, kept on the device (it is
     computed first, so the peak holds the input, it and the mesh's
     buffers). Slot 0's keys8 input (3 key words and the flag over 2^25
@@ -3792,7 +3796,8 @@ def phase_mesh_terasort(words: torch.Tensor) -> dict:
     dev = words.device
     mesh = card_mesh(dev)
     n = int(words.shape[0])
-    auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev)
+    auto = sort_ops.route_engine(n, "auto", lanes_ok=True, device=dev,
+                                 key_rows=terasort.KEY_WORDS + 1)
     require(auto == "keys8", f'"auto" resolved to {auto!r}, not keys8')
     slot_keys: list = []
     keys8_sort_perm = pallas_sort.keys8_sort_perm
@@ -4670,7 +4675,7 @@ def main() -> int:
     with phase_seconds("6 times"):
         timed = phase_times(words)
     with phase_seconds("7 profile"):
-        for path in ("auto", "keys8f"):
+        for path in ("auto", "keys8"):
             phase_profile(words, path)
     with phase_seconds("15a mesh terasort"):
         mesh_runs = {"15a": phase_mesh_terasort(words)}

@@ -219,6 +219,42 @@ def test_keys8f_on_terasort_is_refused_as_the_reference(tmesh, jmesh):
                                 200, 3, payload_path="lanes")
 
 
+@pytest.mark.parametrize("num_keys", [2, 3])
+@pytest.mark.parametrize("multiround", ["never", "always"])
+def test_the_mesh_asks_with_its_key_rows(tmesh, monkeypatch, num_keys,
+                                         multiround):
+    """Both local-sort entries ask the route for ``num_keys + 1`` key rows
+    (the keys and the invalid flag)."""
+    from uda_tpu_torch.ops import sort as tsort
+    from uda_tpu_torch.parallel import distributed as D
+
+    asked = []
+
+    def recording(n_rows, path="auto", lanes_ok=False, device=None,
+                  key_rows=None):
+        asked.append(key_rows)
+        return tsort.route_engine(n_rows, path, lanes_ok, device, key_rows)
+
+    monkeypatch.setattr(D, "route_engine", recording)
+    T.distributed_sort_step(records(11), T.uniform_splitters(P), tmesh,
+                            AXIS, 400, num_keys, multiround=multiround)
+    assert asked and set(asked) == {num_keys + 1}
+
+
+def test_a_deployed_keys8f_fits_terasort_on_the_mesh(tmesh, monkeypatch):
+    """A deployed keys8f reaches TeraSort's 3 keys and the flag as keys8
+    (the rows do not fit the slim layout), not as the refusal above; the
+    same bytes as the single-chip stable sort."""
+    from uda_tpu_torch.ops import sort as tsort
+
+    monkeypatch.setattr(tsort, "DEPLOYED_SORT_PATH", "keys8f")
+    words = records(12)
+    got = T.distributed_sort_step(words, T.uniform_splitters(P), tmesh,
+                                  AXIS, 400, 3)
+    got.check()
+    assert np.array_equal(valid_concat(got), single_chip(words))
+
+
 def test_unknown_multiround_policy_raises(tmesh):
     with pytest.raises(ValueError, match="unknown multiround policy"):
         T.distributed_sort_step(records(8), T.uniform_splitters(P), tmesh,

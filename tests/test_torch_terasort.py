@@ -137,7 +137,7 @@ def test_validate_sorted_catches_faults():
 
 
 def test_auto_resolves_per_device(monkeypatch):
-    """A cold tune cache: "auto" is carry on the CPU at any size, keys8
+    """A cold tune cache: "auto" is carry on the CPU at any size, keys8f
     (gather for a lanes-incapable caller) on the card from
     SMALL_BATCH_ROWS up, and carrychunk on the card below it."""
     monkeypatch.setattr(tsort, "DEPLOYED_SORT_PATH", "")
@@ -148,7 +148,7 @@ def test_auto_resolves_per_device(monkeypatch):
                                   device="cpu") == "carry"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tsort.route_engine(big, "auto", lanes_ok=True, device="cuda") \
-        == "keys8"
+        == "keys8f"
     assert tsort.route_engine(big, "auto", device="cuda") == "gather"
     assert tsort.route_engine(10, "auto", lanes_ok=True, device="cuda") \
         == "carrychunk"
@@ -159,6 +159,26 @@ def test_auto_resolves_per_device(monkeypatch):
         tsort.route_engine(10, "keys8", device="cpu")
     with pytest.raises(ValueError, match="unknown sort path"):
         tsort.route_engine(10, "sideways", lanes_ok=True, device="cpu")
+
+
+@pytest.mark.parametrize("path", ["auto", "carry"])
+def test_single_chip_sort_asks_with_its_key_rows(monkeypatch, path):
+    """The route is asked for TeraSort's 3 key words, so "auto" on the
+    card takes the slim cascade (keys8f)."""
+    asked = []
+
+    def recording(n_rows, path="auto", lanes_ok=False, device=None,
+                  key_rows=None):
+        asked.append((path, lanes_ok, key_rows))
+        return tsort.route_engine(n_rows, path, lanes_ok, device, key_rows)
+
+    monkeypatch.setattr(tts, "route_engine", recording)
+    w = records(4, 300)
+    got = tts.single_chip_sort(w, path=path, tile=128, device="cpu")
+    assert asked == [(path, True, tts.KEY_WORDS)] and tts.KEY_WORDS == 3
+    np.testing.assert_array_equal(
+        interop.words_to_numpy(got), np.asarray(
+            jts.single_chip_sort(w, path="carry")))
 
 
 def test_deployed_sort_path_precedence(monkeypatch):

@@ -184,7 +184,7 @@ def test_cold_cache_routes_exactly_the_built_in_defaults(cache_at,
     assert tsort.route_engine(1 << 16, "gather", device="cpu") == "gather"
     _on_a_card(monkeypatch)
     for n in (1 << 20, 1 << 22, 10**8):
-        assert tsort.route_engine(n, "auto", True, device="cuda") == "keys8"
+        assert tsort.route_engine(n, "auto", True, device="cuda") == "keys8f"
         assert tsort.route_engine(n, "auto", device="cuda") == "gather"
 
 
@@ -247,7 +247,7 @@ def test_small_batches_are_steered_on_the_card(cache_at, monkeypatch,
             cache_at.record("sort.engine", _key(n, True, "gpu"),
                             {"engine": cached})
     got = tsort.route_engine(small, "auto", True, device="cuda")
-    base = cached or "keys8"
+    base = cached or "keys8f"
     assert got == ("carrychunk" if base in tsort.GATHER_BOUND_ENGINES
                    else base)
     assert tsort.route_engine(big, "auto", True, device="cuda") == base
@@ -263,6 +263,71 @@ def test_a_deployed_engine_is_steered_too(cache_at, monkeypatch):
         "carrychunk"
     assert tsort.route_engine(1 << 20, "auto", True, device="cuda") == \
         "keys8f"
+
+
+# -- the key-row rule: the slim cascade where the caller's keys fit it -------
+
+BIG = 100_000_000
+
+
+@pytest.mark.parametrize("key_rows,want", [
+    (None, "keys8f"), (1, "keys8f"), (2, "keys8f"), (3, "keys8f"),
+    (4, "keys8"), (7, "keys8")])
+def test_the_built_in_fits_the_key_rows(cache_at, monkeypatch, key_rows,
+                                        want):
+    """A cold cache on the card: keys8f (K3/K4 on 4 rows) where the
+    caller's key rows fit its 3, keys8 (K2/K1 on 8 rows) where they do
+    not; None asks for no adaptation."""
+    _on_a_card(monkeypatch)
+    assert tsort.resolve_sort_path("auto", True, device="cuda",
+                                   key_rows=key_rows) == want
+    for n in (tsort.SMALL_BATCH_ROWS, BIG):
+        assert tsort.route_engine(n, "auto", True, device="cuda",
+                                  key_rows=key_rows) == want
+
+
+@pytest.mark.parametrize("key_rows", [None, 3, 4, 7])
+def test_key_rows_move_no_other_route(cache_at, monkeypatch, key_rows):
+    """The rule touches the cascade alone: a lanes-incapable caller gets
+    gather on the card, a batch below 2^20 rows carrychunk, the CPU
+    carry, whatever the key rows."""
+    assert tsort.route_engine(BIG, "auto", True, device="cpu",
+                              key_rows=key_rows) == "carry"
+    _on_a_card(monkeypatch)
+    assert tsort.route_engine(BIG, "auto", device="cuda",
+                              key_rows=key_rows) == "gather"
+    for lanes_ok in (False, True):
+        assert tsort.route_engine(1 << 16, "auto", lanes_ok, device="cuda",
+                                  key_rows=key_rows) == "carrychunk"
+
+
+@pytest.mark.parametrize("source", ["deployed", "cached"])
+@pytest.mark.parametrize("key_rows,want", [(3, "keys8f"), (4, "keys8")])
+def test_a_chosen_keys8f_fits_the_key_rows(cache_at, monkeypatch, source,
+                                           key_rows, want):
+    """A deployed or cached keys8f winner becomes keys8 for a caller whose
+    key rows the slim layout cannot hold, and stands for one whose rows
+    it can."""
+    _on_a_card(monkeypatch)
+    if source == "deployed":
+        monkeypatch.setattr(tsort, "DEPLOYED_SORT_PATH", "keys8f")
+    else:
+        cache_at.record("sort.engine", _key(BIG, True, "gpu"),
+                        {"engine": "keys8f"})
+    assert tsort.route_engine(BIG, "auto", True, device="cuda",
+                              key_rows=key_rows) == want
+    assert tsort.route_engine(BIG, "auto", True, device="cuda") == "keys8f"
+
+
+@pytest.mark.parametrize("key_rows", [None, 3, 4, 7])
+@pytest.mark.parametrize("path", ["keys8f", "keys8"])
+def test_an_explicit_cascade_is_honoured(cache_at, monkeypatch, path,
+                                         key_rows):
+    _on_a_card(monkeypatch)
+    assert tsort.route_engine(BIG, path, True, device="cuda",
+                              key_rows=key_rows) == path
+    assert tsort.resolve_sort_path(path, True, device="cuda",
+                                   key_rows=key_rows) == path
 
 
 def test_set_default_cache_and_the_env_channel(tmp_path, monkeypatch):

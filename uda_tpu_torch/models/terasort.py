@@ -6,9 +6,10 @@ Records are ``uint32[n, 26]`` rows: words 0-2 the big-endian packed key
 bytes). The shuffle+merge is one stable lexicographic sort of whole
 records by their 3 key words, on the card.
 
-Engines (``ops/sort.py``): ``keys8`` (the card's default) sorts the keys
-with the tile-sort and merge-pass kernels K2/K1 and moves each record once
-by the permutation; ``keys8f`` does the same with the slim cascade K3/K4;
+Engines (``ops/sort.py``): ``keys8`` sorts the keys with the tile-sort
+and merge-pass kernels K2/K1 and moves each record once by the
+permutation; ``keys8f`` (the card's default: the 3 key words fit its 4
+rows) does the same with the slim cascade K3/K4;
 ``lanes``/``lanes2`` sort the full 32-row lanes layout with K2/K1;
 ``carry``/``gather``/``gather2``/``carrychunk`` take the permutation from
 PyTorch's stable sort and move the records by it (whole rows, per column,
@@ -134,12 +135,14 @@ def single_chip_sort(words, path: str = "auto", tile: int = 1024,
     ``"auto"`` resolves through ``ops/sort.route_engine``: a deployed
     ``UDA_TPU_SORT_PATH``, else the tune cache's winner for this device
     and batch-size class (``utils/tuncache``), else the built-in default,
-    ``keys8`` on the card and ``carry`` on the CPU; on the card a batch
-    below ``SMALL_BATCH_ROWS`` (2^20) that resolved to a gather-bound
-    engine is steered to ``carrychunk``."""
+    ``carry`` on the CPU and on the card the cascade that fits the
+    ``KEY_WORDS`` key rows, ``keys8f``; on the card a batch below
+    ``SMALL_BATCH_ROWS`` (2^20) that resolved to a gather-bound engine is
+    steered to ``carrychunk``."""
     dev = resolve_device(device)
     words = _as_words(words, dev)
-    path = route_engine(int(words.shape[0]), path, lanes_ok=True, device=dev)
+    path = route_engine(int(words.shape[0]), path, lanes_ok=True, device=dev,
+                        key_rows=KEY_WORDS)
     if words.shape[0] == 0:
         return words
     if path in LANES_ENGINES:

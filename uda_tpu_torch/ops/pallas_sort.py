@@ -32,8 +32,8 @@ import ctypes
 import torch
 
 from uda_tpu_torch.ops import _build
-from uda_tpu_torch.ops.sort import (_as_i64, fill_words, i32,
-                                    stable_lex_argsort, u32, words_of)
+from uda_tpu_torch.ops.sort import (FOLDED_KEY_ROWS, _as_i64, fill_words,
+                                    i32, stable_lex_argsort, u32, words_of)
 
 __all__ = ["ROWS", "TB_ROW_DEFAULT", "sort_lanes", "rows_to_lanes",
            "lanes_to_rows", "keys8_sort_perm", "pad_pow2", "tile_sort",
@@ -312,7 +312,7 @@ def keys8_sort_perm(keyrows: torch.Tensor, tile: int = 1024,
     k, m = keyrows.shape
     if not 0 < k <= 7:
         raise ValueError(f"keys8 needs 1..7 key rows, got {k}")
-    if folded and k <= 3 and tile % (2 * _LANE) == 0:
+    if folded and k <= FOLDED_KEY_ROWS and tile % (2 * _LANE) == 0:
         from uda_tpu_torch.ops.pallas_fold import sort_lanes_folded4
 
         mat4 = _cat_words([keyrows, fill_words((4 - k, m), keyrows.device)])

@@ -35,7 +35,7 @@ __all__ = ["resolve_sort_path", "route_engine", "apply_perm_chunked",
            "sort_records_fixed", "LANES_ENGINES", "FLYOFF_ENGINES",
            "BENCH_FLYOFF", "ALL_SORT_PATHS", "DEFAULT_CHUNK_COLS",
            "DEPLOYED_SORT_PATH", "GATHER_BOUND_ENGINES", "SMALL_BATCH_ROWS",
-           "cache_backend"]
+           "FOLDED_KEY_ROWS", "cache_backend"]
 
 # The engine knobs, under the reference's names, read once at import.
 DEFAULT_CHUNK_COLS = int(os.environ.get("UDA_TPU_CHUNK_COLS", "6"))
@@ -57,17 +57,26 @@ ALL_SORT_PATHS = ("carry", "gather") + BENCH_FLYOFF
 GATHER_BOUND_ENGINES = ("gather", "gather2", "keys8", "keys8f")
 SMALL_BATCH_ROWS = 1 << 20
 
+# The key rows the slim cascade (keys8f: K3/K4 on uint32[4, m], the
+# arrival index in row 3) holds; keys8's 8-row layout holds up to 7.
+FOLDED_KEY_ROWS = 3
+
 _I32_BIAS = 1 << 31
 
 
 def resolve_sort_path(path: str, lanes_ok: bool = False,
-                      device=None) -> str:
+                      device=None, key_rows: "int | None" = None) -> str:
     """Resolve an engine name. ``"auto"`` takes a deployed
     ``UDA_TPU_SORT_PATH`` the caller can run, else the device's default:
-    ``carry`` on the CPU (as the reference), ``keys8`` on the card, so the
-    main path goes through the tile-sort and merge-pass kernels (``gather``
-    for a caller that runs no lanes engine). ``lanes_ok`` admits
-    LANES_ENGINES for callers that implement them."""
+    ``carry`` on the CPU (as the reference); on the card the kernel
+    cascade that fits the caller's key rows, ``keys8f`` (K3/K4 on 4 rows)
+    where they fit its 3, else ``keys8`` (K2/K1 on 8 rows), and
+    ``gather`` for a caller that runs no lanes engine. ``lanes_ok``
+    admits LANES_ENGINES for callers that implement them. ``key_rows``
+    is the number of key rows the caller sorts (``keys8_sort_perm``'s
+    rows); over :data:`FOLDED_KEY_ROWS` it turns a deployed or built-in
+    ``keys8f`` into ``keys8``; None asks for no adaptation. An explicit
+    path is always honoured."""
     valid = _valid_paths(lanes_ok)
     if path == "auto":
         if DEPLOYED_SORT_PATH:
@@ -76,14 +85,24 @@ def resolve_sort_path(path: str, lanes_ok: bool = False,
                     f"UDA_TPU_SORT_PATH={DEPLOYED_SORT_PATH!r} is not a "
                     f"known sort path {ALL_SORT_PATHS}")
             if DEPLOYED_SORT_PATH in valid:
-                return DEPLOYED_SORT_PATH
+                return _fit_key_rows(DEPLOYED_SORT_PATH, key_rows)
         if resolve_device(device).type == "cpu":
             path = "carry"
         else:
-            path = "keys8" if lanes_ok else "gather"
+            path = _fit_key_rows("keys8f", key_rows) if lanes_ok \
+                else "gather"
     if path not in valid:
         raise ValueError(f"unknown sort path {path!r}")
     return path
+
+
+def _fit_key_rows(engine: str, key_rows: "int | None") -> str:
+    """``keys8`` for a ``keys8f`` whose caller sorts more key rows than
+    the slim layout holds; any other engine as it is."""
+    if engine == "keys8f" and key_rows is not None \
+            and key_rows > FOLDED_KEY_ROWS:
+        return "keys8"
+    return engine
 
 
 def _valid_paths(lanes_ok: bool) -> tuple:
@@ -115,24 +134,26 @@ def _cached_engine(n_rows: int, lanes_ok: bool, device=None) -> "str | None":
 
 
 def route_engine(n_rows: int, path: str = "auto", lanes_ok: bool = False,
-                 device=None) -> str:
+                 device=None, key_rows: "int | None" = None) -> str:
     """Batch-size-aware engine routing, the resolution entry of the
-    production sort surfaces (``models/terasort.single_chip_sort``).
-    ``path`` resolves like :func:`resolve_sort_path`; for "auto" with no
-    deployed ``UDA_TPU_SORT_PATH`` the persisted tune cache is consulted
-    first (env > cache > built-in; a cold cache routes as the built-in
-    default), and then, on the card, a batch below
+    production sort surfaces (``models/terasort.single_chip_sort``, the
+    mesh's local sort). ``path`` resolves like :func:`resolve_sort_path`;
+    for "auto" with no deployed ``UDA_TPU_SORT_PATH`` the persisted tune
+    cache is consulted first (env > cache > built-in; a cold cache routes
+    as the built-in default). A deployed, cached or built-in ``keys8f``
+    becomes ``keys8`` where ``key_rows`` is over
+    :data:`FOLDED_KEY_ROWS`. Then, on the card, a batch below
     :data:`SMALL_BATCH_ROWS` is steered from :data:`GATHER_BOUND_ENGINES`
     to "carrychunk", deployed and cached winners alike (the card takes
     the accelerator's role of the reference's rule). An explicit path is
     always honoured."""
     if path != "auto":
         return resolve_sort_path(path, lanes_ok, device)
-    resolved = resolve_sort_path("auto", lanes_ok, device)
+    resolved = resolve_sort_path("auto", lanes_ok, device, key_rows)
     if not DEPLOYED_SORT_PATH:
         cached = _cached_engine(n_rows, lanes_ok, device)
         if cached is not None:
-            resolved = cached
+            resolved = _fit_key_rows(cached, key_rows)
     if (n_rows < SMALL_BATCH_ROWS and resolve_device(device).type != "cpu"
             and resolved in GATHER_BOUND_ENGINES):
         return "carrychunk"

@@ -26,9 +26,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uda_tpu_torch.ops.sort import (_as_i64, apply_perm_chunked, fill_words,
-                                    i32, route_engine, stable_lex_argsort,
-                                    u32, words_of)
+from uda_tpu_torch.ops.sort import (FOLDED_KEY_ROWS, _as_i64,
+                                    apply_perm_chunked, fill_words, i32,
+                                    route_engine, stable_lex_argsort, u32,
+                                    words_of)
 from uda_tpu_torch.parallel.mesh import Mesh, RowSharding
 from uda_tpu_torch.parallel.multihost import (put_global, put_rows,
                                               zeros_global)
@@ -161,7 +162,7 @@ def _sort_valid_rows_lanes(flat: torch.Tensor, valid: torch.Tensor,
             raise ValueError(
                 f"num_keys={num_keys} does not fit the 8-row keys view; "
                 "use payload_path='lanes'")
-        if folded and k8 > 3:
+        if folded and k8 > FOLDED_KEY_ROWS:
             raise ValueError(
                 f"keys8f needs num_keys <= 2 here (keys + invalid flag "
                 f"must fit the folded 4-row slot); got {num_keys} — use "
@@ -265,8 +266,10 @@ def distributed_sort_step(words, splitters, mesh: Mesh, axis,
     multiround path (the fused attempt runs the plain staged body).
     ``capacity``: per-(src, dst) records per round. ``payload_path``: the
     local sort's engine ("auto" resolves through ``route_engine`` on the
-    GLOBAL row count: ``carry`` on the CPU, ``keys8`` on the card, and
-    ``carrychunk`` for a batch below 2^20 rows there). ``multiround``:
+    GLOBAL row count and ``num_keys + 1`` key rows, the keys and the
+    invalid flag: ``carry`` on the CPU; on the card ``keys8f`` where they
+    fit its 3 rows, else ``keys8``, and ``carrychunk`` for a batch below
+    2^20 rows there). ``multiround``:
     "auto" runs the fused step and, if any bucket overflowed, re-runs the
     shuffle through the windowed multi-round exchange; "never" reports
     the overflow in the result; "always" skips the fused attempt."""
@@ -276,7 +279,8 @@ def distributed_sort_step(words, splitters, mesh: Mesh, axis,
     if multiround not in ("auto", "never", "always"):
         raise ValueError(f"unknown multiround policy {multiround!r}")
     payload_path = route_engine(_global_rows(words, mesh), payload_path,
-                                lanes_ok=True, device=mesh.devices[0])
+                                lanes_ok=True, device=mesh.devices[0],
+                                key_rows=num_keys + 1)
     topo, hier, _coded = resolve_exchange_mode(mesh, axis, exchange_mode)
     if multiround == "always":
         return distributed_sort_multiround(words, splitters, mesh, axis,
@@ -348,7 +352,8 @@ def distributed_sort_multiround(words, splitters, mesh: Mesh, axis,
     wcols = int((words[0] if isinstance(words, (list, tuple))
                  else words).shape[1])
     payload_path = route_engine(_global_rows(words, mesh), payload_path,
-                                lanes_ok=True, device=mesh.devices[0])
+                                lanes_ok=True, device=mesh.devices[0],
+                                key_rows=num_keys + 1)
     p = mesh.axis_size(axis)
     ws = put_rows(words, mesh, axis)
     dests = [_dest(w, _splitters_on(splitters, w.device)) for w in ws]
