@@ -49,6 +49,15 @@ is answered with PUSH_ACK or PUSH_NACK.
 Failpoints: ``net.connect`` per dial and ``net.frame`` per outbound
 request frame, both on the caller thread (a truncation sends the torn
 bytes, then tears the connection down).
+
+Timers (``metrics.timer``; port-only, ``metrics.PORT_TIMERS``, charged to
+``fetch`` by ``utils.critpath.PORT_SPAN_BUCKETS``): ``net_read`` covers
+the loop thread's read of one ready connection (``_do_read``: every
+``recv_into``, header decode and frame completion up to the dispatcher
+hand-off), ``net_deliver`` one completion upcall on the dispatcher
+thread. With spans on, a ``net_read`` span is parented under the span of
+the connection's latest request and a ``net_deliver`` span under its own
+request's, so both join the reduce task's trace.
 """
 
 from __future__ import annotations
@@ -212,7 +221,8 @@ class _ClientConn:
         if self.dead:
             return
         if mask & _READ:
-            self._do_read()  # udalint: disable=UDA102 - recv_into on this loop's non-blocking socket
+            with metrics.timer("net_read", parent=self.client._read_parent):
+                self._do_read()  # udalint: disable=UDA102 - recv_into on this loop's non-blocking socket
 
     def _do_read(self) -> None:
         # receive straight into the header buffer or the frame's own
@@ -344,6 +354,9 @@ class EvLoopFetchClient(InputClient):
         self._conn: Optional[_ClientConn] = None
         self._pending: dict = {}       # req_id -> _Waiter
         self._next_id = 0              # never reused across connections
+        # the span of the latest request issued: the parent of the loop
+        # thread's net_read spans
+        self._read_parent = None
         self._stopped = False
         # warm-restart continuity: the last server generation seen, and
         # whether a resumed offset ledger is still continuous with it
@@ -501,12 +514,13 @@ class EvLoopFetchClient(InputClient):
     @staticmethod
     def _deliver(req_id: int, waiter: _Waiter, result) -> None:
         """Dispatcher thread: the upcall."""
-        try:
-            waiter.on_complete(result)
-        except Exception as e:  # noqa: BLE001 - one waiter's bug must
-            # not starve later completions
-            log.warn(f"net: completion callback for req {req_id} "
-                     f"raised: {e}")
+        with metrics.timer("net_deliver", parent=waiter.span):
+            try:
+                waiter.on_complete(result)
+            except Exception as e:  # noqa: BLE001 - one waiter's bug
+                # must not starve later completions
+                log.warn(f"net: completion callback for req {req_id} "
+                         f"raised: {e}")
 
     def _register(self, conn: _ClientConn, on_complete,
                   timed: bool = True, span=None) -> Optional[int]:
@@ -519,6 +533,7 @@ class EvLoopFetchClient(InputClient):
             req_id = self._next_id
             self._pending[req_id] = _Waiter(on_complete,
                                             time.perf_counter(), timed, span)
+            self._read_parent = span
         return req_id
 
     def _trace_of(self, span) -> Optional[tuple]:
@@ -733,6 +748,8 @@ class EvLoopFetchClient(InputClient):
         span = metrics.start_span(
             "net.fetch", host=self.host, map=req.map_id,
             reduce=req.reduce_id, offset=req.offset)
+        # a fresh dial's banner is read under this span too
+        self._read_parent = span
         try:
             conn = self._ensure_connected()
         except TransportError as e:

@@ -5,7 +5,8 @@ priority order unchanged, so the port's spans (which carry the
 reference's names) map the same way: ``overlap_stage`` and
 ``merge.device_put`` (the port's host-to-card staging) are
 ``device_put``, ``overlap_device_merge`` (K1's forest) is ``merge``.
-The port's own emit timers (:data:`PORT_SPAN_BUCKETS`) are ``serve``.
+The port's own timers (:data:`PORT_SPAN_BUCKETS`): the emit's are
+``serve``, the socket client's read and completion upcall ``fetch``.
 
 - **wall partition**: sweep the root span's timeline; at every instant
   the active spans map to buckets and exactly one bucket is charged, by
@@ -69,12 +70,15 @@ SPAN_BUCKETS: Dict[str, str] = {
 BUCKET_PRIORITY = ("merge", "device_put", "decompress_pack", "serve",
                    "fetch", "other", "wait")
 
-# timer spans only the port has -> stage bucket, consulted after
-# SPAN_BUCKETS (disjoint from it): the emit's phase and its stages
-# (merger/emitter.py) are emission, the reference's bucket for "emit"
+# timer spans only the port has (metrics.PORT_TIMERS) -> stage bucket,
+# consulted after SPAN_BUCKETS (disjoint from it): the emit's phase and
+# its stages (merger/emitter.py) are emission, the reference's bucket for
+# "emit"; the socket client's reads and completion upcalls (net/client.py)
+# are the fetch
 PORT_SPAN_BUCKETS: Dict[str, str] = {
     "emit_phase": "serve", "emit_readback": "serve", "emit_gather": "serve",
     "emit_frame": "serve", "emit_deliver": "serve",
+    "net_read": "fetch", "net_deliver": "fetch",
 }
 
 # bucket -> the reference trio alias it reconciles onto (reducer.h:80-90)
@@ -241,8 +245,11 @@ def buckets_from_counters(counters: Dict[str, float]) -> Dict:
     telemetry, stats-off runs). These are BUSY sums (overlap not
     removed), so they do not sum to wall; the block says so. The emit's
     stage timers count as serve; ``emit_phase_time``, which holds them
-    and ``emit_time``, does not."""
-    table = (("fetch", ("fetch_time",)),
+    and ``emit_time``, does not. The socket client's ``net_read_time``
+    and ``net_deliver_time``, busy on its loop and dispatcher threads
+    beside the task's ``fetch_time``, count as fetch."""
+    table = (("fetch", ("fetch_time", "net_read_time",
+                        "net_deliver_time")),
              ("wait", ("wait_mem_time",)),
              ("decompress_pack", ("overlap_pack_time", "pack_time",
                                   "run_spool_time")),

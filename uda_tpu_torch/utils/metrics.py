@@ -45,9 +45,9 @@ from uda_tpu_torch.utils.resledger import resledger as _resledger
 
 __all__ = ["Metrics", "Span", "metrics", "device_trace",
            "METRICS_REGISTRY", "REGISTRY_PREFIXES", "NAME_RE",
-           "SPAN_REGISTRY", "PARITY_ALIASES", "stats_enabled_from_env",
-           "percentile_from_summary", "active_span_of_thread",
-           "enable_thread_span_registry"]
+           "SPAN_REGISTRY", "PORT_TIMERS", "PARITY_ALIASES",
+           "stats_enabled_from_env", "percentile_from_summary",
+           "active_span_of_thread", "enable_thread_span_registry"]
 
 # Dotted namespace every metrics.add/gauge/observe name must match
 # (tests/test_torch_observability.py enforces this over uda_tpu_torch/).
@@ -662,6 +662,29 @@ SPAN_REGISTRY: Dict[str, str] = {
                         "bucket",
 }
 
+# The port's own phase timers (``metrics.timer`` names the reference does
+# not have), each keeping a ``<name>_time`` counter and, with spans on, a
+# span of its name. utils/critpath.PORT_SPAN_BUCKETS maps every one of
+# them; METRICS_REGISTRY and SPAN_REGISTRY stay the reference's.
+PORT_TIMERS: Dict[str, str] = {
+    "emit_phase": "a whole delivery loop of the FramedEmitter, the piece "
+                  "generator's pulls included (merger/emitter.py)",
+    "emit_readback": "one slab's card-to-host read "
+                     "(merger/streaming.py iter_row_slabs)",
+    "emit_gather": "one slab's gather of framed records "
+                   "(merger/overlap.py emit_stream, merger/streaming.py "
+                   "interleave_runs)",
+    "emit_frame": "framing one slab or chunk (native.frame_batch)",
+    "emit_deliver": "cutting a block and staging it in an arena slot "
+                    "(merger/emitter.py)",
+    "net_read": "the client loop thread's read of one ready supplier "
+                "socket: recv_into, header decode and frame completion up "
+                "to the dispatcher hand-off (net/client.py _do_read)",
+    "net_deliver": "the dispatcher thread's completion upcall of one "
+                   "request, a Segment's on_complete (net/client.py "
+                   "_deliver)",
+}
+
 # snapshot() aliases for the reference's per-reduce-task aggregate trio
 # (reducer.h:80-90): alias name -> source timer counter.
 PARITY_ALIASES = {
@@ -1128,12 +1151,13 @@ class Metrics:
                 self.spans.append(rec)
 
     @contextlib.contextmanager
-    def timer(self, name: str) -> Iterator[None]:
+    def timer(self, name: str, *,
+              parent: Optional[Span] = None) -> Iterator[None]:
         """Phase timer: accumulates ``<name>_time`` seconds and (when
-        spans are on) records a span parented under the thread's current
-        span."""
+        spans are on) records a span parented under ``parent``, by
+        default the thread's current span."""
         if self._spans_enabled:
-            with self.span(name):
+            with self.span(name, parent=parent):
                 t0 = time.perf_counter()
                 try:
                     yield
