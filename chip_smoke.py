@@ -25,14 +25,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    key words all equal, every key word equal and mixed keys; K5
    (``take_lanes``) at the probe's three
    shapes and at 3, 26 and 33 rows, each of its two designs launched on
-   its own too; every launch held byte for byte against its plain
+   its own too; K6, the row gather (``take_rows``), at 26 words a row
+   (8-byte words), 27 (4-byte words), 26 on a view only 4-byte aligned
+   and rows wider than a block, by a permutation, by indices with
+   repeats and by the tie-break row of a longer [4, m] tensor; every
+   launch held byte for byte against its plain
    PyTorch version on the same input, and each cascade against PyTorch's
    stable sort;
 4. main path: ``single_chip_sort`` of 100,000,000 TeraSort records
    (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``, padded to 2^27
    inside) with ``path="auto"``, which resolves to ``keys8f`` (K3, K4
    and the partition kernel: the 3 key words fit its 4 rows), then the
-   same records through ``keys8`` (K2, K1 and the partition kernel); each
+   same records through ``keys8`` (K2, K1 and the partition kernel), each
+   moving its records by one launch of K6; each
    checked for order, multiset
    checksum and byte identity with the stable-sort yardstick, with the
    launches of every kernel counted; 4b: a temporary tune cache
@@ -53,8 +58,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    both measured on the last pass after an L2 flush; K5 on the keys8 matrix by the main path's permutation and
    by a merge permutation, its own device time in turns with torch
    indexing and its other design, the whole wrapper call, its scratch
-   and peak memory), its plain version, PyTorch's call computing the same
-   function, its bound, the cascades and the whole-sort yardstick; A/Bs,
+   and peak memory; K6 on the 10^8 records by the main path's permutation,
+   its own device time in turns with torch indexing, the wrapper call and
+   the peak memory of one call beside indexing's, against its bound and
+   the sector-granular bound its random rows allow), its plain version,
+   PyTorch's call computing the same function, its bound, the cascades and the whole-sort yardstick; A/Bs,
    in turns, of K3/K4 against K2/K1's run-time-row form on the same 4-row
    input and of K4's block width (2048 against 4096 records); and K5's
    two designs from 16 KB to 1 GB of ``x`` (the small-shape rule);
@@ -402,6 +410,11 @@ KERNELS = {
     "take_lanes": dict(
         id="K5", route="cuda", source="uda_tpu_torch/csrc/lane_gather.cu",
         replaces="scripts/probe_gather.py:62"),
+    # the row gather: the reference moves the sorted records with XLA's
+    # jnp.take, no Pallas kernel
+    "take_rows": dict(
+        id="K6", route="cuda", source="uda_tpu_torch/csrc/lane_gather.cu",
+        replaces="none (uda_tpu/models/terasort.py:135 is jnp.take)"),
 }
 MAIN_PATH = ("tile_sort", "merge_pass", "merge_partition")
 FOLDED_PATH = ("tile_sort_folded", "merge_pass_folded", "merge_partition")
@@ -454,6 +467,11 @@ TAKE_SHAPES = PROBE_SHAPES + ((3, 1 << 20), (26, 100_003), (33, 1029))
 # around lane_gather.SMALL_BYTES (2^15 columns of 8 rows)
 TAKE_SWEEP_NS = tuple(1 << k for k in (9, 11, 13, 15, 16, 17, 19, 21, 23,
                                        25))
+# K6 in phase 3: (rows, words a row, base offset in words, perm kind); the
+# block's rows are 157 at 26 words, 75 at 27, one at 3000
+TAKE_ROWS_CASES = ((100_003, 26, 0, "random"), (100_003, 27, 0, "random"),
+                   (4099, 26, 1, "repeated"), (4099, 27, 0, "row3"),
+                   (158, 26, 0, "row3"), (7, 3000, 0, "random"))
 _ALL_ONES = 0xFFFFFFFF
 # phase 8: one reduce partition of TeraSort. The reference's deployment
 # shape is 64 maps of 64 MiB (scripts/bench_pipeline.py:182-183); the maps
@@ -789,10 +807,39 @@ def check_take_lanes(gen: torch.Generator, rows: int, n: int) -> int:
     return max_abs_err(got, lane_gather.take_lanes_plain(x, perm))
 
 
+def check_take_rows(gen: torch.Generator, n: int, w: int, offset: int,
+                    kind: str) -> int:
+    """K6 against ``words[perm]`` by torch indexing on random words, the
+    rows starting ``offset`` words past an aligned base; ``kind`` is a
+    permutation ("random"), indices with repeats ("repeated") or the
+    tie-break row of a longer [4, m] tensor ("row3"). The largest error
+    against the plain version."""
+    dev = gen.device
+    flat = torch.randint(-(1 << 31), 1 << 31, (n * w + offset,),
+                         dtype=torch.int32, generator=gen, device=dev)
+    x = u32(flat[offset:].view(n, w))
+    if kind == "repeated":
+        perm = torch.randint(0, n, (n,), dtype=torch.int32, generator=gen,
+                             device=dev)
+    else:
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    if kind == "row3":
+        full = torch.randint(0, 1 << 30, (4, 2 * n + 1), dtype=torch.int32,
+                             generator=gen, device=dev)
+        full[3, :n] = perm
+        perm = full[3]
+    got = lane_gather.take_rows(x, perm)
+    require(same(got, u32(i32(x)[perm[:n].long()])),
+            f"take_rows [{n}, {w}] +{offset} {kind} differs from "
+            f"words[perm]")
+    return max_abs_err(got, lane_gather.take_rows_plain(x, perm))
+
+
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
-                  take_shapes=TAKE_SHAPES, deep_run=DEEP_PARTITION_RUN,
+                  take_shapes=TAKE_SHAPES, take_rows_cases=TAKE_ROWS_CASES,
+                  deep_run=DEEP_PARTITION_RUN,
                   deep_kinds=DEEP_PARTITION_KINDS) -> dict:
     gen = generator(SEED + 1, dev)
     seeds = itertools.count(SEED + 1)
@@ -863,6 +910,12 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
         log(f"[kernels] K5 take_lanes [{rows}, {n_take}] "
             f"({lane_gather.design(rows, n_take)}): max_abs_err {err} "
             f"(tolerance 0); both designs equal to x[:, perm]")
+    for n_rows, w, offset, kind in take_rows_cases:
+        err = check_take_rows(gen, n_rows, w, offset, kind)
+        worst["take_rows"] = max(worst.get("take_rows", 0), err)
+        log(f"[kernels] K6 take_rows [{n_rows}, {w}] base +{4 * offset} B, "
+            f"{kind} perm: max_abs_err {err} (tolerance 0); equal to "
+            f"words[perm]")
     torch.cuda.synchronize()
     require(all(v == 0 for v in worst.values()),
             f"kernel differs from its plain version: {worst}")
@@ -916,6 +969,10 @@ def phase_main(dev: torch.device, n: int = N_MAIN) -> tuple:
     require(runs[0]["launches"]["tile_sort"] == 0
             and runs[0]["launches"]["merge_pass"] == 0,
             f'"auto" launched K2 or K1: {runs[0]["launches"]}')
+    for r in runs:
+        require(r["launches"]["take_rows"] == 1,
+                f'{r["path"]}: {r["launches"]["take_rows"]} launches of '
+                f'K6, not one')
     return words, runs
 
 
@@ -1319,6 +1376,68 @@ def time_take_lanes(mat: torch.Tensor, perm: torch.Tensor,
     return res
 
 
+def row_sectors(w: int) -> float:
+    """32-byte sectors one source row of ``w`` words spans, averaged over
+    the row starts of a contiguous [n, w] (they repeat every 8 rows)."""
+    return sum((4 * w * i % 32 + 4 * w + 31) // 32 for i in range(8)) / 8
+
+
+def time_take_rows(words: torch.Tensor, perm: torch.Tensor,
+                   reps: int) -> dict:
+    """K6 on the main path's records by its sort permutation (the first n
+    of the cascade's tie-break row, read in place): its own device time in
+    turns with torch indexing ``words[perm[:n].long()]`` (the int64 copy
+    included, as the path had it), the wrapper call, the peak memory of
+    one call beside indexing's, the plain version, and the sector-granular
+    bound (each source row's whole sectors read)."""
+    n, w = words.shape
+    ref = u32(i32(words)[perm[:n].long()])
+
+    def peak_of(fn) -> int:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    got = lane_gather.take_rows(words, perm)
+    require(same(got, ref), "take_rows differs from words[perm] at the "
+                            "main path's shape")
+    del ref
+    plain = lane_gather.take_rows_plain(words, perm)
+    # the error over the differing rows alone: int64 copies of the whole
+    # 10.4 GB would not fit beside it
+    bad = (i32(got) != i32(plain)).any(dim=1)
+    err = max_abs_err(got[bad], plain[bad]) if bool(bad.any()) else 0
+    del got, plain, bad
+    peak = peak_of(lambda: lane_gather.take_rows(words, perm))
+    lib_peak = peak_of(lambda: i32(words)[perm[:n].long()])
+    own, lib = in_turns(lambda: lane_gather.take_rows(words, perm),
+                        lambda: i32(words)[perm[:n].long()],
+                        reps=reps, timer=device_ms)
+    sector_bytes = int(n * (32 * row_sectors(w) + 4 * w + 4))
+    res = {
+        "ms": own, "library_ms": lib,
+        "plain_ms": time_ms(lambda: lane_gather.take_rows_plain(words,
+                                                               perm), 1),
+        "call_ms": time_ms(lambda: lane_gather.take_rows(words, perm), reps),
+        # every row read once, written once, and perm's n entries
+        "bytes": (2 * w + 1) * n * 4, "ops": 0, "max_abs_err": err,
+        "sector_bytes": sector_bytes,
+        "sector_bound_ms": bound(sector_bytes, 0)[0],
+        "vector_words": lane_gather.row_vector_words(words),
+        "peak_bytes": peak, "library_peak_bytes": lib_peak,
+    }
+    log(f"[times] K6 take_rows [{n}, {w}]: {own:.3f} ms, torch indexing "
+        f"{lib:.3f} ms (device, in turns); wrapper call "
+        f"{res['call_ms']:.3f} ms; sector bound "
+        f"{res['sector_bound_ms']:.3f} ms ({sector_bytes} B); peak {peak} B"
+        f", indexing's {lib_peak} B")
+    torch.cuda.synchronize()
+    return res
+
+
 def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,
                      probe_shapes=PROBE_SHAPES) -> list:
     """K5's two designs in turns (device time) on random words by a random
@@ -1360,7 +1479,9 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
     _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile)
     merge = merge_perm(sort_ops._packed_keys(list(keyr[:2]))[0])
     times["take_lanes"] = time_take_lanes(mat8, perm, merge, reps)
-    del mat8, mat4, perm, merge
+    del mat8, mat4, merge
+    times["take_rows"] = time_take_rows(words, perm, reps)
+    del perm
     sweep = sweep_take_lanes(words.device)
     require(all(t["max_abs_err"] == 0 for t in times.values()),
             "a kernel differs from its plain version at the main path's "
@@ -4739,6 +4860,10 @@ def main() -> int:
                 "design", "call_ms", "direct_ms", "records_ms",
                 "scratch_bytes", "peak_bytes", "copy_ms", "merge")
                 if k in t})
+        if name == "take_rows":
+            kernels[-1].update({k: t[k] for k in (
+                "call_ms", "sector_bound_ms", "vector_words", "peak_bytes",
+                "library_peak_bytes")})
         if name in ("merge_pass", "merge_partition"):
             kernels[-1]["merge_path_launches"] = merged["launches"][name]
             kernels[-1]["pair_keys8_launches"] = \

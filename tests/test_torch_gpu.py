@@ -212,6 +212,92 @@ def test_take_lanes_counts_one_launch_a_call(cuda_device):
     assert dict(_build.launches) == {"take_lanes": 2}
 
 
+def _row_block(w: int, vec: int) -> int:
+    v = w // vec
+    return lane_gather.ROW_SPAN // v if v < lane_gather.ROW_SPAN else 1
+
+
+@pytest.mark.parametrize("w,vec,offset", [(26, 2, 0), (27, 1, 0), (26, 1, 1),
+                                          (1, 1, 0), (3000, 2, 0)])
+@pytest.mark.parametrize("kind", ["random", "repeated", "row3"])
+def test_take_rows_matches_plain(cuda_device, w, vec, offset, kind):
+    """The row gather against ``words[perm.long()]`` and its plain version:
+    8-byte words at w = 26, 4-byte words at w = 27 and on a view whose
+    base is only 4-byte aligned, rows wider than a block's span; n not a
+    multiple of the block's rows; perm as the tie-break row of a longer
+    [4, m] tensor, read in place."""
+    b = _row_block(w, vec)
+    n = 3 * b + 5 if w < 1000 else 7
+    rng = np.random.default_rng(w + n)
+    flat_np = rng.integers(0, 2**32, size=n * w + offset, dtype=np.uint32)
+    flat_np[::9] = np.uint32(0xFFFFFFFF)
+    flat = torch.from_numpy(flat_np).to(cuda_device)
+    x = flat[offset:].view(n, w)
+    assert lane_gather.row_vector_words(x) == vec
+    if kind == "row3":
+        full = torch.randint(0, 1 << 30, (4, 2 * n + 1), dtype=torch.int32,
+                             device=cuda_device)
+        full[3, :n] = torch.from_numpy(
+            rng.permutation(n).astype(np.int32)).to(cuda_device)
+        perm = full[3]
+    else:
+        perm = torch.from_numpy(gather_index(kind, n, w)).to(cuda_device)
+    got = lane_gather.take_rows(x, perm)
+    want = tsort.u32(tsort.i32(x)[perm[:n].long()])
+    assert got.shape == (n, w) and _same(got, want)
+    assert _same(got, lane_gather.take_rows_plain(x, perm))
+
+
+def test_take_rows_counts_one_launch_a_call(cuda_device):
+    x = _on_card(records(3, 5000), cuda_device)
+    perm = torch.randperm(5000, device=cuda_device).to(torch.int32)
+    empty = torch.empty((0, 26), dtype=torch.uint32, device=cuda_device)
+    _build.reset_launches()
+    lane_gather.take_rows(x, perm)
+    lane_gather.take_rows(empty, perm)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"take_rows": 1}
+
+
+def test_take_rows_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = _on_card(records(4, 64), cuda_device)
+    perm = torch.arange(128, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_gather.take_rows(x, perm[::2])
+    with pytest.raises(ValueError, match="at least 64"):
+        lane_gather.take_rows(x, perm[:63])
+    with pytest.raises(ValueError, match="int32"):
+        lane_gather.take_rows(x, perm[:64].long())
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_gather.take_rows(x.T.contiguous().T, perm)
+
+
+@pytest.mark.parametrize("path", ["keys8f", "keys8"])
+def test_single_chip_sort_moves_rows_by_take_rows(cuda_device, path):
+    """The keys8 engines on the card: carry's bytes, one take_rows launch
+    a call, and no int64 copy of the permutation. The allocator's peak
+    over the input is the output, the cascade's [k, m] result and the
+    key rows (the gather's moment) and nothing of 8 bytes a record: n is
+    large enough that half of 8n outweighs the allocator's rounding of
+    the three blocks (under 2 MiB each)."""
+    n, tile = 4_000_000, 1024
+    x = _on_card(records(5, n), cuda_device)
+    want = tts.single_chip_sort(x, path="carry", device=cuda_device)
+    rows = 4 if path == "keys8f" else 8
+    m = 1 << 22
+    reckoned = n * 26 * 4 + rows * m * 4 + tts.KEY_WORDS * m * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    got = tts.single_chip_sort(x, path=path, tile=tile, device=cuda_device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert _build.launches["take_rows"] == 1
+    assert _same(got, want)
+    assert reckoned <= peak < reckoned + 8 * n // 2, (peak, reckoned)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = _on_card(words(2, 8, 1 << 14, 3), cuda_device)
     with pytest.raises(ValueError, match="contiguous"):

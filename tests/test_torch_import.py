@@ -162,6 +162,8 @@ def test_chip_smoke_fails_alone(tmp_path):
     lambda x: pallas_sort.merge_partition(x, 128, 256, 3, 7),
     lambda x: lane_gather.take_lanes(
         x, torch.empty(512, dtype=torch.int32, device="meta")),
+    lambda x: lane_gather.take_rows(
+        x, torch.empty(8, dtype=torch.int32, device="meta")),
     lambda x: pallas_merge.merge_sorted_pair(x.T[:300], x.T[300:], 8),
 ])
 def test_wrappers_take_no_plain_path_off_the_cpu(call):
@@ -209,4 +211,5 @@ def test_launch_counter_counts_only_kernel_launches():
     pallas_sort.sort_lanes(x, 1, tb_row=3, tile=128)
     pallas_fold.sort_lanes_folded4(x, 1, tile=256)
     lane_gather.take_lanes(x, torch.arange(255, -1, -1, dtype=torch.int32))
+    lane_gather.take_rows(x, torch.arange(3, -1, -1, dtype=torch.int32))
     assert sum(_build.launches.values()) == 0   # plain versions on the CPU

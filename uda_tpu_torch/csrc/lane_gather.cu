@@ -277,3 +277,114 @@ int uda_lane_gather_records(const void* x, const void* perm, void* xt,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The row gather: out[j, :] = words[perm[j], :] on a contiguous
+// uint32[n, w] by an int32 perm with at least n entries, of which the first
+// n are read (ops/lane_gather.take_rows).
+//
+// Replaces: no TPU kernel. The reference moves TeraSort's sorted records
+// with XLA's jnp.take (uda_tpu/models/terasort.py:135), which is no Pallas
+// kernel; on the card this kernel stands where PyTorch's indexing did. It
+// reads the cascade's int32 tie-break row in place, where indexing first
+// made an int64 copy of it (8 bytes a record).
+//
+// What bounds it: bytes. At TeraSort's w = 26 a row is 104 bytes and row i
+// starts at 104 * i mod 32 in {0, 8, 16, 24}, so every source row spans
+// exactly four 32-byte sectors: 128 bytes read, 104 written and 4 of perm
+// a row, 23.6 GB at 10^8 rows (7.05 ms at 3.35 TB/s).
+//
+// The design: the output is one flat stream of V-typed words (8-byte
+// uint2 where w is even and both bases are 8-byte aligned, else 4-byte
+// words; the wrapper decides and passes vec, this launcher refuses a vec
+// the pointers do not allow). A block takes rows_per_block whole output
+// rows, about kRowSpan words of the stream:
+// 1. its slice of perm, read once a row and coalesced, into shared memory,
+//    each index checked against [0, n) (a device trap, as PyTorch's index
+//    assert: no host synchronise on the caller's path);
+// 2. thread t of the block moves stream words t, t + 256, ... : neighbouring
+//    lanes read neighbouring words of one source row, so each row's sectors
+//    are fetched by one instruction and used whole, and write neighbouring
+//    output words, one coalesced stream with evict-first stores (nothing in
+//    the call reads the output again);
+// 3. each thread issues all its kRowItems loads before its first store, so
+//    a resident block keeps 256 * kRowItems * sizeof(V) bytes of random
+//    rows in flight (16 KB at 8-byte words, several blocks an SM).
+// Offsets into words are 64-bit (perm[j] * 104 passes 2^32 at 10^8 rows);
+// the word index inside a block is 32-bit.
+
+namespace {
+
+constexpr int kRowThreads = 256;
+constexpr int kRowItems = 8;                      // words a thread moves
+constexpr int kRowSpan = kRowThreads * kRowItems; // words a block aims at
+
+template <typename V>
+__global__ void __launch_bounds__(kRowThreads)
+    row_gather_kernel(const V* __restrict__ words,
+                      const int32_t* __restrict__ perm, V* __restrict__ out,
+                      size_t n, unsigned v, unsigned rows_per_block) {
+  __shared__ uint32_t s_perm[kRowSpan];
+  const size_t j0 = (size_t)blockIdx.x * rows_per_block;
+  const unsigned rows =
+      n - j0 < rows_per_block ? (unsigned)(n - j0) : rows_per_block;
+  for (unsigned r = threadIdx.x; r < rows; r += kRowThreads) {
+    const int32_t p = __ldg(perm + j0 + r);
+    if (p < 0 || (size_t)p >= n) __trap();
+    s_perm[r] = (uint32_t)p;
+  }
+  __syncthreads();
+  const unsigned total = rows * v;
+  V* dst = out + j0 * v;
+  for (unsigned base = 0; base < total; base += kRowSpan) {
+    V val[kRowItems];
+#pragma unroll
+    for (int i = 0; i < kRowItems; ++i) {
+      const unsigned t = base + i * kRowThreads + threadIdx.x;
+      if (t < total) {
+        const unsigned r = t / v;
+        val[i] = __ldg(words + (size_t)s_perm[r] * v + (t - r * v));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowItems; ++i) {
+      const unsigned t = base + i * kRowThreads + threadIdx.x;
+      if (t < total) __stcs(dst + t, val[i]);
+    }
+  }
+}
+
+bool aligned8(const void* p) { return ((uintptr_t)p & 7) == 0; }
+
+}  // namespace
+
+extern "C" {
+
+// The row gather of n rows of w words with vec (1 or 2) uint32 words a
+// vector; the caller allocates out (uint32[n, w]) and checks the shapes.
+// Returns cudaErrorInvalidValue for a vec the row width or the pointers do
+// not allow, or a grid past the card's; else cudaGetLastError() after the
+// launch.
+int uda_row_gather(const void* words, const void* perm, void* out, size_t n,
+                   int w, int vec, void* stream) {
+  if (w < 1 || (vec != 1 && vec != 2) || w % vec ||
+      (vec == 2 && !(aligned8(words) && aligned8(out))))
+    return (int)cudaErrorInvalidValue;
+  const unsigned v = (unsigned)(w / vec);
+  const unsigned rows_per_block = v < kRowSpan ? kRowSpan / v : 1u;
+  const size_t blocks = (n + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7FFFFFFFu) return (int)cudaErrorInvalidValue;
+  if (!blocks) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 2)
+    row_gather_kernel<uint2><<<(unsigned)blocks, kRowThreads, 0, st>>>(
+        (const uint2*)words, (const int32_t*)perm, (uint2*)out, n, v,
+        rows_per_block);
+  else
+    row_gather_kernel<uint32_t><<<(unsigned)blocks, kRowThreads, 0, st>>>(
+        (const uint32_t*)words, (const int32_t*)perm, (uint32_t*)out, n, v,
+        rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

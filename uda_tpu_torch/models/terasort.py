@@ -8,8 +8,9 @@ records by their 3 key words, on the card.
 
 Engines (``ops/sort.py``): ``keys8`` sorts the keys with the tile-sort
 and merge-pass kernels K2/K1 and moves each record once by the
-permutation; ``keys8f`` (the card's default: the 3 key words fit its 4
-rows) does the same with the slim cascade K3/K4;
+permutation (the row gather, ``ops/lane_gather.take_rows``); ``keys8f``
+(the card's default: the 3 key words fit its 4 rows) does the same with
+the slim cascade K3/K4;
 ``lanes``/``lanes2`` sort the full 32-row lanes layout with K2/K1;
 ``carry``/``gather``/``gather2``/``carrychunk`` take the permutation from
 PyTorch's stable sort and move the records by it (whole rows, per column,
@@ -28,6 +29,7 @@ import torch
 from uda_tpu_torch.device import generator, resolve_device
 from uda_tpu_torch.interop import words_from_numpy
 from uda_tpu_torch.ops import pallas_sort
+from uda_tpu_torch.ops.lane_gather import take_rows
 from uda_tpu_torch.ops.sort import (ALL_SORT_PATHS, LANES_ENGINES, _as_i64,
                                     apply_perm_chunked, fill_words, i32,
                                     route_engine, stable_lex_argsort,
@@ -95,8 +97,9 @@ def _single_chip_sort_lanes(words: torch.Tensor, path: str,
         i32(keyr)[:, :n] = i32(words)[:, :KEY_WORDS].T
         _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile,
                                               folded=path == "keys8f")
-        # the sorted keys come back with the records: move each row once
-        return u32(i32(words)[perm[:n]])
+        # the sorted keys come back with the records: move each row once,
+        # by the cascade's int32 tie-break row read in place
+        return take_rows(words, perm)
     mat = fill_words((pallas_sort.ROWS, m), words.device, _ALL_ONES)
     i32(mat)[:w, :n] = i32(words).T
     out = pallas_sort.sort_lanes(mat, num_keys=KEY_WORDS, tile=tile,
