@@ -1,8 +1,9 @@
 """The port's run spool and slab emission (uda_tpu_torch.merger.streaming)
 against the JAX package's (uda_tpu.merger.streaming) on the same inputs:
 run files and offset sidecars byte for byte, the permutation-driven
-interleave of the runs, the slab gather, the framed lengths, the row
-slabs (numpy rows and CPU-tensor rows) and the spill directories.
+interleave of the runs, the slab gather and framing, the grouping of a
+slab by segment, the framed lengths, the row slabs (numpy rows and
+CPU-tensor rows) and the spill directories.
 Tolerance 0: all of it is bytes and integers."""
 
 import os
@@ -168,20 +169,46 @@ def test_interleave_runs_takes_the_references_arguments(tmp_path, slab):
     tstore.cleanup()
 
 
-@pytest.mark.parametrize("split", [False, True])
-def test_slab_batch_matches_reference(split):
+def _slab_column(case, rng):
+    """(fan-in, segment column) of one slab: fan-ins 1, 3, 4 and 64, a
+    segment absent from the slab, a slab of one segment, an empty slab,
+    and the edges (every segment's first and last record, then a slab of
+    one record)."""
+    if case.startswith("fanin"):
+        k = int(case[len("fanin"):])
+        return k, rng.integers(0, k, 300 + 20 * k)
+    return 4, {"absent": rng.choice([0, 1, 3], 300),
+               "one_segment": np.full(120, 2),
+               "empty": np.zeros(0, np.int64),
+               "edges": np.repeat(np.arange(4), 2),
+               "one_record": np.array([3])}[case]
+
+
+@pytest.mark.parametrize("case", ["fanin1", "fanin3", "fanin4", "fanin64",
+                                  "absent", "one_segment", "empty",
+                                  "edges", "one_record"])
+@pytest.mark.parametrize("split", ["none", "all", "one"])
+def test_slab_batch_matches_reference(case, split):
     """The same records in the same order as the reference's slab, each
-    value right after its key; from cracked segments and (``split``) from
-    segments whose values do not follow their keys (the reference's own
-    slabs, every key before every value)."""
+    value right after its key; from cracked segments and from segments
+    whose values do not follow their keys (``split``: every segment, or
+    only segment 1; the reference's own slabs, every key before every
+    value). ``frame_slabs`` over the same rows cut into slabs of 7 frames
+    them as the reference's IFile writer does, EOF marker last."""
     rng = np.random.default_rng(5)
-    refs = [crack(write_records(_recs(s, 40 + s))) for s in range(4)]
-    if split:
-        refs = [jstream.slab_batch([b], np.zeros(b.num_records, np.int64),
-                                   np.arange(b.num_records)) for b in refs]
+    k, seg = _slab_column(case, rng)
+    refs = [crack(write_records(_recs(s, 40 + s))) for s in range(k)]
+    refs = [jstream.slab_batch([b], np.zeros(b.num_records, np.int64),
+                               np.arange(b.num_records))
+            if split == "all" or (split == "one" and s == 1) else b
+            for s, b in enumerate(refs)]
     ports = [_port_batch(b) for b in refs]
-    seg = rng.integers(0, 4, 300)
-    row = np.array([int(rng.integers(0, refs[s].num_records)) for s in seg])
+    if case == "edges":
+        row = np.array([(0, refs[s].num_records - 1)[i % 2]
+                        for i, s in enumerate(seg)])
+    else:
+        row = np.array([int(rng.integers(0, refs[s].num_records))
+                        for s in seg], np.int64)
     want = jstream.slab_batch(refs, seg, row)
     got = tstream.slab_batch(ports, seg, row)
     assert list(got.iter_records()) == list(want.iter_records())
@@ -189,6 +216,10 @@ def test_slab_batch_matches_reference(split):
     assert np.array_equal(got.val_len, want.val_len)
     assert np.array_equal(got.val_off, got.key_off + got.key_len)
     assert got.data.size == want.data.size
+    pairs = np.stack([seg, row], axis=1).astype(np.uint32)
+    framed = b"".join(tstream.frame_slabs(
+        tstream.iter_row_slabs(pairs, pairs.shape[0], 7), ports))
+    assert framed == write_records(list(want.iter_records()))
 
 
 @pytest.mark.parametrize("valid,slab", [(1000, 300), (1000, 1000),
@@ -207,6 +238,41 @@ def test_iter_row_slabs_matches_reference(valid, slab):
     assert all(np.array_equal(g, w[:, 5:7]) for g, w in zip(cols, want))
 
 
+def _group_ranks(seg):
+    """The reference's ``_group_ranks`` read off the port's grouping: a
+    record's rank in its segment is its place in the segment's
+    positions."""
+    groups = tstream._group_by_segment(seg)
+    ranks = np.empty(seg.shape[0], np.int64)
+    for _, at in groups:
+        ranks[at] = np.arange(at.shape[0])
+    return (np.array([s for s, _ in groups], np.int64), ranks,
+            np.array([at.shape[0] for _, at in groups], np.int64))
+
+
+@pytest.mark.parametrize("kind", ["random", "sorted", "reversed", "one",
+                                  "single", "empty", "sparse"])
+def test_group_by_segment_matches_reference_group_ranks(kind):
+    """One stable argsort groups a slab: each segment's positions are
+    its slab positions in slab order, the segments in increasing order,
+    and the ranks, segments and counts read off them are the
+    reference's ``_group_ranks``."""
+    rng = np.random.default_rng(13)
+    seg = {"random": rng.integers(0, 64, 5000),
+           "sorted": np.sort(rng.integers(0, 64, 5000)),
+           "reversed": np.sort(rng.integers(0, 9, 700))[::-1].copy(),
+           "one": np.full(300, 5), "single": np.array([63]),
+           "empty": np.zeros(0, np.int64),
+           "sparse": rng.choice([0, 7, 1000, 70000], 900)}[kind]
+    seg = seg.astype(np.int64)
+    groups = tstream._group_by_segment(seg)
+    assert [s for s, _ in groups] == np.unique(seg).tolist()
+    for s, at in groups:
+        assert np.array_equal(at, np.flatnonzero(seg == s))
+    for g, w in zip(_group_ranks(seg), jstream._group_ranks(seg)):
+        assert np.array_equal(g, w)
+
+
 def test_framed_lengths_and_spans_match_reference():
     rng = np.random.default_rng(2)
     klen = np.concatenate([[0, 1, 127, 128, 255, 256, 65535, 65536,
@@ -217,7 +283,7 @@ def test_framed_lengths_and_spans_match_reference():
     with pytest.raises(MergeError):
         tstream.framed_lengths(np.array([-1]), np.array([0]))
     seg = rng.integers(0, 6, 500)
-    for g, w in zip(tstream._group_ranks(seg), jstream._group_ranks(seg)):
+    for g, w in zip(_group_ranks(seg), jstream._group_ranks(seg)):
         assert np.array_equal(g, w)
     recs = _recs(8, 30)
     assert np.array_equal(

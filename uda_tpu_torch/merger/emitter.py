@@ -23,10 +23,10 @@ PORT_SPAN_BUCKETS``): ``emit_phase`` covers a whole delivery loop of
 :meth:`FramedEmitter.emit` or :meth:`FramedEmitter.emit_framed`, the
 pulls of the piece generator included, so the stages that generator
 times (``emit_readback``, ``emit_gather``, ``emit_frame``) nest under
-it; ``emit_deliver`` covers the port's own block handling (cutting a
-block out of the framed bytes, the arena slot's acquire, write and
-release) and the reference's ``emit`` the consumer's call. No timer is
-held across a ``yield``, so the stages partition the phase.
+it; ``emit_deliver`` covers the port's own block handling (the arena
+slot's acquire, the copy of framed bytes into it, the release) and the
+reference's ``emit`` the consumer's call. No timer is held across a
+``yield``, so the stages partition the phase.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import io
 from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 from uda_tpu_torch import native
-from uda_tpu_torch.merger.arena import BufferArena
+from uda_tpu_torch.merger.arena import BufferArena, BufferSlot
 from uda_tpu_torch.utils import vint
 from uda_tpu_torch.utils.ifile import EOF_MARKER, IFileWriter, RecordBatch
 from uda_tpu_torch.utils.metrics import metrics
@@ -85,39 +85,24 @@ class FramedEmitter:
         self.block_size = block_size
         self.arena = arena or BufferArena(NUM_STAGE_BUFFERS, block_size)
 
-    def _stage(self, piece: bytes, held: list) -> memoryview:
-        """Copy one <= block_size piece into an arena slot, releasing the
-        previous slot one call late (double-buffer: a pipelined consumer
-        may still hold the prior block); returns the slot's read-only
-        view."""
+    def _acquire(self, held: list) -> BufferSlot:
+        """An empty arena slot to fill. The slot acquired before it,
+        already handed to the consumer, is released here, one hand-over
+        late (double-buffer: a pipelined consumer may still hold the prior
+        block)."""
         slot = self.arena.acquire()
         held.append(slot)
-        slot.write(piece)
         if len(held) > 1:
             self.arena.release(held.pop(0))
-        return slot.view().data.toreadonly()
+        return slot
 
-    def _deliver(self, piece: bytes, held: list,
-                 consumer: Callable[[memoryview], None]) -> int:
-        """Hand one <= block_size piece to the consumer through an arena
-        slot."""
-        with metrics.timer("emit_deliver"):
-            view = self._stage(piece, held)
+    def _hand_over(self, slot: BufferSlot,
+                   consumer: Callable[[memoryview], None]) -> int:
+        """Hand a filled slot to the consumer as a read-only view, valid
+        for the call only; returns its length."""
         with metrics.timer("emit"):
-            consumer(view)
-        return len(piece)
-
-    def _deliver_head(self, buf: bytearray, held: list,
-                      consumer: Callable[[memoryview], None]) -> int:
-        """Cut the first (at most block_size) bytes out of ``buf`` and
-        hand them to the consumer through an arena slot."""
-        with metrics.timer("emit_deliver"):
-            piece = bytes(buf[:self.block_size])
-            del buf[:self.block_size]
-            view = self._stage(piece, held)
-        with metrics.timer("emit"):
-            consumer(view)
-        return len(piece)
+            consumer(slot.view().data.toreadonly())
+        return slot.length
 
     def emit(self, records: Iterable[Tuple[bytes, bytes]],
              consumer: Callable[[memoryview], None]) -> int:
@@ -137,8 +122,10 @@ class FramedEmitter:
                 out.truncate()
             # a single oversized record may exceed the block size
             for start in range(0, len(block), self.block_size):
-                total += self._deliver(block[start:start + self.block_size],
-                                       held, consumer)
+                with metrics.timer("emit_deliver"):
+                    slot = self._acquire(held)
+                    slot.write(block[start:start + self.block_size])
+                total += self._hand_over(slot, consumer)
 
         with metrics.timer("emit_phase"):
             try:
@@ -160,23 +147,33 @@ class FramedEmitter:
         """Stream an already-framed record stream (``pieces`` concatenate
         to the complete IFile stream INCLUDING the EOF marker) to the
         consumer in exactly-block_size slices (blocks are not
-        record-aligned). A consumer exception must not strand slots: the
-        arena lives as long as the task."""
+        record-aligned). Each piece is copied straight into the arena slot
+        being filled, across slots where it crosses a block boundary; a
+        slot goes to the consumer once full, the last one partial. A
+        consumer exception must not strand slots: the arena lives as long
+        as the task."""
         total = 0
         held: list = []
-        buf = bytearray()
+        slot = None
         with metrics.timer("emit_phase"):
             try:
                 for piece in pieces:
-                    with metrics.timer("emit_deliver"):
-                        buf += piece
-                    while len(buf) >= self.block_size:
-                        total += self._deliver_head(buf, held, consumer)
-                while buf:
-                    total += self._deliver_head(buf, held, consumer)
+                    data = memoryview(piece).cast("B")
+                    while data:
+                        with metrics.timer("emit_deliver"):
+                            if slot is None:
+                                slot = self._acquire(held)
+                            n = min(len(data), self.block_size - slot.length)
+                            slot.write(data[:n], slot.length)
+                            data = data[n:]
+                        if slot.length == self.block_size:
+                            total += self._hand_over(slot, consumer)
+                            slot = None
+                if slot is not None:
+                    total += self._hand_over(slot, consumer)
             finally:
-                for slot in held:
-                    self.arena.release(slot)
+                for held_slot in held:
+                    self.arena.release(held_slot)
         metrics.add("emit.bytes", total)
         return total
 

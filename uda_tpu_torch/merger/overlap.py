@@ -882,21 +882,9 @@ class OverlappedMerger:
                 return emitter.emit_batch(merged, consumer)
             if not self._check_accounting(acc, total):
                 return emitter.emit_framed(iter([EOF_MARKER]), consumer)
-
-            def pieces():
-                # the stage timers close before each yield: the consumer
-                # runs between pulls, under emit_phase alone
-                for src in self._seg_row_slabs(acc):
-                    with metrics.timer("emit_gather"):
-                        sub = stream_mod.slab_batch(
-                            batches, src[:, 0].astype(np.int64),
-                            src[:, 1].astype(np.int64))
-                    with metrics.timer("emit_frame"):
-                        piece = native.frame_batch(sub, write_eof=False)
-                    yield piece
-                yield EOF_MARKER
-
-            return emitter.emit_framed(pieces(), consumer)
+            return emitter.emit_framed(
+                stream_mod.frame_slabs(self._seg_row_slabs(acc), batches),
+                consumer)
         finally:
             self._finish_cleanup(acc)
 

@@ -54,7 +54,7 @@ from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, native_enabled
 from uda_tpu_torch.utils.metrics import metrics
 
 __all__ = ["RunStore", "framed_lengths", "interleave_runs", "slab_batch",
-           "iter_row_slabs", "spill_dirs", "SLAB_RECORDS",
+           "frame_slabs", "iter_row_slabs", "spill_dirs", "SLAB_RECORDS",
            "MAX_OPEN_CURSORS"]
 
 # records per emission slab: bounds transient host memory at emit to one
@@ -131,19 +131,20 @@ def _gather_spans_numpy(src: np.ndarray, src_off: np.ndarray,
             dst_w[do + tail] = src_w[so + tail]
 
 
-def _group_ranks(seg: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """For a slab's segment-index column, return (unique_segs,
-    per-record rank within its segment group, per-seg counts): the
-    sequential-cursor positions each record consumes."""
-    unique, inverse, counts = np.unique(seg, return_inverse=True,
-                                        return_counts=True)
-    # rank of each occurrence within its group, preserving slab order
-    order = np.argsort(inverse, kind="stable")
-    ranks_sorted = np.arange(seg.shape[0], dtype=np.int64) - np.repeat(
-        np.cumsum(counts) - counts, counts)
-    ranks = np.empty(seg.shape[0], np.int64)
-    ranks[order] = ranks_sorted
-    return unique, ranks, counts
+def _group_by_segment(seg: np.ndarray) -> list[tuple[int, np.ndarray]]:
+    """Group a slab's records by segment with one stable argsort of its
+    segment column: one (segment, positions) pair a segment the slab
+    holds, in segment order, the positions in slab order. So the j-th
+    position of a segment takes its j-th record of the slab, the one a
+    sequential cursor over its run hands out j-th. Both finishes group
+    by it: :func:`interleave_runs` and :func:`slab_batch`."""
+    order = np.argsort(seg, kind="stable")
+    ordered = seg[order]
+    # a group starts where the sorted column changes (and at 0)
+    starts = np.flatnonzero(np.diff(ordered, prepend=ordered[:1] - 1))
+    ends = np.append(starts[1:], seg.shape[0])
+    return [(s, order[a:b]) for s, a, b in zip(
+        ordered[starts].tolist(), starts.tolist(), ends.tolist())]
 
 
 def spill_dirs(cfg) -> list[str]:
@@ -445,12 +446,11 @@ def interleave_runs(slabs: Iterator[np.ndarray], store: RunStore,
             if rows.shape[0] == 0:
                 continue
             with metrics.timer("emit_gather"):
-                seg = rows[:, seg_col].astype(np.int64)
-                unique, ranks, counts = _group_ranks(seg)
-                spans: dict[int, np.ndarray] = {}
-                starts: dict[int, np.ndarray] = {}
-                lens: dict[int, np.ndarray] = {}
-                for s, c in zip(unique.tolist(), counts.tolist()):
+                rec_len = np.empty(rows.shape[0], np.int64)
+                src_off = np.empty(rows.shape[0], np.int64)
+                spans = []
+                for s, at in _group_by_segment(
+                        rows[:, seg_col].astype(np.int64)):
                     cur = cursors.get(s)
                     if cur is None:
                         if s not in store.counts:
@@ -458,25 +458,17 @@ def interleave_runs(slabs: Iterator[np.ndarray], store: RunStore,
                                 f"merged rows reference unstaged segment "
                                 f"{s}")
                         cur = cursors[s] = _RunCursor(*store._paths(s))
-                    span, ln = cur.next_span(c)
+                    span, ln = cur.next_span(at.shape[0])
                     _touch(s)
-                    spans[s] = span
-                    lens[s] = ln
-                    starts[s] = np.cumsum(ln) - ln
-                # per-record framed length and source offset in its span
-                rec_len = np.empty(seg.shape[0], np.int64)
-                src_off = np.empty(seg.shape[0], np.int64)
-                for s in unique.tolist():
-                    m = seg == s
-                    rec_len[m] = lens[s][ranks[m]]
-                    src_off[m] = starts[s][ranks[m]]
-                out = np.empty(int(rec_len.sum()), np.uint8)
+                    spans.append((span, at))
+                    rec_len[at] = ln
+                    src_off[at] = np.cumsum(ln) - ln
                 dst_end = np.cumsum(rec_len)
                 dst_start = dst_end - rec_len
-                for s in unique.tolist():
-                    m = seg == s
-                    _gather_spans(spans[s], src_off[m], rec_len[m],
-                                  out, dst_start[m])
+                out = np.empty(int(dst_end[-1]), np.uint8)
+                for span, at in spans:
+                    _gather_spans(span, src_off[at], rec_len[at], out,
+                                  dst_start[at])
                 piece = out.tobytes()
             yield piece
     finally:
@@ -491,6 +483,25 @@ def interleave_runs(slabs: Iterator[np.ndarray], store: RunStore,
     yield EOF_MARKER
 
 
+def frame_slabs(slabs: Iterator[np.ndarray],
+                batches: Sequence[RecordBatch]) -> Iterator[bytes]:
+    """The in-memory twin of :func:`interleave_runs`: ``slabs`` yields
+    merged ``(segment, row)`` pairs in output order (column 0 a segment's
+    index in ``batches``, column 1 the record's row in it). Each slab's
+    records are gathered (:func:`slab_batch`, under the ``emit_gather``
+    timer) and framed (``native.frame_batch``, under ``emit_frame``) into
+    one output piece; the EOF marker follows the last. Both timers close
+    before the piece is yielded."""
+    for src in slabs:
+        with metrics.timer("emit_gather"):
+            sub = slab_batch(batches, src[:, 0].astype(np.int64),
+                             src[:, 1].astype(np.int64))
+        with metrics.timer("emit_frame"):
+            piece = native.frame_batch(sub, write_eof=False)
+        yield piece
+    yield EOF_MARKER
+
+
 def slab_batch(batches: Sequence[RecordBatch], seg: np.ndarray,
                row: np.ndarray) -> RecordBatch:
     """Gather one output slab's records from per-segment batches into a
@@ -502,27 +513,23 @@ def slab_batch(batches: Sequence[RecordBatch], seg: np.ndarray,
     framer takes one slice a record, and where a segment's values follow
     their keys, as in every cracked segment, key and value move as one
     span."""
-    m = seg.shape[0]
-    groups = [(s, seg == s) for s in np.unique(seg).tolist()]
-    k_len = np.empty(m, np.int64)
-    v_len = np.empty(m, np.int64)
-    for s, msk in groups:
-        b = batches[s]
-        r = row[msk]
-        k_len[msk] = b.key_len[r]
-        v_len[msk] = b.val_len[r]
+    groups = [(batches[s], at) for s, at in _group_by_segment(seg)]
+    k_len, v_len, k_src, v_src = (np.empty(seg.shape[0], np.int64)
+                                  for _ in range(4))
+    for b, at in groups:
+        r = row[at]
+        k_len[at] = b.key_len[r]
+        v_len[at] = b.val_len[r]
+        k_src[at] = b.key_off[r]
+        v_src[at] = b.val_off[r]
     rec_len = k_len + v_len
     k_off = np.cumsum(rec_len) - rec_len
     v_off = k_off + k_len
     buf = np.empty(int(rec_len.sum()), np.uint8)
-    for s, msk in groups:
-        b = batches[s]
-        r = row[msk]
-        src_k = b.key_off[r]
-        src_v = b.val_off[r]
-        if np.array_equal(src_v, src_k + k_len[msk]):
-            _gather_spans(b.data, src_k, rec_len[msk], buf, k_off[msk])
+    for b, at in groups:
+        if np.array_equal(v_src[at], k_src[at] + k_len[at]):
+            _gather_spans(b.data, k_src[at], rec_len[at], buf, k_off[at])
         else:
-            _gather_spans(b.data, src_k, k_len[msk], buf, k_off[msk])
-            _gather_spans(b.data, src_v, v_len[msk], buf, v_off[msk])
+            _gather_spans(b.data, k_src[at], k_len[at], buf, k_off[at])
+            _gather_spans(b.data, v_src[at], v_len[at], buf, v_off[at])
     return RecordBatch(buf, k_off, k_len, v_off, v_len)

@@ -16,8 +16,10 @@ The local sort's engines are the reference's (``_sort_valid_rows``): the
 lanes engines run the kernel cascade of ``ops/pallas_sort`` (``keys8``
 and ``lanes``/``lanes2``: the tile sort K2, the merge pass K1 and its
 partition kernel; ``keys8f``: the slim K3/K4) through
-``keys8_sort_perm``/``sort_lanes``, the others take PyTorch's stable
-sort's permutation. On a CPU slot each kernel wrapper runs its plain
+``keys8_sort_perm``/``sort_lanes``, the keys8 engines then moving each
+record once with the row gather K6 (``ops/lane_gather.take_rows``), as
+``models/terasort.single_chip_sort`` does; the others take PyTorch's
+stable sort's permutation. On a CPU slot each kernel wrapper runs its plain
 version; on the card it launches the kernel.
 """
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from uda_tpu_torch.ops.lane_gather import take_rows
 from uda_tpu_torch.ops.sort import (FOLDED_KEY_ROWS, _as_i64,
                                     apply_perm_chunked, fill_words, i32,
                                     route_engine, stable_lex_argsort, u32,
@@ -143,7 +146,8 @@ def _sort_valid_rows_lanes(flat: torch.Tensor, valid: torch.Tensor,
     every real lane by arrival; cutting back to n drops exactly them.
 
     ``keys8``: the cascade on the key rows only (K2 + K1, or K3 + K4 with
-    ``folded``), then each row moved once by the permutation; the record
+    ``folded``), then each row moved once by the permutation (the row
+    gather, reading the cascade's int32 tie-break row in place); the record
     width is unbounded, the keys plus the flag at most 7 rows (at most 3
     folded). Otherwise the whole record rides the 32-row layout
     (``sort_lanes``, K2 + K1)."""
@@ -174,7 +178,7 @@ def _sort_valid_rows_lanes(flat: torch.Tensor, valid: torch.Tensor,
         # n arrival indices all name real rows of flat
         _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile,
                                               folded=folded)
-        return u32(i32(flat)[perm[:n].to(torch.int64)])
+        return take_rows(flat, perm)
     if first_pay + wcols > tb:
         raise ValueError(
             f"record width {wcols} + {num_keys} keys does not fit the "

@@ -1,5 +1,4 @@
 """The port's operator and measurement tools, each run as ``python -m
 uda_tpu_torch.tools.<name>``: the tune-cache probe (``tune_probe``), the
 consoles over MSG_STATS (``udatop``, ``udafleet``), the critical-path CLI
-(``critpath``), the loopback net smoke (``net_smoke``), and the partition
-kernel's A/B (``partition_ab``, on the card only, on no path)."""
+(``critpath``) and the loopback net smoke (``net_smoke``)."""

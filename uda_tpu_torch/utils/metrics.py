@@ -671,12 +671,12 @@ PORT_TIMERS: Dict[str, str] = {
                   "generator's pulls included (merger/emitter.py)",
     "emit_readback": "one slab's card-to-host read "
                      "(merger/streaming.py iter_row_slabs)",
-    "emit_gather": "one slab's gather of framed records "
-                   "(merger/overlap.py emit_stream, merger/streaming.py "
+    "emit_gather": "one slab's grouping by segment and gather of its "
+                   "records (merger/streaming.py frame_slabs, "
                    "interleave_runs)",
     "emit_frame": "framing one slab or chunk (native.frame_batch)",
-    "emit_deliver": "cutting a block and staging it in an arena slot "
-                    "(merger/emitter.py)",
+    "emit_deliver": "copying framed bytes into an arena slot, with the "
+                    "slot's acquire and release (merger/emitter.py)",
     "net_read": "the client loop thread's read of one ready supplier "
                 "socket: recv_into, header decode and frame completion up "
                 "to the dispatcher hand-off (net/client.py _do_read)",
