@@ -28,14 +28,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    its own too; K6, the row gather (``take_rows``), at 26 words a row
    (8-byte words), 27 (4-byte words), 26 on a view only 4-byte aligned
    and rows wider than a block, by a permutation, by indices with
-   repeats and by the tie-break row of a longer [4, m] tensor; every
+   repeats and by the tie-break row of a longer [4, m] tensor; K3
+   reading the key words of row-major records in place
+   (``tile_sort_folded_rows``, the sort cell's K3) at [2^20, 26],
+   [10^6+37, 26] and [10^6+37, 27] with real all-0xFFFFFFFF keys, [5000,
+   3] with all-equal keys and past one K3 block, also held to K3 on the
+   padded [4, m] matrix of those keys, and the slim cascade on the records
+   (``sort_records_folded4``) to the stable sort; every
    launch held byte for byte against its plain
    PyTorch version on the same input, and each cascade against PyTorch's
    stable sort;
 4. main path: ``single_chip_sort`` of 100,000,000 TeraSort records
    (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``, padded to 2^27
    inside) with ``path="auto"``, which resolves to ``keys8f`` (K3, K4
-   and the partition kernel: the 3 key words fit its 4 rows), then the
+   and the partition kernel: the 3 key words fit its 4 rows; one K3
+   launch a call, reading the key words from the records in place), then
+   the
    same records through ``keys8`` (K2, K1 and the partition kernel), each
    moving its records by one launch of K6; each
    checked for order, multiset
@@ -61,7 +69,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and peak memory; K6 on the 10^8 records by the main path's permutation,
    its own device time in turns with torch indexing, the wrapper call and
    the peak memory of one call beside indexing's, against its bound and
-   the sector-granular bound its random rows allow), its plain version,
+   the sector-granular bound its random rows allow; K3 on the 10^8
+   records in place, held to its plain version, its device time in turns
+   with K3 on the materialised [4, m] matrix, beside the matrix's build
+   and its sector-granular bound), its plain version,
    PyTorch's call computing the same function, its bound, the cascades and the whole-sort yardstick; A/Bs,
    in turns, of K3/K4 against K2/K1's run-time-row form on the same 4-row
    input and of K4's block width (2048 against 4096 records); and K5's
@@ -401,7 +412,14 @@ KERNELS = {
     "tile_sort": dict(
         id="K2", route="cuda", source="uda_tpu_torch/csrc/lanes_sort.cu",
         replaces="uda_tpu/ops/pallas_sort.py:133"),
+    # its launches include the records entry's (below): the benchmark's
+    # sort cell counts every K3 launch under this name
     "tile_sort_folded": dict(
+        id="K3", route="cuda", source="uda_tpu_torch/csrc/lanes_fold.cu",
+        replaces="uda_tpu/ops/pallas_fold.py:90"),
+    # K3 reading the key words of row-major records in place: the keys8f
+    # engine's K3, so the sort cell's
+    "tile_sort_folded_rows": dict(
         id="K3", route="cuda", source="uda_tpu_torch/csrc/lanes_fold.cu",
         replaces="uda_tpu/ops/pallas_fold.py:90"),
     "merge_pass_folded": dict(
@@ -417,7 +435,8 @@ KERNELS = {
         replaces="none (uda_tpu/models/terasort.py:135 is jnp.take)"),
 }
 MAIN_PATH = ("tile_sort", "merge_pass", "merge_partition")
-FOLDED_PATH = ("tile_sort_folded", "merge_pass_folded", "merge_partition")
+FOLDED_PATH = ("tile_sort_folded", "tile_sort_folded_rows",
+               "merge_pass_folded", "merge_partition")
 # K2/K1 at the edges of their design: rows, key words, tie-break row, n,
 # tile and the kind of keys (lanes_words)
 EDGE_CASES = [
@@ -450,6 +469,15 @@ SLIM_EDGE_CASES = [
     (2, 1 << 14, 8192, "high"),
     (3, 1 << 15, 16384, "mixed"),
     (1, 1 << 15, 16384, "equal"),    # one K3 block at 1 key word
+]
+# K3 on records in place: records, words a record, tile, key words and the
+# kind of keys
+RECORD_K3_CASES = [
+    (1 << 20, 26, 1024, 3, "mixed"),      # no padding column
+    (10**6 + 37, 26, 1024, 3, "mixed"),   # padding columns past n
+    (10**6 + 37, 27, 1024, 2, "ones"),    # rows only 4-byte aligned
+    (5000, 3, 1024, 1, "equal"),          # order from the arrival index
+    (70_001, 26, 16384, 3, "high"),       # past one K3 block: K4 merges
 ]
 # K4 on runs whose records have equal twins in the other run: key words,
 # n, run_len
@@ -835,12 +863,32 @@ def check_take_rows(gen: torch.Generator, n: int, w: int, offset: int,
     return max_abs_err(got, lane_gather.take_rows_plain(x, perm))
 
 
+def check_records_k3(words: torch.Tensor, num_keys: int, tile: int) -> int:
+    """K3 reading the key words of the row-major records ``words`` in place
+    against K3 on the padded [4, m] matrix of those keys
+    (``record_key_rows``), and the slim cascade on the records against the
+    stable sort of that matrix; the largest error of K3 on the records
+    against its plain version (K3's on the matrix)."""
+    n, w = words.shape
+    m, tile = pallas_sort.pad_pow2(n, tile)
+    mat4 = pallas_sort.record_key_rows(words, num_keys, m, rows=4)
+    got = pallas_fold.tile_sort_folded_rows(words, num_keys, m, tile)
+    require(same(got, pallas_fold.tile_sort_folded(mat4, tile, num_keys)),
+            f"K3 on records [{n}, {w}] differs from K3 on the matrix")
+    require(same(pallas_fold.sort_records_folded4(words, num_keys, m, tile),
+                 stable_reference(mat4, num_keys, 3)),
+            f"sort_records_folded4 [{n}, {w}] differs from the stable sort")
+    return max_abs_err(got, pallas_fold.tile_sort_folded_plain(mat4, tile,
+                                                               num_keys))
+
+
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
                   take_shapes=TAKE_SHAPES, take_rows_cases=TAKE_ROWS_CASES,
                   deep_run=DEEP_PARTITION_RUN,
-                  deep_kinds=DEEP_PARTITION_KINDS) -> dict:
+                  deep_kinds=DEEP_PARTITION_KINDS,
+                  record_cases=RECORD_K3_CASES) -> dict:
     gen = generator(SEED + 1, dev)
     seeds = itertools.count(SEED + 1)
     worst: dict = {}
@@ -892,6 +940,16 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                                          err)
         log(f"[kernels] K4 on runs with equal records, keys={nk} "
             f"run_len={run_len} n={n_eq}: max_abs_err {err} (tolerance 0)")
+    for n_rec, w, tile, nk, kind in record_cases:
+        x = interop.words_from_numpy(np.ascontiguousarray(
+            lanes_words(next(seeds), w, n_rec, nk, kind).T), dev)
+        err = check_records_k3(x, nk, tile)
+        worst["tile_sort_folded_rows"] = max(
+            worst.get("tile_sort_folded_rows", 0), err)
+        log(f"[kernels] K3 on records [{n_rec}, {w}] in place, keys={nk} "
+            f"tile={tile} {kind} keys: max_abs_err {err} (tolerance 0); "
+            f"equal to K3 on the [4, m] matrix, cascade equal to the "
+            f"stable sort")
     for kind in deep_kinds:
         for rows, folded in ((8, False), (4, True)):
             nk, tb = terasort.KEY_WORDS, rows - 1
@@ -969,6 +1027,10 @@ def phase_main(dev: torch.device, n: int = N_MAIN) -> tuple:
     require(runs[0]["launches"]["tile_sort"] == 0
             and runs[0]["launches"]["merge_pass"] == 0,
             f'"auto" launched K2 or K1: {runs[0]["launches"]}')
+    require(runs[0]["launches"]["tile_sort_folded"] == 1
+            and runs[0]["launches"]["tile_sort_folded_rows"] == 1,
+            f'"auto": not one K3 launch, on the records in place: '
+            f'{runs[0]["launches"]}')
     for r in runs:
         require(r["launches"]["take_rows"] == 1,
                 f'{r["path"]}: {r["launches"]["take_rows"]} launches of '
@@ -1376,10 +1438,12 @@ def time_take_lanes(mat: torch.Tensor, perm: torch.Tensor,
     return res
 
 
-def row_sectors(w: int) -> float:
-    """32-byte sectors one source row of ``w`` words spans, averaged over
-    the row starts of a contiguous [n, w] (they repeat every 8 rows)."""
-    return sum((4 * w * i % 32 + 4 * w + 31) // 32 for i in range(8)) / 8
+def row_sectors(w: int, first: "int | None" = None) -> float:
+    """32-byte sectors one source row of ``w`` words spans (or its
+    ``first`` words), averaged over the row starts of a contiguous [n, w]
+    (they repeat every 8 rows)."""
+    span = 4 * (w if first is None else first)
+    return sum((4 * w * i % 32 + span + 31) // 32 for i in range(8)) / 8
 
 
 def time_take_rows(words: torch.Tensor, perm: torch.Tensor,
@@ -1438,6 +1502,53 @@ def time_take_rows(words: torch.Tensor, perm: torch.Tensor,
     return res
 
 
+def time_k3_records(words: torch.Tensor, mat4: torch.Tensor, tile: int,
+                    reps: int) -> dict:
+    """K3 as the sort cell runs it, reading the key words of the main
+    path's records in place: held at tolerance 0 to its plain version
+    (K3's on ``mat4``, the padded [4, m] matrix of those keys) and to K3
+    on ``mat4``; its device time in turns with K3 on ``mat4``, beside the
+    device time of building ``mat4`` from the records (the layout copy
+    the records entry does without) and its sector-granular bound: the
+    32-byte sectors of each record's key words read, 16 B a column
+    written."""
+    n, w = words.shape
+    m = mat4.shape[1]
+    nk = terasort.KEY_WORDS
+    got = pallas_fold.tile_sort_folded_rows(words, nk, m, tile)
+    require(same(got, pallas_fold.tile_sort_folded(mat4, tile, nk)),
+            "K3 on the records differs from K3 on the matrix at the main "
+            "path's shape")
+    err = max_abs_err(got, pallas_fold.tile_sort_folded_plain(mat4, tile,
+                                                              nk))
+    del got
+    own, on_matrix = in_turns(
+        lambda: pallas_fold.tile_sort_folded_rows(words, nk, m, tile),
+        lambda: pallas_fold.tile_sort_folded(mat4, tile, nk),
+        reps=reps, timer=device_ms)
+    layout = device_ms(
+        lambda: pallas_sort.record_key_rows(words, nk, m, rows=4), reps)
+    sector_bytes = int(n * 32 * row_sectors(w, nk) + 16 * m)
+    res = {
+        "ms": own, "matrix_ms": on_matrix, "layout_ms": layout,
+        "plain_ms": time_ms(lambda: pallas_fold.tile_sort_folded_plain(
+            pallas_sort.record_key_rows(words, nk, m, rows=4), tile, nk), 1,
+            warmup=0),
+        "library_ms": None,
+        "bytes": sector_bytes,
+        # a merge sort of each tile, as K3 on the matrix
+        "ops": m * (tile.bit_length() - 1) * (nk + 1),
+        "max_abs_err": err,
+        "sector_bound_ms": bound(sector_bytes, 0)[0],
+    }
+    log(f"[times] K3 on records [{n}, {w}] in place: {own:.3f} ms, on the "
+        f"[4, {m}] matrix {on_matrix:.3f} ms (device, in turns); the "
+        f"matrix's build {layout:.3f} ms; sector bound "
+        f"{res['sector_bound_ms']:.3f} ms ({sector_bytes} B)")
+    torch.cuda.synchronize()
+    return res
+
+
 def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,
                      probe_shapes=PROBE_SHAPES) -> list:
     """K5's two designs in turns (device time) on random words by a random
@@ -1468,14 +1579,15 @@ def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,
 def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
                 reps: int = TIMED_REPS) -> dict:
     n = words.shape[0]
+    nk = terasort.KEY_WORDS
     m, tile = pallas_sort.pad_pow2(n, tile)
-    keyr = fill_words((terasort.KEY_WORDS, m), words.device, _ALL_ONES)
-    i32(keyr)[:, :n] = i32(words)[:, :terasort.KEY_WORDS].T
-    mat8 = u32(torch.cat([i32(keyr), i32(keyr).new_zeros((5, m))]))
-    mat4 = u32(torch.cat([i32(keyr), i32(keyr).new_zeros((1, m))]))
+    keyr = pallas_sort.record_key_rows(words, nk, m)
+    mat8 = pallas_sort.record_key_rows(words, nk, m, rows=8)
+    mat4 = pallas_sort.record_key_rows(words, nk, m, rows=4)
     times = time_cascade(mat8, tile, False, reps)
     times.update(time_cascade(mat4, tile, True, reps))
     ab = ab_slim(mat4, tile, reps)
+    times["tile_sort_folded_rows"] = time_k3_records(words, mat4, tile, reps)
     _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile)
     merge = merge_perm(sort_ops._packed_keys(list(keyr[:2]))[0])
     times["take_lanes"] = time_take_lanes(mat8, perm, merge, reps)
@@ -1514,6 +1626,8 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
         "keys8f_cascade_ms": time_ms(
             lambda: pallas_sort.keys8_sort_perm(keyr, tile=tile,
                                                 folded=True), 3),
+        "keys8f_records_cascade_ms": time_ms(
+            lambda: pallas_fold.sort_records_folded4(words, nk, m, tile), 3),
         "yardstick_perm_ms": time_ms(
             lambda: sort_ops.stable_lex_argsort(keys), 3),
         "single_chip_sort_keys8_ms": time_ms(
@@ -4864,6 +4978,14 @@ def main() -> int:
             kernels[-1].update({k: t[k] for k in (
                 "call_ms", "sector_bound_ms", "vector_words", "peak_bytes",
                 "library_peak_bytes")})
+        if name == "tile_sort_folded":
+            # the matrix entry's own launches: the count holds the records
+            # entry's too
+            kernels[-1]["launches"] -= run["launches"][
+                "tile_sort_folded_rows"]
+        if name == "tile_sort_folded_rows":
+            kernels[-1].update({k: t[k] for k in (
+                "matrix_ms", "layout_ms", "sector_bound_ms")})
         if name in ("merge_pass", "merge_partition"):
             kernels[-1]["merge_path_launches"] = merged["launches"][name]
             kernels[-1]["pair_keys8_launches"] = \

@@ -174,6 +174,61 @@ def test_k3_k4_match_plain(cuda_device, nk, n, tile, kind):
                                   oracle(x_np, nk, 3))
 
 
+@pytest.mark.parametrize("nk", [1, 2, 3])
+@pytest.mark.parametrize("n,w,tile", [(1 << 20, 26, 1024),
+                                      (10**6 + 37, 26, 1024),
+                                      (5000, 3, 1024), (70_001, 27, 16384)])
+def test_k3_on_records_matches_k3_on_the_matrix(cuda_device, n, w, tile, nk):
+    """K3 reading the key words of row-major records in place writes the
+    bytes K3 writes for the materialised, padded [4, m] matrix of those
+    keys: real all-0xFFFFFFFF keys, duplicates, padding columns, records
+    of an odd width, and a tile past one K3 block (sub-tiles merged by
+    K4)."""
+    x = _on_card(words(n + w + nk, w, n, nk).T.copy(), cuda_device)
+    m, tile = pallas_sort.pad_pow2(n, tile)
+    got = pallas_fold.tile_sort_folded_rows(x, nk, m, tile)
+    mat4 = pallas_sort.record_key_rows(x, nk, m, rows=4)
+    assert _same(got, pallas_fold.tile_sort_folded(mat4, tile, nk))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "equal", "ones"])
+def test_sort_records_folded4_matches_keys8_sort_perm(cuda_device, kind):
+    """The cascade on records in place against the keys8f cascade on the
+    transposed, padded key rows: the same sorted keys and permutation."""
+    n = 10**6 + 37
+    x = _on_card(words(n + 3, 26, n, 3, kind).T.copy(), cuda_device)
+    m, tile = pallas_sort.pad_pow2(n, 1024)
+    keyr = pallas_sort.record_key_rows(x, 3, m)
+    out4 = pallas_fold.sort_records_folded4(x, 3, m, tile=tile)
+    want_sk, want_perm = pallas_sort.keys8_sort_perm(keyr, tile=tile,
+                                                     folded=True)
+    assert _same(out4[:3], want_sk)
+    assert torch.equal(out4[3].view(torch.int32), want_perm)
+
+
+def test_keys8f_sorts_1e7_records_as_carry_does(cuda_device):
+    """The keys8f engine at 10^7 records (one in 20 with all-0xFFFFFFFF
+    keys) against the carry engine, byte for byte."""
+    x = tts.teragen(torch.Generator(device=cuda_device).manual_seed(25),
+                    10**7)
+    tsort.i32(x)[::20, :tts.KEY_WORDS] = -1
+    got = tts.single_chip_sort(x, path="keys8f", device=cuda_device)
+    assert _same(got, tts.single_chip_sort(x, path="carry",
+                                           device=cuda_device))
+
+
+def test_keys8f_counts_one_k3_on_records_a_call(cuda_device):
+    """One keys8f call: one K3 launch, and it is the one that reads the
+    records in place."""
+    x = _on_card(records(31, 50_000), cuda_device)
+    _build.reset_launches()
+    tts.single_chip_sort(x, path="keys8f", device=cuda_device)
+    torch.cuda.synchronize()
+    assert _build.launches["tile_sort_folded"] == 1
+    assert _build.launches["tile_sort_folded_rows"] == 1
+    assert _build.launches["take_rows"] == 1
+
+
 def test_every_engine(cuda_device):
     w = records(21, 200_000)
     want = w[np.lexsort([w[:, 2], w[:, 1], w[:, 0]])]
@@ -276,16 +331,18 @@ def test_take_rows_refuses_what_the_kernel_does_not_take(cuda_device):
 def test_single_chip_sort_moves_rows_by_take_rows(cuda_device, path):
     """The keys8 engines on the card: carry's bytes, one take_rows launch
     a call, and no int64 copy of the permutation. The allocator's peak
-    over the input is the output, the cascade's [k, m] result and the
-    key rows (the gather's moment) and nothing of 8 bytes a record: n is
-    large enough that half of 8n outweighs the allocator's rounding of
-    the three blocks (under 2 MiB each)."""
+    over the input is the output, the cascade's [k, m] result and, for
+    keys8 alone, the key rows (the gather's moment; keys8f's K3 reads the
+    key words in place) and nothing of 8 bytes a record: n is large enough
+    that half of 8n outweighs the allocator's rounding of those blocks
+    (under 2 MiB each)."""
     n, tile = 4_000_000, 1024
     x = _on_card(records(5, n), cuda_device)
     want = tts.single_chip_sort(x, path="carry", device=cuda_device)
     rows = 4 if path == "keys8f" else 8
     m = 1 << 22
-    reckoned = n * 26 * 4 + rows * m * 4 + tts.KEY_WORDS * m * 4
+    keyr = 0 if path == "keys8f" else tts.KEY_WORDS * m * 4
+    reckoned = n * 26 * 4 + rows * m * 4 + keyr
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

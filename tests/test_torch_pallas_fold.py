@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from chip_smoke import EQUAL_RUN_CASES, equal_runs
-from port_helpers import oracle, paired_gauges_settle, words  # noqa: F401
+from port_helpers import (oracle, paired_gauges_settle,  # noqa: F401
+                          records, words)
 from uda_tpu.ops import pallas_fold as jpf
 from uda_tpu.ops import pallas_sort as jps
+from uda_tpu_torch.models import terasort as tts
 from uda_tpu_torch.ops import pallas_fold as tpf
 from uda_tpu_torch.ops import pallas_sort as tps
 
@@ -131,3 +133,90 @@ def test_merge_partition_slim_matches_jax_pass_splits(num_keys, n, run_len,
     got = tps.merge_partition(torch.from_numpy(asc), run_len, width,
                               num_keys, 3)
     np.testing.assert_array_equal(got.numpy(), run_len - spl[:, 2])
+
+
+def _keyr(w: np.ndarray, num_keys: int, m: int) -> torch.Tensor:
+    """The transposed, padded key rows of records, as the keys8 engines
+    build them for the [k, m] cascade entry."""
+    keyr = np.full((num_keys, m), 0xFFFFFFFF, np.uint32)
+    keyr[:, :w.shape[0]] = w[:, :num_keys].T
+    return torch.from_numpy(keyr)
+
+
+def _slim_shape(n: int) -> tuple:
+    """(m, tile) of the slim cascade for n records: the lanes padding rule,
+    at least one 256-record tile."""
+    return tps.pad_pow2(max(n, 256), 1024)
+
+
+@pytest.mark.parametrize("width", [3, 26])
+@pytest.mark.parametrize("num_keys", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 3 * 4096 + 5])
+def test_sort_records_folded4_matches_keys8_sort_perm(n, num_keys, width):
+    """The cascade on records in place returns the sorted keys and the
+    permutation keys8_sort_perm returns on the transposed, padded key
+    rows; real all-0xFFFFFFFF keys (5% of the records) sort before the
+    padding, and the whole [4, m] result is sort_lanes_folded4's on the
+    matrix of those keys."""
+    w = words(n + 7 * num_keys + width, width, n, num_keys).T.copy()
+    m, tile = _slim_shape(n)
+    out4 = tpf.sort_records_folded4(torch.from_numpy(w), num_keys, m,
+                                    tile=tile)
+    want_sk, want_perm = tps.keys8_sort_perm(_keyr(w, num_keys, m),
+                                             tile=tile, folded=True)
+    perm = out4[3].view(torch.int32)
+    assert torch.equal(out4[:num_keys], want_sk)
+    assert torch.equal(perm, want_perm)
+    assert sorted(perm[:n].tolist()) == list(range(n))
+    mat4 = tps.record_key_rows(torch.from_numpy(w), num_keys, m, rows=4)
+    assert torch.equal(mat4[:num_keys], _keyr(w, num_keys, m))
+    assert not mat4[num_keys:].any()
+    assert torch.equal(out4, tpf.sort_lanes_folded4(mat4, num_keys,
+                                                    tile=tile))
+
+
+@pytest.mark.parametrize("kind", ["equal", "ones"])
+@pytest.mark.parametrize("n", [1025, 3 * 4096 + 5])
+def test_sort_records_folded4_keeps_equal_keys_in_arrival_order(n, kind):
+    """All-equal keys (and all-0xFFFFFFFF ones, equal to the padding's):
+    the permutation is the arrival order, real records first."""
+    w = words(n, 26, n, 3, kind).T.copy()
+    m, tile = _slim_shape(n)
+    out4 = tpf.sort_records_folded4(torch.from_numpy(w), 3, m, tile=tile)
+    assert torch.equal(out4[3].view(torch.int32),
+                       torch.arange(m, dtype=torch.int32))
+
+
+def test_sort_records_folded4_matches_jax():
+    """The cascade on records in place against the JAX package's keys8
+    cascade on the key rows it would have built."""
+    n, m = 1000, 1024
+    w = words(61, 26, n, 3).T.copy()
+    want_sk, want_perm = jps.keys8_sort_perm(
+        jnp.asarray(_keyr(w, 3, m).numpy()), tile=256, interpret=True)
+    out4 = tpf.sort_records_folded4(torch.from_numpy(w), 3, m, tile=256)
+    np.testing.assert_array_equal(out4[:3].numpy(), np.asarray(want_sk))
+    np.testing.assert_array_equal(out4[3].view(torch.int32).numpy(),
+                                  np.asarray(want_perm))
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1025, 3 * 4096 + 5])
+def test_single_chip_sort_keys8f_equals_carry(n):
+    w = torch.from_numpy(records(n + 11, n))
+    got = tts.single_chip_sort(w, path="keys8f", device="cpu")
+    carry = tts.single_chip_sort(w, path="carry", device="cpu")
+    np.testing.assert_array_equal(got.numpy(), carry.numpy())
+
+
+@pytest.mark.parametrize("shape,num_keys,m,match", [
+    ((100, 2), 3, 128, "within a record of 2"),
+    ((100, 26), 0, 128, "1 to 3 key words"),
+    ((100, 26), 4, 128, "1 to 3 key words"),
+    ((300, 26), 3, 256, "do not fit m=256"),
+    ((300, 26), 3, 1 << 33, "holds 2\\^32"),
+])
+def test_tile_sort_folded_rows_refuses_what_it_does_not_take(shape, num_keys,
+                                                             m, match):
+    w = torch.zeros(shape, dtype=torch.uint32)
+    with pytest.raises(ValueError, match=match):
+        tpf.tile_sort_folded_rows(w, num_keys, m, 128)

@@ -62,6 +62,52 @@ __device__ __forceinline__ void pack_rec(uint64_t (&rec)[P],
   }
 }
 
+// Where the tile sort (K2, K3) finds its records' key words, from its
+// source x: a compile-time policy of its one body, the rest of which is the
+// same for both.
+//
+// LanesKeys: x is the lanes layout itself, uint32[rows, n]; word w of
+// column c at x[w * n + c], every row not a key or the tie-break is payload.
+struct LanesKeys {
+  static constexpr bool kPayload = true;
+  template <int P>
+  __device__ __forceinline__ void pack(uint64_t (&rec)[P],
+                                       const uint32_t* __restrict__ x,
+                                       size_t n, int nk, size_t c,
+                                       uint32_t tbv) const {
+    pack_rec<P>(rec, x, n, nk, c, tbv);
+  }
+};
+
+// RecordKeys: x is row-major records read in place, uint32[n_real,
+// stride]; word w of record c at x[c * stride + w]. Columns n_real.. are
+// padding: all-0xFFFFFFFF keys, read from nowhere, so they sort after every
+// real record (the arrival tie-break puts a real all-0xFFFFFFFF key first).
+// The layout's payload rows are written as zero.
+struct RecordKeys {
+  static constexpr bool kPayload = false;
+  size_t n_real;
+  size_t stride;
+  template <int P>
+  __device__ __forceinline__ void pack(uint64_t (&rec)[P],
+                                       const uint32_t* __restrict__ x,
+                                       size_t, int nk, size_t c,
+                                       uint32_t tbv) const {
+    const bool real = c < n_real;
+    const uint32_t* r = x + (real ? c : 0) * stride;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int w0 = 2 * q;
+      const int w1 = 2 * q + 1;
+      const uint32_t hi = w0 < nk ? (real ? __ldg(r + w0) : ~0u)
+                                  : (w0 == nk ? tbv : 0u);
+      const uint32_t lo = w1 < nk ? (real ? __ldg(r + w1) : ~0u)
+                                  : (w1 == nk ? tbv : 0u);
+      rec[q] = ((uint64_t)hi << 32) | lo;
+    }
+  }
+};
+
 template <int P>
 __device__ __forceinline__ void load_rec(uint64_t (&rec)[P],
                                          const uint64_t* s, int ps, int k) {
@@ -189,8 +235,10 @@ inline size_t tile_sort_smem(int nk, int tile) {
 
 // The tile sort (K2, K3): one block of tile / V threads per tile of `tile`
 // records.
-// 1. Coalesced load of the key rows into the planes; word nk is the local
-//    arrival index, which also names each record's source column.
+// 1. Load of the key words into the planes, from where `Keys` says: the
+//    key rows, coalesced, or the records in place (RecordKeys, K3's
+//    TeraSort entry); word nk is the local arrival index, which also names
+//    each record's source column.
 // 2. Each thread sorts its V consecutive records in registers (odd-even
 //    transposition network, no barrier).
 // 3. Rounds: sorted runs of `width` merge pairwise into runs of 2 * width.
@@ -199,12 +247,13 @@ inline size_t tile_sort_smem(int nk, int tile) {
 //    merges them serially from two register heads.
 // 4. Every row of the tile is written once, coalesced: key rows from the
 //    planes, the tie-break as base + local index, payload rows gathered by
-//    the local index within the tile's span.
-template <int P, int R, int NK, int TB>
-__global__ void __launch_bounds__(K2Cfg<P>::LB)
-    tile_sort_kernel(const uint32_t* __restrict__ x,
-                     uint32_t* __restrict__ out, size_t n, int rows_arg,
-                     int nk_arg, int tb_arg, int tile) {
+//    the local index within the tile's span (written as zero where `Keys`
+//    has no payload).
+template <int P, int R, int NK, int TB, class Keys>
+__device__ __forceinline__ void tile_sort_body(
+    const Keys keys, const uint32_t* __restrict__ x,
+    uint32_t* __restrict__ out, size_t n, int rows_arg, int nk_arg,
+    int tb_arg, int tile) {
   constexpr int V = K2Cfg<P>::V;
   const int rows = R ? R : rows_arg;
   const int nk = R ? NK : nk_arg;
@@ -220,7 +269,7 @@ __global__ void __launch_bounds__(K2Cfg<P>::LB)
   for (int j = 0; j < V; ++j) {
     const int k = tid + j * nt;
     uint64_t rec[P];
-    pack_rec<P>(rec, x, n, nk, base + k, (uint32_t)k);
+    keys.template pack<P>(rec, x, n, nk, base + k, (uint32_t)k);
     store_rec<P>(s, ps, k, rec);
   }
   __syncthreads();
@@ -302,23 +351,58 @@ __global__ void __launch_bounds__(K2Cfg<P>::LB)
         const int k = tid + j * nt;
         o[k] = (uint32_t)(base + (uint32_t)(idx_plane[sk64(k)] >> idx_shift));
       }
-    } else {
+    } else if constexpr (Keys::kPayload) {
       const uint32_t* xr = x + (size_t)row * n + base;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const int k = tid + j * nt;
         o[k] = __ldg(xr + (uint32_t)(idx_plane[sk64(k)] >> idx_shift));
       }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) o[tid + j * nt] = 0u;
     }
   }
+}
+
+// K2, and K3 on the [4, n] matrix: the key rows of x.
+template <int P, int R, int NK, int TB>
+__global__ void __launch_bounds__(K2Cfg<P>::LB)
+    tile_sort_kernel(const uint32_t* __restrict__ x,
+                     uint32_t* __restrict__ out, size_t n, int rows_arg,
+                     int nk_arg, int tb_arg, int tile) {
+  tile_sort_body<P, R, NK, TB>(LanesKeys{}, x, out, n, rows_arg, nk_arg,
+                               tb_arg, tile);
+}
+
+// K3 on records in place: the key words of row-major words[n_real, stride]
+// sorted into the [R, m] layout (R, NK and TB fixed), m a multiple of the
+// tile, columns n_real.. padding.
+template <int P, int R, int NK, int TB>
+__global__ void __launch_bounds__(K2Cfg<P>::LB)
+    tile_sort_records_kernel(const uint32_t* __restrict__ words,
+                             size_t n_real, size_t stride,
+                             uint32_t* __restrict__ out, size_t m,
+                             int tile) {
+  static_assert(R > 0, "the records-in-place load fixes the layout");
+  tile_sort_body<P, R, NK, TB>(RecordKeys{n_real, stride}, words, out, m,
+                               R, NK, TB, tile);
+}
+
+// The block shape of a tile sort of `tile` records at P planes: its
+// threads, or 0 for a tile it does not take.
+template <int P>
+inline int tile_sort_threads(int tile) {
+  const int threads = tile / K2Cfg<P>::V;
+  return threads > K2Cfg<P>::LB || threads * K2Cfg<P>::V != tile ? 0
+                                                                  : threads;
 }
 
 template <int P, int R, int NK, int TB> struct TileSortLaunch {
   static int run(const uint32_t* x, uint32_t* out, size_t n, int rows,
                  int nk, int tb_row, int tile, cudaStream_t stream) {
-    const int threads = tile / K2Cfg<P>::V;
-    if (threads > K2Cfg<P>::LB || threads * K2Cfg<P>::V != tile)
-      return (int)cudaErrorInvalidConfiguration;
+    const int threads = tile_sort_threads<P>(tile);
+    if (!threads) return (int)cudaErrorInvalidConfiguration;
     const size_t smem = tile_sort_smem(nk, tile);
     const int err = set_smem((const void*)tile_sort_kernel<P, R, NK, TB>,
                              smem);
@@ -326,6 +410,22 @@ template <int P, int R, int NK, int TB> struct TileSortLaunch {
     tile_sort_kernel<P, R, NK, TB>
         <<<(unsigned)(n / tile), threads, smem, stream>>>(
             x, out, n, rows, nk, tb_row, tile);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int P, int R, int NK, int TB> struct TileSortRecordsLaunch {
+  static int run(const uint32_t* words, size_t n_real, size_t stride,
+                 uint32_t* out, size_t m, int tile, cudaStream_t stream) {
+    const int threads = tile_sort_threads<P>(tile);
+    if (!threads) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = tile_sort_smem(NK, tile);
+    const int err = set_smem(
+        (const void*)tile_sort_records_kernel<P, R, NK, TB>, smem);
+    if (err) return err;
+    tile_sort_records_kernel<P, R, NK, TB>
+        <<<(unsigned)(m / tile), threads, smem, stream>>>(
+            words, n_real, stride, out, m, tile);
     return (int)cudaGetLastError();
   }
 };

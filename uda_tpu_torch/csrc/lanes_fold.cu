@@ -31,6 +31,9 @@
 //   not its bytes, set its pace. One block takes tiles up to
 //   uda_tile_sort_folded_max_tile (16384 at 1 key word, 8192 at 2-3); the
 //   wrapper sorts a wider tile as such sub-tiles merged by K4.
+//   tile_sort_records_kernel is the same body reading the key words from
+//   row-major records in place (TeraSort's uint32[n, 26]), so no [4, m]
+//   key matrix is built for it.
 // K4 (merge_pass_kernel after the partition): every block's split is found
 //   in parallel beforehand, with ties to A, so no block waits on a search
 //   that grows with the run length. Each block loads
@@ -91,6 +94,19 @@ int uda_tile_sort_folded(const void* x, void* out, size_t n, int nk,
   return dispatch_slim<TileSortLaunch>(
       nk, (int)cudaErrorInvalidValue, (const uint32_t*)x, (uint32_t*)out, n,
       SLIM_ROWS, nk, SLIM_TB, tile, (cudaStream_t)stream);
+}
+
+// K3 reading the nk key words of row-major records in place:
+// words uint32[n_real, stride] (stride >= nk), out the [4, m] layout (m a
+// multiple of tile, at least n_real), columns n_real.. padding with
+// all-0xFFFFFFFF keys and rows nk..2 zero: the bytes uda_tile_sort_folded
+// writes for the [4, m] matrix of those keys.
+int uda_tile_sort_folded_rows(const void* words, size_t n_real,
+                              size_t stride, void* out, size_t m, int nk,
+                              int tile, void* stream) {
+  return dispatch_slim<TileSortRecordsLaunch>(
+      nk, (int)cudaErrorInvalidValue, (const uint32_t*)words, n_real,
+      stride, (uint32_t*)out, m, tile, (cudaStream_t)stream);
 }
 
 // `splits` from lanes_sort.cu's uda_merge_partition at the same width.

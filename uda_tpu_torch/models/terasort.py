@@ -10,7 +10,8 @@ Engines (``ops/sort.py``): ``keys8`` sorts the keys with the tile-sort
 and merge-pass kernels K2/K1 and moves each record once by the
 permutation (the row gather, ``ops/lane_gather.take_rows``); ``keys8f``
 (the card's default: the 3 key words fit its 4 rows) does the same with
-the slim cascade K3/K4;
+the slim cascade K3/K4, its K3 reading the key words from the records in
+place;
 ``lanes``/``lanes2`` sort the full 32-row lanes layout with K2/K1;
 ``carry``/``gather``/``gather2``/``carrychunk`` take the permutation from
 PyTorch's stable sort and move the records by it (whole rows, per column,
@@ -28,7 +29,7 @@ import torch
 
 from uda_tpu_torch.device import generator, resolve_device
 from uda_tpu_torch.interop import words_from_numpy
-from uda_tpu_torch.ops import pallas_sort
+from uda_tpu_torch.ops import pallas_fold, pallas_sort
 from uda_tpu_torch.ops.lane_gather import take_rows
 from uda_tpu_torch.ops.sort import (ALL_SORT_PATHS, LANES_ENGINES, _as_i64,
                                     apply_perm_chunked, fill_words, i32,
@@ -93,10 +94,14 @@ def _single_chip_sort_lanes(words: torch.Tensor, path: str,
     n, w = words.shape
     m, tile = pallas_sort.pad_pow2(n, tile)
     if path in ("keys8", "keys8f"):
-        keyr = fill_words((KEY_WORDS, m), words.device, _ALL_ONES)
-        i32(keyr)[:, :n] = i32(words)[:, :KEY_WORDS].T
-        _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile,
-                                              folded=path == "keys8f")
+        if path == "keys8f" and pallas_sort.slim_takes(KEY_WORDS, tile):
+            # K3 reads the key words from the records in place
+            out4 = pallas_fold.sort_records_folded4(words, KEY_WORDS, m, tile)
+            perm = out4[3].view(torch.int32)
+        else:
+            keyr = pallas_sort.record_key_rows(words, KEY_WORDS, m)
+            _, perm = pallas_sort.keys8_sort_perm(keyr, tile=tile,
+                                                  folded=path == "keys8f")
         # the sorted keys come back with the records: move each row once,
         # by the cascade's int32 tie-break row read in place
         return take_rows(words, perm)

@@ -14,7 +14,10 @@ lanes-layout ones at ``tb_row=3``. The kernels are CUDA C++
   rounds in practice. A block merge sort with the data in registers, V
   records a thread sorted with no barrier, then merge-path rounds in
   shared memory. A tile wider than one block takes is sorted as sub-tiles
-  merged by K4.
+  merged by K4. ``tile_sort_folded_rows`` is the same kernel reading the
+  key words from row-major records in place (``sort_records_folded4``,
+  the TeraSort engine's cascade): it writes the bytes ``tile_sort_folded``
+  writes for the padded [4, m] matrix of those keys, which is never built.
 - K4, ``merge_pass_folded`` (replaces ``uda_tpu/ops/pallas_fold.py:135``
   ``_merge_pass_kernel_folded`` and its window table ``_pass_splits``):
   bound by bytes. The partition kernel of K1 (``pallas_sort.merge_partition``)
@@ -36,11 +39,12 @@ import torch
 from uda_tpu_torch.ops import _build
 from uda_tpu_torch.ops.pallas_sort import (_LANE, _cat_words, _check_words,
                                            merge_partition, merge_pass_plain,
-                                           tile_sort_plain)
+                                           record_key_rows, tile_sort_plain)
 from uda_tpu_torch.ops.sort import fill_words, i32, u32
 
-__all__ = ["sort_lanes_folded", "sort_lanes_folded4", "tile_sort_folded",
-           "tile_sort_folded_plain", "merge_pass_folded",
+__all__ = ["sort_lanes_folded", "sort_lanes_folded4", "sort_records_folded4",
+           "tile_sort_folded", "tile_sort_folded_plain",
+           "tile_sort_folded_rows", "merge_pass_folded",
            "merge_pass_folded_plain", "merge_pass_folded_width"]
 
 _SLOT = 4   # rows of the slim layout: 3 key rows + tie-break
@@ -54,6 +58,9 @@ _SIGNATURES = {
     "uda_merge_pass_folded": ([_C.c_void_p, _C.c_void_p, _C.c_void_p,
                                _C.c_size_t, _C.c_int, _C.c_int,
                                _C.c_size_t, _C.c_void_p], _C.c_int),
+    "uda_tile_sort_folded_rows": ([_C.c_void_p, _C.c_size_t, _C.c_size_t,
+                                   _C.c_void_p, _C.c_size_t, _C.c_int,
+                                   _C.c_int, _C.c_void_p], _C.c_int),
     "uda_tile_sort_folded_max_tile": ([_C.c_int, _C.c_size_t], _C.c_int),
     "uda_merge_pass_folded_width": ([_C.c_int, _C.c_size_t, _C.c_size_t],
                                     _C.c_int),
@@ -89,22 +96,69 @@ def tile_sort_folded(x4: torch.Tensor, tile: int,
     if x4.device.type == "cpu":
         return tile_sort_folded_plain(x4, tile, num_keys)
     n = _build.cuda_words(x4, rows=_SLOT).shape[1]
-    if tile < _LANE or tile & (tile - 1) or n % tile:
-        raise ValueError(f"tile={tile} must be a power of two >= {_LANE} "
-                         f"that divides n={n}")
-    lib = _lib()
-    sub = lib.uda_tile_sort_folded_max_tile(num_keys,
-                                            _build.smem_limit(x4.device))
-    if not sub:
-        raise ValueError(f"tile_sort_folded takes 1 to 3 key words, got "
-                         f"{num_keys}")
-    sub = min(tile, sub)
+    sub = _k3_block_tile(x4.device, n, tile, num_keys)
     out = torch.empty_like(x4)
+    lib = _lib()
     with torch.cuda.device(x4.device):
         _build.launch(lib, "uda_tile_sort_folded", x4.data_ptr(),
                       out.data_ptr(), n, num_keys, sub,
                       _build.stream_of(x4))
     _build.count("tile_sort_folded")
+    return _merge_sub_tiles(out, sub, tile, num_keys)
+
+
+def tile_sort_folded_rows(words: torch.Tensor, num_keys: int, m: int,
+                          tile: int) -> torch.Tensor:
+    """K3 on records in place: ``tile_sort_folded(x4, tile, num_keys)``
+    for ``x4`` the padded [4, m] matrix of the first ``num_keys`` words of
+    the row-major records ``words`` (uint32[n, w], n <= m; columns n..m-1
+    all-0xFFFFFFFF keys, rows num_keys..2 zero), without building it: on
+    the card the kernel reads each record's key words where they lie. On a
+    CPU tensor the matrix is built and :func:`tile_sort_folded_plain` runs.
+    Counted as a ``tile_sort_folded`` launch and as a
+    ``tile_sort_folded_rows`` one."""
+    n, w = words.shape
+    if not 0 < num_keys <= min(w, _TB4):
+        raise ValueError(f"tile_sort_folded_rows takes 1 to 3 key words "
+                         f"within a record of {w}, got {num_keys}")
+    if n > m:
+        raise ValueError(f"{n} records do not fit m={m} columns")
+    if m > 1 << 32:
+        raise ValueError(f"m={m} columns: the arrival index holds 2^32")
+    if words.device.type == "cpu":
+        return tile_sort_folded_plain(
+            record_key_rows(words, num_keys, m, rows=_SLOT), tile, num_keys)
+    _build.cuda_words(words)
+    sub = _k3_block_tile(words.device, m, tile, num_keys)
+    out = torch.empty((_SLOT, m), dtype=torch.uint32, device=words.device)
+    lib = _lib()
+    with torch.cuda.device(words.device):
+        _build.launch(lib, "uda_tile_sort_folded_rows", words.data_ptr(), n,
+                      w, out.data_ptr(), m, num_keys, sub,
+                      _build.stream_of(words))
+    _build.count("tile_sort_folded")
+    _build.count("tile_sort_folded_rows")
+    return _merge_sub_tiles(out, sub, tile, num_keys)
+
+
+def _k3_block_tile(device, n: int, tile: int, num_keys: int) -> int:
+    """The tile one K3 block sorts for a cascade ``tile``: the tile, or
+    the widest one block takes where it is narrower."""
+    if tile < _LANE or tile & (tile - 1) or n % tile:
+        raise ValueError(f"tile={tile} must be a power of two >= {_LANE} "
+                         f"that divides n={n}")
+    sub = _lib().uda_tile_sort_folded_max_tile(num_keys,
+                                               _build.smem_limit(device))
+    if not sub:
+        raise ValueError(f"tile_sort_folded takes 1 to 3 key words, got "
+                         f"{num_keys}")
+    return min(tile, sub)
+
+
+def _merge_sub_tiles(out: torch.Tensor, sub: int, tile: int,
+                     num_keys: int) -> torch.Tensor:
+    """K3's sorted sub-tiles of ``sub`` records merged by K4 into sorted
+    tiles of ``tile``."""
     spare = None
     while sub < tile:
         spare = merge_pass_folded(out, sub, sub, num_keys, out=spare)
@@ -172,6 +226,26 @@ def sort_lanes_folded4(x4: torch.Tensor, num_keys: int,
     if rows != _SLOT:
         raise ValueError(f"slim folded cascade needs a 4-row array, "
                          f"got {rows} rows")
+    _check_cascade(n, num_keys, tile)
+    return _merge_tiles(tile_sort_folded(x4, tile, num_keys), tile, num_keys)
+
+
+def sort_records_folded4(words: torch.Tensor, num_keys: int, m: int,
+                         tile: int = 1024) -> torch.Tensor:
+    """The slim-layout cascade on records in place: equal to
+    ``sort_lanes_folded4`` on the padded [4, m] matrix of the first
+    ``num_keys`` words of the row-major records ``words`` (uint32[n, w], n
+    <= m; padding columns all-0xFFFFFFFF keys, so they sort after every
+    real record, and rows num_keys..2 zero), which is never built: K3 reads
+    the key words in place (:func:`tile_sort_folded_rows`), then K4's
+    passes. ``m`` and ``tile`` as ``sort_lanes_folded4`` takes them."""
+    words = _check_words(words)
+    _check_cascade(m, num_keys, tile)
+    return _merge_tiles(tile_sort_folded_rows(words, num_keys, m, tile),
+                        tile, num_keys)
+
+
+def _check_cascade(n: int, num_keys: int, tile: int) -> None:
     if not 0 < num_keys <= 3:
         raise ValueError(f"folded cascade needs num_keys <= 3, got "
                          f"{num_keys}")
@@ -181,8 +255,11 @@ def sort_lanes_folded4(x4: torch.Tensor, num_keys: int,
     if n % tile or (n // tile) & (n // tile - 1):
         raise ValueError(f"n={n} must be a power-of-two multiple of "
                          f"tile={tile}")
-    levels = (n // tile).bit_length() - 1
-    y = tile_sort_folded(x4, tile, num_keys)
+
+
+def _merge_tiles(y: torch.Tensor, tile: int, num_keys: int) -> torch.Tensor:
+    """K4's passes over K3's sorted tiles, up to one sorted run."""
+    levels = (y.shape[1] // tile).bit_length() - 1
     spare = torch.empty_like(y) if levels else None
     for lvl in range(levels):
         z = merge_pass_folded(y, tile << lvl, tile, num_keys, out=spare)

@@ -36,10 +36,10 @@ from uda_tpu_torch.ops.sort import (FOLDED_KEY_ROWS, _as_i64, fill_words,
                                     i32, stable_lex_argsort, u32, words_of)
 
 __all__ = ["ROWS", "TB_ROW_DEFAULT", "sort_lanes", "rows_to_lanes",
-           "lanes_to_rows", "keys8_sort_perm", "pad_pow2", "tile_sort",
-           "tile_sort_plain", "merge_pass", "merge_pass_plain",
-           "merge_partition", "merge_partition_plain", "merge_pass_width",
-           "merge_splits"]
+           "lanes_to_rows", "keys8_sort_perm", "record_key_rows",
+           "slim_takes", "pad_pow2", "tile_sort", "tile_sort_plain",
+           "merge_pass", "merge_pass_plain", "merge_partition",
+           "merge_partition_plain", "merge_pass_width", "merge_splits"]
 
 ROWS = 32               # row count of the full lanes layout
 TB_ROW_DEFAULT = 31     # default tie-break row (last)
@@ -295,6 +295,30 @@ def _check_words(x) -> torch.Tensor:
     return u32(i32(x).contiguous())
 
 
+def slim_takes(num_keys: int, tile: int) -> bool:
+    """Whether the slim cascade (ops/pallas_fold.py, K3/K4) sorts
+    ``num_keys`` key rows at ``tile``: at most 3 key rows, and a tile that
+    is a multiple of the reference's folded lane width (256)."""
+    return num_keys <= FOLDED_KEY_ROWS and tile % (2 * _LANE) == 0
+
+
+def record_key_rows(words: torch.Tensor, num_keys: int, m: int,
+                    rows: "int | None" = None) -> torch.Tensor:
+    """uint32[rows, m] (``rows`` defaults to ``num_keys``): the first
+    ``num_keys`` words of the row-major records ``words`` (uint32[n, w], n
+    <= m) as key rows, padded with all-0xFFFFFFFF columns from n to m (so
+    the padding sorts after every real record: the arrival tie-break keeps
+    real all-0xFFFFFFFF keys first), the rows past ``num_keys`` zero. Each
+    word is written once."""
+    n = words.shape[0]
+    out = torch.empty((rows or num_keys, m), dtype=torch.int32,
+                      device=words.device)
+    out[:num_keys, n:] = -1
+    out[num_keys:] = 0
+    out[:num_keys, :n] = i32(words)[:, :num_keys].T
+    return u32(out)
+
+
 def keys8_sort_perm(keyrows: torch.Tensor, tile: int = 1024,
                     folded: bool = False):
     """The keys8 cascade core: sort an 8-row keys-only matrix and return
@@ -312,7 +336,7 @@ def keys8_sort_perm(keyrows: torch.Tensor, tile: int = 1024,
     k, m = keyrows.shape
     if not 0 < k <= 7:
         raise ValueError(f"keys8 needs 1..7 key rows, got {k}")
-    if folded and k <= FOLDED_KEY_ROWS and tile % (2 * _LANE) == 0:
+    if folded and slim_takes(k, tile):
         from uda_tpu_torch.ops.pallas_fold import sort_lanes_folded4
 
         mat4 = _cat_words([keyrows, fill_words((4 - k, m), keyrows.device)])
