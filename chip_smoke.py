@@ -88,9 +88,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the launch counts reset just before and read just after, under
    ``torch.profiler``; the stream is cracked, checked for key order and
    multiset checksum and held byte for byte against the whole-partition
-   re-sort (``merge_batches``) on the card; then K1 at each capacity
-   class of the 64 maps' merge tree (the forest 9a launches, run_len
-   up to 8,388,608) against its plain version, timed beside its bound;
+   re-sort (``merge_batches``) on the card; then K1 at each size class
+   of the 64 maps' merge tree (the forest 9a launches, on runs cut to
+   their records as ``merge_row_pair`` cuts them, run_len the larger run
+   rounded up to the 512-record tile) against its plain version at
+   tolerance 0, timed beside its bound;
 9. overlap: the default reduce path on the 64-map tree, each run
    through ``MergeManager.run`` with ``metrics`` and the launch counts
    reset just before and read just after: (a) the default ``Config()``
@@ -1812,12 +1814,15 @@ def check_merged_stream(stream: bytes, parts: list, dev: torch.device
 
 
 def merge_classes(parts: list, dev: torch.device, reps: int) -> list:
-    """K1 at each capacity class of the reduce task's merge tree: the
-    partitions' run rows built as ``merge_batches_two_phase`` builds them,
-    merged pairwise level by level (64 runs fold as the path folds them),
-    and at each level the first pair packed as the path packs it, K1 held
-    against its plain version and timed beside its bound and PyTorch's
-    stable sort of the pair."""
+    """K1 at each size class of the reduce task's merge tree, on the
+    shapes the path gives it: each partition's run rows built as the
+    merge paths build them and cut to its records (``merge_row_pair``
+    hands K1 the valid prefixes of both runs), merged pairwise level by
+    level into runs of exact size (64 runs of one size class fold as the
+    path's binary counter folds them), and at each level the first pair
+    packed as ``merge_sorted_pair`` packs it (``L`` the larger run
+    rounded up to the tile), K1 held against its plain version and timed
+    beside its bound and PyTorch's stable sort of the pair."""
     kt = get_key_type(MERGE_KEY_CLASS)
     level = []
     for seg, rec in enumerate(parts):
@@ -1825,7 +1830,7 @@ def merge_classes(parts: list, dev: torch.device, reps: int) -> list:
         rows = np.empty((merge_ops.next_run_capacity(pk.num_records),
                          4 + merge_ops.ROW_EXTRA_COLS), np.uint32)
         merge_ops.fill_run_rows(rows, pk, merge_ops.run_row_order(pk), seg)
-        level.append(interop.words_from_numpy(rows, dev))
+        level.append(interop.words_from_numpy(rows[:pk.num_records], dev))
     classes = []
     while len(level) > 1:
         a, b = level[0], level[1]
@@ -1842,7 +1847,8 @@ def merge_classes(parts: list, dev: torch.device, reps: int) -> list:
                 f"K1 at run_len {L} differs from PyTorch's stable sort")
         nbytes = 2 * x.numel() * 4     # every word read once, written once
         ms_bound, bound_by = bound(nbytes, 2 * L * (w + 1))
-        rec = {"run_len": L, "shape": list(x.shape),
+        rec = {"run_len": L, "runs": [int(a.shape[0]), int(b.shape[0])],
+               "shape": list(x.shape),
                "ms": time_ms(lambda: pallas_sort.merge_pass(
                    x, L, MERGE_TILE, w, w, out=spare), reps),
                "plain_ms": time_ms(lambda: pallas_sort.merge_pass_plain(
@@ -1853,13 +1859,16 @@ def merge_classes(parts: list, dev: torch.device, reps: int) -> list:
                "width": pallas_sort.merge_pass_width(w + 1, w, 2 * L, L),
                "max_abs_err": err}
         classes.append(rec)
-        log(f"[merge] K1 class run_len={L} x={rec['shape']}: "
+        log(f"[merge] K1 class run_len={L} runs={rec['runs']} "
+            f"x={rec['shape']}: "
             f"{rec['ms']:.3f} ms, bound {ms_bound:.3f} ms ({bound_by}), "
             f"plain {rec['plain_ms']:.3f} ms, library "
             f"{rec['library_ms']:.3f} ms, width {rec['width']}, "
             f"max_abs_err {err} (tolerance 0)")
         del x, spare, got
-        level = [pallas_merge.merge_sorted_pair(level[i], level[i + 1], w)
+        level = [merge_ops.merge_row_pair(
+                     level[i], level[i + 1], int(level[i].shape[0]),
+                     int(level[i + 1].shape[0]), "pallas")
                  for i in range(0, len(level) - 1, 2)] \
             + level[len(level) - len(level) % 2:]
     torch.cuda.synchronize()
@@ -3678,7 +3687,7 @@ def phase_admission_alone(dev: torch.device, maps: int = OVERLAP_C_MAPS,
 def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
                  map_bytes: int = MERGE_MAP_BYTES, reps: int = TIMED_REPS,
                  c_maps: int = OVERLAP_C_MAPS) -> tuple:
-    """Phases 8 (its run on run c's maps, K1's capacity classes on all
+    """Phases 8 (its run on run c's maps, K1's size classes on all
     ``maps``), 9, 10, 12a, 12b, 12e, 13a, 13c and 16 on one MOF tree
     written once under ``root`` (which outlives the call), then phase 11 on run
     c's maps striped over four roots, 12c, 12d on compressed trees and
@@ -3696,8 +3705,8 @@ def phase_reduce(dev: torch.device, root: str, maps: int = MERGE_MAPS,
     want_all = resort_digest(parts, dev)
     merged = phase_merge(dev, root, mids[:c_maps], parts[:c_maps],
                          map_bytes, setup_s)
-    # K1 at every capacity class the 64-map forest of 9a
-    # launches, up to run_len 8,388,608
+    # K1 at every size class the 64-map forest of 9a launches,
+    # on the exact-size runs the path merges
     with phase_seconds("8 K1 classes"):
         merged["classes"] = merge_classes(parts, dev, reps)
     overlap = phase_overlap(dev, root, mids, parts, want_all, c_maps)

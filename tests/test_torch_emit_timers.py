@@ -143,7 +143,7 @@ def test_critpath_charges_the_emit_timers_to_serve():
         - ref["buckets"]["serve"]["critical_s"], abs=3e-6)
     # the port's own timers: the emit's and the socket client's
     assert set(critpath.PORT_SPAN_BUCKETS) == \
-        set(TIMERS) | {"net_read", "net_deliver"}
+        set(TIMERS) | {"emit_tiefix", "net_read", "net_deliver"}
     assert not set(critpath.PORT_SPAN_BUCKETS) & set(critpath.SPAN_BUCKETS)
     assert set(critpath.PORT_SPAN_BUCKETS.values()) \
         <= set(critpath.BUCKET_PRIORITY)

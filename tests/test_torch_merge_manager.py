@@ -291,9 +291,10 @@ def _reference_drains_first(monkeypatch):
 @pytest.mark.parametrize("mode", ["default", "pipeline_off", "streaming"])
 def test_overlapped_run_with_keys_past_the_width(tmp_path, monkeypatch,
                                                  mode):
-    """Keys wider than uda.tpu.key.width: the overlap falls back to the
-    global re-sort, streaming to the k-way merge over its run files, in
-    the port as in the reference."""
+    """Keys wider than uda.tpu.key.width: the reference's overlap falls
+    back to the global re-sort, the port's keeps its forest and re-sorts
+    the equal-prefix blocks in the emit; streaming falls back to the
+    k-way merge over its run files in both. The same bytes."""
     _reference_drains_first(monkeypatch)
     mids = text_tree(str(tmp_path), "job", 3, 150, seed=7, max_len=40)
     got = port_run(str(tmp_path), mids, TEXT,

@@ -417,6 +417,29 @@ def test_merge_batches_two_phase_pallas_matches_reference_pallas():
     assert_batches_equal(got, want)
 
 
+@pytest.mark.parametrize("sizes", [(513, 1000, 1537, 5),
+                                   (70, 600, 2100, 1100)])
+def test_merge_batches_two_phase_pallas_merges_unequal_runs(sizes):
+    """The port's "pallas" fold on runs of unequal sizes that are no
+    power of two: K1 takes each pair's valid prefixes, so the fold's
+    merged runs are of exact size, and leftover runs of unequal size
+    classes merge unpadded (the first case carries 513 + 1000 into 1537's
+    class and leaves 5 beside it; the second leaves four classes). The
+    bytes are the reference's "pallas" fold's (interpret mode) and its
+    whole re-sort's."""
+    datas = [jifile.write_records(sorted_text(text_records(40 + s, n)))
+             for s, n in enumerate(sizes)]
+    tb = [tifile.crack(d) for d in datas]
+    jb = [jifile.crack(d) for d in datas]
+    jkt = jcmp.get_key_type(TEXT)
+    got = tmerge.merge_batches_two_phase(tb, tcmp.get_key_type(TEXT), 16,
+                                         engine="pallas", device="cpu")
+    assert got.num_records == sum(sizes)
+    assert_batches_equal(got, jmerge.merge_batches_two_phase(
+        jb, jkt, 16, engine="pallas", interpret=True))
+    assert_batches_equal(got, jmerge.merge_batches(jb, jkt, 16))
+
+
 def test_merge_batches_two_phase_overflow_keys_fall_back():
     """Keys wider than the carried width take the whole re-sort, in the
     port as in the reference, with the same bytes."""

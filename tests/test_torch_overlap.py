@@ -163,15 +163,20 @@ def test_empty_segments_match_reference(layout, engine):
 @pytest.mark.parametrize("pipeline", [False, True])
 def test_keys_past_the_width_resort_like_the_reference(pipeline, engine):
     """Keys wider than the carried width with shared prefixes across
-    segments: the forest is abandoned for the global re-sort, in both."""
+    segments: the reference abandons its forest for the global re-sort;
+    the port's runs stay on the forest and the tie-fix re-sorts the
+    equal-prefix block, to the same records and bytes."""
     pre = b"Q" * 17
     ref, port = _pair([[(pre + b"z", b"v0"), (b"a", b"v1")],
                        [(pre + b"b", b"v2"), (b"c", b"v3")],
                        _recs(5, 30)])
     want = _reference(ref, pipeline=pipeline)
+    groups = metrics.get("merge.tiefix_groups")
     rec, framed, om = _port(port, engine=engine, pipeline=pipeline)
     assert (rec, framed) == want
-    assert om.stats["overflow"]
+    assert not om.stats["overflow"]
+    assert om.stats["device_merges"] == len(port) - 1
+    assert metrics.get("merge.tiefix_groups") > groups
     _assert_idle(om)
 
 
@@ -283,11 +288,11 @@ def test_a_staging_error_surfaces_from_finish(monkeypatch, pipeline,
     real = toverlap.packing.pack_keys
     calls = []
 
-    def failing(batch, kt, width):
+    def failing(batch, kt, width, **kw):
         calls.append(1)
         if len(calls) == 3:
             raise ValueError("injected packing fault")
-        return real(batch, kt, width)
+        return real(batch, kt, width, **kw)
 
     monkeypatch.setattr(toverlap.packing, "pack_keys", failing)
     om = OverlappedMerger(tcmp.get_key_type(KT), 16, engine=engine,

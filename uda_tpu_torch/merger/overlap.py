@@ -11,9 +11,11 @@ done. Its device-native shape is a **log-structured run forest**:
   flight;
 - runs merge pairwise on the device with K1 (``ops/merge.merge_row_pair``
   -> ``ops/pallas_merge.merge_sorted_pair``) under a binary-counter
-  policy: each run is padded to a power-of-two capacity and two runs of
-  equal capacity merge at once into one of twice the capacity, so every
-  record moves through at most log2(k) merges;
+  policy: each run takes the power-of-two size class of its records and
+  two runs of one class merge at once into a run of the next class, so
+  every record moves through at most log2(k) merges. A staged run is
+  padded to its class's capacity; K1 merges the two runs' valid
+  prefixes only, so a merged run is of exact size;
 - ``finish()`` merges the O(log k) leftover runs, largest capacity last,
   and gathers the records by the merged (segment, row) columns.
 
@@ -41,10 +43,19 @@ index) as the composite sort key, so equal comparator keys order by
 original (segment, row), independent of fetch COMPLETION order. Pipelined
 and serial staging are byte-identical for the same reason.
 
-Overflow fallback: keys whose content exceeds the carried width compare
-by an overflow *rank*, only meaningful across ALL records, so the forest
-detects oversize keys at staging and ``finish()`` falls back to the
-global re-sort (``ops/merge.merge_batches``), as the reference does.
+Keys past the width: keys whose content exceeds the carried width stay
+on the forest, their rows built as every run's (the padded prefix words,
+then the true length, segment and row). K1's order is then the
+comparator's but inside each block of consecutive oversize keys with
+equal prefixes, so a latch set at staging puts the tie-fix
+(``merger/streaming.tiefix_slabs``) between the merged rows and the
+in-memory finishes' gather: it re-sorts each such block by its full
+content. Where the reference re-sorts globally, the output is the same
+bytes. Two cases keep the reference's fallback, latched at staging
+(``_overflow``): the streaming finish (its runs spool in the full
+comparator's order and ``finish_streaming`` k-way merges the files) and
+a key type whose ``compare`` is overridden (``finish()`` and
+``emit_stream`` re-sort globally, ``ops/merge.merge_batches``).
 
 No quiet fallback: a failure of the device half (a K1 launch, the
 kernels' build, a CUDA error) is latched and raised by ``finish()`` as
@@ -172,10 +183,15 @@ class OverlappedMerger:
         # udarace: lockfree=_q,_staged_q - queue.Queue is internally
         # locked; cross-thread put/get rides the Queue's own mutex
         self._q: "queue.Queue" = queue.Queue(maxsize=max_pending)
-        # udarace: lockfree=_aborted,_overflow - one-way bool latches
-        # (GIL-atomic store; readers may lag one item, by design)
+        # udarace: lockfree=_aborted,_overflow,_oversize - one-way bool
+        # latches (GIL-atomic store; readers may lag one item, by design)
         self._aborted = False
         self._overflow = False
+        # a run held a key past the width and stayed on the forest: the
+        # in-memory finishes run the tie-fix (read after the drain)
+        self._oversize = False
+        self._tiefix = (run_store is None
+                        and uses_default_bytewise(key_type))
         self._forest: dict[int, Run] = {}   # size class -> run
         self._forest_lock = threading.Lock()
         self._state_lock = threading.Lock()  # counters
@@ -470,12 +486,18 @@ class OverlappedMerger:
                 self._release(source)
             return None
         with metrics.timer("overlap_pack"):
-            packed = packing.pack_keys(batch, self.key_type, self.width)
+            packed = packing.pack_keys(batch, self.key_type, self.width,
+                                       ranks=False)
         metrics.add("stage.bytes",
                     int(batch.key_len.sum() + batch.val_len.sum()))
-        if int(np.max(packed.key_lens, initial=0)) > self.width:
-            # rank-bearing keys: cross-run rank consistency needs the
-            # global view; disable the fast path (see module docstring)
+        oversize = int(np.max(packed.key_lens, initial=0)) > self.width
+        if oversize and self._tiefix:
+            # the run stays on the forest; the in-memory finishes re-sort
+            # its blocks of equal-prefix oversize keys (module docstring)
+            self._oversize = True
+        elif oversize:
+            # the streaming finish or a custom compare: disable the fast
+            # path (see module docstring)
             self._overflow = True
             if not streaming:
                 return None
@@ -793,7 +815,7 @@ class OverlappedMerger:
         with self._forest_lock:
             runs = [self._forest[c] for c in sorted(self._forest)]
             self._forest = {}
-        return merge_ops.merge_leftover_runs(runs, self.engine, self._merge)
+        return merge_ops.merge_leftover_runs(runs, self._merge)
 
     def _merged(self) -> Optional[Run]:
         """The leftover forest merged into one run, ready for the calling
@@ -809,14 +831,27 @@ class OverlappedMerger:
         return acc
 
     def _seg_row_slabs(self, acc: Run,
-                       slab: int = stream_mod.SLAB_RECORDS):
+                       slab: int = stream_mod.SLAB_RECORDS,
+                       whole: bool = False):
         """The merged run's (segment, row) columns, read back in slabs of
-        ``np.uint32[m, 2]``: all that emission needs of the rows. A
-        failed readback is a device failure (:meth:`_device_errors`)."""
+        ``np.uint32[m, 2]``: all that emission needs of the rows (with
+        ``whole``, every column of the rows). A failed readback is a
+        device failure (:meth:`_device_errors`)."""
         kw = int(acc.rows.shape[1]) - merge_ops.ROW_EXTRA_COLS
         with self._device_errors():
             yield from stream_mod.iter_row_slabs(
-                acc.rows[:, kw + 1:kw + 3], acc.valid, slab)
+                acc.rows if whole else acc.rows[:, kw + 1:kw + 3],
+                acc.valid, slab)
+
+    def _pair_slabs(self, acc: Run, batches: Sequence[RecordBatch],
+                    slab: int = stream_mod.SLAB_RECORDS):
+        """The in-memory finishes' (segment, row) slabs: the merged run's,
+        through the tie-fix where a run held a key past the width."""
+        if not self._oversize:
+            return self._seg_row_slabs(acc, slab)
+        return stream_mod.tiefix_slabs(
+            self._seg_row_slabs(acc, slab, whole=True), batches,
+            self.key_type, self.width)
 
     def _warn_overflow(self, fallback: str) -> None:
         log.warn(f"overlap fast path disabled (oversize keys); "
@@ -852,7 +887,8 @@ class OverlappedMerger:
             acc = self._merged()
             if not self._check_accounting(acc, cat.num_records):
                 return cat  # all segments legitimately empty
-            src = next(self._seg_row_slabs(acc, acc.valid))
+            src = np.concatenate(list(self._pair_slabs(acc, batches,
+                                                       acc.valid)))
             sizes = np.asarray([b.num_records for b in batches], np.int64)
             offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
             return cat.take(offsets[src[:, 0].astype(np.int64)]
@@ -883,8 +919,8 @@ class OverlappedMerger:
             if not self._check_accounting(acc, total):
                 return emitter.emit_framed(iter([EOF_MARKER]), consumer)
             return emitter.emit_framed(
-                stream_mod.frame_slabs(self._seg_row_slabs(acc), batches),
-                consumer)
+                stream_mod.frame_slabs(self._pair_slabs(acc, batches),
+                                       batches), consumer)
         finally:
             self._finish_cleanup(acc)
 

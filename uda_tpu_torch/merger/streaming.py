@@ -48,18 +48,23 @@ import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
 from uda_tpu_torch import native
+from uda_tpu_torch.ops import packing
 from uda_tpu_torch.ops.sort import i32
 from uda_tpu_torch.utils.errors import MergeError, StorageError
 from uda_tpu_torch.utils.ifile import EOF_MARKER, RecordBatch, native_enabled
 from uda_tpu_torch.utils.metrics import metrics
 
 __all__ = ["RunStore", "framed_lengths", "interleave_runs", "slab_batch",
-           "frame_slabs", "iter_row_slabs", "spill_dirs", "SLAB_RECORDS",
-           "MAX_OPEN_CURSORS"]
+           "frame_slabs", "tiefix_slabs", "iter_row_slabs", "spill_dirs",
+           "SLAB_RECORDS", "MAX_OPEN_CURSORS"]
 
 # records per emission slab: bounds transient host memory at emit to one
 # slab's bytes (the streaming analogue of the reference's staging loop)
 SLAB_RECORDS = 1 << 16
+
+# the tie-fix's counters (port-only): the blocks it re-sorted and the
+# records in them
+TIEFIX_COUNTERS = ("merge.tiefix_groups", "merge.tiefix_rows")
 
 
 def _vlong_sizes(values: np.ndarray) -> np.ndarray:
@@ -500,6 +505,167 @@ def frame_slabs(slabs: Iterator[np.ndarray],
             piece = native.frame_batch(sub, write_eof=False)
         yield piece
     yield EOF_MARKER
+
+
+def tiefix_slabs(slabs: Iterator[np.ndarray],
+                 batches: Sequence[RecordBatch], key_type,
+                 width: int) -> Iterator[np.ndarray]:
+    """The oversize-key tie-fix between the merged rows and
+    :func:`frame_slabs`: ``slabs`` yields whole merged rows (key words,
+    content length, segment, row), this yields their ``(segment, row)``
+    pairs in the comparator's stable order.
+
+    The device merge orders rows by (the first ``width`` content bytes
+    zero-padded, length, segment, row). That is the stable comparator
+    order but inside the blocks of consecutive keys longer than ``width``
+    whose first ``width`` bytes are equal (a key of at most ``width`` bytes
+    with the same padded prefix is a proper prefix of every longer one,
+    so it already sorts first). Each such block of two or more is
+    re-sorted by (full content, segment, row), reading the bytes past
+    ``width`` from ``batches`` (:func:`_block_order`). A block that reaches
+    a slab's end is held back and joined to the next slab, so a block is
+    ordered whole. Only for key types whose ``compare`` is the stock
+    bytewise order. Each slab runs under the ``emit_tiefix`` timer (closed
+    before its pairs are yielded); ``merge.tiefix_groups`` and
+    ``merge.tiefix_rows`` count the blocks re-sorted and their records."""
+    keys = None
+    held = None
+    for rows in slabs:
+        with metrics.timer("emit_tiefix"):
+            if keys is None:
+                keys = _KeyBytes(batches, key_type, width)
+            if held is not None:
+                rows, held = np.concatenate([held, rows]), None
+            kw = rows.shape[1] - 3
+            over = rows[:, kw] > width
+            # same[i]: row i is in row i-1's block
+            same = np.zeros(rows.shape[0], bool)
+            same[1:] = over[1:] & over[:-1] & (
+                rows[1:, :kw] == rows[:-1, :kw]).all(axis=1)
+            if rows.shape[0] and over[-1]:
+                # the last block may go on in the next slab
+                cut = int(np.flatnonzero(~same)[-1])
+                rows, held, same = rows[:cut], rows[cut:], same[:cut]
+            pairs = _fix_blocks(rows, same, keys)
+        if pairs.shape[0]:
+            yield pairs
+    if held is not None:
+        with metrics.timer("emit_tiefix"):
+            same = np.ones(held.shape[0], bool)
+            same[0] = False
+            pairs = _fix_blocks(held, same, keys)
+        yield pairs
+
+
+def _fix_blocks(rows: np.ndarray, same: np.ndarray,
+                keys: "_KeyBytes") -> np.ndarray:
+    """The ``(segment, row)`` pairs of ``rows`` with every block of two or
+    more rows (``same`` marks a row that continues its predecessor's
+    block) re-sorted by (full content, segment, row)."""
+    kw = rows.shape[1] - 3
+    pairs = np.ascontiguousarray(rows[:, kw + 1:kw + 3])
+    block = np.cumsum(~same) - 1
+    size = np.bincount(block)
+    member = np.flatnonzero(same | np.append(same[1:], False))
+    groups = int((size > 1).sum())
+    for name, count in zip(TIEFIX_COUNTERS, (groups, member.size)):
+        metrics.add(name, int(count))  # udalint: disable=UDA002 - port-only counters; METRICS_REGISTRY stays the reference's
+    if groups:
+        sub = rows[member]
+        order = _block_order(
+            keys, sub[:, kw + 1].astype(np.int64),
+            sub[:, kw + 2].astype(np.int64), sub[:, kw].astype(np.int64),
+            block[member])
+        pairs[member] = pairs[member[order]]
+    return pairs
+
+
+# bytes of content one refinement round of the tie-fix compares, and the
+# bytes past the width it holds for every key (its first rounds)
+_TIEFIX_STEP = 8
+_TIEFIX_AHEAD = 32
+
+
+class _KeyBytes:
+    """The key bytes the tie-fix compares, for every record of
+    ``batches``: the 32 bytes from each key's content byte ``width`` on
+    (the bytes after a key's end too), in one matrix (row
+    ``first[segment] + row``), gathered a segment at a time as rows of
+    the segment buffer's sliding window; bytes further on are read from
+    the segments when a round needs them (:meth:`word`)."""
+
+    def __init__(self, batches: Sequence[RecordBatch], key_type,
+                 width: int):
+        self.batches, self.width = batches, width
+        spans = [packing.content_spans(b, key_type) for b in batches]
+        self.off = [off for off, _ in spans]
+        sizes = [b.num_records for b in batches]
+        self.first = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(
+            np.int64)
+        self.ahead = np.concatenate(
+            [_span_bytes(b.data, off + width, _TIEFIX_AHEAD)
+             for b, (off, _) in zip(batches, spans)]) if batches else None
+
+    def word(self, seg: np.ndarray, row: np.ndarray, length: np.ndarray,
+             at: int) -> np.ndarray:
+        """Content bytes ``[at, at + 8)`` of each key as a big-endian
+        uint64, zero past the key's end."""
+        skip = at - self.width
+        if skip + _TIEFIX_STEP <= _TIEFIX_AHEAD:
+            raw = self.ahead[self.first[seg] + row,
+                             skip:skip + _TIEFIX_STEP]
+        else:
+            raw = np.empty((seg.shape[0], _TIEFIX_STEP), np.uint8)
+            for s, pos in _group_by_segment(seg):
+                raw[pos] = _span_bytes(self.batches[s].data,
+                                       self.off[s][row[pos]] + at,
+                                       _TIEFIX_STEP)
+        raw *= np.arange(_TIEFIX_STEP)[None, :] < (length - at)[:, None]
+        return raw.view(">u8").ravel()
+
+
+def _span_bytes(data: np.ndarray, start: np.ndarray,
+                nbytes: int) -> np.ndarray:
+    """``data[start : start + nbytes]`` a span, uint8[n, nbytes]: rows of
+    the buffer's sliding window where no window runs past its end, else
+    the last byte repeated past it."""
+    last = data.shape[0] - nbytes
+    if start.shape[0] and last >= 0 and int(start.max()) <= last:
+        return sliding_window_view(data, nbytes)[start]
+    idx = start[:, None] + np.arange(nbytes)[None, :]
+    return data[np.minimum(idx, data.shape[0] - 1)]
+
+
+def _block_order(keys: _KeyBytes, seg: np.ndarray, row: np.ndarray,
+                 length: np.ndarray, block: np.ndarray) -> np.ndarray:
+    """The stable comparator order of oversize keys within their blocks
+    (``block`` non-decreasing; every key of a block shares its first
+    ``width`` content bytes; within a block the keys come in the device
+    merge's (length, segment, row) order): the permutation that sorts
+    each block by (content, segment, row) and keeps it in its place.
+    Rounds sort stably by the next 8 content bytes, most significant
+    first, so ties keep (length, segment, row); a round's ties between
+    keys that go on past its bytes become the next round's blocks.
+    Zero-padding a shorter key agrees with the comparator: where the
+    padded bytes tie, the shorter key is a prefix of the longer and is
+    first by its length."""
+    order = np.arange(seg.shape[0])
+    slots, label, at = order.copy(), block, keys.width
+    while slots.size:
+        rec = order[slots]
+        word = keys.word(seg[rec], row[rec], length[rec], at)
+        o = np.lexsort((word, label))
+        rec, word, label = rec[o], word[o], label[o]
+        # label leads, so every block keeps its own (ascending) slots
+        order[slots] = rec
+        at += _TIEFIX_STEP
+        deeper = length[rec] > at
+        tie = np.zeros(rec.shape[0], bool)
+        tie[1:] = ((label[1:] == label[:-1]) & (word[1:] == word[:-1])
+                   & deeper[1:] & deeper[:-1])
+        keep = tie | np.append(tie[1:], False)
+        slots, label = slots[keep], np.cumsum(~tie)[keep]
+    return order
 
 
 def slab_batch(batches: Sequence[RecordBatch], seg: np.ndarray,

@@ -297,10 +297,12 @@ def merge_row_pair(a_rows, b_rows, a_valid: int, b_valid: int,
     """Merge two sorted composite-key row runs into one. Host engine
     (numpy rows): ``native_merge`` when given (the linear native merge,
     ties to ``a`` = the earlier run), else a stable lexsort of the two
-    valid prefixes. Pallas
-    engine (uint32 tensors with their pad rows): K1 over every column —
-    the columns (words, len, seg, row) are a total order, so K1's
-    internal tie-break never decides between real rows."""
+    valid prefixes. Pallas engine (uint32 tensors, pad rows past the
+    valid prefixes): K1 over every column of the two valid prefixes, so
+    the merged run is exactly ``a_valid + b_valid`` rows and no pad row
+    takes card memory or merge work. The columns (words, len, seg, row)
+    are a total order, so K1's internal tie-break never decides between
+    real rows."""
     if engine == "host":
         if native_merge is not None:
             return native_merge(np.asarray(a_rows[:a_valid]),
@@ -309,7 +311,8 @@ def merge_row_pair(a_rows, b_rows, a_valid: int, b_valid: int,
         order = np.lexsort(tuple(rows[:, c]
                                  for c in range(rows.shape[1] - 1, -1, -1)))
         return rows[order]
-    return merge_sorted_pair(a_rows, b_rows, num_keys=int(a_rows.shape[1]))
+    return merge_sorted_pair(a_rows[:a_valid], b_rows[:b_valid],
+                             num_keys=int(a_rows.shape[1]))
 
 
 def sorted_batch_order(batch: RecordBatch, kt: KeyType, width: int,
@@ -499,8 +502,10 @@ def merge_batches_two_phase(batches: Sequence[RecordBatch], kt: KeyType,
 
 def pad_rows_to(rows: torch.Tensor, capacity: int) -> torch.Tensor:
     """Pad a device run up to ``capacity`` rows with PAD_WORD rows.
-    Padding rows sort strictly last, so the validity prefix is preserved;
-    capacities stay powers of two."""
+    Padding rows sort strictly last, so the validity prefix is preserved.
+    The reference's fold pads its smaller leftover run so; the port's
+    merges take the runs' valid prefixes and pad nothing, and keep this
+    for the reference's public names."""
     cur = int(rows.shape[0])
     if cur >= capacity:
         return rows
@@ -514,10 +519,11 @@ class Run:
     and the two-phase fold's.
 
     Rows are uint32[cap, C] with C = key words + 3: the composite key
-    (words..., content length, segment index, row index). K1 runs are
-    tensors padded to a power-of-two capacity with all-0xFFFFFFFF rows,
-    which sort after every real row, so valid rows stay a prefix through
-    any merge; host runs are exact-sized numpy. ``bucket`` is the
+    (words..., content length, segment index, row index). A staged K1
+    run is a tensor padded to a power-of-two capacity with
+    all-0xFFFFFFFF rows, which sort after every real row, so valid rows
+    are a prefix; a K1 merge takes the valid prefixes and gives an
+    exact-sized run; host runs are exact-sized numpy. ``bucket`` is the
     binary-counter size class: next_run_capacity(valid) at first, doubled
     by each merge. ``lease`` is the :class:`RowBufferPool` buffer backing
     ``rows`` (the pipelined host forest's), recycled when the run merges
@@ -530,10 +536,6 @@ class Run:
         self.valid = valid
         self.bucket = bucket
         self.lease = lease
-
-    @property
-    def capacity(self) -> int:
-        return int(self.rows.shape[0])
 
 
 def merge_run_pair(a: Run, b: Run, engine: str, native_merge=None) -> Run:
@@ -553,18 +555,16 @@ def carry_run(forest: dict, run: Run, merge: Callable) -> None:
     forest[run.bucket] = run
 
 
-def merge_leftover_runs(runs: Sequence[Run], engine: str,
+def merge_leftover_runs(runs: Sequence[Run],
                         merge: Callable) -> Optional[Run]:
-    """Merge a forest's leftover runs, smallest size class first; K1 runs
-    pad the smaller operand up to the larger capacity first
-    (:func:`pad_rows_to`). None when there is no run."""
+    """Merge a forest's leftover runs, smallest size class first. Runs of
+    unequal sizes merge as they are (a K1 merge takes both valid
+    prefixes and gives a run of exact size). None when there is no
+    run."""
     if not runs:
         return None
     acc = runs[0]
     for nxt in runs[1:]:
-        if engine == "pallas" and acc.capacity < nxt.capacity:
-            acc = Run(pad_rows_to(acc.rows, nxt.capacity), acc.valid,
-                      acc.bucket)
         acc = merge(acc, nxt)
     return acc
 
@@ -579,6 +579,5 @@ def _fold_runs(runs: list, engine: str, native_merge=None):
     forest: dict[int, Run] = {}
     for rows, valid in runs:
         carry_run(forest, Run(rows, valid, next_run_capacity(valid)), merge)
-    acc = merge_leftover_runs([forest[c] for c in sorted(forest)], engine,
-                              merge)
+    acc = merge_leftover_runs([forest[c] for c in sorted(forest)], merge)
     return (None, 0) if acc is None else (acc.rows, acc.valid)

@@ -42,7 +42,7 @@ class PackedKeys:
 
     key_words: np.ndarray   # uint32 [n, W/4]
     key_lens: np.ndarray    # int32 [n]
-    ranks: np.ndarray       # int32 [n]
+    ranks: Optional[np.ndarray]  # int32 [n]; None where not computed
 
     @property
     def num_records(self) -> int:
@@ -121,21 +121,27 @@ def _words_to_bytes(words: np.ndarray) -> np.ndarray:
     return raw
 
 
-def pack_keys(batch: RecordBatch, kt: KeyType, width: int) -> PackedKeys:
-    """Pack normalized key prefixes into big-endian uint32 lane columns."""
+def pack_keys(batch: RecordBatch, kt: KeyType, width: int, *,
+              ranks: bool = True) -> PackedKeys:
+    """Pack normalized key prefixes into big-endian uint32 lane columns.
+    ``ranks=False`` leaves the overflow ranks out (``PackedKeys.ranks``
+    None): the overlapped merger's runs never read them (it orders keys
+    past the width by their bytes after the device merge)."""
     if width % 4 != 0 or width <= 0:
         raise MergeError(f"key width must be a positive multiple of 4, got {width}")
     n = batch.num_records
     if n == 0:
         return PackedKeys(np.zeros((0, width // 4), np.uint32),
-                          np.zeros(0, np.int32), np.zeros(0, np.int32))
+                          np.zeros(0, np.int32),
+                          np.zeros(0, np.int32) if ranks else None)
     off, ln = content_spans(batch, kt)
     raw = _gather_padded(batch.data, off, np.minimum(ln, width), width)
     if kt.name in ("int_numeric", "long_numeric"):
         raw[:, 0] ^= 0x80  # sign-bit flip: memcmp order == numeric order
     words = _bytes_to_words(raw)
-    ranks = overflow_ranks(batch, raw, off, ln, width)
-    return PackedKeys(words, ln.astype(np.int32), ranks)
+    return PackedKeys(words, ln.astype(np.int32),
+                      overflow_ranks(batch, raw, off, ln, width)
+                      if ranks else None)
 
 
 def overflow_ranks(batch: RecordBatch, prefixes: np.ndarray,

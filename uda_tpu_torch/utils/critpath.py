@@ -77,7 +77,7 @@ BUCKET_PRIORITY = ("merge", "device_put", "decompress_pack", "serve",
 # are the fetch
 PORT_SPAN_BUCKETS: Dict[str, str] = {
     "emit_phase": "serve", "emit_readback": "serve", "emit_gather": "serve",
-    "emit_frame": "serve", "emit_deliver": "serve",
+    "emit_frame": "serve", "emit_deliver": "serve", "emit_tiefix": "serve",
     "net_read": "fetch", "net_deliver": "fetch",
 }
 
@@ -259,7 +259,8 @@ def buckets_from_counters(counters: Dict[str, float]) -> Dict:
                         "lpq_phase_time", "rpq_phase_time")),
              ("serve", ("supplier_read_time", "emit_time",
                         "emit_readback_time", "emit_gather_time",
-                        "emit_frame_time", "emit_deliver_time")))
+                        "emit_frame_time", "emit_deliver_time",
+                        "emit_tiefix_time")))
     out = {b: round(sum(counters.get(k, 0.0) for k in keys), 6)
            for b, keys in table}
     return {"kind": "busy_seconds_from_counters", "buckets": out,

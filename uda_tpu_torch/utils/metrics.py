@@ -675,6 +675,9 @@ PORT_TIMERS: Dict[str, str] = {
                    "records (merger/streaming.py frame_slabs, "
                    "interleave_runs)",
     "emit_frame": "framing one slab or chunk (native.frame_batch)",
+    "emit_tiefix": "one slab's re-sort of its blocks of equal-prefix keys "
+                   "past the carried width, by their whole content "
+                   "(merger/streaming.py tiefix_slabs)",
     "emit_deliver": "copying framed bytes into an arena slot, with the "
                     "slot's acquire and release (merger/emitter.py)",
     "net_read": "the client loop thread's read of one ready supplier "
