@@ -34,13 +34,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    [10^6+37, 26] and [10^6+37, 27] with real all-0xFFFFFFFF keys, [5000,
    3] with all-equal keys and past one K3 block, also held to K3 on the
    padded [4, m] matrix of those keys, and the slim cascade on the records
-   (``sort_records_folded4``) to the stable sort; every
+   (``sort_records_folded4``) to the stable sort, and on whole blocks
+   (``records_cascade_columns``, each pass's last pair short or alone)
+   kernel by kernel, its first n columns held to the power-of-two
+   cascade's; every
    launch held byte for byte against its plain
    PyTorch version on the same input, and each cascade against PyTorch's
    stable sort;
 4. main path: ``single_chip_sort`` of 100,000,000 TeraSort records
-   (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``, padded to 2^27
-   inside) with ``path="auto"``, which resolves to ``keys8f`` (K3, K4
+   (BASELINE.md config 2, 10.4 GB of ``uint32[n, 26]``; keys8f sorts
+   them in 100,003,840 columns, whole blocks of 4096, keys8 in 2^27)
+   with ``path="auto"``, which resolves to ``keys8f`` (K3, K4
    and the partition kernel: the 3 key words fit its 4 rows; one K3
    launch a call, reading the key words from the records in place), then
    the
@@ -58,12 +62,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``bench_step`` runs 2 rounds of ``keys8``; the small-batch steering:
    at 2^16 rows a cold cache's "auto" resolves to ``carrychunk``, timed
    against ``keys8`` and ``keys8f`` at 2^16 and 2^19 rows (equal bytes);
-6. times, with CUDA events at the main path's shapes: each kernel (K1, K4
+6. times, with CUDA events at the main path's shapes (K2 and K1 on keys8's
+   [8, 2^27] matrix; K3, K4 and their partition on the slim [4, m]
+   matrix at the keys8f engine's 100,003,840 columns, each pass's last
+   pair short or alone): each kernel (K1, K4
    and the partition kernel at each one's width per pass and summed over
    the cascade; the partition also in device time, queued behind a sleep,
    beside the floor its dependent round trips set: the deepest search's
    steps times one step's round trip to device memory, plus one launch,
-   both measured on the last pass after an L2 flush; K5 on the keys8 matrix by the main path's permutation and
+   both measured after an L2 flush on the first pair of the deepest pass
+   whose first pair is whole; K5 on the keys8 matrix by the main path's permutation and
    by a merge permutation, its own device time in turns with torch
    indexing and its other design, the whole wrapper call, its scratch
    and peak memory; K6 on the 10^8 records by the main path's permutation,
@@ -72,7 +80,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the sector-granular bound its random rows allow; K3 on the 10^8
    records in place, held to its plain version, its device time in turns
    with K3 on the materialised [4, m] matrix, beside the matrix's build
-   and its sector-granular bound), its plain version,
+   and its sector-granular bound; the records cascade on whole blocks
+   beside the one on 2^27 columns, in turns, with K3, each K4 pass and the
+   partition, each against its bound on the columns it moves, and one
+   keys8f call's ``sort.cascade_*`` counters and K4 passes), its plain
+   version,
    PyTorch's call computing the same function, its bound, the cascades and the whole-sort yardstick; A/Bs,
    in turns, of K3/K4 against K2/K1's run-time-row form on the same 4-row
    input and of K4's block width (2048 against 4096 records); and K5's
@@ -884,6 +896,50 @@ def check_records_k3(words: torch.Tensor, num_keys: int, tile: int) -> int:
                                                                num_keys))
 
 
+def check_whole_blocks(words: torch.Tensor, num_keys: int,
+                       tile: int) -> dict:
+    """The records cascade on whole blocks (``records_cascade_columns``:
+    where those columns are no power-of-two multiple of the tile, each
+    pass's last pair has a short B run or none), K3 and every K4 pass held
+    against their plain versions and the partition against its own, and
+    its first n columns against the power-of-two cascade's: the same
+    sorted keys and permutation, then the padding in arrival order.
+    Returns the largest error of each kernel and the columns."""
+    n = words.shape[0]
+    m2, tile = pallas_sort.pad_pow2(n, tile)
+    m = pallas_fold.records_cascade_columns(n, tile)
+    y = pallas_fold.tile_sort_folded_rows(words, num_keys, m, tile)
+    errs = {"tile_sort_folded_rows": max_abs_err(
+        y, pallas_fold.tile_sort_folded_plain(
+            pallas_sort.record_key_rows(words, num_keys, m, rows=4), tile,
+            num_keys)), "merge_pass_folded": 0, "merge_partition": 0}
+    for lvl in range((m // tile - 1).bit_length()):
+        L = tile << lvl
+        errs["merge_partition"] = max(errs["merge_partition"],
+                                      check_partition(y, L, num_keys, 3,
+                                                      True))
+        z = pallas_fold.merge_pass_folded(y, L, tile, num_keys)
+        errs["merge_pass_folded"] = max(
+            errs["merge_pass_folded"],
+            max_abs_err(z, pallas_fold.merge_pass_folded_plain(
+                y, L, tile, num_keys)))
+        y = z
+    require(same(y, pallas_fold.sort_records_folded4(words, num_keys, m,
+                                                     tile)),
+            f"sort_records_folded4 at m={m} differs from its passes")
+    pow2 = pallas_fold.sort_records_folded4(words, num_keys, m2, tile)
+    require(same(y[:num_keys, :n], pow2[:num_keys, :n])
+            and same(y[3, :n], pow2[3, :n]),
+            f"the cascade on {m} columns differs from the one on {m2} in "
+            f"its first {n}")
+    require(same(y[3, n:], u32(torch.arange(n, m, dtype=torch.int32,
+                                            device=y.device))),
+            f"the padding of the cascade on {m} columns is not last, in "
+            f"arrival order")
+    errs["columns"] = m
+    return errs
+
+
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
@@ -952,6 +1008,14 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
             f"tile={tile} {kind} keys: max_abs_err {err} (tolerance 0); "
             f"equal to K3 on the [4, m] matrix, cascade equal to the "
             f"stable sort")
+        errs = check_whole_blocks(x, nk, tile)
+        cols = errs.pop("columns")
+        for name, err in errs.items():
+            worst[name] = max(worst.get(name, 0), err)
+        log(f"[kernels] the records cascade on whole blocks [{n_rec}, {w}] "
+            f"at m={cols}, keys={nk} tile={tile} {kind} keys: max_abs_err "
+            f"{errs} (tolerance 0); its first {n_rec} columns equal to the "
+            f"power-of-two cascade's")
     for kind in deep_kinds:
         for rows, folded in ((8, False), (4, True)):
             nk, tb = terasort.KEY_WORDS, rows - 1
@@ -1162,14 +1226,22 @@ def library_sort(x: torch.Tensor, seg: int, num_keys: int,
     every row moved by the permutation. With ``tb_row`` it is K2/K3 (the
     tie-break row set to the arrival index); without, one K1/K4 pass,
     whose run pairs are the segments and whose tie-break row orders
-    equal keys. Never on the port's path: the ``library_ms`` yardstick."""
+    equal keys; where ``seg`` does not divide the columns, the last
+    segment is short (a pass's last pair on whole blocks). Never on the
+    port's path: the ``library_ms`` yardstick."""
     rows, m = x.shape
     key_rows = list(range(num_keys)) + ([] if tb_row is not None
                                         else [rows - 1])
-    order = sort_ops.stable_lex_argsort(
-        [x[r].view(-1, seg) for r in key_rows], dim=1)
-    src = (order + torch.arange(0, m, seg, device=x.device)[:, None]
-           ).flatten()
+    full = m - m % seg
+    src = []
+    for lo, hi, width in ((0, full, seg), (full, m, m - full)):
+        if hi > lo:
+            order = sort_ops.stable_lex_argsort(
+                [x[r, lo:hi].view(-1, width) for r in key_rows], dim=1)
+            src.append((order + torch.arange(lo, hi, width,
+                                             device=x.device)[:, None]
+                        ).flatten())
+    src = torch.cat(src)
     out = sort_ops.take_cols(x, src)
     if tb_row is not None:
         i32(out)[tb_row] = i32(words_of(src))
@@ -1180,7 +1252,8 @@ def partition_latency(y: torch.Tensor, run_len: int, num_keys: int,
                       tb_row: int, reps: int = 20) -> dict:
     """One launch of the partition kernel and one dependent step of its
     search, on the card, over two runs of ``run_len`` (``y`` holds just
-    them): the device time of a launch whose one boundary needs no search
+    them: the first pair of the deepest pass whose first pair is whole,
+    copied out where the columns run on past it): the device time of a launch whose one boundary needs no search
     (width 2 * run_len: d = 0), and of one whose second boundary (width
     run_len: d = run_len) runs the deepest search of the pass alone, each
     after the L2 cache is flushed, so every step waits for device memory;
@@ -1209,13 +1282,20 @@ def partition_latency(y: torch.Tensor, run_len: int, num_keys: int,
 
 
 def partition_work(m: int, run_len: int, width: int) -> tuple:
-    """Bytes and compares the partition kernel needs on one pass: per
-    block boundary a binary search over the diagonal's range, each step
-    reading one word of two records (more only on equal words), and one
-    4-byte split written. Returns (bytes, compares)."""
-    steps = sum((min(d, run_len) - max(0, d - run_len)).bit_length()
-                for d in range(0, 2 * run_len, width))
-    steps *= m // (2 * run_len)
+    """Bytes and compares the partition kernel needs on one pass over m
+    columns: per block boundary a binary search over the diagonal's range
+    (the last pair's with its short runs, ``pallas_sort.pair_runs``), each
+    step reading one word of two records (more only on equal words), and
+    one 4-byte split written. Returns (bytes, compares)."""
+    def pair_steps(la: int, lb: int) -> int:
+        return sum((min(d, la) - max(0, d - lb)).bit_length()
+                   for d in range(0, la + lb, width))
+
+    full, left = divmod(m, 2 * run_len)
+    steps = full * pair_steps(run_len, run_len)
+    if left:
+        la = min(left, run_len)
+        steps += pair_steps(la, left - la)
     return 4 * (m // width) + 2 * 4 * steps, steps
 
 
@@ -1223,7 +1303,10 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
                  reps: int) -> dict:
     """Time each kernel of one cascade at ``mat``'s shape, its plain
     version and PyTorch's stable sort on the same input, and compare
-    them."""
+    them. The columns are a power-of-two multiple of ``tile`` or, for the
+    records cascade's whole blocks, not: then the passes are
+    ceil(log2(tiles)) and each pass's last pair is short or alone, as on
+    the main path."""
     rows, m = mat.shape
     nk = terasort.KEY_WORDS
     tb = rows - 1
@@ -1235,6 +1318,7 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     require(same(library_sort(mat, tile, nk, tb), y),
             f"{names[0]}: PyTorch's per-tile sort differs")
     res = {names[0]: {
+        "m": m,
         "ms": time_ms(lambda: first(mat, tile, *args), reps),
         "plain_ms": time_ms(lambda: first_plain(mat, tile, *args), 1,
                             warmup=0),
@@ -1252,17 +1336,20 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     part = {"ms": 0.0, "per_pass_ms": [], "plain_ms": 0.0, "bytes": 0,
             "ops": 0, "max_abs_err": 0, "library_ms": None,
             "per_pass_device_ms": [], "steps": []}
-    for lvl in range((m // tile).bit_length() - 1):
+    for lvl in range((m // tile - 1).bit_length()):
         L = tile << lvl
         width = merge_width(rows, nk, m, L, folded)
         part["per_pass_ms"].append(time_ms(
             lambda: pallas_sort.merge_partition(y, L, width, nk, tb), reps))
         part["per_pass_device_ms"].append(device_ms(
             lambda: pallas_sort.merge_partition(y, L, width, nk, tb), reps))
-        # the deepest boundary's dependent steps (its span is L)
-        part["steps"].append(L.bit_length() if width < 2 * L else 0)
-        if 2 * L == m:
-            part["latency"] = partition_latency(y, L, nk, tb)
+        # the deepest boundary's dependent steps (its span is L, or the
+        # short B run's length where the pass's one pair is short)
+        part["steps"].append(min(L, m - L).bit_length() if width < 2 * L
+                             else 0)
+        if 2 * L <= m < 4 * L:
+            part["latency"] = partition_latency(
+                y if 2 * L == m else y[:, :2 * L].contiguous(), L, nk, tb)
         part["plain_ms"] += time_ms(
             lambda: pallas_sort.merge_partition_plain(y, L, width, nk, tb),
             1, warmup=0)
@@ -1291,7 +1378,7 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
                                  for s in part["steps"]]
     part["floor_ms"] = sum(part["floor_per_pass_ms"])
     res[names[1]] = {
-        "ms": sum(per_pass), "per_pass_ms": per_pass,
+        "m": m, "ms": sum(per_pass), "per_pass_ms": per_pass,
         "plain_ms": plain_total, "library_ms": library_total,
         "bytes": len(per_pass) * 2 * rows * m * word,
         # a merge: one compare per record and pass
@@ -1335,7 +1422,7 @@ def ab_slim(mat4: torch.Tensor, tile: int, reps: int) -> dict:
     require(same(y, pallas_sort.tile_sort(mat4, tile, nk, tb)),
             "K3 differs from K2 at 4 rows")
     spare = torch.empty_like(y)
-    for lvl in range((m // tile).bit_length() - 1):
+    for lvl in range((m // tile - 1).bit_length()):
         L = tile << lvl
         k4, k1 = in_turns(
             lambda: pallas_fold.merge_pass_folded(y, L, tile, nk, out=spare),
@@ -1532,7 +1619,7 @@ def time_k3_records(words: torch.Tensor, mat4: torch.Tensor, tile: int,
         lambda: pallas_sort.record_key_rows(words, nk, m, rows=4), reps)
     sector_bytes = int(n * 32 * row_sectors(w, nk) + 16 * m)
     res = {
-        "ms": own, "matrix_ms": on_matrix, "layout_ms": layout,
+        "m": m, "ms": own, "matrix_ms": on_matrix, "layout_ms": layout,
         "plain_ms": time_ms(lambda: pallas_fold.tile_sort_folded_plain(
             pallas_sort.record_key_rows(words, nk, m, rows=4), tile, nk), 1,
             warmup=0),
@@ -1549,6 +1636,92 @@ def time_k3_records(words: torch.Tensor, mat4: torch.Tensor, tile: int,
         f"{res['sector_bound_ms']:.3f} ms ({sector_bytes} B)")
     torch.cuda.synchronize()
     return res
+
+
+def time_whole_blocks(words: torch.Tensor, tile: int, reps: int) -> dict:
+    """The records cascade as the sort cell runs it, on whole blocks
+    (``records_cascade_columns``), beside the same cascade on the
+    power-of-two columns it took before, by CUDA events (device time): the
+    whole cascade and K3 on the records, each in turns, then each K4 pass
+    (its partition inside) and the partition alone. Each kernel's bound is
+    reckoned on the columns it moves: K4 32 B a column a pass, the
+    partition its searches (``partition_work``), K3 its sector-granular
+    bytes (as ``time_k3_records``). The two cascades' first n columns are
+    held equal, and one keys8f call's counters and K4 launches (its
+    passes) to the columns and the pass count. Returns the readings by
+    column count."""
+    n, w = words.shape
+    nk = terasort.KEY_WORDS
+    m2, tile = pallas_sort.pad_pow2(n, tile)
+    m = pallas_fold.records_cascade_columns(n, tile)
+    wide = pallas_fold.sort_records_folded4(words, nk, m2, tile)
+    got = pallas_fold.sort_records_folded4(words, nk, m, tile)
+    require(same(got[:nk, :n], wide[:nk, :n]) and same(got[3, :n],
+                                                       wide[3, :n]),
+            f"the cascade on {m} columns differs from the one on {m2}")
+    del wide, got
+    cascades = in_turns(
+        lambda: pallas_fold.sort_records_folded4(words, nk, m2, tile),
+        lambda: pallas_fold.sort_records_folded4(words, nk, m, tile),
+        reps=3, timer=device_ms)
+    k3 = in_turns(
+        lambda: pallas_fold.tile_sort_folded_rows(words, nk, m2, tile),
+        lambda: pallas_fold.tile_sort_folded_rows(words, nk, m, tile),
+        reps=reps, timer=device_ms)
+    res = {}
+    for cols, cascade_ms, k3_ms in zip((m2, m), cascades, k3):
+        y = pallas_fold.tile_sort_folded_rows(words, nk, cols, tile)
+        spare = torch.empty_like(y)
+        k4, part, part_bytes = [], [], 0
+        for lvl in range((cols // tile - 1).bit_length()):
+            L = tile << lvl
+            width = pallas_fold.merge_pass_folded_width(nk, cols, L)
+            k4.append(device_ms(lambda: pallas_fold.merge_pass_folded(
+                y, L, tile, nk, out=spare), reps))
+            part.append(device_ms(lambda: pallas_sort.merge_partition(
+                y, L, width, nk, 3), reps))
+            part_bytes += partition_work(cols, L, width)[0]
+            y, spare = pallas_fold.merge_pass_folded(y, L, tile, nk,
+                                                     out=spare), y
+        del y, spare
+        k3_bytes = int(n * 32 * row_sectors(w, nk) + 16 * cols)
+        res[cols] = {
+            "cascade_ms": cascade_ms, "passes": len(k4),
+            "k3_ms": k3_ms, "k3_bound_ms": bound(k3_bytes, 0)[0],
+            "k4_ms": sum(k4), "k4_per_pass_ms": k4,
+            "k4_bound_ms": bound(32 * cols * len(k4), 0)[0],
+            "partition_ms": sum(part), "partition_per_pass_ms": part,
+            "partition_bound_ms": bound(part_bytes, 0)[0]}
+        r = res[cols]
+        log(f"[times] records cascade at m={cols} ({n} records, tile "
+            f"{tile}, {r['passes']} passes): {cascade_ms:.3f} ms (device, "
+            f"in turns); K3 {k3_ms:.3f} ms, bound {r['k3_bound_ms']:.3f}; "
+            f"K4 {r['k4_ms']:.3f} ms, bound {r['k4_bound_ms']:.3f}; "
+            f"partition {r['partition_ms']:.3f} ms, bound "
+            f"{r['partition_bound_ms']:.4f}")
+        log(f"[times] records cascade at m={cols}: K4 per pass (ms): "
+            + " ".join(f"{v:.3f}" for v in k4))
+        log(f"[times] records cascade at m={cols}: partition per pass "
+            f"(ms): " + " ".join(f"{v:.4f}" for v in part))
+    before = {k: metrics.counters.get(k, 0.0)
+              for k in terasort.CASCADE_COUNTERS}
+    k4_before = _build.launches["merge_pass_folded"]
+    terasort.single_chip_sort(words, path="keys8f", device=words.device)
+    torch.cuda.synchronize()
+    counted = {k: metrics.counters.get(k, 0.0) - before[k]
+               for k in terasort.CASCADE_COUNTERS}
+    passes = _build.launches["merge_pass_folded"] - k4_before
+    require(counted == {"sort.cascade_records": n,
+                        "sort.cascade_columns": m}
+            and passes == res[m]["passes"],
+            f"a keys8f call counted {counted} and {passes} K4 passes, not "
+            f"{n} records in {m} columns and {res[m]['passes']} passes")
+    log(f"[times] one keys8f call: {counted}, {passes} K4 passes; the real "
+        f"share of the cascade's columns {n / m:.5f} (at m={m2}: "
+        f"{n / m2:.5f})")
+    torch.cuda.synchronize()
+    return {"columns": m, "pow2_columns": m2, "counters": counted,
+            "by_columns": res}
 
 
 def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,
@@ -1580,11 +1753,17 @@ def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,
 
 def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
                 reps: int = TIMED_REPS) -> dict:
+    """Phase 6 at the main path's shapes: keys8's [8, m8] matrix (m8 the
+    power-of-two padding, as that engine pads) and the slim [4, m] matrix
+    at the records cascade's whole blocks (``records_cascade_columns``,
+    as the keys8f engine sorts them), each kernel against its plain
+    version and PyTorch's sort, with bounds on the columns it moves."""
     n = words.shape[0]
     nk = terasort.KEY_WORDS
-    m, tile = pallas_sort.pad_pow2(n, tile)
-    keyr = pallas_sort.record_key_rows(words, nk, m)
-    mat8 = pallas_sort.record_key_rows(words, nk, m, rows=8)
+    m8, tile = pallas_sort.pad_pow2(n, tile)
+    m = pallas_fold.records_cascade_columns(n, tile)
+    keyr = pallas_sort.record_key_rows(words, nk, m8)
+    mat8 = pallas_sort.record_key_rows(words, nk, m8, rows=8)
     mat4 = pallas_sort.record_key_rows(words, nk, m, rows=4)
     times = time_cascade(mat8, tile, False, reps)
     times.update(time_cascade(mat4, tile, True, reps))
@@ -1596,6 +1775,7 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
     del mat8, mat4, merge
     times["take_rows"] = time_take_rows(words, perm, reps)
     del perm
+    whole = time_whole_blocks(words, tile, reps)
     sweep = sweep_take_lanes(words.device)
     require(all(t["max_abs_err"] == 0 for t in times.values()),
             "a kernel differs from its plain version at the main path's "
@@ -1604,7 +1784,8 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"])
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.3f} ms")
-        log(f"[times] {KERNELS[name]['id']} {name} at m={m} tile={tile}: "
+        log(f"[times] {KERNELS[name]['id']} {name} at m={t.get('m', m8)} "
+            f"tile={tile}: "
             f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
             f"{lib}, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops), "
@@ -1640,12 +1821,13 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
                                               device=words.device), 2),
         "yardstick_sort_ms": time_ms(lambda: yardstick(words), 2),
         "records": n,
-        "padded_records": m,
+        "padded_records": m8,
+        "whole_block_records": m,
         "tile": tile,
     }
     log("[times] cascades " + json.dumps(casc))
     return {"kernels": times, "cascades": casc, "ab": ab,
-            "take_lanes_sweep": sweep}
+            "take_lanes_sweep": sweep, "whole_blocks": whole}
 
 
 def log_partition_floor(what: str, p: dict) -> None:
@@ -4995,6 +5177,8 @@ def main() -> int:
         if name == "tile_sort_folded_rows":
             kernels[-1].update({k: t[k] for k in (
                 "matrix_ms", "layout_ms", "sector_bound_ms")})
+        if "m" in t:
+            kernels[-1]["columns"] = t["m"]
         if name in ("merge_pass", "merge_partition"):
             kernels[-1]["merge_path_launches"] = merged["launches"][name]
             kernels[-1]["pair_keys8_launches"] = \

@@ -206,6 +206,94 @@ def test_sort_records_folded4_matches_keys8_sort_perm(cuda_device, kind):
     assert torch.equal(out4[3].view(torch.int32), want_perm)
 
 
+_WHOLE_N = 10**6 + 37        # records: 980 tiles of 1024, no power of two
+_WHOLE_M = 1_003_520         # their whole blocks of 4096
+
+
+@pytest.mark.parametrize("nk,kind", [(1, "mixed"), (2, "mixed"),
+                                     (3, "mixed"), (3, "equal"),
+                                     (3, "ones")])
+def test_k4_and_partition_take_a_short_last_run(cuda_device, nk, kind):
+    """The records cascade on whole blocks, whose passes end in a pair
+    with a short B run or a lone A run: K3 on the records, then every
+    pass's partition and K4 against their plain versions, byte for
+    byte."""
+    x = _on_card(words(_WHOLE_N + nk, 26, _WHOLE_N, nk, kind).T.copy(),
+                 cuda_device)
+    m = pallas_fold.records_cascade_columns(_WHOLE_N, 1024)
+    assert m == _WHOLE_M
+    y = pallas_fold.tile_sort_folded_rows(x, nk, m, 1024)
+    run = 1024
+    while run < m:
+        width = pallas_fold.merge_pass_folded_width(nk, m, run)
+        assert width == 2048
+        got = pallas_sort.merge_partition(y, run, width, nk, 3)
+        assert torch.equal(got, pallas_sort.merge_partition_plain(
+            y, run, width, nk, 3))
+        z = pallas_fold.merge_pass_folded(y, run, 1024, nk)
+        assert _same(z, pallas_fold.merge_pass_folded_plain(y, run, 1024,
+                                                             nk))
+        y, run = z, 2 * run
+
+
+@pytest.mark.parametrize("rows,nk,tb,n", [(8, 3, 7, 5 * 4096),
+                                          (32, 3, 31, 13 * 1024),
+                                          (4, 1, 3, 3 * 4096)])
+def test_k1_takes_a_short_last_run(cuda_device, rows, nk, tb, n):
+    """K1 shares the merge pass's device code: on tiles that are no power
+    of two, every pass (its last pair short or alone) against its plain
+    version, and the cascade against numpy."""
+    x_np = words(n + rows, rows, n, nk)
+    x = _on_card(x_np, cuda_device)
+    y = pallas_sort.tile_sort(x, 1024, nk, tb)
+    run = 1024
+    while run < n:
+        z = pallas_sort.merge_pass(y, run, 1024, nk, tb)
+        assert _same(z, pallas_sort.merge_pass_plain(y, run, 1024, nk, tb))
+        y, run = z, 2 * run
+    np.testing.assert_array_equal(interop.words_to_numpy(y),
+                                  oracle(x_np, nk, tb))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "equal", "ones"])
+def test_sort_records_folded4_on_whole_blocks_matches_the_pow2_cascade(
+        cuda_device, kind):
+    """The cascade on whole blocks against the one on the power-of-two
+    padding: the same sorted keys and permutation in the first n columns,
+    then the padding in arrival order."""
+    n, m = _WHOLE_N, _WHOLE_M
+    x = _on_card(words(n + 5, 26, n, 3, kind).T.copy(), cuda_device)
+    m2, tile = pallas_sort.pad_pow2(n, 1024)
+    got = pallas_fold.sort_records_folded4(x, 3, m, tile=tile)
+    want = pallas_fold.sort_records_folded4(x, 3, m2, tile=tile)
+    assert _same(got[:3, :n], want[:3, :n])
+    assert torch.equal(got[3, :n], want[3, :n])
+    assert torch.equal(got[3, n:].view(torch.int32),
+                       torch.arange(n, m, dtype=torch.int32,
+                                    device=cuda_device))
+
+
+def test_keys8f_sorts_on_whole_blocks_and_counts_them(cuda_device):
+    """One keys8f call on 10^6 + 37 records: carry's bytes, one K3 launch,
+    ceil(log2(980)) = 10 K4 passes, and the records and columns of its
+    cascade counted once."""
+    from uda_tpu_torch.utils.metrics import metrics
+
+    x = _on_card(records(27, _WHOLE_N), cuda_device)
+    before = {k: metrics.counters.get(k, 0.0)
+              for k in tts.CASCADE_COUNTERS}
+    _build.reset_launches()
+    got = tts.single_chip_sort(x, path="keys8f", device=cuda_device)
+    torch.cuda.synchronize()
+    assert _build.launches["tile_sort_folded_rows"] == 1
+    assert _build.launches["merge_pass_folded"] == 10
+    assert {k: metrics.counters.get(k, 0.0) - before[k]
+            for k in tts.CASCADE_COUNTERS} == {
+        "sort.cascade_records": _WHOLE_N, "sort.cascade_columns": _WHOLE_M}
+    assert _same(got, tts.single_chip_sort(x, path="carry",
+                                           device=cuda_device))
+
+
 def test_keys8f_sorts_1e7_records_as_carry_does(cuda_device):
     """The keys8f engine at 10^7 records (one in 20 with all-0xFFFFFFFF
     keys) against the carry engine, byte for byte."""
@@ -335,12 +423,14 @@ def test_single_chip_sort_moves_rows_by_take_rows(cuda_device, path):
     keys8 alone, the key rows (the gather's moment; keys8f's K3 reads the
     key words in place) and nothing of 8 bytes a record: n is large enough
     that half of 8n outweighs the allocator's rounding of those blocks
-    (under 2 MiB each)."""
+    (under 2 MiB each). keys8f's m is its whole blocks of 4096, keys8's
+    the power of two."""
     n, tile = 4_000_000, 1024
     x = _on_card(records(5, n), cuda_device)
     want = tts.single_chip_sort(x, path="carry", device=cuda_device)
     rows = 4 if path == "keys8f" else 8
-    m = 1 << 22
+    m = (pallas_fold.records_cascade_columns(n, tile) if path == "keys8f"
+         else 1 << 22)
     keyr = 0 if path == "keys8f" else tts.KEY_WORDS * m * 4
     reckoned = n * 26 * 4 + rows * m * 4 + keyr
     torch.cuda.synchronize()

@@ -220,3 +220,166 @@ def test_tile_sort_folded_rows_refuses_what_it_does_not_take(shape, num_keys,
     w = torch.zeros(shape, dtype=torch.uint32)
     with pytest.raises(ValueError, match=match):
         tpf.tile_sort_folded_rows(w, num_keys, m, 128)
+
+
+# the records cascade on whole blocks: columns a multiple of max(tile,
+# 4096), so each pass's last pair may have a short B run or none
+_BLOCK = 4096
+
+
+def _whole_blocks(n: int, tile: int = 1024) -> int:
+    unit = max(tile, _BLOCK)
+    return -(-n // unit) * unit
+
+
+@pytest.mark.parametrize("num_keys", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 2 * 4096 + 5, 3 * 4096 + 5,
+                               5 * 4096 + 1])
+def test_sort_records_folded4_on_whole_blocks_matches_the_pow2_cascade(
+        n, num_keys):
+    """The cascade on whole blocks sorts the records as the one on the
+    power-of-two padding does: the same sorted keys and permutation in
+    the first n columns, every record once; the padding after them in
+    arrival order."""
+    w = words(n + 3 * num_keys, 26, n, num_keys).T.copy()
+    m = _whole_blocks(n)
+    m2, tile = _slim_shape(n)
+    out4 = tpf.sort_records_folded4(torch.from_numpy(w), num_keys, m,
+                                    tile=1024)
+    want_sk, want_perm = tps.keys8_sort_perm(_keyr(w, num_keys, m2),
+                                             tile=tile, folded=True)
+    perm = out4[3].view(torch.int32)
+    assert out4.shape == (4, m)
+    assert torch.equal(out4[:num_keys, :n], want_sk[:, :n])
+    assert torch.equal(perm[:n], want_perm[:n])
+    assert sorted(perm[:n].tolist()) == list(range(n))
+    assert torch.equal(perm[n:], torch.arange(n, m, dtype=torch.int32))
+    assert (out4[:num_keys, n:].view(torch.int32) == -1).all()
+
+
+@pytest.mark.parametrize("kind", ["equal", "ones"])
+@pytest.mark.parametrize("n", [2 * 4096 + 5, 5 * 4096 + 1])
+def test_sort_records_folded4_on_whole_blocks_keeps_arrival_order(n, kind):
+    """All-equal keys, and all-0xFFFFFFFF ones equal to the padding's, on
+    whole blocks: the permutation is the arrival order, real records
+    before the padding."""
+    w = words(n, 26, n, 3, kind).T.copy()
+    m = _whole_blocks(n)
+    out4 = tpf.sort_records_folded4(torch.from_numpy(w), 3, m, tile=1024)
+    assert torch.equal(out4[3].view(torch.int32),
+                       torch.arange(m, dtype=torch.int32))
+
+
+def _runs_with_a_short_last(seed: int, num_keys: int, run_len: int,
+                            n: int) -> np.ndarray:
+    """[4, n] slim records in ascending runs of ``run_len`` (the last one
+    shorter where n is no multiple of it), keys from a small alphabet so
+    that runs tie, row 3 the arrival index."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((4, n), np.uint32)
+    x[:num_keys] = rng.integers(0, 4, size=(num_keys, n), dtype=np.uint32)
+    x[3] = np.arange(n, dtype=np.uint32)
+    for base in range(0, n, run_len):
+        x[:, base:base + run_len] = oracle(x[:, base:base + run_len],
+                                           num_keys, 3)
+        x[3, base:base + run_len] += np.uint32(base)
+    return x
+
+
+@pytest.mark.parametrize("num_keys", [1, 3])
+@pytest.mark.parametrize("pairs,short", [(2, 512), (2, 1024), (1, 1536),
+                                         (0, 256), (0, 768)])
+def test_merge_pass_folded_plain_takes_a_short_last_run(num_keys, pairs,
+                                                        short):
+    """A pass whose last pair has a short B run (``short`` past the A run)
+    or a lone A run (``short`` <= run_len): every full pair and the last
+    one are numpy's stable lexsort of the pair, ties to A; the partition's
+    splits stay inside the pair's runs."""
+    L, tile = 1024, 256
+    n = pairs * 2 * L + short
+    x = _runs_with_a_short_last(n + num_keys, num_keys, L, n)
+    got = tpf.merge_pass_folded_plain(torch.from_numpy(x), L, tile,
+                                      num_keys).numpy()
+    for a0 in range(0, n, 2 * L):
+        pair = x[:, a0:a0 + 2 * L]
+        perm = np.lexsort([pair[3], *(pair[r] for r in
+                                      reversed(range(num_keys)))])
+        np.testing.assert_array_equal(got[:, a0:a0 + 2 * L], pair[:, perm])
+    splits = tps.merge_partition_plain(torch.from_numpy(x), L, tile,
+                                       num_keys, 3).numpy()
+    a_base = np.arange(0, n, tile) // (2 * L) * (2 * L)
+    la = np.minimum(L, n - a_base)
+    lb = np.minimum(L, n - a_base - la)
+    d = np.arange(0, n, tile) - a_base
+    assert ((splits >= np.maximum(0, d - lb)) & (splits <= np.minimum(d, la))
+            ).all()
+
+
+@pytest.mark.parametrize("n,tile,whole", [(3 * 1024, 1024, True),
+                                          (3 * 4096, 1024, False),
+                                          (5 * 4096, 256, False),
+                                          (20480, 8192, True)])
+def test_check_cascade_keeps_the_pow2_contract(n, tile, whole):
+    """Only the records cascade takes whole blocks, and only whole blocks
+    of max(tile, 4096): every other n that is no power-of-two multiple of
+    the tile is refused, as sort_lanes_folded4 refuses it."""
+    with pytest.raises(ValueError, match="power-of-two multiple"):
+        tpf._check_cascade(n, 3, tile, whole_blocks=whole)
+    with pytest.raises(ValueError, match="power-of-two multiple"):
+        tpf.sort_lanes_folded4(torch.zeros((4, n), dtype=torch.uint32), 3,
+                               tile=tile)
+
+
+def test_sort_records_folded4_takes_whole_blocks_alone():
+    """sort_records_folded4 takes 3 x 4096 columns at tile 1024 and
+    refuses 3 x 1024; sort_lanes_folded4 refuses both."""
+    w = torch.from_numpy(records(7, 3 * 4096 - 5))
+    tpf._check_cascade(3 * 4096, 3, 1024, whole_blocks=True)
+    assert tpf.sort_records_folded4(w, 3, 3 * 4096).shape == (4, 3 * 4096)
+    with pytest.raises(ValueError, match="or a multiple of 4096"):
+        tpf.sort_records_folded4(w[:3000], 3, 3 * 1024)
+
+
+@pytest.mark.parametrize("n,tile,columns", [
+    (1, 1024, 1024), (1000, 1024, 1024), (4097, 1024, 8192),
+    (3 * 4096 + 5, 1024, 16384), (10**5 + 3, 1024, 102400),
+    (10**8, 1024, 100_003_840), (1 << 27, 1024, 1 << 27),
+    (70_001, 16384, 81920)])
+def test_records_cascade_columns(n, tile, columns):
+    """The fewer of the power-of-two columns and the whole blocks of
+    max(tile, 4096) that hold n records."""
+    assert tpf.records_cascade_columns(n, tile) == columns
+
+
+def test_cascade_unit_is_the_kernels_widest_block():
+    """The whole-block unit comes from the kernels' own K1_MAX_WIDTH in
+    csrc/lanes_common.cuh, read without a build; a name the header does
+    not define is refused."""
+    from uda_tpu_torch.ops import _build
+
+    assert _build.header_constant("K1_MAX_WIDTH") == tpf._K4_MAX_WIDTH
+    assert tpf.records_cascade_columns(1, 256) == 256
+    assert tpf.records_cascade_columns(257, 256) == 512
+    assert tpf.records_cascade_columns(
+        3 * tpf._K4_MAX_WIDTH + 1, 256) == 4 * tpf._K4_MAX_WIDTH
+    with pytest.raises(RuntimeError, match="NO_SUCH_WIDTH"):
+        _build.header_constant("NO_SUCH_WIDTH")
+
+
+@pytest.mark.parametrize("n,columns", [(3 * 4096 + 5, 16384),
+                                       (10**5 + 3, 102400)])
+def test_single_chip_sort_keys8f_counts_its_cascade(n, columns):
+    """keys8f sorts on whole blocks as carry does and counts the records
+    and the columns of its cascade once a call."""
+    from uda_tpu_torch.utils.metrics import metrics
+
+    w = torch.from_numpy(records(n + 13, n))
+    before = {k: metrics.counters.get(k, 0.0)
+              for k in tts.CASCADE_COUNTERS}
+    got = tts.single_chip_sort(w, path="keys8f", device="cpu")
+    counted = {k: metrics.counters.get(k, 0.0) - before[k]
+               for k in tts.CASCADE_COUNTERS}
+    carry = tts.single_chip_sort(w, path="carry", device="cpu")
+    np.testing.assert_array_equal(got.numpy(), carry.numpy())
+    assert counted == {"sort.cascade_records": n,
+                       "sort.cascade_columns": columns}

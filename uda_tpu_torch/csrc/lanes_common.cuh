@@ -467,11 +467,25 @@ inline int merge_width(int rows, int nk, size_t n, size_t run_len,
   return (int)w;
 }
 
+// The two runs of the pair that starts at column a_base of a pass over n
+// columns with runs of L: L each where the pair lies wholly inside n (every
+// pair where n is a multiple of 2 L). A cascade on a whole number of blocks
+// (n not a power-of-two multiple of its tile) ends in a pair whose B run is
+// short or empty, and then a lone A run; a lone run is merged with an empty
+// one, which copies it.
+__device__ __forceinline__ void pair_runs(size_t n, size_t L, size_t a_base,
+                                          size_t& la, size_t& lb) {
+  const size_t left = n - a_base;
+  la = left < L ? left : L;
+  lb = left - la < L ? left - la : L;
+}
+
 // The partition: for every block boundary b (output column b * width), the
 // merge-path split of its run pair's diagonal d: i0 = the number of A-run
 // records among the pair's first d merged records, ties to A, the largest i
 // in [lo, hi] with !(B[d - i] < A[i - 1]) (a predicate true, then false,
-// as i grows); the same answer as the plain version's merge_splits.
+// as i grows), lo = max(0, d - lb) and hi = min(d, la) for the pair's run
+// lengths (pair_runs); the same answer as the plain version's merge_splits.
 //
 // What bounds it: scattered reads, each its own 32-byte sector, and how many
 // the card has in flight; not the bytes (4 a probe) and not the chain of
@@ -493,10 +507,12 @@ __global__ void merge_partition_kernel(const uint32_t* __restrict__ x,
   const size_t L = run_len;
   const size_t out0 = b * width;
   const size_t a_base = out0 / (2 * L) * (2 * L);
-  const size_t b_base = a_base + L;
+  size_t la, lb;
+  pair_runs(n, L, a_base, la, lb);
+  const size_t b_base = a_base + la;
   const size_t d = out0 - a_base;
-  size_t lo = d > L ? d - L : 0;
-  size_t hi = d < L ? d : L;
+  size_t lo = d > lb ? d - lb : 0;
+  size_t hi = d < la ? d : la;
   while (lo < hi) {
     const int sh = 63 - __clzll((long long)(hi - lo));  // S = 2^sh <= span
     const size_t c = ((lo >> sh) + 1) << sh;  // A records taken, in (lo, hi]
@@ -511,9 +527,10 @@ __global__ void merge_partition_kernel(const uint32_t* __restrict__ x,
 
 // The merge pass (K1, K4): one block of width / K1_V threads per `width`
 // output records of one pass, which merges adjacent ascending runs of
-// run_len into ascending runs of 2 * run_len. The block's ends come from
-// the partition: it merges A[i0, i1) with B[j0, j1), i1 - i0 + j1 - j0 =
-// width.
+// run_len into ascending runs of 2 * run_len (the last pair's runs as
+// pair_runs gives them). The block's ends come from the partition: it
+// merges A[i0, i1) with B[j0, j1), i1 - i0 + j1 - j0 = width, i1 = la at
+// the pair's last block.
 // 1. Load: payload rows by cp.async into row-major shared memory, compared
 //    words packed into the planes; window position k < na is A[i0 + k],
 //    k >= na is B[j0 + k - na]. Every word is read once, coalesced.
@@ -543,13 +560,15 @@ __global__ void __launch_bounds__(K1_MAX_WIDTH / K1_V)
   const size_t L = run_len;
   const size_t out0 = (size_t)blockIdx.x * W;
   const size_t a_base = out0 / (2 * L) * (2 * L);
+  size_t la, lb;
+  pair_runs(n, L, a_base, la, lb);
   const size_t d0 = out0 - a_base;
   const size_t i0 = splits[blockIdx.x];
-  const size_t i1 = d0 + W == 2 * L ? L : splits[blockIdx.x + 1];
+  const size_t i1 = d0 + W == la + lb ? la : splits[blockIdx.x + 1];
   const int na = (int)(i1 - i0);
   const int nb = W - na;
-  const size_t a_col = a_base + i0;                   // column of k = 0
-  const size_t b_col = a_base + L + (d0 - i0) - na;   // + k for k >= na
+  const size_t a_col = a_base + i0;                    // column of k = 0
+  const size_t b_col = a_base + la + (d0 - i0) - na;   // + k for k >= na
 
   for (int p = 0; p < npay; ++p) {
     const int row = p < tb_row - nk ? nk + p : nk + 1 + p;

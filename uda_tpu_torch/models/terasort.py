@@ -35,6 +35,7 @@ from uda_tpu_torch.ops.sort import (ALL_SORT_PATHS, LANES_ENGINES, _as_i64,
                                     apply_perm_chunked, fill_words, i32,
                                     route_engine, stable_lex_argsort,
                                     take_cols, u32)
+from uda_tpu_torch.utils.metrics import metrics
 
 __all__ = ["KEY_WORDS", "VALUE_WORDS", "RECORD_WORDS", "RECORD_BYTES",
            "teragen", "teragen_lanes", "single_chip_sort",
@@ -45,6 +46,10 @@ KEY_WORDS = 3        # 10 key bytes -> 3 BE words (2 pad bytes, constant 0)
 VALUE_WORDS = 23     # 90 value bytes -> 23 words (2 pad bytes)
 RECORD_WORDS = KEY_WORDS + VALUE_WORDS
 RECORD_BYTES = 100   # logical TeraSort record size
+
+# the records cascade's counters (port-only): the records it sorts and
+# the columns K3 and K4 sort them in, padding included
+CASCADE_COUNTERS = ("sort.cascade_records", "sort.cascade_columns")
 
 _KEY_PAD_MASK = -65536   # 0xFFFF0000 as int32: zero the key's 2 pad bytes
 _ALL_ONES = 0xFFFFFFFF
@@ -87,15 +92,21 @@ def _as_words(words, device) -> torch.Tensor:
 def _single_chip_sort_lanes(words: torch.Tensor, path: str,
                             tile: int) -> torch.Tensor:
     """Lanes-engine body: pad the record count to a power-of-two multiple
-    of ``tile`` with all-0xFFFFFFFF-key columns and run the kernel cascade.
-    Padding holds the highest columns, so even a real record whose keys
-    are all 0xFFFFFFFF sorts before it (the arrival tie-break); cutting to
-    n drops exactly the padding."""
+    of ``tile`` with all-0xFFFFFFFF-key columns and run the kernel cascade;
+    the keys8f cascade on the records in place pads only to a whole number
+    of blocks (``pallas_fold.records_cascade_columns``) and counts its
+    records and columns (``CASCADE_COUNTERS``). Padding holds the highest
+    columns, so even a real record whose keys are all 0xFFFFFFFF sorts
+    before it (the arrival tie-break); cutting to n drops exactly the
+    padding."""
     n, w = words.shape
     m, tile = pallas_sort.pad_pow2(n, tile)
     if path in ("keys8", "keys8f"):
         if path == "keys8f" and pallas_sort.slim_takes(KEY_WORDS, tile):
             # K3 reads the key words from the records in place
+            m = pallas_fold.records_cascade_columns(n, tile)
+            for name, value in zip(CASCADE_COUNTERS, (n, m)):
+                metrics.add(name, value)  # udalint: disable=UDA002 - port-only counters; METRICS_REGISTRY stays the reference's
             out4 = pallas_fold.sort_records_folded4(words, KEY_WORDS, m, tile)
             perm = out4[3].view(torch.int32)
         else:

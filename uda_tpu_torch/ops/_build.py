@@ -21,6 +21,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +31,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["launches", "count", "reset_launches", "build_all", "library",
-           "launch", "cuda_words", "smem_limit", "check_smem", "stream_of"]
+           "launch", "cuda_words", "smem_limit", "check_smem", "stream_of",
+           "header_constant"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -83,6 +85,18 @@ def _lib_path(src: Path) -> Path:
     for path in (src, *sorted(CSRC.glob("*.cuh"))):
         digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def header_constant(name: str, header: str = "lanes_common.cuh") -> int:
+    """The value of ``constexpr int <name> = <value>;`` in
+    ``csrc/<header>``: a limit the kernels own that a host-side rule needs
+    too, read from the source, so it holds on a machine with no ``nvcc``."""
+    found = re.search(rf"constexpr\s+int\s+{name}\s*=\s*(\d+)\s*;",
+                      (CSRC / header).read_text())
+    if found is None:
+        raise RuntimeError(f"uda_tpu_torch: csrc/{header} defines no "
+                           f"constexpr int {name}")
+    return int(found.group(1))
 
 
 def build_all() -> float:

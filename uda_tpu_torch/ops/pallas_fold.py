@@ -24,7 +24,9 @@ lanes-layout ones at ``tb_row=3``. The kernels are CUDA C++
   finds every block's split in parallel, ties to A; each block then loads
   exactly its window, merges from register heads and writes every row
   once. Its block width comes from the slim layout's shared-memory budget,
-  not from ``tile``.
+  not from ``tile``. A pass over columns that are no power-of-two multiple
+  of its runs (the records cascade on whole blocks) merges its last pair
+  with a short B run, or copies a lone A run.
 
 The TPU kernels fold two element halves into 8 rows to halve their vector
 work; that is a TPU device, and the output contract is what carries over.
@@ -43,13 +45,15 @@ from uda_tpu_torch.ops.pallas_sort import (_LANE, _cat_words, _check_words,
 from uda_tpu_torch.ops.sort import fill_words, i32, u32
 
 __all__ = ["sort_lanes_folded", "sort_lanes_folded4", "sort_records_folded4",
-           "tile_sort_folded", "tile_sort_folded_plain",
-           "tile_sort_folded_rows", "merge_pass_folded",
+           "records_cascade_columns", "tile_sort_folded",
+           "tile_sort_folded_plain", "tile_sort_folded_rows",
+           "merge_pass_folded",
            "merge_pass_folded_plain", "merge_pass_folded_width"]
 
 _SLOT = 4   # rows of the slim layout: 3 key rows + tie-break
 _TB = 7     # tie-break row of the standard keys8 layout
 _TB4 = 3    # tie-break row of the slim layout
+_K4_MAX_WIDTH = _build.header_constant("K1_MAX_WIDTH")  # K4's widest block
 
 _C = ctypes
 _SIGNATURES = {
@@ -232,34 +236,61 @@ def sort_lanes_folded4(x4: torch.Tensor, num_keys: int,
 
 def sort_records_folded4(words: torch.Tensor, num_keys: int, m: int,
                          tile: int = 1024) -> torch.Tensor:
-    """The slim-layout cascade on records in place: equal to
-    ``sort_lanes_folded4`` on the padded [4, m] matrix of the first
-    ``num_keys`` words of the row-major records ``words`` (uint32[n, w], n
-    <= m; padding columns all-0xFFFFFFFF keys, so they sort after every
-    real record, and rows num_keys..2 zero), which is never built: K3 reads
-    the key words in place (:func:`tile_sort_folded_rows`), then K4's
-    passes. ``m`` and ``tile`` as ``sort_lanes_folded4`` takes them."""
+    """The slim-layout cascade on records in place: the sorted [4, m]
+    matrix of the first ``num_keys`` words of the row-major records
+    ``words`` (uint32[n, w], n <= m; padding columns all-0xFFFFFFFF keys,
+    so they sort after every real record, and rows num_keys..2 zero),
+    which is never built: K3 reads the key words in place
+    (:func:`tile_sort_folded_rows`), then K4's passes. ``tile`` as
+    ``sort_lanes_folded4`` takes it; ``m`` a power-of-two multiple of it,
+    where this equals ``sort_lanes_folded4`` on that matrix, or any
+    multiple of ``max(tile, 4096)`` (:func:`records_cascade_columns`):
+    then the cascade sorts whole blocks, its last run short, and its
+    columns are the stable order of those keys all the same."""
     words = _check_words(words)
-    _check_cascade(m, num_keys, tile)
+    _check_cascade(m, num_keys, tile, whole_blocks=True)
     return _merge_tiles(tile_sort_folded_rows(words, num_keys, m, tile),
                         tile, num_keys)
 
 
-def _check_cascade(n: int, num_keys: int, tile: int) -> None:
+def records_cascade_columns(n: int, tile: int) -> int:
+    """The columns :func:`sort_records_folded4` sorts ``n`` records in at
+    ``tile``: the fewer of the power-of-two multiple of the tile that
+    holds them and the whole number of blocks of ``max(tile, 4096)`` that
+    does. Both the tile and K4's widest block divide the latter, so every
+    K4 pass keeps the block width it has at a power of two; at 10^8
+    records and tile 1024 it is 100,003,840 columns, not 2^27."""
+    unit = max(tile, _K4_MAX_WIDTH)
+    pow2 = max(tile, 1 << max(0, n - 1).bit_length())
+    return min(pow2, -(-n // unit) * unit)
+
+
+def _check_cascade(n: int, num_keys: int, tile: int,
+                   whole_blocks: bool = False) -> None:
+    """The cascade's shape: ``n`` a power-of-two multiple of ``tile``, or,
+    with ``whole_blocks`` (the records cascade alone), any multiple of
+    ``max(tile, 4096)``."""
     if not 0 < num_keys <= 3:
         raise ValueError(f"folded cascade needs num_keys <= 3, got "
                          f"{num_keys}")
     if tile & (tile - 1) or tile % (2 * _LANE):
         raise ValueError(f"tile={tile} must be a power of two multiple "
                          f"of {2 * _LANE}")
-    if n % tile or (n // tile) & (n // tile - 1):
+    unit = max(tile, _K4_MAX_WIDTH)
+    if n % tile or ((n // tile) & (n // tile - 1)
+                    and not (whole_blocks and n % unit == 0)):
         raise ValueError(f"n={n} must be a power-of-two multiple of "
-                         f"tile={tile}")
+                         f"tile={tile}"
+                         + (f" or a multiple of {unit}" if whole_blocks
+                            else ""))
 
 
 def _merge_tiles(y: torch.Tensor, tile: int, num_keys: int) -> torch.Tensor:
-    """K4's passes over K3's sorted tiles, up to one sorted run."""
-    levels = (y.shape[1] // tile).bit_length() - 1
+    """K4's passes over K3's sorted tiles, up to one sorted run: one pass
+    a level, ceil(log2(tiles)) of them; where the tiles are no power of
+    two, each level's last pair has a short B run or none
+    (``pallas_sort.pair_runs``)."""
+    levels = (y.shape[1] // tile - 1).bit_length()
     spare = torch.empty_like(y) if levels else None
     for lvl in range(levels):
         z = merge_pass_folded(y, tile << lvl, tile, num_keys, out=spare)

@@ -39,7 +39,8 @@ __all__ = ["ROWS", "TB_ROW_DEFAULT", "sort_lanes", "rows_to_lanes",
            "lanes_to_rows", "keys8_sort_perm", "record_key_rows",
            "slim_takes", "pad_pow2", "tile_sort", "tile_sort_plain",
            "merge_pass", "merge_pass_plain", "merge_partition",
-           "merge_partition_plain", "merge_pass_width", "merge_splits"]
+           "merge_partition_plain", "merge_pass_width", "merge_splits",
+           "pair_runs"]
 
 ROWS = 32               # row count of the full lanes layout
 TB_ROW_DEFAULT = 31     # default tie-break row (last)
@@ -86,7 +87,9 @@ def lanes_to_rows(lanes: torch.Tensor, num_words: int) -> torch.Tensor:
 def pad_pow2(n: int, tile: int) -> tuple[int, int]:
     """The lane-padding rule of every lanes-engine entry point: pad ``n``
     records up to ``m`` (a power of two, at least 128) and clamp ``tile``
-    so sort_lanes' preconditions hold. Returns (m, tile)."""
+    so sort_lanes' preconditions hold. Returns (m, tile). The keys8f
+    cascade on records in place pads less, to whole blocks
+    (``pallas_fold.records_cascade_columns``)."""
     m = max(_LANE, 1 << max(0, n - 1).bit_length())
     return m, min(tile, m)
 
@@ -120,11 +123,23 @@ def _lex_lt(a: list, b: list) -> torch.Tensor:
     return lt
 
 
+def pair_runs(a_base: torch.Tensor, n: int, run_len: int) -> tuple:
+    """The A and B run lengths of the run pairs that start at columns
+    ``a_base`` of a pass over ``n`` columns: ``run_len`` each where the
+    pair lies wholly inside n (every pair where n is a multiple of
+    ``2 * run_len``); the last pair of a cascade on a whole number of
+    blocks has a short B run or none, and a lone A run is merged with an
+    empty one, which copies it."""
+    la = (n - a_base).clamp(max=run_len)
+    return la, (n - a_base - la).clamp(max=run_len)
+
+
 def merge_splits(keys: list, n: int, run_len: int, tile: int):
     """Per output tile of one pass that merges ascending runs of
-    ``run_len`` into runs of ``2 * run_len``: the A-run base column and
-    the merge-path split (i0, j0), the numbers of A and B records among
-    the pair's records merged before the tile. A vectorised binary search
+    ``run_len`` into runs of ``2 * run_len`` (the last pair's runs as
+    :func:`pair_runs` gives them): the A-run base column and the
+    merge-path split (i0, j0), the numbers of A and B records among the
+    pair's records merged before the tile. A vectorised binary search
     over all tiles at once (the reference's ``_pass_splits``); ``keys``
     are the int64 key rows plus the tie-break row, so ties go to A by
     arrival order. K1's partition kernel computes the same split per
@@ -132,17 +147,18 @@ def merge_splits(keys: list, n: int, run_len: int, tile: int):
     L = run_len
     out0 = torch.arange(0, n, tile, device=keys[0].device)
     a_base = out0 // (2 * L) * (2 * L)
-    b_base = a_base + L
+    la, lb = pair_runs(a_base, n, L)
+    b_base = a_base + la
     d = out0 - a_base
-    lo = (d - L).clamp(min=0)
-    hi = d.clamp(max=L)
+    lo = (d - lb).clamp(min=0)
+    hi = torch.minimum(d, la)
     for _ in range(L.bit_length() + 1):
         mid = (lo + hi + 1) // 2                # candidate: A records taken
         j = d - mid                             # B records taken
-        a_idx = a_base + (mid - 1).clamp(0, L - 1)
-        b_idx = b_base + j.clamp(0, L - 1)
+        a_idx = a_base + torch.minimum((mid - 1).clamp(min=0), la - 1)
+        b_idx = b_base + torch.minimum(j.clamp(min=0), lb - 1)
         b_lt_a = _lex_lt([k[b_idx] for k in keys], [k[a_idx] for k in keys])
-        ok = (mid <= 0) | (j >= L) | ~b_lt_a
+        ok = (mid <= 0) | (j >= lb) | ~b_lt_a
         lo = torch.where(ok, mid, lo)
         hi = torch.where(ok, hi, mid - 1)
     return a_base, lo, d - lo
@@ -151,13 +167,15 @@ def merge_splits(keys: list, n: int, run_len: int, tile: int):
 def merge_pass_plain(x: torch.Tensor, run_len: int, tile: int,
                      num_keys: int, tb_row: int) -> torch.Tensor:
     """Plain version of K1: adjacent ascending runs of ``run_len`` records
-    merged into ascending runs of ``2 * run_len``, ties to the first run.
-    Per output tile: the merge-path split, then the first ``tile`` records
-    of its two windows in order."""
+    merged into ascending runs of ``2 * run_len``, ties to the first run
+    (the last pair's runs as :func:`pair_runs` gives them). Per output
+    tile: the merge-path split, then the first ``tile`` records of its two
+    windows in order."""
     rows, n = x.shape
     L = run_len
     keys = [_as_i64(x[r]) for r in [*range(num_keys), tb_row]]
     a_base, i0, j0 = merge_splits(keys, n, L, tile)
+    la, lb = pair_runs(a_base, n, L)
     q = torch.arange(tile, device=x.device)
     out = torch.empty_like(x)
     per = max(1, _PLAIN_CHUNK // tile)
@@ -165,10 +183,12 @@ def merge_pass_plain(x: torch.Tensor, run_len: int, tile: int,
         t1 = min(n // tile, t0 + per)
         ia = i0[t0:t1, None] + q
         ib = j0[t0:t1, None] + q
-        cols = torch.cat([a_base[t0:t1, None] + ia.clamp(max=L - 1),
-                          a_base[t0:t1, None] + L + ib.clamp(max=L - 1)],
-                         dim=1)
-        past_end = torch.cat([ia >= L, ib >= L], dim=1).to(torch.int64)
+        base, na, nb = (v[t0:t1, None] for v in (a_base, la, lb))
+        # a B position past an empty B run reads the A run's last record,
+        # past its end like every position clamped here
+        cols = torch.cat([base + torch.minimum(ia, na - 1),
+                          base + na + torch.minimum(ib, nb - 1)], dim=1)
+        past_end = torch.cat([ia >= na, ib >= nb], dim=1).to(torch.int64)
         order = stable_lex_argsort([past_end, *(k[cols] for k in keys)],
                                    dim=1)
         src = torch.gather(cols, 1, order[:, :tile]).flatten()
