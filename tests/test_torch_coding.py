@@ -509,6 +509,84 @@ def test_dead_supplier_without_coding_falls_back(tmp_path):
     assert metrics.get("coding.recover.attempts") == 0
 
 
+# -- the reconstruction's timers ------------------------------------------------
+
+RECOVERY_TIMERS = ("coding_recover", "coding_decode")
+
+
+def _spans_named(name: str) -> list:
+    return [s for s in metrics.spans if s["name"] == name]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_recovery_timers_fire_once_a_rebuilt_partition(tmp_path, mode):
+    """With spans on, each rebuilt partition has one ``coding_recover``
+    span, a child of its segment's fetch span, holding one
+    ``coding_decode`` span; the two counters hold their spans' time."""
+    roots, maps = _striped_tree(tmp_path, "rs:2:4", 8)
+    conf = dict(MODES[mode], **{"uda.tpu.coding.scheme": "rs:2:4",
+                                "uda.tpu.fetch.retries": 1,
+                                "mapred.rdma.buf.size": 1})
+    if mode == "streaming":
+        conf["uda.tpu.spill.dirs"] = str(tmp_path / "spill")
+    metrics.enable_spans()
+    _coded_run(True, roots, maps, conf)
+    rebuilt = metrics.get("coding.reconstructed.partitions")
+    by_id = {s["id"]: s for s in metrics.spans}
+    recover, decode = (_spans_named(t) for t in RECOVERY_TIMERS)
+    assert rebuilt == 2 and len(recover) == len(decode) == 2
+    assert {by_id[s["parent"]]["name"] for s in recover} == {"fetch.segment"}
+    assert {s["parent"] for s in decode} == {s["id"] for s in recover}
+    assert not any("error" in s.get("attrs", {}) for s in recover)
+    for t, spans in zip(RECOVERY_TIMERS, (recover, decode)):
+        assert metrics.get(t + "_time") == pytest.approx(
+            sum(s["dur"] for s in spans), rel=0.2)
+    assert metrics.get("coding_recover_time") > \
+        metrics.get("coding_decode_time") > 0
+
+
+def test_recovery_timers_count_without_spans(tmp_path):
+    """Spans off (the default): no span, but both counters advance."""
+    roots, maps = _striped_tree(tmp_path, "rs:2:3", 4)
+    conf = {"uda.tpu.coding.scheme": "rs:2:3", "uda.tpu.fetch.retries": 0}
+    _coded_run(True, roots, maps, conf)
+    assert metrics.get("coding.reconstructed.partitions") == 1
+    assert metrics.spans == []
+    assert all(metrics.get(t + "_time") > 0 for t in RECOVERY_TIMERS)
+
+
+def test_an_unrecoverable_stripe_stops_the_recover_timer(tmp_path):
+    """Three of four suppliers dead: every rung's timer stops, its span
+    carrying the error, and nothing is decoded."""
+    roots, maps = _striped_tree(tmp_path, "rs:2:4", 4)
+    conf = {"uda.tpu.coding.scheme": "rs:2:4", "uda.tpu.fetch.retries": 0}
+    metrics.enable_spans()
+    with pytest.raises(errors.FallbackSignal):
+        _coded_run(True, roots, maps, conf, dead=("h0", "h1", "h2"))
+    recover = _spans_named("coding_recover")
+    assert recover and len(recover) == metrics.get("coding.recover.attempts")
+    assert {s["attrs"].get("error") for s in recover} == {"StorageError"}
+    assert metrics.get("coding_recover_time") > 0
+    assert metrics.get("coding_decode_time") == 0
+    assert _spans_named("coding_decode") == []
+
+
+@pytest.mark.parametrize("timer", RECOVERY_TIMERS)
+def test_recovery_timers_are_port_timers_of_the_fetch(timer):
+    from uda_tpu.utils.metrics import SPAN_REGISTRY as JSPAN_REGISTRY
+    from uda_tpu_torch.utils import critpath
+    from uda_tpu_torch.utils.metrics import PORT_TIMERS
+
+    assert timer in PORT_TIMERS and timer not in JSPAN_REGISTRY
+    assert critpath.PORT_SPAN_BUCKETS[timer] == "fetch"
+    block = critpath.analyze([
+        {"name": "reduce_task", "ts": 0.0, "dur": 1.0, "tid": 1, "trace": 1,
+         "id": 1, "parent": None},
+        {"name": timer, "ts": 0.25, "dur": 0.5, "tid": 2, "trace": 1,
+         "id": 2, "parent": 1}])
+    assert block["buckets"]["fetch"]["busy_s"] == pytest.approx(0.5)
+
+
 class _FailPlain(LocalFetchClient):
     """Faults direct partition fetches; shard fetches pass."""
 

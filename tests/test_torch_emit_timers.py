@@ -141,9 +141,11 @@ def test_critpath_charges_the_emit_timers_to_serve():
     assert ref["buckets"]["other"]["critical_s"] == pytest.approx(
         block["buckets"]["serve"]["critical_s"]
         - ref["buckets"]["serve"]["critical_s"], abs=3e-6)
-    # the port's own timers: the emit's and the socket client's
+    # the port's own timers: the emit's, the socket client's and the
+    # reconstruction's
     assert set(critpath.PORT_SPAN_BUCKETS) == \
-        set(TIMERS) | {"emit_tiefix", "net_read", "net_deliver"}
+        set(TIMERS) | {"emit_tiefix", "net_read", "net_deliver",
+                       "coding_recover", "coding_decode"}
     assert not set(critpath.PORT_SPAN_BUCKETS) & set(critpath.SPAN_BUCKETS)
     assert set(critpath.PORT_SPAN_BUCKETS.values()) \
         <= set(critpath.BUCKET_PRIORITY)

@@ -171,13 +171,15 @@ def test_buckets_from_counters_adds_the_net_timers_to_fetch():
 
 
 def _timer_names(package: str) -> set:
-    """Every literal name passed to ``metrics.timer`` in a package."""
+    """Every literal name passed to ``metrics.timer`` or
+    ``metrics.start_timer`` in a package."""
     names = set()
     for path in (ROOT / package).rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             if (isinstance(node, ast.Call)
                     and isinstance(node.func, ast.Attribute)
-                    and node.func.attr == "timer" and node.args
+                    and node.func.attr in ("timer", "start_timer")
+                    and node.args
                     and isinstance(node.args[0], ast.Constant)
                     and isinstance(node.args[0].value, str)):
                 names.add(node.args[0].value)
@@ -196,3 +198,33 @@ def test_every_port_only_timer_is_registered_and_bucketed():
     assert not set(PORT_TIMERS) & ref
     assert set(critpath.PORT_SPAN_BUCKETS) == set(PORT_TIMERS)
     assert {critpath.PORT_SPAN_BUCKETS[t] for t in NET_TIMERS} == {"fetch"}
+
+
+def test_start_timer_stops_once_from_another_thread():
+    """``metrics.start_timer``: the counter and the span are kept once,
+    by the first ``stop``, whichever thread calls it."""
+    import threading
+
+    from uda_tpu_torch.utils.metrics import Metrics
+
+    for spans in (False, True):
+        m = Metrics(stats=spans)
+        with m.span("reduce_task") as root:
+            timer = m.start_timer("coding_recover")
+        assert m.current_span() is None
+        stoppers = [threading.Thread(target=timer.stop, kwargs={"n": i})
+                    for i in range(4)]
+        for t in stoppers:
+            t.start()
+        for t in stoppers:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in stoppers)
+        timer.stop()
+        took = m.get("coding_recover_time")
+        assert took > 0
+        named = [s for s in m.spans if s["name"] == "coding_recover"]
+        if spans:
+            assert len(named) == 1 and named[0]["parent"] == root.span_id
+            assert named[0]["dur"] == pytest.approx(took, rel=0.2)
+        else:
+            assert named == []

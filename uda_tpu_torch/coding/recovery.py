@@ -92,8 +92,9 @@ class _Reconstruction:
         self.n = ctx.scheme.n
         self._lock = threading.Lock()
         # span attribution: the reconstruction starts under the owning
-        # segment's fetch span (``Segment._try_recover``); capture it here,
-        # because every later shard issue runs on a completion thread
+        # segment's ``coding_recover`` span (``Segment._try_recover``);
+        # capture it here, because every later shard issue and the decode
+        # run on completion threads
         self.parent_span = metrics.current_span()
         # chunks grouped by their reported stripe identity (the
         # full-partition length): a STALE shard from a prior map
@@ -204,7 +205,8 @@ class _Reconstruction:
         try:
             failpoint("coding.decode",
                       key=f"{self.req.map_id}/{self.req.reduce_id}")
-            blob = rs.decode(chunks, self.k, self.n, full_part)
+            with metrics.timer("coding_decode", parent=self.parent_span):
+                blob = rs.decode(chunks, self.k, self.n, full_part)
         except Exception as e:  # noqa: BLE001 - decode failure is the
             # reconstruction's terminal error; surfaced to the segment
             attribute_supplier(e, self.req.host)

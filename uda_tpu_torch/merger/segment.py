@@ -1106,17 +1106,32 @@ class Segment:
         metrics.add("coding.recover.attempts", supplier=self.supplier)
         log.warn(f"fetch of {self.map_id} exhausted retries ({cause}); "
                  f"attempting k-of-n stripe reconstruction")
+        # the rung's timer runs until the decoded partition (or the
+        # reconstruction's error) is handed back; its span, a child of
+        # the fetch span, fathers the shard streams and the decode
+        timer = metrics.start_timer("coding_recover",
+                                    parent=self.trace_span)
+
+        def recovered(result) -> None:
+            timer.stop(**({"error": type(result).__name__}
+                          if isinstance(result, Exception) else {}))
+            self._on_recovered(result)
+
         try:
-            with metrics.use_span(self.trace_span):
-                return bool(self.client.recover_partition(
-                    req, self.stripe, self._on_recovered))
+            with metrics.use_span(timer.span):
+                started = bool(self.client.recover_partition(
+                    req, self.stripe, recovered))
         except Exception as e:  # noqa: BLE001 - a recovery that cannot
             # even start must fall through to the terminal path, not
             # escape into the completion thread
+            timer.stop(error=type(e).__name__)
             metrics.add("coding.recover.failures")
             log.warn(f"stripe reconstruction of {self.map_id} could "
                      f"not start: {e}")
             return False
+        if not started:
+            timer.stop()
+        return started
 
     def _on_recovered(self, result) -> None:
         """Reconstruction completion: a full-partition FetchResult (the

@@ -74,11 +74,13 @@ BUCKET_PRIORITY = ("merge", "device_put", "decompress_pack", "serve",
 # consulted after SPAN_BUCKETS (disjoint from it): the emit's phase and
 # its stages (merger/emitter.py) are emission, the reference's bucket for
 # "emit"; the socket client's reads and completion upcalls (net/client.py)
-# are the fetch
+# and a dead supplier's partitions rebuilt from shards (coding/) are the
+# fetch
 PORT_SPAN_BUCKETS: Dict[str, str] = {
     "emit_phase": "serve", "emit_readback": "serve", "emit_gather": "serve",
     "emit_frame": "serve", "emit_deliver": "serve", "emit_tiefix": "serve",
     "net_read": "fetch", "net_deliver": "fetch",
+    "coding_recover": "fetch", "coding_decode": "fetch",
 }
 
 # bucket -> the reference trio alias it reconciles onto (reducer.h:80-90)
@@ -247,7 +249,10 @@ def buckets_from_counters(counters: Dict[str, float]) -> Dict:
     stage timers count as serve; ``emit_phase_time``, which holds them
     and ``emit_time``, does not. The socket client's ``net_read_time``
     and ``net_deliver_time``, busy on its loop and dispatcher threads
-    beside the task's ``fetch_time``, count as fetch."""
+    beside the task's ``fetch_time``, count as fetch. The coding timers
+    do not: ``coding_recover_time`` is the rung's wall, waits included,
+    and ``coding_decode_time`` is busy inside a completion upcall that
+    ``net_deliver_time`` (or the fetch phase) already holds."""
     table = (("fetch", ("fetch_time", "net_read_time",
                         "net_deliver_time")),
              ("wait", ("wait_mem_time",)),

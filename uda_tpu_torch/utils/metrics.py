@@ -43,7 +43,7 @@ from typing import Dict, Iterator, Optional
 from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.resledger import resledger as _resledger
 
-__all__ = ["Metrics", "Span", "metrics", "device_trace",
+__all__ = ["Metrics", "Span", "OpenTimer", "metrics", "device_trace",
            "METRICS_REGISTRY", "REGISTRY_PREFIXES", "NAME_RE",
            "SPAN_REGISTRY", "PORT_TIMERS", "PARITY_ALIASES",
            "stats_enabled_from_env", "percentile_from_summary",
@@ -686,6 +686,12 @@ PORT_TIMERS: Dict[str, str] = {
     "net_deliver": "the dispatcher thread's completion upcall of one "
                    "request, a Segment's on_complete (net/client.py "
                    "_deliver)",
+    "coding_recover": "one partition's k-of-n reconstruction, from the "
+                      "Segment's reconstruction rung to the decoded "
+                      "partition reaching it: shard streams and decode "
+                      "(merger/segment.py _try_recover, a start_timer)",
+    "coding_decode": "one stripe's Reed-Solomon decode on the host "
+                     "(coding/recovery.py, coding.rs.decode)",
 }
 
 # snapshot() aliases for the reference's per-reduce-task aggregate trio
@@ -860,6 +866,30 @@ class Span:
         if attrs:
             self.attrs.update(attrs)
         self._metrics._record_span(self, dur)
+
+
+class OpenTimer:
+    """A running :meth:`Metrics.start_timer`; ``stop()`` is idempotent
+    and safe from any thread."""
+
+    __slots__ = ("_metrics", "name", "span", "_t0", "_stopped")
+
+    def __init__(self, metrics_obj: "Metrics", name: str, span) -> None:
+        self._metrics = metrics_obj
+        self.name = name
+        self.span = span
+        self._t0 = time.perf_counter()
+        self._stopped = False
+
+    def stop(self, **attrs) -> None:
+        dt = time.perf_counter() - self._t0
+        m = self._metrics
+        with m._lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            m.counters[self.name + "_time"] += dt
+        self.span.end(**attrs)
 
 
 class _NoopSpan:
@@ -1176,6 +1206,16 @@ class Metrics:
             dt = time.perf_counter() - t0
             with self._lock:
                 self.counters[name + "_time"] += dt
+
+    def start_timer(self, name: str, *,
+                    parent: Optional[Span] = None) -> "OpenTimer":
+        """The phase timer of work that ends on another thread than the
+        one that starts it (a completion-driven chain): ``stop()`` on the
+        returned handle accumulates ``<name>_time`` and ends its span
+        (when spans are on), started here under ``parent``, by default
+        the thread's current span. The span is not made current; adopt
+        it with ``use_span(handle.span)``."""
+        return OpenTimer(self, name, self.start_span(name, parent=parent))
 
     # -- reads --------------------------------------------------------------
 
