@@ -19,9 +19,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    n == tile, 1, 7 and 30 key words at 4, 8 and 32 rows, all-equal,
    all-0xFFFFFFFF and high keys, tiles wider than one K2 block takes);
    K3/K4 at theirs (tile 256, n == tile, 1, 2 and 3 key words, the same
-   kinds of keys, tiles 8192 and 16384, past one K3 block) and K4 on runs
-   that hold equal records; the partition kernel on two sorted runs of
-   2^20 records (its deepest searches) at K1's width and K4's, with first
+   kinds of keys, tiles 8192 and 16384, past one K3 block; K4's passes
+   as ``merge_plan`` gives them, four-way while three or more runs are
+   left) and K4 on runs that hold equal records (two-way pairs, and
+   four-way groups, also held to two two-way passes); the partition
+   kernels on two sorted runs of 2^20 records (their deepest searches) at
+   K1's width and K4's, and the four-way one on four such runs, with first
    key words all equal, every key word equal and mixed keys; K5
    (``take_lanes``) at the probe's three
    shapes and at 3, 26 and 33 rows, each of its two designs launched on
@@ -35,9 +38,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    3] with all-equal keys and past one K3 block, also held to K3 on the
    padded [4, m] matrix of those keys, and the slim cascade on the records
    (``sort_records_folded4``) to the stable sort, and on whole blocks
-   (``records_cascade_columns``, each pass's last pair short or alone)
-   kernel by kernel, its first n columns held to the power-of-two
-   cascade's; every
+   (``records_cascade_columns``, each pass's last group or pair short or
+   alone) kernel by kernel, held to the two-way cascade's bytes, its first
+   n columns to the power-of-two cascade's; every
    launch held byte for byte against its plain
    PyTorch version on the same input, and each cascade against PyTorch's
    stable sort;
@@ -65,8 +68,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 6. times, with CUDA events at the main path's shapes (K2 and K1 on keys8's
    [8, 2^27] matrix; K3, K4 and their partition on the slim [4, m]
    matrix at the keys8f engine's 100,003,840 columns, each pass's last
-   pair short or alone): each kernel (K1, K4
-   and the partition kernel at each one's width per pass and summed over
+   group or pair short or alone; K4's passes as ``merge_plan`` gives
+   them, eight four-way and one two-way there): each kernel (K1, K4
+   and the partition kernels at each one's width per pass and summed over
    the cascade; the partition also in device time, queued behind a sleep,
    beside the floor its dependent round trips set: the deepest search's
    steps times one step's round trip to device memory, plus one launch,
@@ -82,8 +86,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    with K3 on the materialised [4, m] matrix, beside the matrix's build
    and its sector-granular bound; the records cascade on whole blocks
    beside the one on 2^27 columns, in turns, with K3, each K4 pass and the
-   partition, each against its bound on the columns it moves, and one
-   keys8f call's ``sort.cascade_*`` counters and K4 passes), its plain
+   partition, each against its bound on the columns it moves, the
+   cascade of two-way passes alone (17) in turns with the four-way one at
+   100,003,840 columns, their bytes equal, and one keys8f call's
+   ``sort.cascade_*`` counters and K4 passes), its plain
    version,
    PyTorch's call computing the same function, its bound, the cascades and the whole-sort yardstick; A/Bs,
    in turns, of K3/K4 against K2/K1's run-time-row form on the same 4-row
@@ -496,6 +502,10 @@ RECORD_K3_CASES = [
 # K4 on runs whose records have equal twins in the other run: key words,
 # n, run_len
 EQUAL_RUN_CASES = [(1, 1 << 13, 1024), (3, 1 << 13, 256)]
+# K4's four-way pass on groups whose four runs hold equal twins: key words,
+# n, run_len (the last: a group of three runs)
+EQUAL_RUN4_CASES = [(1, 1 << 14, 1024), (3, 1 << 14, 256),
+                    (2, 3 << 12, 1024)]
 # the partition kernel on one pass over two sorted runs of this many
 # records (its deepest searches: 2^20 candidates), at K1's width and K4's,
 # with first key words all equal, every key word equal, and mixed keys
@@ -724,19 +734,22 @@ def lanes_words(seed: int, rows: int, n: int, num_keys: int,
     return x
 
 
-def equal_runs(seed: int, n: int, run_len: int,
-               num_keys: int) -> np.ndarray:
+def equal_runs(seed: int, n: int, run_len: int, num_keys: int,
+               ways: int = 2) -> np.ndarray:
     """uint32[4, n] slim records in ascending runs of ``run_len``, where
-    every second run copies the key words and tie-break of the run before
-    it (its payload rows differ): each record has an equal twin in the
-    other run of its pair, so a merge must send ties to the first run."""
+    in every group of ``ways`` runs (a pair by default) each run after the
+    first copies the first's key words and tie-break (its payload rows
+    differ): each record has an equal twin in every other run of its
+    group, so a merge must send ties to the earliest run."""
     x = lanes_words(seed, 4, n, num_keys)
-    for a0 in range(0, n, 2 * run_len):
+    for a0 in range(0, n, ways * run_len):
         a = x[:, a0:a0 + run_len]
         a[:] = a[:, np.lexsort(a[num_keys - 1::-1])]
         a[3] = np.arange(run_len, dtype=np.uint32)
-        x[:num_keys, a0 + run_len:a0 + 2 * run_len] = a[:num_keys]
-        x[3, a0 + run_len:a0 + 2 * run_len] = a[3]
+        for r in range(1, ways):
+            twin = slice(a0 + r * run_len, a0 + (r + 1) * run_len)
+            x[:num_keys, twin] = a[:num_keys]
+            x[3, twin] = a[3]
     return x
 
 
@@ -766,24 +779,43 @@ def cascade(folded: bool, num_keys: int, tb_row: int) -> tuple:
             ("tile_sort", "merge_pass"), (num_keys, tb_row))
 
 
+def cascade_passes(n: int, tile: int, folded: bool) -> list:
+    """A cascade's merge passes over ``n`` columns of sorted tiles, as
+    ``(run_len, ways)``: K4's (``merge_plan``: four-way, then a two-way
+    pass where two runs are left) or K1's, two-way, one a level."""
+    if folded:
+        return pallas_fold.merge_plan(n, tile)
+    return [(tile << lvl, 2) for lvl in range((n // tile - 1).bit_length())]
+
+
+def folded_step(ways: int) -> tuple:
+    """K4's pass of ``ways`` runs a group and its plain version, both
+    taking (x4, run_len, tile, num_keys)."""
+    if ways == 4:
+        return (pallas_fold.merge_pass4_folded,
+                pallas_fold.merge_pass4_folded_plain)
+    return pallas_fold.merge_pass_folded, pallas_fold.merge_pass_folded_plain
+
+
 def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
                   folded: bool) -> dict:
     """Run the cascade kernel by kernel, holding each launch against its
-    plain version on the same input; returns the largest error of each."""
+    plain version on the same input; returns the largest error of each
+    (K4's two-way and four-way passes under K4's name)."""
     first, first_plain, step, step_plain, names, args = cascade(
         folded, num_keys, tb_row)
     errs = dict.fromkeys(names, 0)
     y = first(x, tile, *args)
     errs[names[0]] = max_abs_err(y, first_plain(x, tile, *args))
-    for lvl in range((x.shape[1] // tile).bit_length() - 1):
+    for L, ways in cascade_passes(x.shape[1], tile, folded):
         errs["merge_partition"] = max(errs.get("merge_partition", 0),
-                                      check_partition(y, tile << lvl,
-                                                      num_keys, tb_row,
-                                                      folded))
-        z = step(y, tile << lvl, tile, *args)
+                                      check_partition(y, L, num_keys, tb_row,
+                                                      folded, ways))
+        if folded:
+            step, step_plain = folded_step(ways)
+        z = step(y, L, tile, *args)
         errs[names[1]] = max(errs[names[1]],
-                             max_abs_err(z, step_plain(y, tile << lvl, tile,
-                                                       *args)))
+                             max_abs_err(z, step_plain(y, L, tile, *args)))
         y = z
     require(same(y, stable_reference(x, num_keys, tb_row)),
             f"{names} cascade differs from the stable sort")
@@ -792,41 +824,58 @@ def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
 
 
 def merge_width(rows: int, num_keys: int, n: int, run_len: int,
-                folded: bool) -> int:
-    """The block width K4 (``folded``) or K1 takes on one pass."""
+                folded: bool, ways: int = 2) -> int:
+    """The block width K4 (``folded``; its four-way pass with ``ways``
+    4) or K1 takes on one pass."""
+    if folded and ways == 4:
+        return pallas_fold.merge_pass4_folded_width(num_keys, n, run_len)
     if folded:
         return pallas_fold.merge_pass_folded_width(num_keys, n, run_len)
     return pallas_sort.merge_pass_width(rows, num_keys, n, run_len)
 
 
+def partition_of(ways: int, plain: bool = False):
+    """The partition kernel of a pass of ``ways`` runs a group (or its
+    plain version), taking (y, run_len, width, num_keys, tb_row): the
+    two-way one (merge_splits' splits, K1's and K4's last pass) or the
+    four-way one (the slim layout's, tie-break row 3)."""
+    if ways == 4:
+        fn = (pallas_fold.merge_partition4_plain if plain
+              else pallas_fold.merge_partition4)
+        return lambda y, L, w, nk, tb: fn(y, L, w, nk)
+    return (pallas_sort.merge_partition_plain if plain
+            else pallas_sort.merge_partition)
+
+
 def check_partition(y: torch.Tensor, run_len: int, num_keys: int,
-                    tb_row: int, folded: bool) -> int:
-    """The partition kernel against its plain version (merge_splits) at
-    the block width the merge kernel (K4 or K1) takes; the largest
-    error."""
+                    tb_row: int, folded: bool, ways: int = 2) -> int:
+    """The partition kernel of a pass of ``ways`` runs a group against its
+    plain version at the block width the merge kernel (K4 or K1) takes;
+    the largest error."""
     rows, n = y.shape
-    width = merge_width(rows, num_keys, n, run_len, folded)
-    require(n % width == 0 and width <= 2 * run_len,
+    width = merge_width(rows, num_keys, n, run_len, folded, ways)
+    require(n % width == 0 and width <= ways * run_len,
             f"merge width {width} at n={n} run_len={run_len}")
-    got = pallas_sort.merge_partition(y, run_len, width, num_keys, tb_row)
-    want = pallas_sort.merge_partition_plain(y, run_len, width, num_keys,
-                                             tb_row)
+    got = partition_of(ways)(y, run_len, width, num_keys, tb_row)
+    want = partition_of(ways, plain=True)(y, run_len, width, num_keys,
+                                          tb_row)
     return max_abs_err(got, want)
 
 
 def deep_runs(seed: int, rows: int, run_len: int, num_keys: int, kind: str,
-              dev: torch.device) -> torch.Tensor:
-    """uint32[rows, 2 * run_len]: two ascending runs of ``run_len`` records
-    (each half stably sorted), the tie-break row the arrival index over
-    both."""
+              dev: torch.device, ways: int = 2) -> torch.Tensor:
+    """uint32[rows, ways * run_len]: ``ways`` ascending runs of ``run_len``
+    records (each stably sorted), the tie-break row the arrival index over
+    all."""
     x = interop.words_from_numpy(
-        lanes_words(seed, rows, 2 * run_len, num_keys, kind), dev)
+        lanes_words(seed, rows, ways * run_len, num_keys, kind), dev)
     tb = rows - 1
-    halves = [stable_reference(u32(i32(x)[:, h:h + run_len].contiguous()),
-                               num_keys, tb)
-              for h in (0, run_len)]
-    i32(halves[1])[tb] += run_len
-    return u32(torch.cat([i32(h) for h in halves], dim=1))
+    runs = [stable_reference(u32(i32(x)[:, h:h + run_len].contiguous()),
+                             num_keys, tb)
+            for h in range(0, ways * run_len, run_len)]
+    for r, run in enumerate(runs):
+        i32(run)[tb] += r * run_len
+    return u32(torch.cat([i32(h) for h in runs], dim=1))
 
 
 def check_take_lanes(gen: torch.Generator, rows: int, n: int) -> int:
@@ -896,15 +945,30 @@ def check_records_k3(words: torch.Tensor, num_keys: int, tile: int) -> int:
                                                                num_keys))
 
 
+def two_way_cascade(words: torch.Tensor, num_keys: int, m: int,
+                    tile: int) -> torch.Tensor:
+    """The records cascade on ``m`` columns by two-way K4 passes alone, one
+    a level (ceil(log2(tiles)) of them): the form before the four-way
+    pass, whose output the cascade keeps byte for byte."""
+    y = pallas_fold.tile_sort_folded_rows(words, num_keys, m, tile)
+    spare = torch.empty_like(y)
+    for lvl in range((m // tile - 1).bit_length()):
+        y, spare = pallas_fold.merge_pass_folded(y, tile << lvl, tile,
+                                                 num_keys, out=spare), y
+    return y
+
+
 def check_whole_blocks(words: torch.Tensor, num_keys: int,
                        tile: int) -> dict:
     """The records cascade on whole blocks (``records_cascade_columns``:
     where those columns are no power-of-two multiple of the tile, each
-    pass's last pair has a short B run or none), K3 and every K4 pass held
-    against their plain versions and the partition against its own, and
-    its first n columns against the power-of-two cascade's: the same
-    sorted keys and permutation, then the padding in arrival order.
-    Returns the largest error of each kernel and the columns."""
+    pass's last group or pair has short runs or none), K3 and every K4
+    pass (``merge_plan``: four-way, then a two-way pass where two runs are
+    left) held against their plain versions and the partitions against
+    their own, the whole against the two-way cascade's bytes, and its
+    first n columns against the power-of-two cascade's: the same sorted
+    keys and permutation, then the padding in arrival order. Returns the
+    largest error of each kernel and the columns."""
     n = words.shape[0]
     m2, tile = pallas_sort.pad_pow2(n, tile)
     m = pallas_fold.records_cascade_columns(n, tile)
@@ -913,20 +977,22 @@ def check_whole_blocks(words: torch.Tensor, num_keys: int,
         y, pallas_fold.tile_sort_folded_plain(
             pallas_sort.record_key_rows(words, num_keys, m, rows=4), tile,
             num_keys)), "merge_pass_folded": 0, "merge_partition": 0}
-    for lvl in range((m // tile - 1).bit_length()):
-        L = tile << lvl
+    two = two_way_cascade(words, num_keys, m, tile)
+    for L, ways in pallas_fold.merge_plan(m, tile):
         errs["merge_partition"] = max(errs["merge_partition"],
                                       check_partition(y, L, num_keys, 3,
-                                                      True))
-        z = pallas_fold.merge_pass_folded(y, L, tile, num_keys)
+                                                      True, ways))
+        step, plain = folded_step(ways)
+        z = step(y, L, tile, num_keys)
         errs["merge_pass_folded"] = max(
             errs["merge_pass_folded"],
-            max_abs_err(z, pallas_fold.merge_pass_folded_plain(
-                y, L, tile, num_keys)))
+            max_abs_err(z, plain(y, L, tile, num_keys)))
         y = z
     require(same(y, pallas_fold.sort_records_folded4(words, num_keys, m,
                                                      tile)),
             f"sort_records_folded4 at m={m} differs from its passes")
+    require(same(y, two), f"the four-way cascade at m={m} differs from the "
+                          f"two-way one")
     pow2 = pallas_fold.sort_records_folded4(words, num_keys, m2, tile)
     require(same(y[:num_keys, :n], pow2[:num_keys, :n])
             and same(y[3, :n], pow2[3, :n]),
@@ -943,6 +1009,7 @@ def check_whole_blocks(words: torch.Tensor, num_keys: int,
 def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
+                  equal4_cases=EQUAL_RUN4_CASES,
                   take_shapes=TAKE_SHAPES, take_rows_cases=TAKE_ROWS_CASES,
                   deep_run=DEEP_PARTITION_RUN,
                   deep_kinds=DEEP_PARTITION_KINDS,
@@ -998,6 +1065,22 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                                          err)
         log(f"[kernels] K4 on runs with equal records, keys={nk} "
             f"run_len={run_len} n={n_eq}: max_abs_err {err} (tolerance 0)")
+    for nk, n_eq, run_len in equal4_cases:
+        x = interop.words_from_numpy(
+            equal_runs(next(seeds), n_eq, run_len, nk, ways=4), dev)
+        got = pallas_fold.merge_pass4_folded(x, run_len, run_len, nk)
+        err = max_abs_err(got, pallas_fold.merge_pass4_folded_plain(
+            x, run_len, run_len, nk))
+        require(same(got, pallas_fold.merge_pass_folded(
+            pallas_fold.merge_pass_folded(x, run_len, run_len, nk),
+            2 * run_len, run_len, nk)),
+            f"K4's four-way pass on equal runs differs from two two-way "
+            f"passes (keys={nk}, run_len={run_len})")
+        worst["merge_pass_folded"] = max(worst.get("merge_pass_folded", 0),
+                                         err)
+        log(f"[kernels] K4 four-way on groups of runs with equal records, "
+            f"keys={nk} run_len={run_len} n={n_eq}: max_abs_err {err} "
+            f"(tolerance 0); equal to two two-way passes")
     for n_rec, w, tile, nk, kind in record_cases:
         x = interop.words_from_numpy(np.ascontiguousarray(
             lanes_words(next(seeds), w, n_rec, nk, kind).T), dev)
@@ -1017,16 +1100,18 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
             f"{errs} (tolerance 0); its first {n_rec} columns equal to the "
             f"power-of-two cascade's")
     for kind in deep_kinds:
-        for rows, folded in ((8, False), (4, True)):
+        for rows, folded, ways in ((8, False, 2), (4, True, 2),
+                                   (4, True, 4)):
             nk, tb = terasort.KEY_WORDS, rows - 1
-            y = deep_runs(next(seeds), rows, deep_run, nk, kind, dev)
-            err = check_partition(y, deep_run, nk, tb, folded)
+            y = deep_runs(next(seeds), rows, deep_run, nk, kind, dev, ways)
+            err = check_partition(y, deep_run, nk, tb, folded, ways)
             worst["merge_partition"] = max(worst.get("merge_partition", 0),
                                            err)
-            width = merge_width(rows, nk, 2 * deep_run, deep_run, folded)
-            log(f"[kernels] partition on two runs of {deep_run} at "
-                f"{'K4' if folded else 'K1'}'s width {width}, {kind} keys: "
-                f"max_abs_err {err} against merge_partition_plain "
+            width = merge_width(rows, nk, ways * deep_run, deep_run, folded,
+                                ways)
+            log(f"[kernels] {ways}-way partition on {ways} runs of "
+                f"{deep_run} at {'K4' if folded else 'K1'}'s width {width}, "
+                f"{kind} keys: max_abs_err {err} against its plain version "
                 f"(tolerance 0)")
     for rows, n_take in take_shapes:
         err = check_take_lanes(gen, rows, n_take)
@@ -1281,12 +1366,28 @@ def partition_latency(y: torch.Tensor, run_len: int, num_keys: int,
             "step_us": max(0.0, deep - launch) / steps * 1e3}
 
 
-def partition_work(m: int, run_len: int, width: int) -> tuple:
-    """Bytes and compares the partition kernel needs on one pass over m
-    columns: per block boundary a binary search over the diagonal's range
-    (the last pair's with its short runs, ``pallas_sort.pair_runs``), each
-    step reading one word of two records (more only on equal words), and
-    one 4-byte split written. Returns (bytes, compares)."""
+def partition_work(m: int, run_len: int, width: int,
+                   ways: int = 2) -> tuple:
+    """Bytes and compares a partition kernel needs on one pass over m
+    columns. Two-way: per block boundary a binary search over the
+    diagonal's range (the last pair's with its short runs,
+    ``pallas_sort.pair_runs``), each step reading one word of two records
+    (more only on equal words), and one 4-byte split written. Four-way
+    (``ways`` 4): per block boundary past a group's start, one level of the
+    multiway selection per power of two up to run_len, each reading at
+    least one word of each run that has a new sample there (all four in a
+    whole group) and comparing it with the largest sample taken, and four
+    4-byte splits written. Returns (bytes, compares)."""
+    if ways == 4:
+        group = 4 * run_len
+        steps = 0
+        for g0 in range(0, m, group):
+            runs = sum(min(max(m - g0 - r * run_len, 0), run_len) > 0
+                       for r in range(4))
+            boundaries = (min(group, m - g0) - 1) // width
+            steps += boundaries * run_len.bit_length() * runs
+        return 16 * (m // width) + 4 * steps, steps
+
     def pair_steps(la: int, lb: int) -> int:
         return sum((min(d, la) - max(0, d - lb)).bit_length()
                    for d in range(0, la + lb, width))
@@ -1304,9 +1405,10 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     """Time each kernel of one cascade at ``mat``'s shape, its plain
     version and PyTorch's stable sort on the same input, and compare
     them. The columns are a power-of-two multiple of ``tile`` or, for the
-    records cascade's whole blocks, not: then the passes are
-    ceil(log2(tiles)) and each pass's last pair is short or alone, as on
-    the main path."""
+    records cascade's whole blocks, not: then each pass's last group or
+    pair is short or alone, as on the main path. K1's passes are two-way,
+    one a level; K4's as ``merge_plan`` gives them (four-way, then a
+    two-way pass where two runs are left), each moving 32 B a column."""
     rows, m = mat.shape
     nk = terasort.KEY_WORDS
     tb = rows - 1
@@ -1336,38 +1438,53 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     part = {"ms": 0.0, "per_pass_ms": [], "plain_ms": 0.0, "bytes": 0,
             "ops": 0, "max_abs_err": 0, "library_ms": None,
             "per_pass_device_ms": [], "steps": []}
-    for lvl in range((m // tile - 1).bit_length()):
-        L = tile << lvl
-        width = merge_width(rows, nk, m, L, folded)
+    passes = cascade_passes(m, tile, folded)
+    compares = 0
+    for i, (L, ways) in enumerate(passes):
+        width = merge_width(rows, nk, m, L, folded, ways)
+        partition = partition_of(ways)
+        if folded:
+            step, step_plain = folded_step(ways)
         part["per_pass_ms"].append(time_ms(
-            lambda: pallas_sort.merge_partition(y, L, width, nk, tb), reps))
+            lambda: partition(y, L, width, nk, tb), reps))
         part["per_pass_device_ms"].append(device_ms(
-            lambda: pallas_sort.merge_partition(y, L, width, nk, tb), reps))
-        # the deepest boundary's dependent steps (its span is L, or the
-        # short B run's length where the pass's one pair is short)
-        part["steps"].append(min(L, m - L).bit_length() if width < 2 * L
-                             else 0)
-        if 2 * L <= m < 4 * L:
+            lambda: partition(y, L, width, nk, tb), reps))
+        # the deepest boundary's dependent steps: a two-way search's span
+        # is L, or the short B run's length where the pass's one pair is
+        # short; the four-way selection reads at least once a level
+        if ways == 4:
+            part["steps"].append(L.bit_length() if width < 4 * L else 0)
+        else:
+            part["steps"].append(min(L, m - L).bit_length()
+                                 if width < 2 * L else 0)
+        # one step's round trip, on the first pair of runs of the deepest
+        # pass whose first pair is whole
+        next_run = passes[i + 1][0] if i + 1 < len(passes) else m
+        if 2 * L <= m < 2 * next_run:
             part["latency"] = partition_latency(
                 y if 2 * L == m else y[:, :2 * L].contiguous(), L, nk, tb)
         part["plain_ms"] += time_ms(
-            lambda: pallas_sort.merge_partition_plain(y, L, width, nk, tb),
+            lambda: partition_of(ways, plain=True)(y, L, width, nk, tb),
             1, warmup=0)
         part["max_abs_err"] = max(part["max_abs_err"],
-                                  check_partition(y, L, nk, tb, folded))
-        nbytes, steps = partition_work(m, L, width)
+                                  check_partition(y, L, nk, tb, folded,
+                                                  ways))
+        nbytes, steps = partition_work(m, L, width, ways)
         part["bytes"] += nbytes
         part["ops"] += steps
         per_pass.append(time_ms(lambda: step(y, L, tile, *args, out=spare),
                                 reps))
         plain_total += time_ms(lambda: step_plain(y, L, tile, *args), 1,
                                warmup=0)
-        library_total += time_ms(lambda: library_sort(y, 2 * L, nk, None),
-                                 1, warmup=0)
+        library_total += time_ms(
+            lambda: library_sort(y, ways * L, nk, None), 1, warmup=0)
         z = step(y, L, tile, *args, out=spare)
         errs = max(errs, max_abs_err(z, step_plain(y, L, tile, *args)))
-        require(same(library_sort(y, 2 * L, nk, None), z),
-                f"{names[1]}: PyTorch's sort of each run pair differs")
+        require(same(library_sort(y, ways * L, nk, None), z),
+                f"{names[1]}: PyTorch's sort of each run group differs")
+        # a merge of `ways` runs: log2(ways) compares a record (a tree of
+        # two-way merges)
+        compares += (ways.bit_length() - 1) * m * words_compared
         y, spare = z, y
     part["ms"] = sum(part["per_pass_ms"])
     part["device_ms"] = sum(part["per_pass_device_ms"])
@@ -1381,8 +1498,7 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
         "m": m, "ms": sum(per_pass), "per_pass_ms": per_pass,
         "plain_ms": plain_total, "library_ms": library_total,
         "bytes": len(per_pass) * 2 * rows * m * word,
-        # a merge: one compare per record and pass
-        "ops": len(per_pass) * m * words_compared,
+        "ops": compares, "passes": [ways for _, ways in passes],
         "max_abs_err": max(errs, part["max_abs_err"]),
     }
     # the partition kernel, at each merge kernel's own width; its time is
@@ -1643,13 +1759,17 @@ def time_whole_blocks(words: torch.Tensor, tile: int, reps: int) -> dict:
     (``records_cascade_columns``), beside the same cascade on the
     power-of-two columns it took before, by CUDA events (device time): the
     whole cascade and K3 on the records, each in turns, then each K4 pass
-    (its partition inside) and the partition alone. Each kernel's bound is
-    reckoned on the columns it moves: K4 32 B a column a pass, the
-    partition its searches (``partition_work``), K3 its sector-granular
-    bytes (as ``time_k3_records``). The two cascades' first n columns are
-    held equal, and one keys8f call's counters and K4 launches (its
-    passes) to the columns and the pass count. Returns the readings by
-    column count."""
+    (``merge_plan``: four-way, then a two-way pass where two runs are
+    left; its partition inside) and the partition alone; and on whole
+    blocks the cascade of two-way passes alone (17 at 10^8 records) in
+    turns with the four-way one, their bytes held equal, and the
+    occupancy of K4's two merge kernels. Each kernel's
+    bound is reckoned on the columns it moves: K4 32 B a column a pass,
+    two-way or four-way, the partition its searches (``partition_work``),
+    K3 its sector-granular bytes (as ``time_k3_records``). The two
+    cascades' first n columns are held equal, and one keys8f call's
+    counters and K4 launches (its passes, four-way ones counted apart) to
+    the columns and the plan. Returns the readings by column count."""
     n, w = words.shape
     nk = terasort.KEY_WORDS
     m2, tile = pallas_sort.pad_pow2(n, tile)
@@ -1672,56 +1792,85 @@ def time_whole_blocks(words: torch.Tensor, tile: int, reps: int) -> dict:
     for cols, cascade_ms, k3_ms in zip((m2, m), cascades, k3):
         y = pallas_fold.tile_sort_folded_rows(words, nk, cols, tile)
         spare = torch.empty_like(y)
-        k4, part, part_bytes = [], [], 0
-        for lvl in range((cols // tile - 1).bit_length()):
-            L = tile << lvl
-            width = pallas_fold.merge_pass_folded_width(nk, cols, L)
-            k4.append(device_ms(lambda: pallas_fold.merge_pass_folded(
-                y, L, tile, nk, out=spare), reps))
-            part.append(device_ms(lambda: pallas_sort.merge_partition(
-                y, L, width, nk, 3), reps))
-            part_bytes += partition_work(cols, L, width)[0]
-            y, spare = pallas_fold.merge_pass_folded(y, L, tile, nk,
-                                                     out=spare), y
+        k4, part, part_bytes, plan = [], [], 0, []
+        for L, ways in pallas_fold.merge_plan(cols, tile):
+            width = merge_width(4, nk, cols, L, True, ways)
+            step = folded_step(ways)[0]
+            partition = partition_of(ways)
+            k4.append(device_ms(lambda: step(y, L, tile, nk, out=spare),
+                                reps))
+            part.append(device_ms(lambda: partition(y, L, width, nk, 3),
+                                  reps))
+            part_bytes += partition_work(cols, L, width, ways)[0]
+            plan.append(ways)
+            y, spare = step(y, L, tile, nk, out=spare), y
         del y, spare
         k3_bytes = int(n * 32 * row_sectors(w, nk) + 16 * cols)
         res[cols] = {
-            "cascade_ms": cascade_ms, "passes": len(k4),
+            "cascade_ms": cascade_ms, "passes": len(k4), "ways": plan,
             "k3_ms": k3_ms, "k3_bound_ms": bound(k3_bytes, 0)[0],
             "k4_ms": sum(k4), "k4_per_pass_ms": k4,
             "k4_bound_ms": bound(32 * cols * len(k4), 0)[0],
+            "k4_pass_bound_ms": bound(32 * cols, 0)[0],
             "partition_ms": sum(part), "partition_per_pass_ms": part,
             "partition_bound_ms": bound(part_bytes, 0)[0]}
         r = res[cols]
         log(f"[times] records cascade at m={cols} ({n} records, tile "
-            f"{tile}, {r['passes']} passes): {cascade_ms:.3f} ms (device, "
-            f"in turns); K3 {k3_ms:.3f} ms, bound {r['k3_bound_ms']:.3f}; "
-            f"K4 {r['k4_ms']:.3f} ms, bound {r['k4_bound_ms']:.3f}; "
+            f"{tile}, {r['passes']} passes, ways {plan}): {cascade_ms:.3f} "
+            f"ms (device, in turns); K3 {k3_ms:.3f} ms, bound "
+            f"{r['k3_bound_ms']:.3f}; K4 {r['k4_ms']:.3f} ms, bound "
+            f"{r['k4_bound_ms']:.3f} ({r['k4_pass_bound_ms']:.3f} a pass); "
             f"partition {r['partition_ms']:.3f} ms, bound "
             f"{r['partition_bound_ms']:.4f}")
         log(f"[times] records cascade at m={cols}: K4 per pass (ms): "
             + " ".join(f"{v:.3f}" for v in k4))
         log(f"[times] records cascade at m={cols}: partition per pass "
             f"(ms): " + " ".join(f"{v:.4f}" for v in part))
+    two = two_way_cascade(words, nk, m, tile)
+    require(same(two, pallas_fold.sort_records_folded4(words, nk, m, tile)),
+            f"the four-way cascade at m={m} differs from the two-way one")
+    del two
+    two_ms, four_ms = in_turns(
+        lambda: two_way_cascade(words, nk, m, tile),
+        lambda: pallas_fold.sort_records_folded4(words, nk, m, tile),
+        reps=reps, timer=device_ms)
+    ways = {"two_way_passes": (m // tile - 1).bit_length(),
+            "two_way_ms": two_ms, "four_way_passes": len(res[m]["ways"]),
+            "four_way_ms": four_ms}
+    log(f"[times] records cascade at m={m}, in turns (device): two-way "
+        f"passes alone ({ways['two_way_passes']}) {two_ms:.3f} ms, the "
+        f"cascade ({ways['four_way_passes']} passes) {four_ms:.3f} ms; "
+        f"bytes equal")
+    for w in (2, 4):
+        width = merge_width(4, nk, m, tile, True, w)
+        regs, blocks = pallas_fold.merge_pass_folded_occupancy(nk, w, width)
+        ways[f"{w}_way_occupancy"] = {"width": width, "registers": regs,
+                                      "blocks_per_sm": blocks}
+        log(f"[times] K4's {w}-way merge kernel at width {width}: {regs} "
+            f"registers a thread, {blocks} blocks a multiprocessor")
     before = {k: metrics.counters.get(k, 0.0)
               for k in terasort.CASCADE_COUNTERS}
-    k4_before = _build.launches["merge_pass_folded"]
+    k4_before = {k: _build.launches[k]
+                 for k in ("merge_pass_folded", "merge_pass_folded4")}
     terasort.single_chip_sort(words, path="keys8f", device=words.device)
     torch.cuda.synchronize()
     counted = {k: metrics.counters.get(k, 0.0) - before[k]
                for k in terasort.CASCADE_COUNTERS}
-    passes = _build.launches["merge_pass_folded"] - k4_before
+    passes, fours = (_build.launches[k] - v for k, v in k4_before.items())
     require(counted == {"sort.cascade_records": n,
-                        "sort.cascade_columns": m}
-            and passes == res[m]["passes"],
-            f"a keys8f call counted {counted} and {passes} K4 passes, not "
-            f"{n} records in {m} columns and {res[m]['passes']} passes")
-    log(f"[times] one keys8f call: {counted}, {passes} K4 passes; the real "
-        f"share of the cascade's columns {n / m:.5f} (at m={m2}: "
-        f"{n / m2:.5f})")
+                        "sort.cascade_columns": m,
+                        "sort.cascade_passes": res[m]["passes"]}
+            and passes == res[m]["passes"]
+            and fours == res[m]["ways"].count(4),
+            f"a keys8f call counted {counted} and {passes} K4 passes "
+            f"({fours} four-way), not {n} records in {m} columns and the "
+            f"plan {res[m]['ways']}")
+    log(f"[times] one keys8f call: {counted}, {passes} K4 passes, {fours} "
+        f"of them four-way; the real share of the cascade's columns "
+        f"{n / m:.5f} (at m={m2}: {n / m2:.5f})")
     torch.cuda.synchronize()
     return {"columns": m, "pow2_columns": m2, "counters": counted,
-            "by_columns": res}
+            "by_columns": res, "two_way_against_four_way": ways}
 
 
 def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,
@@ -1791,7 +1940,8 @@ def phase_times(words: torch.Tensor, tile: int = MAIN_TILE,
             f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops), "
             f"max_abs_err {t['max_abs_err']} (tolerance 0)")
         if "per_pass_ms" in t:
-            log(f"[times] {name} per pass (ms): "
+            log(f"[times] {name} per pass (ms"
+                + (f", ways {t['passes']}" if "passes" in t else "") + "): "
                 + " ".join(f"{v:.3f}" for v in t["per_pass_ms"]))
         if "partition" in t:
             p = t["partition"]

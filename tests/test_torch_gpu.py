@@ -236,6 +236,116 @@ def test_k4_and_partition_take_a_short_last_run(cuda_device, nk, kind):
         y, run = z, 2 * run
 
 
+@pytest.mark.parametrize("nk,kind", [(1, "mixed"), (2, "mixed"),
+                                     (3, "mixed"), (3, "equal"),
+                                     (3, "ones"), (3, "first")])
+def test_k4_four_way_partition_and_pass_match_plain(cuda_device, nk, kind):
+    """The records cascade on whole blocks as it runs, four-way passes
+    whose last group has short or missing runs: K3 on the records, then
+    every pass's partition and merge against their plain versions, byte
+    for byte, and the result against the two-way cascade's."""
+    x = _on_card(words(_WHOLE_N + nk + 9, 26, _WHOLE_N, nk, kind).T.copy(),
+                 cuda_device)
+    m = _WHOLE_M
+    y = pallas_fold.tile_sort_folded_rows(x, nk, m, 1024)
+    two = y
+    run = 1024
+    while run < m:
+        two = pallas_fold.merge_pass_folded(two, run, 1024, nk)
+        run *= 2
+    plan = pallas_fold.merge_plan(m, 1024)
+    assert [ways for _, ways in plan] == [4] * 5
+    for run, _ in plan:
+        width = pallas_fold.merge_pass4_folded_width(nk, m, run)
+        assert width == (1024 if nk == 2 else 2048)
+        got = pallas_fold.merge_partition4(y, run, width, nk)
+        assert torch.equal(got, pallas_fold.merge_partition4_plain(
+            y, run, width, nk))
+        z = pallas_fold.merge_pass4_folded(y, run, 1024, nk)
+        assert _same(z, pallas_fold.merge_pass4_folded_plain(y, run, 1024,
+                                                             nk))
+        y = z
+    assert _same(y, two)
+
+
+@pytest.mark.parametrize("nk,n,tile,kind",
+                         [(3, 1 << 15, 1024, "mixed"),
+                          (1, 1 << 15, 256, "mixed"),
+                          (2, 1 << 15, 4096, "mixed")] + SLIM_EDGE_CASES)
+def test_k4_four_way_passes_match_plain(cuda_device, nk, n, tile, kind):
+    """The cascade's own passes (merge_plan: four-way, then a two-way one
+    where two runs are left) on power-of-two shapes, at the edges of K3
+    and K4's design: each pass against its plain version, the result
+    against numpy."""
+    x_np = words(n + nk + 1, 4, n, nk, kind)
+    x = _on_card(x_np, cuda_device)
+    y = pallas_fold.tile_sort_folded(x, tile, nk)
+    for run, ways in pallas_fold.merge_plan(n, tile):
+        step, plain = ((pallas_fold.merge_pass4_folded,
+                        pallas_fold.merge_pass4_folded_plain) if ways == 4
+                       else (pallas_fold.merge_pass_folded,
+                             pallas_fold.merge_pass_folded_plain))
+        z = step(y, run, tile, nk)
+        assert _same(z, plain(y, run, tile, nk))
+        y = z
+    np.testing.assert_array_equal(interop.words_to_numpy(y),
+                                  oracle(x_np, nk, 3))
+
+
+@pytest.mark.parametrize("nk,n,run_len", [(1, 1 << 14, 1024),
+                                          (3, 1 << 14, 256),
+                                          (2, 3 << 12, 1024)])
+def test_k4_four_way_sends_ties_to_the_earliest_run(cuda_device, nk, n,
+                                                   run_len):
+    """Groups whose four runs hold equal (key words, tie-break) twins: the
+    four-way pass keeps every record, A's twin before B's before C's
+    before D's, as its plain version and two two-way passes do."""
+    x = _on_card(equal_runs(n + nk, n, run_len, nk, ways=4), cuda_device)
+    got = pallas_fold.merge_pass4_folded(x, run_len, run_len, nk)
+    assert _same(got, pallas_fold.merge_pass4_folded_plain(x, run_len,
+                                                           run_len, nk))
+    two = pallas_fold.merge_pass_folded(pallas_fold.merge_pass_folded(
+        x, run_len, run_len, nk), 2 * run_len, run_len, nk)
+    assert _same(got, two)
+
+
+def test_keys8f_at_1e8_runs_nine_k4_passes(cuda_device):
+    """One keys8f call on the sort cell's 10^8 records: 97,660 tiles take
+    nine K4 passes, eight four-way and one two-way (seventeen two-way
+    passes before), each with its partition; the cascade's counters."""
+    from uda_tpu_torch.utils.metrics import metrics
+
+    x = tts.teragen(torch.Generator(device=cuda_device).manual_seed(29),
+                    10**8)
+    before = {k: metrics.counters.get(k, 0.0)
+              for k in tts.CASCADE_COUNTERS}
+    _build.reset_launches()
+    got = tts.single_chip_sort(x, path="keys8f", device=cuda_device)
+    torch.cuda.synchronize()
+    assert _build.launches["merge_pass_folded"] == 9
+    assert _build.launches["merge_pass_folded4"] == 8
+    assert _build.launches["merge_partition"] == 9
+    assert _build.launches["merge_partition4"] == 8
+    assert {k: metrics.counters.get(k, 0.0) - before[k]
+            for k in tts.CASCADE_COUNTERS} == {
+        "sort.cascade_records": 10**8, "sort.cascade_columns": 100_003_840,
+        "sort.cascade_passes": 9}
+    k = [tsort.i32(got[:, w]).long() & 0xFFFFFFFF
+         for w in range(tts.KEY_WORDS)]
+    ascends = k[2][:-1] <= k[2][1:]
+    for w in (1, 0):
+        ascends = (k[w][:-1] < k[w][1:]) | ((k[w][:-1] == k[w][1:])
+                                            & ascends)
+    assert bool(ascends.all())
+
+    def word_sum(t: torch.Tensor) -> int:
+        """The sum of every word, a chunk of records at a time."""
+        return sum(int(tsort.i32(t[c:c + 10**7]).sum(dtype=torch.int64))
+                   for c in range(0, t.shape[0], 10**7))
+
+    assert word_sum(got) == word_sum(x)
+
+
 @pytest.mark.parametrize("rows,nk,tb,n", [(8, 3, 7, 5 * 4096),
                                           (32, 3, 31, 13 * 1024),
                                           (4, 1, 3, 3 * 4096)])
@@ -275,8 +385,9 @@ def test_sort_records_folded4_on_whole_blocks_matches_the_pow2_cascade(
 
 def test_keys8f_sorts_on_whole_blocks_and_counts_them(cuda_device):
     """One keys8f call on 10^6 + 37 records: carry's bytes, one K3 launch,
-    ceil(log2(980)) = 10 K4 passes, and the records and columns of its
-    cascade counted once."""
+    five four-way K4 passes over its 980 tiles (980, 245, 62, 16, 4, 1
+    runs), and the records, columns and passes of its cascade counted
+    once."""
     from uda_tpu_torch.utils.metrics import metrics
 
     x = _on_card(records(27, _WHOLE_N), cuda_device)
@@ -286,10 +397,12 @@ def test_keys8f_sorts_on_whole_blocks_and_counts_them(cuda_device):
     got = tts.single_chip_sort(x, path="keys8f", device=cuda_device)
     torch.cuda.synchronize()
     assert _build.launches["tile_sort_folded_rows"] == 1
-    assert _build.launches["merge_pass_folded"] == 10
+    assert _build.launches["merge_pass_folded"] == 5
+    assert _build.launches["merge_pass_folded4"] == 5
     assert {k: metrics.counters.get(k, 0.0) - before[k]
             for k in tts.CASCADE_COUNTERS} == {
-        "sort.cascade_records": _WHOLE_N, "sort.cascade_columns": _WHOLE_M}
+        "sort.cascade_records": _WHOLE_N, "sort.cascade_columns": _WHOLE_M,
+        "sort.cascade_passes": 5}
     assert _same(got, tts.single_chip_sort(x, path="carry",
                                            device=cuda_device))
 
@@ -335,9 +448,11 @@ def test_launch_counts(cuda_device):
     pallas_fold.sort_lanes_folded(x, 3, tile=1024)
     torch.cuda.synchronize()
     assert dict(_build.launches) == {"tile_sort": 1, "merge_pass": 4,
-                                     "merge_partition": 8,
+                                     "merge_partition": 6,
+                                     "merge_partition4": 2,
                                      "tile_sort_folded": 1,
-                                     "merge_pass_folded": 4}
+                                     "merge_pass_folded": 2,
+                                     "merge_pass_folded4": 2}
 
 
 def test_take_lanes_counts_one_launch_a_call(cuda_device):
@@ -462,6 +577,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pallas_fold.merge_pass_folded(x4, 1024, 1024, 0)
     with pytest.raises(ValueError, match="4 rows"):
         pallas_fold.merge_pass_folded(x, 1024, 1024, 3)
+    with pytest.raises(ValueError, match="1 to 3 key words"):
+        pallas_fold.merge_pass4_folded(x4, 1024, 1024, 0)
+    with pytest.raises(ValueError, match="4 rows"):
+        pallas_fold.merge_pass4_folded(x, 1024, 1024, 3)
     wide = _on_card(words(2, 40, 1 << 10, 32), cuda_device)
     with pytest.raises(ValueError, match="1 to 31 key words"):
         pallas_sort.tile_sort(wide, 1024, 32, 39)

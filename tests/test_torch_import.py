@@ -159,6 +159,8 @@ def test_chip_smoke_fails_alone(tmp_path):
     lambda x: pallas_sort.merge_pass(x, 128, 128, 3, 7),
     lambda x: pallas_fold.tile_sort_folded(x[:4], 256, 3),
     lambda x: pallas_fold.merge_pass_folded(x[:4], 256, 256, 3),
+    lambda x: pallas_fold.merge_pass4_folded(x[:4], 256, 256, 3),
+    lambda x: pallas_fold.merge_partition4(x[:4], 256, 512, 3),
     lambda x: pallas_sort.merge_partition(x, 128, 256, 3, 7),
     lambda x: lane_gather.take_lanes(
         x, torch.empty(512, dtype=torch.int32, device="meta")),

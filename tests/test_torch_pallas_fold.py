@@ -366,11 +366,12 @@ def test_cascade_unit_is_the_kernels_widest_block():
         _build.header_constant("NO_SUCH_WIDTH")
 
 
-@pytest.mark.parametrize("n,columns", [(3 * 4096 + 5, 16384),
-                                       (10**5 + 3, 102400)])
-def test_single_chip_sort_keys8f_counts_its_cascade(n, columns):
-    """keys8f sorts on whole blocks as carry does and counts the records
-    and the columns of its cascade once a call."""
+@pytest.mark.parametrize("n,columns,passes", [(3 * 4096 + 5, 16384, 2),
+                                              (10**5 + 3, 102400, 4)])
+def test_single_chip_sort_keys8f_counts_its_cascade(n, columns, passes):
+    """keys8f sorts on whole blocks as carry does and counts the records,
+    the columns and the K4 passes of its cascade once a call (16 tiles:
+    two four-way passes; 100: three four-way and one two-way)."""
     from uda_tpu_torch.utils.metrics import metrics
 
     w = torch.from_numpy(records(n + 13, n))
@@ -382,4 +383,163 @@ def test_single_chip_sort_keys8f_counts_its_cascade(n, columns):
     carry = tts.single_chip_sort(w, path="carry", device="cpu")
     np.testing.assert_array_equal(got.numpy(), carry.numpy())
     assert counted == {"sort.cascade_records": n,
-                       "sort.cascade_columns": columns}
+                       "sort.cascade_columns": columns,
+                       "sort.cascade_passes": passes}
+
+
+# the four-way pass: (runs of 256, output tile 128) and the run lengths of
+# the pass's last group: 4, 3, 2 or 1 whole runs, or a short last run
+_GROUP_SHAPES = [(2 * 4, ()), (4 + 3, ()), (4 + 2, ()), (4 + 1, ()),
+                 (4 + 2, (128,)), (4 + 3, (128,)), (4, (128,)), (0, (128,))]
+
+
+def _group_runs_input(seed: int, num_keys: int, whole: int, short: tuple,
+                      kind: str, L: int = 256) -> np.ndarray:
+    """[4, n] slim records in ascending runs of L: ``whole`` whole runs,
+    then runs of the ``short`` lengths; the key words of ``kind``
+    (``lanes_words``: "mixed" has duplicates, "equal" one value, "ones"
+    all-0xFFFFFFFF), row 3 the arrival index."""
+    n = whole * L + sum(short)
+    x = words(seed, 4, n, num_keys, kind)
+    x[3] = np.arange(n, dtype=np.uint32)
+    bounds = [i * L for i in range(whole + 1)]
+    for length in short:
+        bounds.append(bounds[-1] + length)
+    for a0, a1 in zip(bounds, bounds[1:]):
+        x[:, a0:a1] = oracle(x[:, a0:a1], num_keys, 3)
+        x[3, a0:a1] += np.uint32(a0)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["mixed", "equal", "ones"])
+@pytest.mark.parametrize("whole,short", _GROUP_SHAPES)
+@pytest.mark.parametrize("num_keys", [1, 2, 3])
+def test_merge_pass4_folded_plain_equals_two_two_way_passes(num_keys, whole,
+                                                           short, kind):
+    """The four-way pass merges groups of four runs as two two-way passes
+    do, byte for byte: groups of 4, 3, 2 and 1 whole runs, a short last
+    run, equal and all-0xFFFFFFFF keys (the arrival index decides)."""
+    L, tile = 256, 128
+    x = torch.from_numpy(_group_runs_input(whole * 7 + len(short) + num_keys,
+                                           num_keys, whole, short, kind))
+    two = tpf.merge_pass_folded_plain(
+        tpf.merge_pass_folded_plain(x, L, tile, num_keys), 2 * L, tile,
+        num_keys)
+    four = tpf.merge_pass4_folded_plain(x, L, tile, num_keys)
+    assert torch.equal(four, two)
+
+
+@pytest.mark.parametrize("num_keys,n,run_len", [(1, 1 << 12, 256),
+                                                (3, 1 << 12, 256),
+                                                (2, 3 * 1024, 256)])
+def test_merge_pass4_folded_plain_sends_ties_to_the_earliest_run(
+        num_keys, n, run_len):
+    """Groups whose four runs hold equal (key words, tie-break) twins:
+    each merged group is numpy's stable lexsort of the group, every A
+    record before its B twin, B before C, C before D, and the pass equals
+    two two-way passes."""
+    x = equal_runs(n + num_keys, n, run_len, num_keys, ways=4)
+    got = tpf.merge_pass4_folded_plain(torch.from_numpy(x), run_len,
+                                       run_len, num_keys).numpy()
+    g = 4 * run_len
+    for a0 in range(0, n, g):
+        grp = x[:, a0:a0 + g]
+        perm = np.lexsort([grp[3], *(grp[r] for r in
+                                     reversed(range(num_keys)))])
+        np.testing.assert_array_equal(got[:, a0:a0 + g], grp[:, perm])
+        for r in range(4):
+            assert (perm[r::4] // run_len == r).all()
+    two = tpf.merge_pass_folded_plain(tpf.merge_pass_folded_plain(
+        torch.from_numpy(x), run_len, run_len, num_keys), 2 * run_len,
+        run_len, num_keys)
+    np.testing.assert_array_equal(got, two.numpy())
+
+
+@pytest.mark.parametrize("whole,short", _GROUP_SHAPES)
+@pytest.mark.parametrize("num_keys", [1, 3])
+def test_merge_partition4_plain_counts_each_run(num_keys, whole, short):
+    """Each block boundary's four splits are how many records of A, B, C
+    and D lie before it in numpy's stable sort of the group (ties to the
+    earlier run), within the group's run lengths, summing to the
+    boundary's diagonal."""
+    L, width = 256, 128
+    x = _group_runs_input(whole + 3 * num_keys, num_keys, whole, short,
+                          "mixed")
+    n = x.shape[1]
+    got = tpf.merge_partition4_plain(torch.from_numpy(x), L, width,
+                                     num_keys).numpy()
+    assert got.shape == (n // width, 4)
+    for b, out0 in enumerate(range(0, n, width)):
+        g0 = out0 // (4 * L) * (4 * L)
+        grp = x[:, g0:g0 + 4 * L]
+        perm = np.lexsort([grp[3], *(grp[r] for r in
+                                     reversed(range(num_keys)))])
+        before = perm[:out0 - g0] // L
+        np.testing.assert_array_equal(got[b], np.bincount(before,
+                                                          minlength=4))
+
+
+@pytest.mark.parametrize("n,tile,plan", [
+    (1024, 1024, []),
+    (2048, 1024, [(1024, 2)]),
+    (3 * 1024, 1024, [(1024, 4)]),
+    (1 << 14, 1024, [(1024, 4), (4096, 4)]),
+    (1 << 15, 1024, [(1024, 4), (4096, 4), (16384, 2)]),
+    (1_003_520, 1024, [(1024 << 2 * i, 4) for i in range(5)]),
+    (100_003_840, 1024, [(1024 << 2 * i, 4) for i in range(8)]
+     + [(1 << 26, 2)])])
+def test_merge_plan(n, tile, plan):
+    """Four-way passes while a level has three or more runs, a two-way
+    pass where two are left: 9 passes at the sort cell's 97,660 tiles of
+    1024 (100,003,840 columns), where two-way passes alone take 17."""
+    assert tpf.merge_plan(n, tile) == plan
+
+
+def _record_steps(monkeypatch) -> list:
+    """The (run_len, ways) of every K4 pass the cascade runs from here on,
+    in order."""
+    calls = []
+
+    def counted(step, ways):
+        def run(y, run_len, *args, **kw):
+            calls.append((run_len, ways))
+            return step(y, run_len, *args, **kw)
+        return run
+
+    monkeypatch.setattr(tpf, "_MERGE_STEP", {
+        ways: counted(step, ways) for ways, step in tpf._MERGE_STEP.items()})
+    return calls
+
+
+def test_merge_tiles_runs_the_plan(monkeypatch):
+    """The records cascade runs merge_plan's passes, each by its own step:
+    on 100 tiles three four-way passes and one two-way, and its output is
+    the two-way cascade's."""
+    n = 10**5 + 3
+    w = torch.from_numpy(records(17, n))
+    m = tpf.records_cascade_columns(n, 1024)
+    y = tpf.tile_sort_folded_rows(w, 3, m, 1024)
+    two_way = y
+    for lvl in range((m // 1024 - 1).bit_length()):
+        two_way = tpf.merge_pass_folded(two_way, 1024 << lvl, 1024, 3)
+    calls = _record_steps(monkeypatch)
+    got = tpf.sort_records_folded4(w, 3, m, tile=1024)
+    assert calls == tpf.merge_plan(m, 1024) == [
+        (1024, 4), (4096, 4), (16384, 4), (65536, 2)]
+    assert torch.equal(got, two_way)
+
+
+@pytest.mark.parametrize("num_keys,sub,tile,plan", [
+    (3, 256, 1024, [(256, 4)]), (1, 256, 2048, [(256, 4), (1024, 2)]),
+    (2, 512, 1024, [(512, 2)])])
+def test_sub_tiles_merge_by_the_plan(monkeypatch, num_keys, sub, tile, plan):
+    """A tile wider than one K3 block: its sub-tiles are merged by the
+    passes merge_plan gives the tile, and the tiles come out sorted as
+    the plain K3 sorts them."""
+    x = words(tile + num_keys, 4, 2 * tile, num_keys)
+    out = tpf.tile_sort_folded_plain(torch.from_numpy(x), sub, num_keys)
+    calls = _record_steps(monkeypatch)
+    got = tpf._merge_sub_tiles(out, sub, tile, num_keys)
+    assert calls == plan
+    assert torch.equal(got, tpf.tile_sort_folded_plain(torch.from_numpy(x),
+                                                       tile, num_keys))

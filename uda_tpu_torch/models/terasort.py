@@ -47,9 +47,10 @@ VALUE_WORDS = 23     # 90 value bytes -> 23 words (2 pad bytes)
 RECORD_WORDS = KEY_WORDS + VALUE_WORDS
 RECORD_BYTES = 100   # logical TeraSort record size
 
-# the records cascade's counters (port-only): the records it sorts and
-# the columns K3 and K4 sort them in, padding included
-CASCADE_COUNTERS = ("sort.cascade_records", "sort.cascade_columns")
+# the records cascade's counters (port-only): the records it sorts, the
+# columns K3 and K4 sort them in, padding included, and K4's passes
+CASCADE_COUNTERS = ("sort.cascade_records", "sort.cascade_columns",
+                    "sort.cascade_passes")
 
 _KEY_PAD_MASK = -65536   # 0xFFFF0000 as int32: zero the key's 2 pad bytes
 _ALL_ONES = 0xFFFFFFFF
@@ -95,17 +96,18 @@ def _single_chip_sort_lanes(words: torch.Tensor, path: str,
     of ``tile`` with all-0xFFFFFFFF-key columns and run the kernel cascade;
     the keys8f cascade on the records in place pads only to a whole number
     of blocks (``pallas_fold.records_cascade_columns``) and counts its
-    records and columns (``CASCADE_COUNTERS``). Padding holds the highest
-    columns, so even a real record whose keys are all 0xFFFFFFFF sorts
-    before it (the arrival tie-break); cutting to n drops exactly the
-    padding."""
+    records, columns and K4 passes (``CASCADE_COUNTERS``). Padding holds
+    the highest columns, so even a real record whose keys are all
+    0xFFFFFFFF sorts before it (the arrival tie-break); cutting to n drops
+    exactly the padding."""
     n, w = words.shape
     m, tile = pallas_sort.pad_pow2(n, tile)
     if path in ("keys8", "keys8f"):
         if path == "keys8f" and pallas_sort.slim_takes(KEY_WORDS, tile):
             # K3 reads the key words from the records in place
             m = pallas_fold.records_cascade_columns(n, tile)
-            for name, value in zip(CASCADE_COUNTERS, (n, m)):
+            passes = len(pallas_fold.merge_plan(m, tile))
+            for name, value in zip(CASCADE_COUNTERS, (n, m, passes)):
                 metrics.add(name, value)  # udalint: disable=UDA002 - port-only counters; METRICS_REGISTRY stays the reference's
             out4 = pallas_fold.sort_records_folded4(words, KEY_WORDS, m, tile)
             perm = out4[3].view(torch.int32)

@@ -27,6 +27,14 @@ lanes-layout ones at ``tb_row=3``. The kernels are CUDA C++
   not from ``tile``. A pass over columns that are no power-of-two multiple
   of its runs (the records cascade on whole blocks) merges its last pair
   with a short B run, or copies a lone A run.
+- K4's four-way pass, ``merge_pass4_folded``: groups of four adjacent runs
+  merged at once, so the cascade takes half the passes at the same bytes a
+  pass (``merge_plan``: four-way while a level has three or more runs, a
+  two-way pass where two are left). Its own partition
+  (``merge_partition4``: a multiway selection, each block boundary's four
+  splits) and merge kernel; the output is two two-way passes', ties to the
+  earlier run, byte for byte, and a group's last runs may be short or
+  missing as a pair's are.
 
 The TPU kernels fold two element halves into 8 rows to halve their vector
 work; that is a TPU device, and the output contract is what carries over.
@@ -39,20 +47,28 @@ import ctypes
 import torch
 
 from uda_tpu_torch.ops import _build
-from uda_tpu_torch.ops.pallas_sort import (_LANE, _cat_words, _check_words,
+from uda_tpu_torch.ops.pallas_sort import (_LANE, _PLAIN_CHUNK, _cat_words,
+                                           _check_words, _lex_lt,
                                            merge_partition, merge_pass_plain,
-                                           record_key_rows, tile_sort_plain)
-from uda_tpu_torch.ops.sort import fill_words, i32, u32
+                                           merge_path_split, record_key_rows,
+                                           tile_sort_plain)
+from uda_tpu_torch.ops.sort import (_as_i64, fill_words, i32,
+                                    stable_lex_argsort, u32)
 
 __all__ = ["sort_lanes_folded", "sort_lanes_folded4", "sort_records_folded4",
            "records_cascade_columns", "tile_sort_folded",
            "tile_sort_folded_plain", "tile_sort_folded_rows",
            "merge_pass_folded",
-           "merge_pass_folded_plain", "merge_pass_folded_width"]
+           "merge_pass_folded_plain", "merge_pass_folded_width",
+           "merge_pass4_folded", "merge_pass4_folded_plain",
+           "merge_pass4_folded_width", "merge_partition4",
+           "merge_partition4_plain", "merge4_splits", "group_runs",
+           "merge_plan"]
 
 _SLOT = 4   # rows of the slim layout: 3 key rows + tie-break
 _TB = 7     # tie-break row of the standard keys8 layout
 _TB4 = 3    # tie-break row of the slim layout
+_WAYS = 4   # runs a four-way K4 pass merges
 _K4_MAX_WIDTH = _build.header_constant("K1_MAX_WIDTH")  # K4's widest block
 
 _C = ctypes
@@ -68,6 +84,17 @@ _SIGNATURES = {
     "uda_tile_sort_folded_max_tile": ([_C.c_int, _C.c_size_t], _C.c_int),
     "uda_merge_pass_folded_width": ([_C.c_int, _C.c_size_t, _C.c_size_t],
                                     _C.c_int),
+    "uda_merge_pass4_folded_width": ([_C.c_int, _C.c_size_t, _C.c_size_t],
+                                     _C.c_int),
+    "uda_merge_partition4_folded": ([_C.c_void_p, _C.c_void_p, _C.c_size_t,
+                                     _C.c_int, _C.c_int, _C.c_size_t,
+                                     _C.c_void_p], _C.c_int),
+    "uda_merge_pass4_folded": ([_C.c_void_p, _C.c_void_p, _C.c_void_p,
+                                _C.c_size_t, _C.c_int, _C.c_int,
+                                _C.c_size_t, _C.c_void_p], _C.c_int),
+    "uda_merge_pass_folded_occupancy": ([_C.c_int, _C.c_int, _C.c_int,
+                                         _C.POINTER(_C.c_int),
+                                         _C.POINTER(_C.c_int)], _C.c_int),
 }
 
 
@@ -162,12 +189,11 @@ def _k3_block_tile(device, n: int, tile: int, num_keys: int) -> int:
 def _merge_sub_tiles(out: torch.Tensor, sub: int, tile: int,
                      num_keys: int) -> torch.Tensor:
     """K3's sorted sub-tiles of ``sub`` records merged by K4 into sorted
-    tiles of ``tile``."""
+    tiles of ``tile``, by the passes ``merge_plan`` gives a tile."""
     spare = None
-    while sub < tile:
-        spare = merge_pass_folded(out, sub, sub, num_keys, out=spare)
+    for run_len, ways in merge_plan(tile, sub):
+        spare = _MERGE_STEP[ways](out, run_len, sub, num_keys, out=spare)
         out, spare = spare, out
-        sub *= 2
     return out
 
 
@@ -216,6 +242,215 @@ def _merge_pass_folded_at(x4: torch.Tensor, run_len: int, num_keys: int,
                       num_keys, width, run_len, _build.stream_of(x4))
     _build.count("merge_pass_folded")
     return out
+
+
+def merge_pass_folded_occupancy(num_keys: int, ways: int,
+                                width: int) -> tuple:
+    """K4's merge kernel on the card, two-way (``ways`` 2) or four-way (4),
+    at ``width`` records a block: (registers a thread, resident blocks a
+    multiprocessor)."""
+    regs, blocks = _C.c_int(0), _C.c_int(0)
+    _build.launch(_lib(), "uda_merge_pass_folded_occupancy", num_keys, ways,
+                  width, _C.byref(regs), _C.byref(blocks))
+    return regs.value, blocks.value
+
+
+def group_runs(g0: torch.Tensor, n: int, run_len: int) -> torch.Tensor:
+    """The four run lengths (int64[..., 4]) of the groups that start at
+    columns ``g0`` of a four-way pass over ``n`` columns: ``run_len`` each
+    where the group lies wholly inside n; the last group of a cascade on a
+    whole number of blocks has short or missing runs, as
+    ``pallas_sort.pair_runs`` gives a pair's (a group of one run copies
+    it)."""
+    starts = g0[..., None] + run_len * torch.arange(_WAYS, device=g0.device)
+    return (n - starts).clamp(min=0, max=run_len)
+
+
+def _rank_col(keys: list, n: int, a_base, la, b_base, lb, k,
+              steps: int) -> torch.Tensor:
+    """The column of the record of rank ``k`` (from 0, below la + lb) in
+    the stable merge of A and B, ties to A."""
+    i = merge_path_split(keys, n, a_base, la, b_base, lb, k, steps)
+    j = k - i
+    a_col = (a_base + i).clamp(0, n - 1)
+    b_col = (b_base + j).clamp(0, n - 1)
+    take_b = (j < lb) & ((i >= la) | _lex_lt([w[b_col] for w in keys],
+                                             [w[a_col] for w in keys]))
+    return torch.where(take_b, b_col, a_col)
+
+
+def merge4_splits(keys: list, n: int, run_len: int, tile: int):
+    """Per output tile of one four-way pass, which merges groups of four
+    ascending runs of ``run_len`` into runs of ``4 * run_len`` (the last
+    group's runs as :func:`group_runs` gives them): the group's base
+    column and int64[tiles, 4], the numbers of A, B, C and D records merged
+    before the tile, ties to the earlier run. ``keys`` are the int64 key
+    rows plus the tie-break row. A vectorised search over all tiles at
+    once, of its own form: the split j between AB (the stable merge of A
+    with B) and CD, each probe finding the records of rank j - 1 in AB and
+    d - j in CD by a two-way split; then j's and d - j's two-way splits.
+    The four-way partition kernel finds the same splits by a multiway
+    selection (:func:`merge_partition4`)."""
+    L = run_len
+    out0 = torch.arange(0, n, tile, device=keys[0].device)
+    g0 = out0 // (_WAYS * L) * (_WAYS * L)
+    d = out0 - g0
+    lens = group_runs(g0, n, L)
+    ab = (g0, lens[:, 0], g0 + L, lens[:, 1])
+    cd = (g0 + 2 * L, lens[:, 2], g0 + 3 * L, lens[:, 3])
+    lab, lcd = ab[1] + ab[3], cd[1] + cd[3]
+    steps = (2 * L).bit_length() + 1
+    lo = (d - lcd).clamp(min=0)
+    hi = torch.minimum(d, lab)
+    for _ in range(steps):
+        j = (lo + hi + 1) // 2       # candidate: AB records taken
+        k = d - j                    # CD records taken
+        a_col = _rank_col(keys, n, *ab, (j - 1).clamp(min=0), steps)
+        c_col = _rank_col(keys, n, *cd, k, steps)
+        c_lt_a = _lex_lt([w[c_col] for w in keys], [w[a_col] for w in keys])
+        ok = (j <= 0) | (k >= lcd) | ~c_lt_a
+        lo = torch.where(ok, j, lo)
+        hi = torch.where(ok, hi, j - 1)
+    ia = merge_path_split(keys, n, *ab, lo, steps)
+    ic = merge_path_split(keys, n, *cd, d - lo, steps)
+    return g0, torch.stack([ia, lo - ia, ic, d - lo - ic], dim=1)
+
+
+def merge_partition4_plain(x4: torch.Tensor, run_len: int, width: int,
+                           num_keys: int) -> torch.Tensor:
+    """Plain version of the four-way partition kernel: each block of
+    ``width`` output records' A, B, C and D splits (int32[blocks, 4])."""
+    keys = [_as_i64(x4[r]) for r in [*range(num_keys), _TB4]]
+    return merge4_splits(keys, x4.shape[1], run_len, width)[1].to(
+        torch.int32)
+
+
+def merge_pass4_folded_plain(x4: torch.Tensor, run_len: int, tile: int,
+                             num_keys: int) -> torch.Tensor:
+    """Plain version of K4's four-way pass: groups of four adjacent
+    ascending runs of ``run_len`` merged into ascending runs of ``4 *
+    run_len``, ties to the earlier run (the last group's runs as
+    :func:`group_runs` gives them): two two-way passes' output. Per output
+    tile: the four splits (:func:`merge4_splits`), then the first ``tile``
+    records of its four windows in order."""
+    rows, n = x4.shape
+    L = run_len
+    keys = [_as_i64(x4[r]) for r in [*range(num_keys), _TB4]]
+    g0, sp = merge4_splits(keys, n, L, tile)
+    lens = group_runs(g0, n, L)
+    q = torch.arange(tile, device=x4.device)
+    out = torch.empty_like(x4)
+    per = max(1, _PLAIN_CHUNK // (2 * tile))
+    for t0 in range(0, n // tile, per):
+        t1 = min(n // tile, t0 + per)
+        cols, past = [], []
+        for r in range(_WAYS):
+            i = sp[t0:t1, r:r + 1] + q
+            ln = lens[t0:t1, r:r + 1]
+            # a position past a run's end reads some record in n, its place
+            # taken by the past-end flag
+            cols.append((g0[t0:t1, None] + r * L + torch.minimum(i, ln - 1)
+                         ).clamp(0, n - 1))
+            past.append(i >= ln)
+        cols = torch.cat(cols, dim=1)
+        order = stable_lex_argsort(
+            [torch.cat(past, dim=1).to(torch.int64), *(k[cols] for k in keys)],
+            dim=1)
+        src = torch.gather(cols, 1, order[:, :tile]).flatten()
+        i32(out)[:, t0 * tile:t1 * tile] = i32(x4)[:, src]
+    return out
+
+
+def merge_pass4_folded_width(num_keys: int, n: int, run_len: int) -> int:
+    """The four-way pass's block width on the card: records per block, a
+    power of two up to 4096 that divides ``n`` and ``4 * run_len`` and
+    whose shared memory fits K4's budget (0 for a key count K4 does not
+    take). The output does not depend on it."""
+    return _lib().uda_merge_pass4_folded_width(num_keys, n, run_len)
+
+
+def merge_partition4(x4: torch.Tensor, run_len: int, width: int,
+                     num_keys: int) -> torch.Tensor:
+    """The four-way partition kernel: per block of ``width`` output
+    records of one four-way pass, the A, B, C and D records merged before
+    it (int32[blocks, 4]), one thread a block boundary running a multiway
+    selection on the power-of-two grid. The kernel on a CUDA tensor,
+    :func:`merge_partition4_plain` on a CPU one. Counted as a
+    ``merge_partition`` launch and as a ``merge_partition4`` one."""
+    if x4.device.type == "cpu":
+        return merge_partition4_plain(x4, run_len, width, num_keys)
+    n = _build.cuda_words(x4, rows=_SLOT).shape[1]
+    if width <= 0 or n % width:
+        raise ValueError(f"width={width} must divide n={n}")
+    splits = torch.empty((n // width, _WAYS), dtype=torch.int32,
+                         device=x4.device)
+    with torch.cuda.device(x4.device):
+        _build.launch(_lib(), "uda_merge_partition4_folded", x4.data_ptr(),
+                      splits.data_ptr(), n, num_keys, width, run_len,
+                      _build.stream_of(x4))
+    _build.count("merge_partition")
+    _build.count("merge_partition4")
+    return splits
+
+
+def merge_pass4_folded(x4: torch.Tensor, run_len: int, tile: int,
+                       num_keys: int, out: "torch.Tensor | None" = None
+                       ) -> torch.Tensor:
+    """K4's four-way pass: the four-way partition and merge kernels on a
+    CUDA tensor, :func:`merge_pass4_folded_plain` on a CPU one; the result
+    goes into ``out`` when given. On the card the blocks are
+    :func:`merge_pass4_folded_width` records wide whatever ``tile`` is.
+    Counted as a ``merge_pass_folded`` launch (it is K4) and as a
+    ``merge_pass_folded4`` one."""
+    if out is not None and (out.shape != x4.shape or out.dtype != x4.dtype
+                            or out.data_ptr() == x4.data_ptr()):
+        raise ValueError("merge_pass4_folded needs a separate output like "
+                         "x4")
+    if x4.device.type == "cpu":
+        res = merge_pass4_folded_plain(x4, run_len, tile, num_keys)
+        return res if out is None else u32(i32(out).copy_(i32(res)))
+    n = _build.cuda_words(x4, rows=_SLOT).shape[1]
+    width = merge_pass4_folded_width(num_keys, n, run_len)
+    if not width:
+        raise ValueError(f"merge_pass4_folded takes 1 to 3 key words, got "
+                         f"{num_keys}")
+    return _merge_pass4_folded_at(x4, run_len, num_keys, width, out)
+
+
+def _merge_pass4_folded_at(x4: torch.Tensor, run_len: int, num_keys: int,
+                           width: int, out: "torch.Tensor | None"
+                           ) -> torch.Tensor:
+    """The four-way pass on the card with blocks of ``width`` records (a
+    power of two up to 4096 dividing n and 4 * run_len): the partition,
+    then the merge."""
+    splits = merge_partition4(x4, run_len, width, num_keys)
+    out = torch.empty_like(x4) if out is None else _build.cuda_words(out)
+    with torch.cuda.device(x4.device):
+        _build.launch(_lib(), "uda_merge_pass4_folded", x4.data_ptr(),
+                      out.data_ptr(), splits.data_ptr(), x4.shape[1],
+                      num_keys, width, run_len, _build.stream_of(x4))
+    _build.count("merge_pass_folded")
+    _build.count("merge_pass_folded4")
+    return out
+
+
+_MERGE_STEP = {2: merge_pass_folded, _WAYS: merge_pass4_folded}
+
+
+def merge_plan(n: int, tile: int) -> list:
+    """K4's passes over ``n`` columns of sorted tiles of ``tile`` records,
+    as ``(run_len, ways)``: four-way while a level has three or more runs,
+    a two-way pass where two are left; a level of r runs leaves
+    ceil(r / ways). At 100,003,840 columns and tile 1024 (97,660 tiles):
+    eight four-way passes and one two-way, where two-way passes alone take
+    17."""
+    plan = []
+    runs, run_len = -(-n // tile), tile
+    while runs > 1:
+        ways = _WAYS if runs > 2 else 2
+        plan.append((run_len, ways))
+        runs, run_len = -(-runs // ways), run_len * ways
+    return plan
 
 
 def sort_lanes_folded4(x4: torch.Tensor, num_keys: int,
@@ -286,14 +521,14 @@ def _check_cascade(n: int, num_keys: int, tile: int,
 
 
 def _merge_tiles(y: torch.Tensor, tile: int, num_keys: int) -> torch.Tensor:
-    """K4's passes over K3's sorted tiles, up to one sorted run: one pass
-    a level, ceil(log2(tiles)) of them; where the tiles are no power of
-    two, each level's last pair has a short B run or none
-    (``pallas_sort.pair_runs``)."""
-    levels = (y.shape[1] // tile - 1).bit_length()
-    spare = torch.empty_like(y) if levels else None
-    for lvl in range(levels):
-        z = merge_pass_folded(y, tile << lvl, tile, num_keys, out=spare)
+    """K4's passes over K3's sorted tiles, up to one sorted run, as
+    :func:`merge_plan` gives them; where the tiles are no power of two,
+    each level's last group or pair has short runs or none
+    (:func:`group_runs`, ``pallas_sort.pair_runs``)."""
+    plan = merge_plan(y.shape[1], tile)
+    spare = torch.empty_like(y) if plan else None
+    for run_len, ways in plan:
+        z = _MERGE_STEP[ways](y, run_len, tile, num_keys, out=spare)
         spare, y = y, z
     return y
 

@@ -40,7 +40,7 @@ __all__ = ["ROWS", "TB_ROW_DEFAULT", "sort_lanes", "rows_to_lanes",
            "slim_takes", "pad_pow2", "tile_sort", "tile_sort_plain",
            "merge_pass", "merge_pass_plain", "merge_partition",
            "merge_partition_plain", "merge_pass_width", "merge_splits",
-           "pair_runs"]
+           "merge_path_split", "pair_runs"]
 
 ROWS = 32               # row count of the full lanes layout
 TB_ROW_DEFAULT = 31     # default tie-break row (last)
@@ -148,20 +148,31 @@ def merge_splits(keys: list, n: int, run_len: int, tile: int):
     out0 = torch.arange(0, n, tile, device=keys[0].device)
     a_base = out0 // (2 * L) * (2 * L)
     la, lb = pair_runs(a_base, n, L)
-    b_base = a_base + la
     d = out0 - a_base
-    lo = (d - lb).clamp(min=0)
-    hi = torch.minimum(d, la)
-    for _ in range(L.bit_length() + 1):
+    lo = merge_path_split(keys, n, a_base, la, a_base + la, lb, d,
+                          L.bit_length() + 1)
+    return a_base, lo, d - lo
+
+
+def merge_path_split(keys: list, n: int, a_base, la, b_base, lb, diag,
+                     steps: int) -> torch.Tensor:
+    """The number of A records among the first ``diag`` of the stable
+    merge of the ascending runs A = columns [a_base, a_base + la) and B =
+    [b_base, b_base + lb), ties to A: a vectorised merge-path binary
+    search of ``steps`` halvings (enough for ranges up to 2^(steps - 1)),
+    over tensors of bases, lengths and diagonals alike."""
+    lo = (diag - lb).clamp(min=0)
+    hi = torch.minimum(diag, la)
+    for _ in range(steps):
         mid = (lo + hi + 1) // 2                # candidate: A records taken
-        j = d - mid                             # B records taken
-        a_idx = a_base + torch.minimum((mid - 1).clamp(min=0), la - 1)
-        b_idx = b_base + torch.minimum(j.clamp(min=0), lb - 1)
+        j = diag - mid                          # B records taken
+        a_idx = (a_base + mid - 1).clamp(0, n - 1)
+        b_idx = (b_base + j).clamp(0, n - 1)
         b_lt_a = _lex_lt([k[b_idx] for k in keys], [k[a_idx] for k in keys])
         ok = (mid <= 0) | (j >= lb) | ~b_lt_a
         lo = torch.where(ok, mid, lo)
         hi = torch.where(ok, hi, mid - 1)
-    return a_base, lo, d - lo
+    return lo
 
 
 def merge_pass_plain(x: torch.Tensor, run_len: int, tile: int,
