@@ -163,6 +163,39 @@ def test_net_timer_spans_sit_under_the_reduce_task(suppliers):
     assert critpath.analyze(spans)["buckets"]["fetch"]["critical_s"] > 0
 
 
+def test_fetch_and_read_splits_fire_where_the_work_happens(suppliers):
+    """The fetch completions' splits (``fetch_crack`` a chunk,
+    ``fetch_issue`` a chunk but each segment's last, ``fetch_handoff`` a
+    segment) nest in ``net_deliver``; ``net_recv`` (a counter, no span)
+    in ``net_read``; the task thread's ``task_setup``, ``merge_collect``
+    and ``task_teardown`` fire once a task, ``client_stop`` once for the
+    routing client and once for each of its connections."""
+    metrics.enable_stats()
+    _over_the_wire(suppliers)
+    segments = NODES * MAPS_PER_NODE
+    chunks = metrics.get("fetch.chunks")
+    assert chunks > 2 * segments
+    count = {}
+    for s in metrics.spans:
+        count[s["name"]] = count.get(s["name"], 0) + 1
+    assert count["fetch_crack"] == chunks
+    assert count["fetch_issue"] == chunks - segments
+    assert count["fetch_handoff"] == segments
+    assert count["task_setup"] == count["merge_collect"] == 1
+    assert count["task_teardown"] == 1
+    assert count["client_stop"] == 1 + NODES
+    assert "net_recv" not in count
+    split = sum(metrics.get(t + "_time")
+                for t in ("fetch_crack", "fetch_issue", "fetch_handoff"))
+    assert 0 < split <= metrics.get("net_deliver_time")
+    assert 0 < metrics.get("net_recv_time") <= metrics.get("net_read_time")
+    # the splits' spans sit under their net_deliver's
+    by_id = {s["id"]: s for s in metrics.spans}
+    for s in metrics.spans:
+        if s["name"] in ("fetch_crack", "fetch_issue", "fetch_handoff"):
+            assert by_id[s["parent"]]["name"] == "net_deliver", s
+
+
 def test_buckets_from_counters_adds_the_net_timers_to_fetch():
     got = critpath.buckets_from_counters(
         {"fetch_time": 2.0, "net_read_time": 0.5,
@@ -171,14 +204,15 @@ def test_buckets_from_counters_adds_the_net_timers_to_fetch():
 
 
 def _timer_names(package: str) -> set:
-    """Every literal name passed to ``metrics.timer`` or
-    ``metrics.start_timer`` in a package."""
+    """Every literal name passed to ``metrics.timer``,
+    ``metrics.start_timer`` or ``metrics.add_time`` in a package."""
     names = set()
     for path in (ROOT / package).rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             if (isinstance(node, ast.Call)
                     and isinstance(node.func, ast.Attribute)
-                    and node.func.attr in ("timer", "start_timer")
+                    and node.func.attr in ("timer", "start_timer",
+                                           "add_time")
                     and node.args
                     and isinstance(node.args[0], ast.Constant)
                     and isinstance(node.args[0].value, str)):

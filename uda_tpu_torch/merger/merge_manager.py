@@ -101,7 +101,7 @@ from uda_tpu_torch.utils.flightrec import flightrec, flightrec_enabled_from_env
 from uda_tpu_torch.utils.ifile import RecordBatch
 from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.logging import get_logger
-from uda_tpu_torch.utils.metrics import metrics
+from uda_tpu_torch.utils.metrics import OpenTimer, metrics
 from uda_tpu_torch.utils.profiler import profile_hz_from_env, profiler
 from uda_tpu_torch.utils.retry import RetryPolicy, SpeculationPolicy
 from uda_tpu_torch.utils.stats import (register_stats_provider,
@@ -338,6 +338,7 @@ class MergeManager:
         self._ckpt: Optional[checkpoint.TaskCheckpoint] = None
         self._watchdog: Optional[StallWatchdog] = None
         self._stall_error: Optional[StallError] = None
+        self._setup: Optional[OpenTimer] = None  # live within run()
         self._emit_progress = 0
         # the push plane's reduce-side staging (arm_push)
         self._push_staging = None
@@ -621,6 +622,7 @@ class MergeManager:
             return error
 
         self._live_segments = segs
+        self._end_setup()
         with metrics.timer("fetch"):
             pending = deque(order)
             while pending:
@@ -717,6 +719,8 @@ class MergeManager:
         ``uda.tpu.watchdog.fallback``, on by default) fails the in-flight
         segments, so this call ends in ``FallbackSignal(StallError)``
         instead of hanging."""
+        # the task's set-up, up to the fetch phase (fetch_all ends it)
+        self._setup = metrics.start_timer("task_setup")
         # task-local emit progress (the watchdog token must not read the
         # process-wide counters: another task's emission would mask this
         # one's wedge), counted after delivery, so a consumer that never
@@ -773,11 +777,27 @@ class MergeManager:
                 "supplier": getattr(e, "supplier", None)})
             raise FallbackSignal(e) from e
         finally:
+            # the teardown: the overlapped merger's, started as its
+            # emission returned, else from here
+            self._end_setup()
+            om, teardown = self._active_overlap, None
+            if om is not None:
+                teardown, om.teardown = om.teardown, None
+            if teardown is None:
+                teardown = metrics.start_timer("task_teardown")
             unregister_stats_provider(provider_name, _recovery_provider)
             self._release_push()
             if wd is not None:
                 wd.stop()
                 self._watchdog = None
+            teardown.stop()
+
+    def _end_setup(self) -> None:
+        """End the task's ``task_setup`` timer (once; the fetch phase
+        begins, or run() ends without one)."""
+        setup, self._setup = self._setup, None
+        if setup is not None:
+            setup.stop()
 
     # -- liveness -----------------------------------------------------------
 
@@ -1118,16 +1138,17 @@ class MergeManager:
         # timer (readback, gather, frame and deliver stages inside it,
         # the consumer's calls under "emit")
         if streaming:
-            out = om.finish_streaming(
-                self.emitter, consumer,
-                expected_records=(sum(s.num_records for s in segments
-                                      if s is not None)
-                                  + adopted_records))
+            with metrics.timer("merge_collect"):
+                expected = sum(s.num_records for s in segments
+                               if s is not None) + adopted_records
+            out = om.finish_streaming(self.emitter, consumer,
+                                      expected_records=expected)
             if ckpt is not None:
                 # the emitted output is the durable artifact now: a kept
                 # checkpoint would resume a finished task
                 ckpt.discard()
                 self._ckpt = None
             return out
-        return om.emit_stream([s.record_batch() for s in segments],
-                              self.emitter, consumer)
+        with metrics.timer("merge_collect"):
+            batches = [s.record_batch() for s in segments]
+        return om.emit_stream(batches, self.emitter, consumer)

@@ -180,6 +180,9 @@ class OverlappedMerger:
         # reduce-task root), so their pack/stage/merge timers land in the
         # right trace subtree
         self._parent_span = metrics.current_span()
+        # the reduce task's teardown timer, started as a finish's emission
+        # returns; the task stops it as run() returns
+        self.teardown = None
         # udarace: lockfree=_q,_staged_q - queue.Queue is internally
         # locked; cross-thread put/get rides the Queue's own mutex
         self._q: "queue.Queue" = queue.Queue(maxsize=max_pending)
@@ -922,6 +925,7 @@ class OverlappedMerger:
                 stream_mod.frame_slabs(self._pair_slabs(acc, batches),
                                        batches), consumer)
         finally:
+            self.teardown = metrics.start_timer("task_teardown")
             self._finish_cleanup(acc)
 
     def finish_streaming(self, emitter, consumer,
@@ -971,6 +975,7 @@ class OverlappedMerger:
                 stream_mod.interleave_runs(self._seg_row_slabs(acc), store,
                                            seg_col=0), consumer)
         finally:
+            self.teardown = metrics.start_timer("task_teardown")
             store.cleanup()
             self._finish_cleanup(acc)
 

@@ -387,7 +387,8 @@ class HostRoutingClient(InputClient):
         return sum(estimates)
 
     def stop(self) -> None:
-        with self._lock:
+        # timed apart from each connection's stop, which times its own
+        with metrics.timer("client_stop"), self._lock:
             self._stopped = True
             clients = list(self._clients.values())
             self._clients.clear()
@@ -516,7 +517,8 @@ class Segment:
             span.end(**({"error": type(err).__name__} if err else {}))
         cb = self.on_done
         if cb is not None:
-            cb(self)
+            with metrics.timer("fetch_handoff"):
+                cb(self)
 
     def _finish(self, error: Optional[Exception]) -> bool:
         """The only terminal transition: the first caller wins, so on_done
@@ -1031,14 +1033,15 @@ class Segment:
             if last:
                 self._finish(None)
                 return
-            result = self._try_issue(self._next_offset)
+            with metrics.timer("fetch_issue"):
+                result = self._try_issue(self._next_offset)
 
     def _ingest(self, res: FetchResult) -> bool:
         """Absorb one chunk; returns True when the segment is complete.
         Never calls callbacks and never touches them under self._lock —
         the completion callback may call record_batch(), which takes the
         same (non-reentrant) lock on this same thread."""
-        with self._lock:
+        with metrics.timer("fetch_crack"), self._lock:
             self.raw_length = res.raw_length
             data = self._carry + res.data
             last = res.is_last

@@ -50,13 +50,16 @@ Failpoints: ``net.connect`` per dial and ``net.frame`` per outbound
 request frame, both on the caller thread (a truncation sends the torn
 bytes, then tears the connection down).
 
-Timers (``metrics.timer``; port-only, ``metrics.PORT_TIMERS``, charged to
-``fetch`` by ``utils.critpath.PORT_SPAN_BUCKETS``): ``net_read`` covers
-the loop thread's read of one ready connection (``_do_read``: every
+Timers (port-only, ``metrics.PORT_TIMERS``, charged to ``fetch`` by
+``utils.critpath.PORT_SPAN_BUCKETS``): ``net_read`` covers the loop
+thread's read of one ready connection (``_do_read``: every
 ``recv_into``, header decode and frame completion up to the dispatcher
-hand-off), ``net_deliver`` one completion upcall on the dispatcher
-thread. With spans on, a ``net_read`` span is parented under the span of
-the connection's latest request and a ``net_deliver`` span under its own
+hand-off), ``net_recv`` the ``recv_into`` calls inside it (a counter
+only, added once a read), ``net_deliver`` one completion upcall on the
+dispatcher thread (a Segment's ``fetch_crack``, ``fetch_issue`` and
+``fetch_handoff`` nest in it), ``client_stop`` the client's ``stop``.
+With spans on, a ``net_read`` span is parented under the span of the
+connection's latest request and a ``net_deliver`` span under its own
 request's, so both join the reduce task's trace.
 """
 
@@ -95,13 +98,10 @@ _SIZE_PROBE_TIMEOUT_S = 30.0
 class _Waiter:
     """One in-flight request's completion slot and its span."""
 
-    __slots__ = ("on_complete", "t0", "timed", "span")
+    __slots__ = ("on_complete", "span")
 
-    def __init__(self, on_complete: Callable, t0: float,
-                 timed: bool = True, span=None):
+    def __init__(self, on_complete: Callable, span=None):
         self.on_complete = on_complete
-        self.t0 = t0
-        self.timed = timed
         self.span = span
 
     def end_span(self, result=None, error: str = "") -> None:
@@ -227,35 +227,44 @@ class _ClientConn:
     def _do_read(self) -> None:
         # receive straight into the header buffer or the frame's own
         # payload buffer; keep reading while each recv fills what it
-        # asked for, back to select on the first partial return
-        while not self.dead:
-            if self._payload is None:
-                dest = memoryview(self._hdr)[self._hdr_got:]
-            else:
-                dest = memoryview(self._payload)[self._pay_got:]
-            want = len(dest)
-            try:
-                n = self.sock.recv_into(dest)
-            except (BlockingIOError, InterruptedError):
-                return
-            except OSError as e:
-                self._die(e)
-                return
-            finally:
-                # the buffer-donating decode resizes the payload in
-                # place, which a live export would veto
-                dest.release()
-            if n == 0:
-                self._die(TransportError("supplier closed the connection"))
-                return
-            metrics.add("net.bytes.in", n, role="client")
-            try:
-                self._advance(n)
-            except TransportError as e:
-                self._die(e)
-                return
-            if n < want:
-                return
+        # asked for, back to select on the first partial return. The
+        # recv_into calls' own time is summed here and added to
+        # net_recv_time once a read
+        recv_s = 0.0
+        try:
+            while not self.dead:
+                if self._payload is None:
+                    dest = memoryview(self._hdr)[self._hdr_got:]
+                else:
+                    dest = memoryview(self._payload)[self._pay_got:]
+                want = len(dest)
+                t0 = time.perf_counter()
+                try:
+                    n = self.sock.recv_into(dest)
+                except (BlockingIOError, InterruptedError):
+                    return
+                except OSError as e:
+                    self._die(e)
+                    return
+                finally:
+                    recv_s += time.perf_counter() - t0
+                    # the buffer-donating decode resizes the payload in
+                    # place, which a live export would veto
+                    dest.release()
+                if n == 0:
+                    self._die(TransportError(
+                        "supplier closed the connection"))
+                    return
+                metrics.add("net.bytes.in", n, role="client")
+                try:
+                    self._advance(n)
+                except TransportError as e:
+                    self._die(e)
+                    return
+                if n < want:
+                    return
+        finally:
+            metrics.add_time("net_recv", recv_s)
 
     def _advance(self, n: int) -> None:
         if self._payload is None:
@@ -504,10 +513,6 @@ class EvLoopFetchClient(InputClient):
         if waiter is None:
             metrics.add("net.frames.orphaned")
             return
-        if waiter.timed:
-            metrics.observe("net.frame.latency_ms",
-                            (time.perf_counter() - waiter.t0) * 1e3,
-                            role="client")
         waiter.end_span(result)
         conn.loop.dispatch(self._deliver, req_id, waiter, result)
 
@@ -523,7 +528,7 @@ class EvLoopFetchClient(InputClient):
                          f"raised: {e}")
 
     def _register(self, conn: _ClientConn, on_complete,
-                  timed: bool = True, span=None) -> Optional[int]:
+                  span=None) -> Optional[int]:
         """A fresh req id and waiter on ``conn``, or None when the
         connection died in between."""
         with self._lock:
@@ -531,8 +536,7 @@ class EvLoopFetchClient(InputClient):
                 return None
             self._next_id += 1
             req_id = self._next_id
-            self._pending[req_id] = _Waiter(on_complete,
-                                            time.perf_counter(), timed, span)
+            self._pending[req_id] = _Waiter(on_complete, span)
             self._read_parent = span
         return req_id
 
@@ -600,9 +604,8 @@ class EvLoopFetchClient(InputClient):
                                  f"{result}")
 
                 self._pending[req_id] = _Waiter(
-                    on_bound, time.perf_counter(), timed=False,
-                    span=metrics.start_span("net.job_bind",
-                                            host=self.host))
+                    on_bound, span=metrics.start_span("net.job_bind",
+                                                      host=self.host))
             else:
                 req_id = None
         if req_id is None:
@@ -637,9 +640,9 @@ class EvLoopFetchClient(InputClient):
             self._next_id += 1
             req_id = self._next_id
             self._pending[req_id] = _Waiter(
-                on_reply, time.perf_counter(), timed=False,
-                span=metrics.start_span("net.job_bind", host=self.host,
-                                        retire=retire))
+                on_reply, span=metrics.start_span("net.job_bind",
+                                                  host=self.host,
+                                                  retire=retire))
         try:
             self._post(conn,
                        self._job_frame(req_id, job_id, retire=retire))
@@ -783,8 +786,8 @@ class EvLoopFetchClient(InputClient):
             return
         conn.send_frame(out, len(out) != len(frame))
 
-    def _round_trip(self, frame_of, timeout: float, timed: bool,
-                    span_of, job_id: str = ""):
+    def _round_trip(self, frame_of, timeout: float, span_of,
+                    job_id: str = ""):
         """One blocking request/reply on the connection: the reply, or
         None on transport trouble or timeout. A ``job_id`` is bound first
         (the tenant plane's MSG_JOB discipline). ``span_of()`` opens the
@@ -803,7 +806,7 @@ class EvLoopFetchClient(InputClient):
             got.set()
 
         span = span_of()
-        req_id = self._register(conn, on_reply, timed, span)
+        req_id = self._register(conn, on_reply, span)
         if req_id is None:
             span.end(error="disconnect")
             return None
@@ -823,7 +826,7 @@ class EvLoopFetchClient(InputClient):
             lambda rid, span: wire.encode_size_request(
                 rid, job_id, list(map_ids), reduce_id,
                 trace=self._trace_of(span)),
-            _SIZE_PROBE_TIMEOUT_S, timed=False,
+            _SIZE_PROBE_TIMEOUT_S,
             span_of=lambda: metrics.start_span(
                 "net.size_probe", host=self.host, reduce=reduce_id,
                 maps=len(map_ids)),
@@ -841,29 +844,30 @@ class EvLoopFetchClient(InputClient):
             return wire.encode_stats_request(rid)
 
         result = self._round_trip(
-            frame_of, timeout, timed=True,
+            frame_of, timeout,
             span_of=lambda: metrics.start_span("net.stats", host=self.host))
         return result if isinstance(result, dict) else None
 
     def stop(self) -> None:
-        with self._lock:
-            self._stopped = True
-            conn, self._conn = self._conn, None
-            orphans = list(self._pending.values())
-            self._pending.clear()
-        if conn is not None:
-            conn.loop.call_soon(conn.close_quiet)
-            metrics.gauge_add("net.client.connections", -1)
-        err = TransportError(
-            f"RemoteFetchClient({self.host}) stopped with "
-            f"{len(orphans)} fetches in flight")
-        for waiter in orphans:
-            waiter.end_span(error="stopped")
-            try:
-                waiter.on_complete(err)
-            except Exception as e:  # noqa: BLE001
-                log.warn(f"net: completion callback raised during "
-                         f"stop: {e}")
+        with metrics.timer("client_stop"):
+            with self._lock:
+                self._stopped = True
+                conn, self._conn = self._conn, None
+                orphans = list(self._pending.values())
+                self._pending.clear()
+            if conn is not None:
+                conn.loop.call_soon(conn.close_quiet)
+                metrics.gauge_add("net.client.connections", -1)
+            err = TransportError(
+                f"RemoteFetchClient({self.host}) stopped with "
+                f"{len(orphans)} fetches in flight")
+            for waiter in orphans:
+                waiter.end_span(error="stopped")
+                try:
+                    waiter.on_complete(err)
+                except Exception as e:  # noqa: BLE001
+                    log.warn(f"net: completion callback raised during "
+                             f"stop: {e}")
 
 
 RemoteFetchClient = EvLoopFetchClient

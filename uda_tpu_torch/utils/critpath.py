@@ -5,8 +5,10 @@ priority order unchanged, so the port's spans (which carry the
 reference's names) map the same way: ``overlap_stage`` and
 ``merge.device_put`` (the port's host-to-card staging) are
 ``device_put``, ``overlap_device_merge`` (K1's forest) is ``merge``.
-The port's own timers (:data:`PORT_SPAN_BUCKETS`): the emit's are
-``serve``, the socket client's read and completion upcall ``fetch``.
+The port's own timers (:data:`PORT_SPAN_BUCKETS`, from
+``metrics.PORT_TIMERS``): the emit's are ``serve``, the socket client's
+and the fetch completion's ``fetch``, the task's set-up and teardown
+``other``.
 
 - **wall partition**: sweep the root span's timeline; at every instant
   the active spans map to buckets and exactly one bucket is charged, by
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
-from uda_tpu_torch.utils.metrics import Metrics
+from uda_tpu_torch.utils.metrics import PORT_TIMERS, Metrics
 from uda_tpu_torch.utils.metrics import metrics as global_metrics
 
 __all__ = ["analyze", "time_accounting_block", "buckets_from_counters",
@@ -70,18 +72,11 @@ SPAN_BUCKETS: Dict[str, str] = {
 BUCKET_PRIORITY = ("merge", "device_put", "decompress_pack", "serve",
                    "fetch", "other", "wait")
 
-# timer spans only the port has (metrics.PORT_TIMERS) -> stage bucket,
-# consulted after SPAN_BUCKETS (disjoint from it): the emit's phase and
-# its stages (merger/emitter.py) are emission, the reference's bucket for
-# "emit"; the socket client's reads and completion upcalls (net/client.py)
-# and a dead supplier's partitions rebuilt from shards (coding/) are the
-# fetch
-PORT_SPAN_BUCKETS: Dict[str, str] = {
-    "emit_phase": "serve", "emit_readback": "serve", "emit_gather": "serve",
-    "emit_frame": "serve", "emit_deliver": "serve", "emit_tiefix": "serve",
-    "net_read": "fetch", "net_deliver": "fetch",
-    "coding_recover": "fetch", "coding_decode": "fetch",
-}
+# timer spans only the port has -> stage bucket, consulted after
+# SPAN_BUCKETS (disjoint from it); derived from metrics.PORT_TIMERS, which
+# gives each its bucket
+PORT_SPAN_BUCKETS: Dict[str, str] = {name: t.bucket
+                                     for name, t in PORT_TIMERS.items()}
 
 # bucket -> the reference trio alias it reconciles onto (reducer.h:80-90)
 TRIO_MAP: Dict[str, str] = {
@@ -241,31 +236,38 @@ def time_accounting_block(m: Optional[Metrics] = None,
     return block
 
 
+# the reference's rows of buckets_from_counters: bucket -> its timers'
+# counters (the port's busy timers are appended to each, in table order)
+_COUNTER_ROWS = (("fetch", ("fetch_time",)),
+                 ("wait", ("wait_mem_time",)),
+                 ("decompress_pack", ("overlap_pack_time", "pack_time",
+                                      "run_spool_time")),
+                 ("device_put", ("overlap_stage_time",)),
+                 ("merge", ("merge_time", "overlap_device_merge_time",
+                            "device_sort_time", "lpq_spill_time",
+                            "lpq_phase_time", "rpq_phase_time")),
+                 ("serve", ("supplier_read_time", "emit_time")))
+
+
 def buckets_from_counters(counters: Dict[str, float]) -> Dict:
     """Coarse busy-seconds bucketing from the ``<timer>_time`` counters
     alone — the fallback where no span tree exists (chaos-rung session
     telemetry, stats-off runs). These are BUSY sums (overlap not
-    removed), so they do not sum to wall; the block says so. The emit's
-    stage timers count as serve; ``emit_phase_time``, which holds them
-    and ``emit_time``, does not. The socket client's ``net_read_time``
-    and ``net_deliver_time``, busy on its loop and dispatcher threads
-    beside the task's ``fetch_time``, count as fetch. The coding timers
-    do not: ``coding_recover_time`` is the rung's wall, waits included,
-    and ``coding_decode_time`` is busy inside a completion upcall that
-    ``net_deliver_time`` (or the fetch phase) already holds."""
-    table = (("fetch", ("fetch_time", "net_read_time",
-                        "net_deliver_time")),
-             ("wait", ("wait_mem_time",)),
-             ("decompress_pack", ("overlap_pack_time", "pack_time",
-                                  "run_spool_time")),
-             ("device_put", ("overlap_stage_time",)),
-             ("merge", ("merge_time", "overlap_device_merge_time",
-                        "device_sort_time", "lpq_spill_time",
-                        "lpq_phase_time", "rpq_phase_time")),
-             ("serve", ("supplier_read_time", "emit_time",
-                        "emit_readback_time", "emit_gather_time",
-                        "emit_frame_time", "emit_deliver_time",
-                        "emit_tiefix_time")))
+    removed), so they do not sum to wall; the block says so. The port's
+    own timers join their bucket's row where ``metrics.PORT_TIMERS``
+    marks them ``busy`` (outermost); one whose time another counter
+    already holds does not: ``emit_phase`` (it holds the emit's stages
+    and ``emit_time``), the coding timers (``coding_recover_time`` is
+    the rung's wall, waits included; ``coding_decode_time`` is busy
+    inside a completion upcall), the fetch completion's and the socket
+    read's splits (inside ``net_deliver_time`` and ``net_read_time``).
+    A bucket with no row here (``other``: the task's set-up and
+    teardown) stays out, as in the reference."""
+    table = tuple(
+        (bucket, keys + tuple(f"{name}_time"
+                              for name, t in PORT_TIMERS.items()
+                              if t.busy and t.bucket == bucket))
+        for bucket, keys in _COUNTER_ROWS)
     out = {b: round(sum(counters.get(k, 0.0) for k in keys), 6)
            for b, keys in table}
     return {"kind": "busy_seconds_from_counters", "buckets": out,

@@ -38,14 +38,14 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, NamedTuple, Optional
 
 from uda_tpu_torch.utils.locks import TrackedLock
 from uda_tpu_torch.utils.resledger import resledger as _resledger
 
 __all__ = ["Metrics", "Span", "OpenTimer", "metrics", "device_trace",
            "METRICS_REGISTRY", "REGISTRY_PREFIXES", "NAME_RE",
-           "SPAN_REGISTRY", "PORT_TIMERS", "PARITY_ALIASES",
+           "SPAN_REGISTRY", "PortTimer", "PORT_TIMERS", "PARITY_ALIASES",
            "stats_enabled_from_env", "percentile_from_summary",
            "active_span_of_thread", "enable_thread_span_registry"]
 
@@ -481,11 +481,9 @@ METRICS_REGISTRY: Dict[str, tuple] = {
                                            "buffer (the pipeline's one "
                                            "per-run accounting block)"),
     "net.frame.latency_ms": ("histogram", "request->response frame "
-                                          "latency [labels: role — "
-                                          "server: REQ read to reply "
-                                          "written; client: request "
-                                          "sent to completion "
-                                          "dispatched]"),
+                                          "latency, server side: REQ "
+                                          "read to reply written "
+                                          "[labels: role=server]"),
     "ckpt.save_ms": ("histogram", "wall time of one checkpoint save "
                                   "(collect + part files + manifest "
                                   "write + fsync + prune) — the "
@@ -662,36 +660,104 @@ SPAN_REGISTRY: Dict[str, str] = {
                         "bucket",
 }
 
-# The port's own phase timers (``metrics.timer`` names the reference does
-# not have), each keeping a ``<name>_time`` counter and, with spans on, a
-# span of its name. utils/critpath.PORT_SPAN_BUCKETS maps every one of
-# them; METRICS_REGISTRY and SPAN_REGISTRY stay the reference's.
-PORT_TIMERS: Dict[str, str] = {
-    "emit_phase": "a whole delivery loop of the FramedEmitter, the piece "
-                  "generator's pulls included (merger/emitter.py)",
-    "emit_readback": "one slab's card-to-host read "
-                     "(merger/streaming.py iter_row_slabs)",
-    "emit_gather": "one slab's grouping by segment and gather of its "
-                   "records (merger/streaming.py frame_slabs, "
-                   "interleave_runs)",
-    "emit_frame": "framing one slab or chunk (native.frame_batch)",
-    "emit_tiefix": "one slab's re-sort of its blocks of equal-prefix keys "
-                   "past the carried width, by their whole content "
-                   "(merger/streaming.py tiefix_slabs)",
-    "emit_deliver": "copying framed bytes into an arena slot, with the "
-                    "slot's acquire and release (merger/emitter.py)",
-    "net_read": "the client loop thread's read of one ready supplier "
-                "socket: recv_into, header decode and frame completion up "
-                "to the dispatcher hand-off (net/client.py _do_read)",
-    "net_deliver": "the dispatcher thread's completion upcall of one "
-                   "request, a Segment's on_complete (net/client.py "
-                   "_deliver)",
-    "coding_recover": "one partition's k-of-n reconstruction, from the "
-                      "Segment's reconstruction rung to the decoded "
-                      "partition reaching it: shard streams and decode "
-                      "(merger/segment.py _try_recover, a start_timer)",
-    "coding_decode": "one stripe's Reed-Solomon decode on the host "
-                     "(coding/recovery.py, coding.rs.decode)",
+class PortTimer(NamedTuple):
+    """One port-only timer: what it times, the critical-path stage bucket
+    its spans and counter count towards (``utils/critpath``), and whether
+    its counter joins critpath's busy sums from counters. ``busy`` is
+    False where another timer's counter already holds the time: the timer
+    nests inside another port timer (named in ``doc``), or holds other
+    timers (``emit_phase``), or is a wall with waits in it
+    (``coding_recover``)."""
+
+    doc: str
+    bucket: str
+    busy: bool = True
+
+
+# The port's own timers (names the reference does not have), each keeping
+# a ``<name>_time`` counter (``metrics.timer``, ``start_timer``,
+# ``add_time``) and, for the first two with spans on, a span of its name.
+# The one table of them: utils/critpath derives PORT_SPAN_BUCKETS and the
+# port rows of buckets_from_counters from it. METRICS_REGISTRY and
+# SPAN_REGISTRY stay the reference's.
+PORT_TIMERS: Dict[str, PortTimer] = {
+    # the emit (merger/emitter.py, merger/streaming.py): emission, the
+    # reference's bucket for "emit"
+    "emit_phase": PortTimer(
+        "a whole delivery loop of the FramedEmitter, the piece generator's "
+        "pulls included (merger/emitter.py); holds the emit stages below "
+        "and the reference's emit", "serve", busy=False),
+    "emit_readback": PortTimer(
+        "one slab's card-to-host read (merger/streaming.py "
+        "iter_row_slabs)", "serve"),
+    "emit_gather": PortTimer(
+        "one slab's grouping by segment and gather of its records "
+        "(merger/streaming.py frame_slabs, interleave_runs)", "serve"),
+    "emit_frame": PortTimer(
+        "framing one slab or chunk (native.frame_batch)", "serve"),
+    "emit_tiefix": PortTimer(
+        "one slab's re-sort of its blocks of equal-prefix keys past the "
+        "carried width, by their whole content (merger/streaming.py "
+        "tiefix_slabs)", "serve"),
+    "emit_deliver": PortTimer(
+        "copying framed bytes into an arena slot, with the slot's acquire "
+        "and release (merger/emitter.py)", "serve"),
+    # the socket client (net/client.py): busy on its loop and dispatcher
+    # threads beside the task's fetch phase
+    "net_read": PortTimer(
+        "the client loop thread's read of one ready supplier socket: "
+        "recv_into, header decode and frame completion up to the "
+        "dispatcher hand-off (net/client.py _do_read)", "fetch"),
+    "net_recv": PortTimer(
+        "the recv_into calls of one net_read, summed and added once per "
+        "read (net/client.py _do_read, add_time); nests in net_read",
+        "fetch", busy=False),
+    "net_deliver": PortTimer(
+        "the dispatcher thread's completion upcall of one request, a "
+        "Segment's on_complete (net/client.py _deliver)", "fetch"),
+    # a fetch completion (merger/segment.py), on whichever thread
+    # delivers it: on the wire all three nest in net_deliver
+    "fetch_crack": PortTimer(
+        "one chunk's carry concat, crack_partial and carry slice "
+        "(merger/segment.py _ingest); nests in net_deliver on the wire",
+        "fetch", busy=False),
+    "fetch_handoff": PortTimer(
+        "a finished segment's on_done upcall: the overlapped merger's "
+        "feed with its budget and queue waits, the fetch's backpressure "
+        "(merger/segment.py _notify_done); nests in net_deliver on the "
+        "wire", "fetch", busy=False),
+    "fetch_issue": PortTimer(
+        "the next chunk's request, issued by a completion's fetch loop "
+        "(merger/segment.py _drive -> _try_issue); nests in net_deliver "
+        "on the wire", "fetch", busy=False),
+    # a dead supplier's partitions rebuilt from shards (coding/)
+    "coding_recover": PortTimer(
+        "one partition's k-of-n reconstruction, from the Segment's "
+        "reconstruction rung to the decoded partition reaching it: shard "
+        "streams and decode (merger/segment.py _try_recover, a "
+        "start_timer); a wall, waits included", "fetch", busy=False),
+    "coding_decode": PortTimer(
+        "one stripe's Reed-Solomon decode on the host (coding/recovery.py, "
+        "coding.rs.decode); nests in net_deliver or the fetch phase",
+        "fetch", busy=False),
+    # the reduce task's thread (merger/merge_manager.py) and the
+    # transport's stop: with fetch, merge and emit_phase they cover run()
+    # and the client's stop
+    "task_setup": PortTimer(
+        "MergeManager.run's entry to the fetch phase: watchdog, stats "
+        "provider, routing, the OverlappedMerger's construction, the "
+        "segments' (a start_timer)", "other"),
+    "merge_collect": PortTimer(
+        "the fetched segments' record batches (or their record count) "
+        "collected for the finish (merger/merge_manager.py _run)",
+        "merge"),
+    "task_teardown": PortTimer(
+        "the emit's return to MergeManager.run's return: the merger's "
+        "finish cleanup and run's own (a start_timer)", "other"),
+    "client_stop": PortTimer(
+        "a transport's stop (merger/segment.py HostRoutingClient.stop, "
+        "net/client.py RemoteFetchClient.stop); the routing client's "
+        "ends before its connections' own begin", "fetch"),
 }
 
 # snapshot() aliases for the reference's per-reduce-task aggregate trio
@@ -1216,6 +1282,13 @@ class Metrics:
         the thread's current span. The span is not made current; adopt
         it with ``use_span(handle.span)``."""
         return OpenTimer(self, name, self.start_span(name, parent=parent))
+
+    def add_time(self, name: str, seconds: float) -> None:
+        """Add ``seconds`` to the ``<name>_time`` counter a timer keeps,
+        with no span: the sum of many short calls timed by the caller
+        (a span for each would cost more than the call)."""
+        with self._lock:
+            self.counters[name + "_time"] += seconds
 
     # -- reads --------------------------------------------------------------
 
