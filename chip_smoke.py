@@ -20,11 +20,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    all-0xFFFFFFFF and high keys, tiles wider than one K2 block takes);
    K3/K4 at theirs (tile 256, n == tile, 1, 2 and 3 key words, the same
    kinds of keys, tiles 8192 and 16384, past one K3 block; K4's passes
-   as ``merge_plan`` gives them, four-way while three or more runs are
-   left) and K4 on runs that hold equal records (two-way pairs, and
-   four-way groups, also held to two two-way passes); the partition
-   kernels on two sorted runs of 2^20 records (their deepest searches) at
-   K1's width and K4's, and the four-way one on four such runs, with first
+   as ``merge_plan`` gives them: the fewest passes, eight-way, one of
+   them four-way where they leave room for it, first) and K4 on runs that
+   hold equal records (two-way pairs, four-way groups, also held to two
+   two-way passes, and eight-way groups, whole, of four runs and of one
+   short run, held to three, the eight-way partition to its plain
+   version); the partition kernels on two sorted runs of 2^20 records
+   (their deepest searches) at K1's width and K4's, and the four-way and
+   eight-way ones on four and eight such runs, with first
    key words all equal, every key word equal and mixed keys; K5
    (``take_lanes``) at the probe's three
    shapes and at 3, 26 and 33 rows, each of its two designs launched on
@@ -69,9 +72,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    [8, 2^27] matrix; K3, K4 and their partition on the slim [4, m]
    matrix at the keys8f engine's 100,003,840 columns, each pass's last
    group or pair short or alone; K4's passes as ``merge_plan`` gives
-   them, eight four-way and one two-way there): each kernel (K1, K4
+   them, a four-way and five eight-way there): each kernel (K1, K4
    and the partition kernels at each one's width per pass and summed over
-   the cascade; the partition also in device time, queued behind a sleep,
+   the cascade, the eight-way pass and its partition also alone; the
+   partition also in device time, queued behind a sleep,
    beside the floor its dependent round trips set: the deepest search's
    steps times one step's round trip to device memory, plus one launch,
    both measured after an L2 flush on the first pair of the deepest pass
@@ -87,7 +91,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and its sector-granular bound; the records cascade on whole blocks
    beside the one on 2^27 columns, in turns, with K3, each K4 pass and the
    partition, each against its bound on the columns it moves, the
-   cascade of two-way passes alone (17) in turns with the four-way one at
+   cascade under merge_plan's 6 passes in turns with two other plans of 6
+   passes, the four-way rule's 9 and two-way passes alone (17) at
    100,003,840 columns, their bytes equal, and one keys8f call's
    ``sort.cascade_*`` counters and K4 passes), its plain
    version,
@@ -445,6 +450,14 @@ KERNELS = {
     "merge_pass_folded": dict(
         id="K4", route="cuda", source="uda_tpu_torch/csrc/lanes_fold.cu",
         replaces="uda_tpu/ops/pallas_fold.py:135"),
+    # K4's eight-way pass and its partition: their launches are also
+    # counted under merge_pass_folded and merge_partition
+    "merge_pass_folded8": dict(
+        id="K4", route="cuda", source="uda_tpu_torch/csrc/lanes_fold.cu",
+        replaces="uda_tpu/ops/pallas_fold.py:135"),
+    "merge_partition8": dict(
+        id="K4", route="cuda", source="uda_tpu_torch/csrc/lanes_fold.cu",
+        replaces="uda_tpu/ops/pallas_sort.py:210"),
     "take_lanes": dict(
         id="K5", route="cuda", source="uda_tpu_torch/csrc/lane_gather.cu",
         replaces="scripts/probe_gather.py:62"),
@@ -456,7 +469,8 @@ KERNELS = {
 }
 MAIN_PATH = ("tile_sort", "merge_pass", "merge_partition")
 FOLDED_PATH = ("tile_sort_folded", "tile_sort_folded_rows",
-               "merge_pass_folded", "merge_partition")
+               "merge_pass_folded", "merge_partition", "merge_pass_folded8",
+               "merge_partition8")
 # K2/K1 at the edges of their design: rows, key words, tie-break row, n,
 # tile and the kind of keys (lanes_words)
 EDGE_CASES = [
@@ -506,6 +520,10 @@ EQUAL_RUN_CASES = [(1, 1 << 13, 1024), (3, 1 << 13, 256)]
 # n, run_len (the last: a group of three runs)
 EQUAL_RUN4_CASES = [(1, 1 << 14, 1024), (3, 1 << 14, 256),
                     (2, 3 << 12, 1024)]
+# and the eight-way pass: the last two, a group of four runs and a group
+# of one short run
+EQUAL_RUN8_CASES = [(1, 1 << 14, 1024), (3, 1 << 14, 256),
+                    (2, 3 << 12, 1024), (3, 2 * 2048 + 128, 256)]
 # the partition kernel on one pass over two sorted runs of this many
 # records (its deepest searches: 2^20 candidates), at K1's width and K4's,
 # with first key words all equal, every key word equal, and mixed keys
@@ -740,16 +758,21 @@ def equal_runs(seed: int, n: int, run_len: int, num_keys: int,
     in every group of ``ways`` runs (a pair by default) each run after the
     first copies the first's key words and tie-break (its payload rows
     differ): each record has an equal twin in every other run of its
-    group, so a merge must send ties to the earliest run."""
+    group, so a merge must send ties to the earliest run. Where n ends
+    inside a group, its last runs are short (a prefix of the first's) or
+    missing."""
     x = lanes_words(seed, 4, n, num_keys)
     for a0 in range(0, n, ways * run_len):
         a = x[:, a0:a0 + run_len]
         a[:] = a[:, np.lexsort(a[num_keys - 1::-1])]
-        a[3] = np.arange(run_len, dtype=np.uint32)
+        a[3] = np.arange(a.shape[1], dtype=np.uint32)
         for r in range(1, ways):
-            twin = slice(a0 + r * run_len, a0 + (r + 1) * run_len)
-            x[:num_keys, twin] = a[:num_keys]
-            x[3, twin] = a[3]
+            t0 = a0 + r * run_len
+            t1 = min(t0 + run_len, n)
+            if t0 >= n:
+                break
+            x[:num_keys, t0:t1] = a[:num_keys, :t1 - t0]
+            x[3, t0:t1] = a[3, :t1 - t0]
     return x
 
 
@@ -781,41 +804,44 @@ def cascade(folded: bool, num_keys: int, tb_row: int) -> tuple:
 
 def cascade_passes(n: int, tile: int, folded: bool) -> list:
     """A cascade's merge passes over ``n`` columns of sorted tiles, as
-    ``(run_len, ways)``: K4's (``merge_plan``: four-way, then a two-way
-    pass where two runs are left) or K1's, two-way, one a level."""
+    ``(run_len, ways)``: K4's (``merge_plan``: the fewest passes,
+    eight-way, one of them four-way where they leave room for it, first)
+    or K1's, two-way, one a level."""
     if folded:
         return pallas_fold.merge_plan(n, tile)
     return [(tile << lvl, 2) for lvl in range((n // tile - 1).bit_length())]
 
 
 def folded_step(ways: int) -> tuple:
-    """K4's pass of ``ways`` runs a group and its plain version, both
-    taking (x4, run_len, tile, num_keys)."""
-    if ways == 4:
-        return (pallas_fold.merge_pass4_folded,
-                pallas_fold.merge_pass4_folded_plain)
-    return pallas_fold.merge_pass_folded, pallas_fold.merge_pass_folded_plain
+    """K4's pass of ``ways`` (2, 4 or 8) runs a group and its plain
+    version, both taking (x4, run_len, tile, num_keys)."""
+    return {2: (pallas_fold.merge_pass_folded,
+                pallas_fold.merge_pass_folded_plain),
+            4: (pallas_fold.merge_pass4_folded,
+                pallas_fold.merge_pass4_folded_plain),
+            8: (pallas_fold.merge_pass8_folded,
+                pallas_fold.merge_pass8_folded_plain)}[ways]
 
 
 def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
                   folded: bool) -> dict:
     """Run the cascade kernel by kernel, holding each launch against its
     plain version on the same input; returns the largest error of each
-    (K4's two-way and four-way passes under K4's name)."""
+    (K4's passes of every number of ways under K4's name, the eight-way
+    ones and their partition also under their own)."""
     first, first_plain, step, step_plain, names, args = cascade(
         folded, num_keys, tb_row)
     errs = dict.fromkeys(names, 0)
     y = first(x, tile, *args)
     errs[names[0]] = max_abs_err(y, first_plain(x, tile, *args))
     for L, ways in cascade_passes(x.shape[1], tile, folded):
-        errs["merge_partition"] = max(errs.get("merge_partition", 0),
-                                      check_partition(y, L, num_keys, tb_row,
-                                                      folded, ways))
+        part_err = check_partition(y, L, num_keys, tb_row, folded, ways)
         if folded:
             step, step_plain = folded_step(ways)
         z = step(y, L, tile, *args)
-        errs[names[1]] = max(errs[names[1]],
-                             max_abs_err(z, step_plain(y, L, tile, *args)))
+        note_merge_errs(errs, names[1], ways,
+                        max_abs_err(z, step_plain(y, L, tile, *args)),
+                        part_err)
         y = z
     require(same(y, stable_reference(x, num_keys, tb_row)),
             f"{names} cascade differs from the stable sort")
@@ -823,12 +849,26 @@ def check_cascade(x: torch.Tensor, num_keys: int, tb_row: int, tile: int,
     return errs
 
 
+def note_merge_errs(errs: dict, pass_name: str, ways: int, err: int,
+                    part_err: int) -> None:
+    """Fold one merge pass's largest errors into ``errs``: the pass's under
+    ``pass_name``, its partition's under ``merge_partition``, and an
+    eight-way pass's also under its own launch names."""
+    found = [(pass_name, err), ("merge_partition", part_err)]
+    if ways == 8:
+        found += [("merge_pass_folded8", err), ("merge_partition8", part_err)]
+    for name, e in found:
+        errs[name] = max(errs.get(name, 0), e)
+
+
 def merge_width(rows: int, num_keys: int, n: int, run_len: int,
                 folded: bool, ways: int = 2) -> int:
-    """The block width K4 (``folded``; its four-way pass with ``ways``
-    4) or K1 takes on one pass."""
+    """The block width K4 (``folded``; its four-way or eight-way pass with
+    ``ways`` 4 or 8) or K1 takes on one pass."""
     if folded and ways == 4:
         return pallas_fold.merge_pass4_folded_width(num_keys, n, run_len)
+    if folded and ways == 8:
+        return pallas_fold.merge_pass8_folded_width(num_keys, n, run_len)
     if folded:
         return pallas_fold.merge_pass_folded_width(num_keys, n, run_len)
     return pallas_sort.merge_pass_width(rows, num_keys, n, run_len)
@@ -837,11 +877,13 @@ def merge_width(rows: int, num_keys: int, n: int, run_len: int,
 def partition_of(ways: int, plain: bool = False):
     """The partition kernel of a pass of ``ways`` runs a group (or its
     plain version), taking (y, run_len, width, num_keys, tb_row): the
-    two-way one (merge_splits' splits, K1's and K4's last pass) or the
-    four-way one (the slim layout's, tie-break row 3)."""
-    if ways == 4:
-        fn = (pallas_fold.merge_partition4_plain if plain
-              else pallas_fold.merge_partition4)
+    two-way one (merge_splits' splits, K1's and K4's two-way passes) or
+    the four-way or eight-way one (the slim layout's, tie-break row 3)."""
+    if ways > 2:
+        fn = {4: (pallas_fold.merge_partition4,
+                  pallas_fold.merge_partition4_plain),
+              8: (pallas_fold.merge_partition8,
+                  pallas_fold.merge_partition8_plain)}[ways][plain]
         return lambda y, L, w, nk, tb: fn(y, L, w, nk)
     return (pallas_sort.merge_partition_plain if plain
             else pallas_sort.merge_partition)
@@ -963,12 +1005,11 @@ def check_whole_blocks(words: torch.Tensor, num_keys: int,
     """The records cascade on whole blocks (``records_cascade_columns``:
     where those columns are no power-of-two multiple of the tile, each
     pass's last group or pair has short runs or none), K3 and every K4
-    pass (``merge_plan``: four-way, then a two-way pass where two runs are
-    left) held against their plain versions and the partitions against
-    their own, the whole against the two-way cascade's bytes, and its
-    first n columns against the power-of-two cascade's: the same sorted
-    keys and permutation, then the padding in arrival order. Returns the
-    largest error of each kernel and the columns."""
+    pass (``merge_plan``'s) held against their plain versions and the
+    partitions against their own, the whole against the two-way cascade's
+    bytes, and its first n columns against the power-of-two cascade's: the
+    same sorted keys and permutation, then the padding in arrival order.
+    Returns the largest error of each kernel and the columns."""
     n = words.shape[0]
     m2, tile = pallas_sort.pad_pow2(n, tile)
     m = pallas_fold.records_cascade_columns(n, tile)
@@ -979,19 +1020,17 @@ def check_whole_blocks(words: torch.Tensor, num_keys: int,
             num_keys)), "merge_pass_folded": 0, "merge_partition": 0}
     two = two_way_cascade(words, num_keys, m, tile)
     for L, ways in pallas_fold.merge_plan(m, tile):
-        errs["merge_partition"] = max(errs["merge_partition"],
-                                      check_partition(y, L, num_keys, 3,
-                                                      True, ways))
+        part_err = check_partition(y, L, num_keys, 3, True, ways)
         step, plain = folded_step(ways)
         z = step(y, L, tile, num_keys)
-        errs["merge_pass_folded"] = max(
-            errs["merge_pass_folded"],
-            max_abs_err(z, plain(y, L, tile, num_keys)))
+        note_merge_errs(errs, "merge_pass_folded", ways,
+                        max_abs_err(z, plain(y, L, tile, num_keys)),
+                        part_err)
         y = z
     require(same(y, pallas_fold.sort_records_folded4(words, num_keys, m,
                                                      tile)),
             f"sort_records_folded4 at m={m} differs from its passes")
-    require(same(y, two), f"the four-way cascade at m={m} differs from the "
+    require(same(y, two), f"the multiway cascade at m={m} differs from the "
                           f"two-way one")
     pow2 = pallas_fold.sort_records_folded4(words, num_keys, m2, tile)
     require(same(y[:num_keys, :n], pow2[:num_keys, :n])
@@ -1010,6 +1049,7 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
                   tiles=KERNEL_TILES, edges=EDGE_CASES,
                   slim_edges=SLIM_EDGE_CASES, equal_cases=EQUAL_RUN_CASES,
                   equal4_cases=EQUAL_RUN4_CASES,
+                  equal8_cases=EQUAL_RUN8_CASES,
                   take_shapes=TAKE_SHAPES, take_rows_cases=TAKE_ROWS_CASES,
                   deep_run=DEEP_PARTITION_RUN,
                   deep_kinds=DEEP_PARTITION_KINDS,
@@ -1081,6 +1121,25 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
         log(f"[kernels] K4 four-way on groups of runs with equal records, "
             f"keys={nk} run_len={run_len} n={n_eq}: max_abs_err {err} "
             f"(tolerance 0); equal to two two-way passes")
+    for nk, n_eq, run_len in equal8_cases:
+        x = interop.words_from_numpy(
+            equal_runs(next(seeds), n_eq, run_len, nk, ways=8), dev)
+        part_err = check_partition(x, run_len, nk, 3, True, 8)
+        got = pallas_fold.merge_pass8_folded(x, run_len, run_len, nk)
+        err = max_abs_err(got, pallas_fold.merge_pass8_folded_plain(
+            x, run_len, run_len, nk))
+        two = x
+        for lvl in range(3):
+            two = pallas_fold.merge_pass_folded(two, run_len << lvl, run_len,
+                                                nk)
+        require(same(got, two),
+                f"K4's eight-way pass on equal runs differs from three "
+                f"two-way passes (keys={nk}, run_len={run_len})")
+        note_merge_errs(worst, "merge_pass_folded", 8, err, part_err)
+        log(f"[kernels] K4 eight-way on groups of runs with equal records, "
+            f"keys={nk} run_len={run_len} n={n_eq}: max_abs_err {err}, "
+            f"partition {part_err} (tolerance 0); equal to three two-way "
+            f"passes")
     for n_rec, w, tile, nk, kind in record_cases:
         x = interop.words_from_numpy(np.ascontiguousarray(
             lanes_words(next(seeds), w, n_rec, nk, kind).T), dev)
@@ -1101,12 +1160,13 @@ def phase_kernels(dev: torch.device, n: int = N_KERNEL,
             f"power-of-two cascade's")
     for kind in deep_kinds:
         for rows, folded, ways in ((8, False, 2), (4, True, 2),
-                                   (4, True, 4)):
+                                   (4, True, 4), (4, True, 8)):
             nk, tb = terasort.KEY_WORDS, rows - 1
             y = deep_runs(next(seeds), rows, deep_run, nk, kind, dev, ways)
             err = check_partition(y, deep_run, nk, tb, folded, ways)
-            worst["merge_partition"] = max(worst.get("merge_partition", 0),
-                                           err)
+            for name in ("merge_partition",) + (("merge_partition8",)
+                                                if ways == 8 else ()):
+                worst[name] = max(worst.get(name, 0), err)
             width = merge_width(rows, nk, ways * deep_run, deep_run, folded,
                                 ways)
             log(f"[kernels] {ways}-way partition on {ways} runs of "
@@ -1377,16 +1437,17 @@ def partition_work(m: int, run_len: int, width: int,
     multiway selection per power of two up to run_len, each reading at
     least one word of each run that has a new sample there (all four in a
     whole group) and comparing it with the largest sample taken, and four
-    4-byte splits written. Returns (bytes, compares)."""
-    if ways == 4:
-        group = 4 * run_len
+    4-byte splits written. Eight-way (``ways`` 8) likewise over eight runs,
+    eight splits written. Returns (bytes, compares)."""
+    if ways > 2:
+        group = ways * run_len
         steps = 0
         for g0 in range(0, m, group):
             runs = sum(min(max(m - g0 - r * run_len, 0), run_len) > 0
-                       for r in range(4))
+                       for r in range(ways))
             boundaries = (min(group, m - g0) - 1) // width
             steps += boundaries * run_len.bit_length() * runs
-        return 16 * (m // width) + 4 * steps, steps
+        return 4 * ways * (m // width) + 4 * steps, steps
 
     def pair_steps(la: int, lb: int) -> int:
         return sum((min(d, la) - max(0, d - lb)).bit_length()
@@ -1407,8 +1468,10 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     them. The columns are a power-of-two multiple of ``tile`` or, for the
     records cascade's whole blocks, not: then each pass's last group or
     pair is short or alone, as on the main path. K1's passes are two-way,
-    one a level; K4's as ``merge_plan`` gives them (four-way, then a
-    two-way pass where two runs are left), each moving 32 B a column."""
+    one a level; K4's as ``merge_plan`` gives them (eight-way, then a
+    four-way or two-way pass), each moving 32 B a column; its eight-way
+    passes and their partition are also reported alone, under their
+    launch names."""
     rows, m = mat.shape
     nk = terasort.KEY_WORDS
     tb = rows - 1
@@ -1440,6 +1503,7 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
             "per_pass_device_ms": [], "steps": []}
     passes = cascade_passes(m, tile, folded)
     compares = 0
+    eight: dict = {}  # the eight-way passes and their partition alone
     for i, (L, ways) in enumerate(passes):
         width = merge_width(rows, nk, m, L, folded, ways)
         partition = partition_of(ways)
@@ -1451,9 +1515,10 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
             lambda: partition(y, L, width, nk, tb), reps))
         # the deepest boundary's dependent steps: a two-way search's span
         # is L, or the short B run's length where the pass's one pair is
-        # short; the four-way selection reads at least once a level
-        if ways == 4:
-            part["steps"].append(L.bit_length() if width < 4 * L else 0)
+        # short; the multiway selection reads at least once a level
+        if ways > 2:
+            part["steps"].append(L.bit_length()
+                                 if width < ways * L else 0)
         else:
             part["steps"].append(min(L, m - L).bit_length()
                                  if width < 2 * L else 0)
@@ -1463,28 +1528,51 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
         if 2 * L <= m < 2 * next_run:
             part["latency"] = partition_latency(
                 y if 2 * L == m else y[:, :2 * L].contiguous(), L, nk, tb)
-        part["plain_ms"] += time_ms(
+        part_plain = time_ms(
             lambda: partition_of(ways, plain=True)(y, L, width, nk, tb),
             1, warmup=0)
-        part["max_abs_err"] = max(part["max_abs_err"],
-                                  check_partition(y, L, nk, tb, folded,
-                                                  ways))
+        part_err = check_partition(y, L, nk, tb, folded, ways)
+        part["plain_ms"] += part_plain
+        part["max_abs_err"] = max(part["max_abs_err"], part_err)
         nbytes, steps = partition_work(m, L, width, ways)
         part["bytes"] += nbytes
         part["ops"] += steps
         per_pass.append(time_ms(lambda: step(y, L, tile, *args, out=spare),
                                 reps))
-        plain_total += time_ms(lambda: step_plain(y, L, tile, *args), 1,
-                               warmup=0)
-        library_total += time_ms(
-            lambda: library_sort(y, ways * L, nk, None), 1, warmup=0)
+        plain = time_ms(lambda: step_plain(y, L, tile, *args), 1, warmup=0)
+        library = time_ms(lambda: library_sort(y, ways * L, nk, None), 1,
+                          warmup=0)
+        plain_total += plain
+        library_total += library
         z = step(y, L, tile, *args, out=spare)
-        errs = max(errs, max_abs_err(z, step_plain(y, L, tile, *args)))
+        err = max_abs_err(z, step_plain(y, L, tile, *args))
+        errs = max(errs, err)
         require(same(library_sort(y, ways * L, nk, None), z),
                 f"{names[1]}: PyTorch's sort of each run group differs")
         # a merge of `ways` runs: log2(ways) compares a record (a tree of
         # two-way merges)
         compares += (ways.bit_length() - 1) * m * words_compared
+        if ways == 8:
+            for name, reading in (
+                    ("merge_pass_folded8", (per_pass[-1], plain, library,
+                                            2 * rows * m * word,
+                                            3 * m * words_compared, err)),
+                    ("merge_partition8", (part["per_pass_ms"][-1],
+                                          part_plain, None, nbytes, steps,
+                                          part_err))):
+                e = eight.setdefault(name, {
+                    "m": m, "ms": 0.0, "per_pass_ms": [], "plain_ms": 0.0,
+                    "library_ms": None, "bytes": 0, "ops": 0,
+                    "max_abs_err": 0})
+                ms, plain_ms, library_ms, nbytes8, ops8, err8 = reading
+                e["ms"] += ms
+                e["per_pass_ms"].append(ms)
+                e["plain_ms"] += plain_ms
+                if library_ms is not None:
+                    e["library_ms"] = (e["library_ms"] or 0.0) + library_ms
+                e["bytes"] += nbytes8
+                e["ops"] += ops8
+                e["max_abs_err"] = max(e["max_abs_err"], err8)
         y, spare = z, y
     part["ms"] = sum(part["per_pass_ms"])
     part["device_ms"] = sum(part["per_pass_device_ms"])
@@ -1505,6 +1593,7 @@ def time_cascade(mat: torch.Tensor, tile: int, folded: bool,
     # also inside the merge pass's, which is timed through the wrapper
     if folded:
         res[names[1]]["partition"] = part
+        res.update(eight)
     else:
         res["merge_partition"] = part
     torch.cuda.synchronize()
@@ -1754,22 +1843,58 @@ def time_k3_records(words: torch.Tensor, mat4: torch.Tensor, tile: int,
     return res
 
 
+def cascade_plans(m: int, tile: int) -> dict:
+    """K4 plans over ``m`` columns of sorted tiles, each a list of
+    ``(run_len, ways)``: ``merge_plan``'s; the others of as many passes
+    (eight-way passes while five or more runs are left, then a four-way or
+    two-way one; eight-way passes alone); the four-way rule's (four-way
+    while three or more runs are left, then a two-way pass); and two-way
+    passes alone."""
+    def by_rule(rule):
+        plan, runs, run_len = [], -(-m // tile), tile
+        while runs > 1:
+            ways = rule(runs)
+            plan.append((run_len, ways))
+            runs, run_len = -(-runs // ways), run_len * ways
+        return plan
+
+    return {"merge_plan": pallas_fold.merge_plan(m, tile),
+            "four-way last": by_rule(
+                lambda r: 8 if r > 4 else 4 if r > 2 else 2),
+            "eight-way alone": by_rule(lambda r: 8 if r > 2 else 2),
+            "four-way rule": by_rule(lambda r: 4 if r > 2 else 2),
+            "two-way": by_rule(lambda r: 2)}
+
+
+def plan_cascade(words: torch.Tensor, num_keys: int, m: int, tile: int,
+                 plan: list) -> torch.Tensor:
+    """The records cascade on ``m`` columns: K3 on the records in place,
+    then K4's passes as ``plan`` gives them."""
+    y = pallas_fold.tile_sort_folded_rows(words, num_keys, m, tile)
+    spare = torch.empty_like(y)
+    for L, ways in plan:
+        y, spare = folded_step(ways)[0](y, L, tile, num_keys, out=spare), y
+    return y
+
+
 def time_whole_blocks(words: torch.Tensor, tile: int, reps: int) -> dict:
     """The records cascade as the sort cell runs it, on whole blocks
     (``records_cascade_columns``), beside the same cascade on the
     power-of-two columns it took before, by CUDA events (device time): the
     whole cascade and K3 on the records, each in turns, then each K4 pass
-    (``merge_plan``: four-way, then a two-way pass where two runs are
-    left; its partition inside) and the partition alone; and on whole
-    blocks the cascade of two-way passes alone (17 at 10^8 records) in
-    turns with the four-way one, their bytes held equal, and the
-    occupancy of K4's two merge kernels. Each kernel's
-    bound is reckoned on the columns it moves: K4 32 B a column a pass,
-    two-way or four-way, the partition its searches (``partition_work``),
-    K3 its sector-granular bytes (as ``time_k3_records``). The two
-    cascades' first n columns are held equal, and one keys8f call's
-    counters and K4 launches (its passes, four-way ones counted apart) to
-    the columns and the plan. Returns the readings by column count."""
+    (``merge_plan``: eight-way, then a four-way or two-way pass; its
+    partition inside) and the partition alone; on whole blocks the
+    cascade under each plan of ``cascade_plans`` (merge_plan's, two other
+    plans of as many passes, the four-way rule's 9 passes at 10^8 records
+    and two-way passes alone, 17) in turns, their bytes held equal; each
+    eight-way pass against its byte bound; and the occupancy of K4's three
+    merge kernels. Each kernel's bound is reckoned on the columns it
+    moves: K4 32 B a column a pass, whatever its ways, the partition its
+    searches (``partition_work``), K3 its sector-granular bytes (as
+    ``time_k3_records``). The two cascades' first n columns are held
+    equal, and one keys8f call's counters and K4 launches (its passes,
+    four-way and eight-way ones counted apart) to the columns and the
+    plan. Returns the readings by column count and by plan."""
     n, w = words.shape
     nk = terasort.KEY_WORDS
     m2, tile = pallas_sort.pad_pow2(n, tile)
@@ -1826,22 +1951,35 @@ def time_whole_blocks(words: torch.Tensor, tile: int, reps: int) -> dict:
             + " ".join(f"{v:.3f}" for v in k4))
         log(f"[times] records cascade at m={cols}: partition per pass "
             f"(ms): " + " ".join(f"{v:.4f}" for v in part))
-    two = two_way_cascade(words, nk, m, tile)
-    require(same(two, pallas_fold.sort_records_folded4(words, nk, m, tile)),
-            f"the four-way cascade at m={m} differs from the two-way one")
-    del two
-    two_ms, four_ms = in_turns(
-        lambda: two_way_cascade(words, nk, m, tile),
-        lambda: pallas_fold.sort_records_folded4(words, nk, m, tile),
-        reps=reps, timer=device_ms)
-    ways = {"two_way_passes": (m // tile - 1).bit_length(),
-            "two_way_ms": two_ms, "four_way_passes": len(res[m]["ways"]),
-            "four_way_ms": four_ms}
-    log(f"[times] records cascade at m={m}, in turns (device): two-way "
-        f"passes alone ({ways['two_way_passes']}) {two_ms:.3f} ms, the "
-        f"cascade ({ways['four_way_passes']} passes) {four_ms:.3f} ms; "
-        f"bytes equal")
-    for w in (2, 4):
+    plans = cascade_plans(m, tile)
+    want = pallas_fold.sort_records_folded4(words, nk, m, tile)
+    for name, plan in plans.items():
+        require(same(plan_cascade(words, nk, m, tile, plan), want),
+                f"the cascade by the {name} plan at m={m} differs from "
+                f"merge_plan's")
+    del want
+    plan_ms = dict(zip(plans, in_turns(
+        *(lambda plan=plan: plan_cascade(words, nk, m, tile, plan)
+          for plan in plans.values()), reps=reps, timer=device_ms)))
+    eight = [v for v, w in zip(res[m]["k4_per_pass_ms"], res[m]["ways"])
+             if w == 8]
+    ways = {"plans": {name: {"ways": [w for _, w in plan],
+                             "ms": plan_ms[name]}
+                      for name, plan in plans.items()},
+            "eight_way_pass_ms": eight,
+            "eight_way_pass_bound_ms": res[m]["k4_pass_bound_ms"],
+            "six_against_nine_pct": 100.0 * (
+                1.0 - plan_ms["merge_plan"] / plan_ms["four-way rule"])}
+    for name, plan in plans.items():
+        log(f"[times] records cascade at m={m} by the {name} plan "
+            f"({len(plan)} passes, ways {[w for _, w in plan]}): "
+            f"{plan_ms[name]:.3f} ms (device, in turns); bytes equal")
+    log(f"[times] eight-way K4 pass at m={m} (ms): "
+        + " ".join(f"{v:.3f}" for v in eight)
+        + f" against its bound {res[m]['k4_pass_bound_ms']:.3f}; the "
+        f"merge_plan cascade {ways['six_against_nine_pct']:.2f}% shorter "
+        f"than the four-way rule's")
+    for w in (2, 4, 8):
         width = merge_width(4, nk, m, tile, True, w)
         regs, blocks = pallas_fold.merge_pass_folded_occupancy(nk, w, width)
         ways[f"{w}_way_occupancy"] = {"width": width, "registers": regs,
@@ -1850,27 +1988,30 @@ def time_whole_blocks(words: torch.Tensor, tile: int, reps: int) -> dict:
             f"registers a thread, {blocks} blocks a multiprocessor")
     before = {k: metrics.counters.get(k, 0.0)
               for k in terasort.CASCADE_COUNTERS}
-    k4_before = {k: _build.launches[k]
-                 for k in ("merge_pass_folded", "merge_pass_folded4")}
+    k4_names = ("merge_pass_folded", "merge_pass_folded4",
+                "merge_pass_folded8")
+    k4_before = {k: _build.launches[k] for k in k4_names}
     terasort.single_chip_sort(words, path="keys8f", device=words.device)
     torch.cuda.synchronize()
     counted = {k: metrics.counters.get(k, 0.0) - before[k]
                for k in terasort.CASCADE_COUNTERS}
-    passes, fours = (_build.launches[k] - v for k, v in k4_before.items())
+    passes, fours, eights = (_build.launches[k] - v
+                             for k, v in k4_before.items())
     require(counted == {"sort.cascade_records": n,
                         "sort.cascade_columns": m,
                         "sort.cascade_passes": res[m]["passes"]}
             and passes == res[m]["passes"]
-            and fours == res[m]["ways"].count(4),
+            and fours == res[m]["ways"].count(4)
+            and eights == res[m]["ways"].count(8),
             f"a keys8f call counted {counted} and {passes} K4 passes "
-            f"({fours} four-way), not {n} records in {m} columns and the "
-            f"plan {res[m]['ways']}")
-    log(f"[times] one keys8f call: {counted}, {passes} K4 passes, {fours} "
-        f"of them four-way; the real share of the cascade's columns "
-        f"{n / m:.5f} (at m={m2}: {n / m2:.5f})")
+            f"({eights} eight-way, {fours} four-way), not {n} records in "
+            f"{m} columns and the plan {res[m]['ways']}")
+    log(f"[times] one keys8f call: {counted}, {passes} K4 passes, {eights} "
+        f"of them eight-way, {fours} four-way; the real share of the "
+        f"cascade's columns {n / m:.5f} (at m={m2}: {n / m2:.5f})")
     torch.cuda.synchronize()
     return {"columns": m, "pow2_columns": m2, "counters": counted,
-            "by_columns": res, "two_way_against_four_way": ways}
+            "by_columns": res, "plans": ways}
 
 
 def sweep_take_lanes(dev: torch.device, ns=TAKE_SWEEP_NS,

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EDGE_CASES, EQUAL_RUN_CASES, SLIM_EDGE_CASES,
-                        equal_runs)
+from chip_smoke import (EDGE_CASES, EQUAL_RUN8_CASES, EQUAL_RUN_CASES,
+                        SLIM_EDGE_CASES, equal_runs)
 from port_helpers import (GATHER_NS, GATHER_ROWS, PERM_KINDS,  # noqa: F401
                           cuda_device, gather_index, oracle, records, words)
 from uda_tpu_torch import interop
@@ -240,10 +240,11 @@ def test_k4_and_partition_take_a_short_last_run(cuda_device, nk, kind):
                                      (3, "mixed"), (3, "equal"),
                                      (3, "ones"), (3, "first")])
 def test_k4_four_way_partition_and_pass_match_plain(cuda_device, nk, kind):
-    """The records cascade on whole blocks as it runs, four-way passes
-    whose last group has short or missing runs: K3 on the records, then
-    every pass's partition and merge against their plain versions, byte
-    for byte, and the result against the two-way cascade's."""
+    """The records cascade on whole blocks by four-way passes alone (five
+    over its 980 tiles), whose last group has short or missing runs: K3
+    on the records, then every pass's partition and merge against their
+    plain versions, byte for byte, and the result against the two-way
+    cascade's."""
     x = _on_card(words(_WHOLE_N + nk + 9, 26, _WHOLE_N, nk, kind).T.copy(),
                  cuda_device)
     m = _WHOLE_M
@@ -253,9 +254,7 @@ def test_k4_four_way_partition_and_pass_match_plain(cuda_device, nk, kind):
     while run < m:
         two = pallas_fold.merge_pass_folded(two, run, 1024, nk)
         run *= 2
-    plan = pallas_fold.merge_plan(m, 1024)
-    assert [ways for _, ways in plan] == [4] * 5
-    for run, _ in plan:
+    for run in (1024 << 2 * i for i in range(5)):
         width = pallas_fold.merge_pass4_folded_width(nk, m, run)
         assert width == (1024 if nk == 2 else 2048)
         got = pallas_fold.merge_partition4(y, run, width, nk)
@@ -268,23 +267,67 @@ def test_k4_four_way_partition_and_pass_match_plain(cuda_device, nk, kind):
     assert _same(y, two)
 
 
+@pytest.mark.parametrize("nk,kind", [(1, "mixed"), (2, "mixed"),
+                                     (3, "mixed"), (3, "equal"),
+                                     (3, "ones"), (3, "first")])
+def test_k4_eight_way_partition_and_pass_match_plain(cuda_device, nk, kind):
+    """The records cascade on whole blocks as it runs: two four-way passes
+    over its 980 tiles, then two eight-way ones (980, 245, 62, 8, 1 runs;
+    each last group with short or missing runs). K3 on the records, then
+    every pass's partition and merge against their plain versions at
+    tolerance 0, and the result against the two-way cascade's."""
+    x = _on_card(words(_WHOLE_N + nk + 13, 26, _WHOLE_N, nk, kind).T.copy(),
+                 cuda_device)
+    m = _WHOLE_M
+    y = pallas_fold.tile_sort_folded_rows(x, nk, m, 1024)
+    two = y
+    run = 1024
+    while run < m:
+        two = pallas_fold.merge_pass_folded(two, run, 1024, nk)
+        run *= 2
+    plan = pallas_fold.merge_plan(m, 1024)
+    assert [ways for _, ways in plan] == [4, 4, 8, 8]
+    for run, ways in plan:
+        width, partition, partition_plain = _PARTITIONS[ways]
+        assert width(nk, m, run) == (1024 if nk == 2 else 2048)
+        got = partition(y, run, width(nk, m, run), nk)
+        assert torch.equal(got, partition_plain(y, run, width(nk, m, run),
+                                                nk))
+        step, plain = _STEPS[ways]
+        z = step(y, run, 1024, nk)
+        assert _same(z, plain(y, run, 1024, nk))
+        y = z
+    assert _same(y, two)
+
+
+_PARTITIONS = {4: (pallas_fold.merge_pass4_folded_width,
+                   pallas_fold.merge_partition4,
+                   pallas_fold.merge_partition4_plain),
+               8: (pallas_fold.merge_pass8_folded_width,
+                   pallas_fold.merge_partition8,
+                   pallas_fold.merge_partition8_plain)}
+_STEPS = {2: (pallas_fold.merge_pass_folded,
+              pallas_fold.merge_pass_folded_plain),
+          4: (pallas_fold.merge_pass4_folded,
+              pallas_fold.merge_pass4_folded_plain),
+          8: (pallas_fold.merge_pass8_folded,
+              pallas_fold.merge_pass8_folded_plain)}
+
+
 @pytest.mark.parametrize("nk,n,tile,kind",
                          [(3, 1 << 15, 1024, "mixed"),
                           (1, 1 << 15, 256, "mixed"),
                           (2, 1 << 15, 4096, "mixed")] + SLIM_EDGE_CASES)
 def test_k4_four_way_passes_match_plain(cuda_device, nk, n, tile, kind):
-    """The cascade's own passes (merge_plan: four-way, then a two-way one
-    where two runs are left) on power-of-two shapes, at the edges of K3
-    and K4's design: each pass against its plain version, the result
-    against numpy."""
+    """The cascade's own passes (merge_plan: four-way, eight-way, and a
+    two-way one where two runs are left) on power-of-two shapes, at the
+    edges of K3 and K4's design: each pass against its plain version, the
+    result against numpy."""
     x_np = words(n + nk + 1, 4, n, nk, kind)
     x = _on_card(x_np, cuda_device)
     y = pallas_fold.tile_sort_folded(x, tile, nk)
     for run, ways in pallas_fold.merge_plan(n, tile):
-        step, plain = ((pallas_fold.merge_pass4_folded,
-                        pallas_fold.merge_pass4_folded_plain) if ways == 4
-                       else (pallas_fold.merge_pass_folded,
-                             pallas_fold.merge_pass_folded_plain))
+        step, plain = _STEPS[ways]
         z = step(y, run, tile, nk)
         assert _same(z, plain(y, run, tile, nk))
         y = z
@@ -309,10 +352,55 @@ def test_k4_four_way_sends_ties_to_the_earliest_run(cuda_device, nk, n,
     assert _same(got, two)
 
 
-def test_keys8f_at_1e8_runs_nine_k4_passes(cuda_device):
+@pytest.mark.parametrize("nk,n,run_len", EQUAL_RUN8_CASES)
+def test_k4_eight_way_sends_ties_to_the_earliest_run(cuda_device, nk, n,
+                                                    run_len):
+    """Groups whose eight runs hold equal (key words, tie-break) twins,
+    whole and with a short or missing last run: the eight-way partition
+    and pass against their plain versions at tolerance 0, every record
+    kept, each run's twin before the next run's, as three two-way passes
+    do."""
+    x = _on_card(equal_runs(n + nk, n, run_len, nk, ways=8), cuda_device)
+    width = pallas_fold.merge_pass8_folded_width(nk, n, run_len)
+    assert torch.equal(
+        pallas_fold.merge_partition8(x, run_len, width, nk),
+        pallas_fold.merge_partition8_plain(x, run_len, width, nk))
+    got = pallas_fold.merge_pass8_folded(x, run_len, run_len, nk)
+    assert _same(got, pallas_fold.merge_pass8_folded_plain(x, run_len,
+                                                           run_len, nk))
+    two = x
+    for lvl in range(3):
+        two = pallas_fold.merge_pass_folded(two, run_len << lvl, run_len,
+                                            nk)
+    assert _same(got, two)
+
+
+@pytest.mark.parametrize("n,tile", [(5 * 4096, 1024), (1 << 16, 1024),
+                                    (3 * 4096 + 9, 1024)])
+def test_k4_launches_follow_the_plan(cuda_device, n, tile):
+    """The records cascade launches the passes merge_plan gives its
+    columns, each with its partition, the eight-way ones counted apart."""
+    x = _on_card(records(33, n), cuda_device)
+    m = pallas_fold.records_cascade_columns(n, tile)
+    ways = [w for _, w in pallas_fold.merge_plan(m, tile)]
+    _build.reset_launches()
+    got = pallas_fold.sort_records_folded4(x, 3, m, tile=tile)
+    torch.cuda.synchronize()
+    assert _build.launches["merge_pass_folded"] == len(ways)
+    assert _build.launches["merge_partition"] == len(ways)
+    for w in (4, 8):
+        assert _build.launches[f"merge_pass_folded{w}"] == ways.count(w)
+        assert _build.launches[f"merge_partition{w}"] == ways.count(w)
+    assert torch.equal(got[3, :n].view(torch.int32).sort().values,
+                       torch.arange(n, dtype=torch.int32,
+                                    device=cuda_device))
+
+
+def test_keys8f_at_1e8_runs_six_k4_passes(cuda_device):
     """One keys8f call on the sort cell's 10^8 records: 97,660 tiles take
-    nine K4 passes, eight four-way and one two-way (seventeen two-way
-    passes before), each with its partition; the cascade's counters."""
+    six K4 passes, one four-way and five eight-way (nine, eight four-way,
+    before; seventeen two-way before that), each with its partition; the
+    cascade's counters."""
     from uda_tpu_torch.utils.metrics import metrics
 
     x = tts.teragen(torch.Generator(device=cuda_device).manual_seed(29),
@@ -322,14 +410,16 @@ def test_keys8f_at_1e8_runs_nine_k4_passes(cuda_device):
     _build.reset_launches()
     got = tts.single_chip_sort(x, path="keys8f", device=cuda_device)
     torch.cuda.synchronize()
-    assert _build.launches["merge_pass_folded"] == 9
-    assert _build.launches["merge_pass_folded4"] == 8
-    assert _build.launches["merge_partition"] == 9
-    assert _build.launches["merge_partition4"] == 8
+    assert _build.launches["merge_pass_folded"] == 6
+    assert _build.launches["merge_pass_folded8"] == 5
+    assert _build.launches["merge_pass_folded4"] == 1
+    assert _build.launches["merge_partition"] == 6
+    assert _build.launches["merge_partition8"] == 5
+    assert _build.launches["merge_partition4"] == 1
     assert {k: metrics.counters.get(k, 0.0) - before[k]
             for k in tts.CASCADE_COUNTERS} == {
         "sort.cascade_records": 10**8, "sort.cascade_columns": 100_003_840,
-        "sort.cascade_passes": 9}
+        "sort.cascade_passes": 6}
     k = [tsort.i32(got[:, w]).long() & 0xFFFFFFFF
          for w in range(tts.KEY_WORDS)]
     ascends = k[2][:-1] <= k[2][1:]
@@ -385,9 +475,9 @@ def test_sort_records_folded4_on_whole_blocks_matches_the_pow2_cascade(
 
 def test_keys8f_sorts_on_whole_blocks_and_counts_them(cuda_device):
     """One keys8f call on 10^6 + 37 records: carry's bytes, one K3 launch,
-    five four-way K4 passes over its 980 tiles (980, 245, 62, 16, 4, 1
-    runs), and the records, columns and passes of its cascade counted
-    once."""
+    four K4 passes over its 980 tiles, two four-way and two eight-way
+    (980, 245, 62, 8, 1 runs), and the records, columns and passes of its
+    cascade counted once."""
     from uda_tpu_torch.utils.metrics import metrics
 
     x = _on_card(records(27, _WHOLE_N), cuda_device)
@@ -397,12 +487,13 @@ def test_keys8f_sorts_on_whole_blocks_and_counts_them(cuda_device):
     got = tts.single_chip_sort(x, path="keys8f", device=cuda_device)
     torch.cuda.synchronize()
     assert _build.launches["tile_sort_folded_rows"] == 1
-    assert _build.launches["merge_pass_folded"] == 5
-    assert _build.launches["merge_pass_folded4"] == 5
+    assert _build.launches["merge_pass_folded"] == 4
+    assert _build.launches["merge_pass_folded4"] == 2
+    assert _build.launches["merge_pass_folded8"] == 2
     assert {k: metrics.counters.get(k, 0.0) - before[k]
             for k in tts.CASCADE_COUNTERS} == {
         "sort.cascade_records": _WHOLE_N, "sort.cascade_columns": _WHOLE_M,
-        "sort.cascade_passes": 5}
+        "sort.cascade_passes": 4}
     assert _same(got, tts.single_chip_sort(x, path="carry",
                                            device=cuda_device))
 
@@ -581,6 +672,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pallas_fold.merge_pass4_folded(x4, 1024, 1024, 0)
     with pytest.raises(ValueError, match="4 rows"):
         pallas_fold.merge_pass4_folded(x, 1024, 1024, 3)
+    with pytest.raises(ValueError, match="1 to 3 key words"):
+        pallas_fold.merge_pass8_folded(x4, 1024, 1024, 0)
+    with pytest.raises(ValueError, match="4 rows"):
+        pallas_fold.merge_pass8_folded(x, 1024, 1024, 3)
     wide = _on_card(words(2, 40, 1 << 10, 32), cuda_device)
     with pytest.raises(ValueError, match="1 to 31 key words"):
         pallas_sort.tile_sort(wide, 1024, 32, 39)

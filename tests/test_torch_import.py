@@ -168,6 +168,8 @@ def test_chip_smoke_fails_alone(tmp_path):
         x, torch.empty(8, dtype=torch.int32, device="meta")),
     lambda x: pallas_merge.merge_sorted_pair(x.T[:300], x.T[300:], 8),
     lambda x: pallas_fold.tile_sort_folded_rows(x.T, 3, 512, 256),
+    lambda x: pallas_fold.merge_pass8_folded(x[:4], 256, 256, 3),
+    lambda x: pallas_fold.merge_partition8(x[:4], 256, 512, 3),
 ])
 def test_wrappers_take_no_plain_path_off_the_cpu(call):
     """A wrapper runs its plain version only for a CPU tensor; any other

@@ -38,7 +38,10 @@ def test_sort_lanes_folded_matches_jax():
 
 @pytest.mark.parametrize("num_keys,n,tile", [(3, 8192, 256), (2, 4096, 512),
                                              (1, 256, 256),
-                                             (3, 16384, 4096)])
+                                             (3, 16384, 4096),
+                                             (2, 2048, 256),
+                                             (1, 1 << 14, 256),
+                                             (3, 1 << 15, 4096)])
 def test_sort_lanes_folded4_matches_lexsort(num_keys, n, tile):
     x = words(n + num_keys, 4, n, num_keys)
     got = tpf.sort_lanes_folded4(torch.from_numpy(x), num_keys, tile=tile)
@@ -234,7 +237,7 @@ def _whole_blocks(n: int, tile: int = 1024) -> int:
 
 @pytest.mark.parametrize("num_keys", [1, 2, 3])
 @pytest.mark.parametrize("n", [1, 1023, 1025, 2 * 4096 + 5, 3 * 4096 + 5,
-                               5 * 4096 + 1])
+                               5 * 4096 + 1, 9 * 4096 + 3])
 def test_sort_records_folded4_on_whole_blocks_matches_the_pow2_cascade(
         n, num_keys):
     """The cascade on whole blocks sorts the records as the one on the
@@ -367,11 +370,11 @@ def test_cascade_unit_is_the_kernels_widest_block():
 
 
 @pytest.mark.parametrize("n,columns,passes", [(3 * 4096 + 5, 16384, 2),
-                                              (10**5 + 3, 102400, 4)])
+                                              (10**5 + 3, 102400, 3)])
 def test_single_chip_sort_keys8f_counts_its_cascade(n, columns, passes):
     """keys8f sorts on whole blocks as carry does and counts the records,
     the columns and the K4 passes of its cascade once a call (16 tiles:
-    two four-way passes; 100: three four-way and one two-way)."""
+    two four-way passes; 100: two four-way and one eight-way)."""
     from uda_tpu_torch.utils.metrics import metrics
 
     w = torch.from_numpy(records(n + 13, n))
@@ -479,20 +482,161 @@ def test_merge_partition4_plain_counts_each_run(num_keys, whole, short):
                                                           minlength=4))
 
 
+# the eight-way pass: (runs of 256, output tile 128) and the run lengths
+# of the pass's last group: 8, 7, 5, 4 or 1 whole runs, or a short last
+# run after 8, 3 or no whole runs
+_GROUP8_SHAPES = [(2 * 8, ()), (8 + 7, ()), (8 + 5, ()), (8 + 4, ()),
+                  (8 + 1, ()), (8 + 3, (128,)), (8, (384,)), (0, (128,))]
+
+
+@pytest.mark.parametrize("kind", ["mixed", "equal", "ones"])
+@pytest.mark.parametrize("whole,short", _GROUP8_SHAPES)
+@pytest.mark.parametrize("num_keys", [1, 2, 3])
+def test_merge_pass8_folded_plain_equals_three_two_way_passes(
+        num_keys, whole, short, kind):
+    """The eight-way pass merges groups of eight runs as three two-way
+    passes do, and as a four-way pass then a two-way one, byte for byte:
+    whole groups, groups of 7, 5, 4 and 1 runs, a short last run, equal
+    and all-0xFFFFFFFF keys (the arrival index decides)."""
+    L, tile = 256, 128
+    x = torch.from_numpy(_group_runs_input(whole * 11 + len(short) + num_keys,
+                                           num_keys, whole, short, kind))
+    two = x
+    for lvl in range(3):
+        two = tpf.merge_pass_folded_plain(two, L << lvl, tile, num_keys)
+    four = tpf.merge_pass_folded_plain(
+        tpf.merge_pass4_folded_plain(x, L, tile, num_keys), 4 * L, tile,
+        num_keys)
+    eight = tpf.merge_pass8_folded_plain(x, L, tile, num_keys)
+    assert torch.equal(eight, two)
+    assert torch.equal(eight, four)
+
+
+@pytest.mark.parametrize("num_keys,n,run_len", [(1, 1 << 14, 1024),
+                                                (3, 1 << 13, 256),
+                                                (2, 3 << 12, 1024),
+                                                (3, 9 << 11, 256)])
+def test_merge_pass8_folded_plain_sends_ties_to_the_earliest_run(
+        num_keys, n, run_len):
+    """Groups whose eight runs hold equal (key words, tie-break) twins
+    (the last group short or with runs missing): each merged group is
+    numpy's stable lexsort of the group, every twin of a run before the
+    next run's, and the pass equals three two-way passes."""
+    x = equal_runs(n + num_keys, n, run_len, num_keys, ways=8)
+    got = tpf.merge_pass8_folded_plain(torch.from_numpy(x), run_len,
+                                       run_len, num_keys).numpy()
+    g = 8 * run_len
+    for a0 in range(0, n, g):
+        grp = x[:, a0:a0 + g]
+        perm = np.lexsort([grp[3], *(grp[r] for r in
+                                     reversed(range(num_keys)))])
+        np.testing.assert_array_equal(got[:, a0:a0 + g], grp[:, perm])
+        if grp.shape[1] == g:
+            for r in range(8):
+                assert (perm[r::8] // run_len == r).all()
+    two = torch.from_numpy(x)
+    for lvl in range(3):
+        two = tpf.merge_pass_folded_plain(two, run_len << lvl, run_len,
+                                          num_keys)
+    np.testing.assert_array_equal(got, two.numpy())
+
+
+@pytest.mark.parametrize("whole,short", _GROUP8_SHAPES)
+@pytest.mark.parametrize("num_keys", [1, 3])
+def test_merge_partition8_plain_counts_each_run(num_keys, whole, short):
+    """Each block boundary's eight splits are how many records of each
+    run lie before it in numpy's stable sort of the group (ties to the
+    earlier run), within the group's run lengths, summing to the
+    boundary's diagonal."""
+    L, width = 256, 128
+    x = _group_runs_input(whole + 5 * num_keys, num_keys, whole, short,
+                          "mixed")
+    n = x.shape[1]
+    got = tpf.merge_partition8_plain(torch.from_numpy(x), L, width,
+                                     num_keys).numpy()
+    assert got.shape == (n // width, 8)
+    for b, out0 in enumerate(range(0, n, width)):
+        g0 = out0 // (8 * L) * (8 * L)
+        grp = x[:, g0:g0 + 8 * L]
+        perm = np.lexsort([grp[3], *(grp[r] for r in
+                                     reversed(range(num_keys)))])
+        before = perm[:out0 - g0] // L
+        np.testing.assert_array_equal(got[b], np.bincount(before,
+                                                          minlength=8))
+        assert got[b].sum() == out0 - g0
+
+
+@pytest.mark.parametrize("whole,short", [(4, ()), (3, ()), (2, (128,)),
+                                         (1, ())])
+@pytest.mark.parametrize("kind", ["mixed", "equal"])
+def test_merge_partition8_plain_counts_as_the_four_way_one(kind, whole,
+                                                           short):
+    """On one group of at most four runs, the eight-way splits are the
+    four-way partition's (merge4_splits' nested search), four runs
+    missing: the same count of each run before each boundary, ties to the
+    earlier run."""
+    L, width = 256, 128
+    x = torch.from_numpy(_group_runs_input(whole + 17, 3, whole, short,
+                                           kind))
+    eight = tpf.merge_partition8_plain(x, L, width, 3)
+    assert torch.equal(eight[:, :4], tpf.merge_partition4_plain(x, L,
+                                                                width, 3))
+    assert not eight[:, 4:].any()
+
+
+@pytest.mark.parametrize("num_keys,n,tile", [(2, 2048, 256),
+                                             (1, 8192, 256)])
+def test_sort_lanes_folded4_eight_way_matches_jax(num_keys, n, tile):
+    """A cascade whose plan holds an eight-way pass (8 tiles: one; 32: a
+    four-way pass, then an eight-way one) against the JAX package's
+    two-way cascade."""
+    assert 8 in [ways for _, ways in tpf.merge_plan(n, tile)]
+    x = words(70 + num_keys, 4, n, num_keys)
+    want = np.asarray(jpf.sort_lanes_folded4(jnp.asarray(x), num_keys,
+                                             tile=tile, interpret=True))
+    got = tpf.sort_lanes_folded4(torch.from_numpy(x), num_keys, tile=tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sort_records_folded4_eight_way_matches_jax():
+    """The cascade on records in place, its plan one eight-way pass over 8
+    tiles, against the JAX package's keys8 cascade on the key rows it
+    would have built."""
+    n, m = 2000, 2048
+    assert tpf.merge_plan(m, 256) == [(256, 8)]
+    w = words(67, 26, n, 3).T.copy()
+    want_sk, want_perm = jps.keys8_sort_perm(
+        jnp.asarray(_keyr(w, 3, m).numpy()), tile=256, interpret=True)
+    out4 = tpf.sort_records_folded4(torch.from_numpy(w), 3, m, tile=256)
+    np.testing.assert_array_equal(out4[:3].numpy(), np.asarray(want_sk))
+    np.testing.assert_array_equal(out4[3].view(torch.int32).numpy(),
+                                  np.asarray(want_perm))
+
+
 @pytest.mark.parametrize("n,tile,plan", [
     (1024, 1024, []),
     (2048, 1024, [(1024, 2)]),
     (3 * 1024, 1024, [(1024, 4)]),
     (1 << 14, 1024, [(1024, 4), (4096, 4)]),
-    (1 << 15, 1024, [(1024, 4), (4096, 4), (16384, 2)]),
-    (1_003_520, 1024, [(1024 << 2 * i, 4) for i in range(5)]),
-    (100_003_840, 1024, [(1024 << 2 * i, 4) for i in range(8)]
-     + [(1 << 26, 2)])])
+    (1 << 15, 1024, [(1024, 4), (4096, 8)]),
+    (1_003_520, 1024, [(1024, 4), (4096, 4), (16384, 8), (1 << 17, 8)]),
+    (100_003_840, 1024, [(1024, 4)]
+     + [(4096 << 3 * i, 8) for i in range(5)]),
+    (5 * 1024, 1024, [(1024, 8)]),
+    (8 * 1024, 1024, [(1024, 8)]),
+    (9 * 1024, 1024, [(1024, 4), (4096, 4)]),
+    (64 * 1024, 1024, [(1024, 8), (8192, 8)]),
+    (4 * 4096, 4096, [(4096, 4)]),
+    (33 * 1024, 1024, [(1024, 8), (8192, 8)])])
 def test_merge_plan(n, tile, plan):
-    """Four-way passes while a level has three or more runs, a two-way
-    pass where two are left: 9 passes at the sort cell's 97,660 tiles of
-    1024 (100,003,840 columns), where two-way passes alone take 17."""
+    """The fewest passes, eight-way, and where they leave room for one of
+    them to be four-way, the four-way pass first; two runs a two-way
+    pass: 6 passes at the sort cell's 97,660 tiles of 1024 (100,003,840
+    columns; 97,660, 24,415, 3,052, 382, 48, 6, 1 runs), where four-way
+    passes take 9 and two-way passes alone 17."""
     assert tpf.merge_plan(n, tile) == plan
+    if n == 100_003_840:
+        assert len(tpf.merge_plan(n, tile)) == 6
 
 
 def _record_steps(monkeypatch) -> list:
@@ -513,7 +657,7 @@ def _record_steps(monkeypatch) -> list:
 
 def test_merge_tiles_runs_the_plan(monkeypatch):
     """The records cascade runs merge_plan's passes, each by its own step:
-    on 100 tiles three four-way passes and one two-way, and its output is
+    on 100 tiles two four-way passes and one eight-way, and its output is
     the two-way cascade's."""
     n = 10**5 + 3
     w = torch.from_numpy(records(17, n))
@@ -525,13 +669,13 @@ def test_merge_tiles_runs_the_plan(monkeypatch):
     calls = _record_steps(monkeypatch)
     got = tpf.sort_records_folded4(w, 3, m, tile=1024)
     assert calls == tpf.merge_plan(m, 1024) == [
-        (1024, 4), (4096, 4), (16384, 4), (65536, 2)]
+        (1024, 4), (4096, 4), (16384, 8)]
     assert torch.equal(got, two_way)
 
 
 @pytest.mark.parametrize("num_keys,sub,tile,plan", [
-    (3, 256, 1024, [(256, 4)]), (1, 256, 2048, [(256, 4), (1024, 2)]),
-    (2, 512, 1024, [(512, 2)])])
+    (3, 256, 1024, [(256, 4)]), (1, 256, 2048, [(256, 8)]),
+    (2, 512, 1024, [(512, 2)]), (3, 256, 4096, [(256, 4), (1024, 4)])])
 def test_sub_tiles_merge_by_the_plan(monkeypatch, num_keys, sub, tile, plan):
     """A tile wider than one K3 block: its sub-tiles are merged by the
     passes merge_plan gives the tile, and the tiles come out sorted as

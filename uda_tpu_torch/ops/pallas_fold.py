@@ -27,14 +27,16 @@ lanes-layout ones at ``tb_row=3``. The kernels are CUDA C++
   not from ``tile``. A pass over columns that are no power-of-two multiple
   of its runs (the records cascade on whole blocks) merges its last pair
   with a short B run, or copies a lone A run.
-- K4's four-way pass, ``merge_pass4_folded``: groups of four adjacent runs
-  merged at once, so the cascade takes half the passes at the same bytes a
-  pass (``merge_plan``: four-way while a level has three or more runs, a
-  two-way pass where two are left). Its own partition
-  (``merge_partition4``: a multiway selection, each block boundary's four
-  splits) and merge kernel; the output is two two-way passes', ties to the
-  earlier run, byte for byte, and a group's last runs may be short or
-  missing as a pair's are.
+- K4's multiway passes, ``merge_pass4_folded`` and ``merge_pass8_folded``:
+  groups of four or eight adjacent runs merged at once, so the cascade
+  takes a half or a third of the passes at the same bytes a pass
+  (``merge_plan``: the fewest passes, eight-way, one of them four-way
+  where that many passes leave room for it, first). Their own partition
+  (``merge_partition4``, ``merge_partition8``: a multiway selection, each
+  block boundary's four or eight splits) and merge kernel, one template
+  over the number of runs; the output is two or three two-way passes',
+  ties to the earlier run, byte for byte, and a group's last runs may be
+  short or missing as a pair's are.
 
 The TPU kernels fold two element halves into 8 rows to halve their vector
 work; that is a TPU device, and the output contract is what carries over.
@@ -63,12 +65,15 @@ __all__ = ["sort_lanes_folded", "sort_lanes_folded4", "sort_records_folded4",
            "merge_pass4_folded", "merge_pass4_folded_plain",
            "merge_pass4_folded_width", "merge_partition4",
            "merge_partition4_plain", "merge4_splits", "group_runs",
-           "merge_plan"]
+           "merge_pass8_folded", "merge_pass8_folded_plain",
+           "merge_pass8_folded_width", "merge_partition8",
+           "merge_partition8_plain", "merge_plan"]
 
 _SLOT = 4   # rows of the slim layout: 3 key rows + tie-break
 _TB = 7     # tie-break row of the standard keys8 layout
 _TB4 = 3    # tie-break row of the slim layout
 _WAYS = 4   # runs a four-way K4 pass merges
+_WAYS8 = 8  # runs an eight-way K4 pass merges
 _K4_MAX_WIDTH = _build.header_constant("K1_MAX_WIDTH")  # K4's widest block
 
 _C = ctypes
@@ -84,14 +89,16 @@ _SIGNATURES = {
     "uda_tile_sort_folded_max_tile": ([_C.c_int, _C.c_size_t], _C.c_int),
     "uda_merge_pass_folded_width": ([_C.c_int, _C.c_size_t, _C.c_size_t],
                                     _C.c_int),
-    "uda_merge_pass4_folded_width": ([_C.c_int, _C.c_size_t, _C.c_size_t],
-                                     _C.c_int),
-    "uda_merge_partition4_folded": ([_C.c_void_p, _C.c_void_p, _C.c_size_t,
-                                     _C.c_int, _C.c_int, _C.c_size_t,
-                                     _C.c_void_p], _C.c_int),
-    "uda_merge_pass4_folded": ([_C.c_void_p, _C.c_void_p, _C.c_void_p,
-                                _C.c_size_t, _C.c_int, _C.c_int,
-                                _C.c_size_t, _C.c_void_p], _C.c_int),
+    "uda_merge_ways_folded_width": ([_C.c_int, _C.c_int, _C.c_size_t,
+                                     _C.c_size_t], _C.c_int),
+    "uda_merge_partition_ways_folded": ([_C.c_void_p, _C.c_void_p,
+                                         _C.c_size_t, _C.c_int, _C.c_int,
+                                         _C.c_int, _C.c_size_t,
+                                         _C.c_void_p], _C.c_int),
+    "uda_merge_pass_ways_folded": ([_C.c_void_p, _C.c_void_p, _C.c_void_p,
+                                    _C.c_size_t, _C.c_int, _C.c_int,
+                                    _C.c_int, _C.c_size_t, _C.c_void_p],
+                                   _C.c_int),
     "uda_merge_pass_folded_occupancy": ([_C.c_int, _C.c_int, _C.c_int,
                                          _C.POINTER(_C.c_int),
                                          _C.POINTER(_C.c_int)], _C.c_int),
@@ -246,9 +253,9 @@ def _merge_pass_folded_at(x4: torch.Tensor, run_len: int, num_keys: int,
 
 def merge_pass_folded_occupancy(num_keys: int, ways: int,
                                 width: int) -> tuple:
-    """K4's merge kernel on the card, two-way (``ways`` 2) or four-way (4),
-    at ``width`` records a block: (registers a thread, resident blocks a
-    multiprocessor)."""
+    """K4's merge kernel on the card, two-way (``ways`` 2), four-way (4) or
+    eight-way (8), at ``width`` records a block: (registers a thread,
+    resident blocks a multiprocessor)."""
     regs, blocks = _C.c_int(0), _C.c_int(0)
     _build.launch(_lib(), "uda_merge_pass_folded_occupancy", num_keys, ways,
                   width, _C.byref(regs), _C.byref(blocks))
@@ -363,10 +370,10 @@ def merge_pass4_folded_plain(x4: torch.Tensor, run_len: int, tile: int,
 
 def merge_pass4_folded_width(num_keys: int, n: int, run_len: int) -> int:
     """The four-way pass's block width on the card: records per block, a
-    power of two up to 4096 that divides ``n`` and ``4 * run_len`` and
+    power of two up to 2048 that divides ``n`` and ``4 * run_len`` and
     whose shared memory fits K4's budget (0 for a key count K4 does not
     take). The output does not depend on it."""
-    return _lib().uda_merge_pass4_folded_width(num_keys, n, run_len)
+    return _lib().uda_merge_ways_folded_width(num_keys, _WAYS, n, run_len)
 
 
 def merge_partition4(x4: torch.Tensor, run_len: int, width: int,
@@ -379,17 +386,24 @@ def merge_partition4(x4: torch.Tensor, run_len: int, width: int,
     ``merge_partition`` launch and as a ``merge_partition4`` one."""
     if x4.device.type == "cpu":
         return merge_partition4_plain(x4, run_len, width, num_keys)
+    return _merge_partition_ways(x4, run_len, width, num_keys, _WAYS)
+
+
+def _merge_partition_ways(x4: torch.Tensor, run_len: int, width: int,
+                          num_keys: int, ways: int) -> torch.Tensor:
+    """The multiway partition kernel of ``ways`` (4 or 8) runs a group on
+    the card: int32[n // width, ways]."""
     n = _build.cuda_words(x4, rows=_SLOT).shape[1]
     if width <= 0 or n % width:
         raise ValueError(f"width={width} must divide n={n}")
-    splits = torch.empty((n // width, _WAYS), dtype=torch.int32,
+    splits = torch.empty((n // width, ways), dtype=torch.int32,
                          device=x4.device)
     with torch.cuda.device(x4.device):
-        _build.launch(_lib(), "uda_merge_partition4_folded", x4.data_ptr(),
-                      splits.data_ptr(), n, num_keys, width, run_len,
-                      _build.stream_of(x4))
+        _build.launch(_lib(), "uda_merge_partition_ways_folded",
+                      x4.data_ptr(), splits.data_ptr(), n, num_keys, ways,
+                      width, run_len, _build.stream_of(x4))
     _build.count("merge_partition")
-    _build.count("merge_partition4")
+    _build.count(f"merge_partition{ways}")
     return splits
 
 
@@ -402,52 +416,149 @@ def merge_pass4_folded(x4: torch.Tensor, run_len: int, tile: int,
     :func:`merge_pass4_folded_width` records wide whatever ``tile`` is.
     Counted as a ``merge_pass_folded`` launch (it is K4) and as a
     ``merge_pass_folded4`` one."""
+    return _merge_pass_ways(x4, run_len, tile, num_keys, out, _WAYS)
+
+
+def _merge_pass_ways(x4: torch.Tensor, run_len: int, tile: int,
+                     num_keys: int, out: "torch.Tensor | None",
+                     ways: int) -> torch.Tensor:
+    """K4's pass of ``ways`` (4 or 8) runs a group: the kernels on a CUDA
+    tensor, the plain version on a CPU one."""
+    name = f"merge_pass{ways}_folded"
     if out is not None and (out.shape != x4.shape or out.dtype != x4.dtype
                             or out.data_ptr() == x4.data_ptr()):
-        raise ValueError("merge_pass4_folded needs a separate output like "
-                         "x4")
+        raise ValueError(f"{name} needs a separate output like x4")
     if x4.device.type == "cpu":
-        res = merge_pass4_folded_plain(x4, run_len, tile, num_keys)
+        res = _PLAIN_STEP[ways](x4, run_len, tile, num_keys)
         return res if out is None else u32(i32(out).copy_(i32(res)))
     n = _build.cuda_words(x4, rows=_SLOT).shape[1]
-    width = merge_pass4_folded_width(num_keys, n, run_len)
+    width = _lib().uda_merge_ways_folded_width(num_keys, ways, n, run_len)
     if not width:
-        raise ValueError(f"merge_pass4_folded takes 1 to 3 key words, got "
-                         f"{num_keys}")
-    return _merge_pass4_folded_at(x4, run_len, num_keys, width, out)
+        raise ValueError(f"{name} takes 1 to 3 key words, got {num_keys}")
+    return _merge_pass_ways_at(x4, run_len, num_keys, width, out, ways)
 
 
-def _merge_pass4_folded_at(x4: torch.Tensor, run_len: int, num_keys: int,
-                           width: int, out: "torch.Tensor | None"
-                           ) -> torch.Tensor:
-    """The four-way pass on the card with blocks of ``width`` records (a
-    power of two up to 4096 dividing n and 4 * run_len): the partition,
+def _merge_pass_ways_at(x4: torch.Tensor, run_len: int, num_keys: int,
+                        width: int, out: "torch.Tensor | None", ways: int
+                        ) -> torch.Tensor:
+    """The multiway pass on the card with blocks of ``width`` records (a
+    power of two up to 2048 dividing n and ways * run_len): the partition,
     then the merge."""
-    splits = merge_partition4(x4, run_len, width, num_keys)
+    splits = _merge_partition_ways(x4, run_len, width, num_keys, ways)
     out = torch.empty_like(x4) if out is None else _build.cuda_words(out)
     with torch.cuda.device(x4.device):
-        _build.launch(_lib(), "uda_merge_pass4_folded", x4.data_ptr(),
+        _build.launch(_lib(), "uda_merge_pass_ways_folded", x4.data_ptr(),
                       out.data_ptr(), splits.data_ptr(), x4.shape[1],
-                      num_keys, width, run_len, _build.stream_of(x4))
+                      num_keys, ways, width, run_len, _build.stream_of(x4))
     _build.count("merge_pass_folded")
-    _build.count("merge_pass_folded4")
+    _build.count(f"merge_pass_folded{ways}")
     return out
 
 
-_MERGE_STEP = {2: merge_pass_folded, _WAYS: merge_pass4_folded}
+def _group_order(x4: torch.Tensor, run_len: int, num_keys: int,
+                 ways: int) -> torch.Tensor:
+    """The columns of one pass of ``ways`` runs a group in merged order
+    (int64[n]): every group's columns stably sorted by (key words,
+    tie-break), so equal records keep their column order, the earlier run
+    first. Where the runs ascend, that is their merge."""
+    group = torch.arange(x4.shape[1], device=x4.device) // (ways * run_len)
+    return stable_lex_argsort(
+        [group, *(_as_i64(x4[r]) for r in [*range(num_keys), _TB4])])
+
+
+def merge_pass8_folded_plain(x4: torch.Tensor, run_len: int, tile: int,
+                             num_keys: int) -> torch.Tensor:
+    """Plain version of K4's eight-way pass: groups of eight adjacent
+    ascending runs of ``run_len`` merged into ascending runs of ``8 *
+    run_len``, ties to the earlier run (the last group's runs short or
+    missing where the columns end): three two-way passes' output. Of its
+    own form: one stable sort of every group by (key words, tie-break);
+    ``tile`` is taken for the steps' common signature and not used."""
+    return u32(i32(x4)[:, _group_order(x4, run_len, num_keys, _WAYS8)])
+
+
+def merge_partition8_plain(x4: torch.Tensor, run_len: int, width: int,
+                           num_keys: int) -> torch.Tensor:
+    """Plain version of the eight-way partition kernel: per block of
+    ``width`` output records of one eight-way pass, how many records of
+    each of its group's eight runs are merged before it (int32[blocks,
+    8]), ties to the earlier run; they sum to the block's diagonal. Counted
+    from the group's stable order (:func:`merge_pass8_folded_plain`'s):
+    each run's records among the positions from the group's start to the
+    block's."""
+    n = x4.shape[1]
+    group = _WAYS8 * run_len
+    pos = torch.arange(n, device=x4.device)
+    run = (_group_order(x4, run_len, num_keys, _WAYS8) - pos // group * group
+           ) // run_len
+    out0 = torch.arange(0, n, width, device=x4.device)
+    g0 = out0 // group * group
+    counts = []
+    for r in range(_WAYS8):
+        before = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                        device=x4.device),
+                            torch.cumsum(run == r, 0)])
+        counts.append(before[out0] - before[g0])
+    return torch.stack(counts, dim=1).to(torch.int32)
+
+
+def merge_pass8_folded_width(num_keys: int, n: int, run_len: int) -> int:
+    """The eight-way pass's block width on the card: records per block, a
+    power of two up to 2048 that divides ``n`` and ``8 * run_len`` and
+    whose shared memory fits K4's budget (0 for a key count K4 does not
+    take). The output does not depend on it."""
+    return _lib().uda_merge_ways_folded_width(num_keys, _WAYS8, n, run_len)
+
+
+def merge_partition8(x4: torch.Tensor, run_len: int, width: int,
+                     num_keys: int) -> torch.Tensor:
+    """The eight-way partition kernel: per block of ``width`` output
+    records of one eight-way pass, the records of each of its group's
+    eight runs merged before it (int32[blocks, 8]), one thread a block
+    boundary running the four-way kernel's multiway selection over eight
+    runs. The kernel on a CUDA tensor, :func:`merge_partition8_plain` on a
+    CPU one. Counted as a ``merge_partition`` launch and as a
+    ``merge_partition8`` one."""
+    if x4.device.type == "cpu":
+        return merge_partition8_plain(x4, run_len, width, num_keys)
+    return _merge_partition_ways(x4, run_len, width, num_keys, _WAYS8)
+
+
+def merge_pass8_folded(x4: torch.Tensor, run_len: int, tile: int,
+                       num_keys: int, out: "torch.Tensor | None" = None
+                       ) -> torch.Tensor:
+    """K4's eight-way pass: the eight-way partition and merge kernels on a
+    CUDA tensor, :func:`merge_pass8_folded_plain` on a CPU one; the result
+    goes into ``out`` when given. On the card the blocks are
+    :func:`merge_pass8_folded_width` records wide whatever ``tile`` is; a
+    block merges its eight windows in three levels in shared memory.
+    Counted as a ``merge_pass_folded`` launch (it is K4) and as a
+    ``merge_pass_folded8`` one."""
+    return _merge_pass_ways(x4, run_len, tile, num_keys, out, _WAYS8)
+
+
+_PLAIN_STEP = {_WAYS: merge_pass4_folded_plain,
+               _WAYS8: merge_pass8_folded_plain}
+_MERGE_STEP = {2: merge_pass_folded, _WAYS: merge_pass4_folded,
+               _WAYS8: merge_pass8_folded}
 
 
 def merge_plan(n: int, tile: int) -> list:
     """K4's passes over ``n`` columns of sorted tiles of ``tile`` records,
-    as ``(run_len, ways)``: four-way while a level has three or more runs,
-    a two-way pass where two are left; a level of r runs leaves
-    ceil(r / ways). At 100,003,840 columns and tile 1024 (97,660 tiles):
-    eight four-way passes and one two-way, where two-way passes alone take
-    17."""
+    as ``(run_len, ways)``: the fewest passes, eight-way ones, and where
+    that many passes leave room for one of them to be four-way (r runs, p
+    passes of eight-way ones, r <= 4 * 8^(p - 1)), the four-way pass
+    first; two runs take a two-way pass. A level of r runs leaves
+    ceil(r / ways). The rule reads the run count alone. At 100,003,840
+    columns and tile 1024 (97,660 tiles): one four-way pass, then five
+    eight-way ones (97,660, 24,415, 3,052, 382, 48, 6, 1 runs), where
+    four-way passes take 9 and two-way passes alone 17."""
     plan = []
     runs, run_len = -(-n // tile), tile
     while runs > 1:
-        ways = _WAYS if runs > 2 else 2
+        passes = ((runs - 1).bit_length() + 2) // 3  # eight-way ones
+        ways = (2 if runs == 2
+                else _WAYS if runs <= _WAYS << 3 * (passes - 1) else _WAYS8)
         plan.append((run_len, ways))
         runs, run_len = -(-runs // ways), run_len * ways
     return plan
