@@ -142,12 +142,14 @@ def test_critpath_charges_the_emit_timers_to_serve():
         block["buckets"]["serve"]["critical_s"]
         - ref["buckets"]["serve"]["critical_s"], abs=3e-6)
     # the port's own timers: the emit's, the socket client's, the fetch
-    # completion's, the reconstruction's and the reduce task thread's
+    # completion's, the speculation race's, the reconstruction's and the
+    # reduce task thread's
     assert set(critpath.PORT_SPAN_BUCKETS) == \
         set(TIMERS) | {"emit_tiefix", "net_read", "net_recv", "net_deliver",
                        "fetch_crack", "fetch_issue", "fetch_handoff",
-                       "coding_recover", "coding_decode", "task_setup",
-                       "merge_collect", "task_teardown", "client_stop"}
+                       "fetch_hedge", "coding_recover", "coding_decode",
+                       "task_setup", "merge_collect", "task_teardown",
+                       "client_stop"}
     assert not set(critpath.PORT_SPAN_BUCKETS) & set(critpath.SPAN_BUCKETS)
     assert set(critpath.PORT_SPAN_BUCKETS.values()) \
         <= set(critpath.BUCKET_PRIORITY)

@@ -82,11 +82,15 @@ def test_registry_matches_reference(name):
     ref_mod, port_mod, keys_only = REGISTRIES[name]
     ref, port = getattr(ref_mod, name), getattr(port_mod, name)
     if keys_only:
-        assert set(port) == set(ref)
+        # the metrics registry holds the port's own names besides
+        own = set(tmetrics_mod.PORT_METRICS) \
+            if name == "METRICS_REGISTRY" else set()
+        assert not own & set(ref)
+        assert set(port) == set(ref) | own
         # the kinds of the metrics registry are the reference's too
         if name == "METRICS_REGISTRY":
-            assert {k: v[0] for k, v in port.items()} == \
-                {k: v[0] for k, v in ref.items()}
+            assert {k: v[0] for k, v in port.items() if k not in own} \
+                == {k: v[0] for k, v in ref.items()}
     else:
         assert port == ref
 

@@ -419,7 +419,9 @@ class Segment:
       First-completion-wins rides the attempt-epoch machinery — the
       loser's completion is discarded as stale — and a speculation win
       switches the segment to the faster source for its remaining
-      chunks;
+      chunks. Each race is timed from the primary's issue to the
+      completion that settles it (``fetch_hedge``), and the bytes the
+      winning source then serves count as ``fetch.hedged.bytes``;
     - **resume** (``uda.tpu.fetch.resume``): a transport-level retry
       against a resumable source (InputClient.resume_ok — warm
       supplier restart, immutable MOFs) keeps the offset ledger
@@ -453,6 +455,8 @@ class Segment:
         self.host = host or self.hosts[0]
         self.ledger = ledger
         self.speculation = speculation
+        if speculation is not None:
+            speculation.keep_latencies()
         self.resume_enabled = bool(resume)
         self.stripe = stripe  # StripeContext when k-of-n coding is on
         self.batches: list[RecordBatch] = []
@@ -478,6 +482,9 @@ class Segment:
         self._epoch = 0          # id of the outstanding PRIMARY attempt
         self._spec: Optional[tuple] = None  # (epoch, host) of the live
         # speculative duplicate, if any — the `speculative` epoch flag
+        self._hedge = None  # the open race's fetch_hedge timer
+        self._hedge_source: Optional[str] = None  # the source that won
+        # this segment's last race: its bytes count as fetch.hedged.bytes
         self._epoch_settled = True  # the attempt group has completed
         self._open_attempts = 0  # live attempts (on-air accounting)
         self._attempt_hosts: dict[int, str] = {}
@@ -723,6 +730,10 @@ class Segment:
             self._spec = (spec_epoch, alt)
             self._attempt_hosts[spec_epoch] = alt
             self._open_attempts += 1
+            # the race runs from the primary's issue to the completion
+            # that settles the attempt group (or the segment's fail())
+            self._hedge = metrics.start_timer(
+                "fetch_hedge", parent=self.trace_span, t0=self._issue_t0)
         metrics.add("fetch.speculated", supplier=alt or self.map_id)
         flightrec.record("segment.speculate", map=self.map_id,
                          primary=self.host, alternate=alt)
@@ -778,6 +789,7 @@ class Segment:
                 self._epoch_settled = True
                 settled_n = self._open_attempts
                 self._open_attempts = 0
+                hedge, self._hedge = self._hedge, None
             else:
                 return  # neither live attempt: stale
             if not sole_failure:
@@ -786,6 +798,8 @@ class Segment:
                 self._arm_timeout(self._epoch)
         if sole_failure:
             metrics.gauge_add("fetch.on_air", -settled_n)
+            if hedge is not None:
+                hedge.stop(error="both attempts failed")
             self._cancel_timeout()
             if exc is None:
                 exc = TransportError(
@@ -820,6 +834,8 @@ class Segment:
                 if won_spec:
                     self.host = spec[1]  # sticky: the faster source
                     # serves this segment's remaining chunks too
+                    self._hedge_source = spec[1]
+                hedge, self._hedge = self._hedge, None
                 self._spec = None
                 self._attempt_hosts.clear()
                 settled = self._open_attempts
@@ -834,6 +850,8 @@ class Segment:
             self._drop_attempt(epoch, result)
             return
         metrics.gauge_add("fetch.on_air", -settled)
+        if hedge is not None:
+            hedge.stop(won=won_spec)
         if two_live:
             if won_spec:
                 metrics.add("fetch.speculation.won",
@@ -1059,6 +1077,7 @@ class Segment:
                 self._carry = data[consumed:] if not last else b""
                 self._next_offset = res.offset + len(res.data)
             issue_t0 = self._issue_t0
+            hedged = self._hedge_source == self.host
         tenant = current_tenant()
         if tenant:
             # a tenanted reduce task labels the hot-path fetch counters
@@ -1080,6 +1099,9 @@ class Segment:
                             (time.perf_counter() - issue_t0) * 1e3,
                             supplier=self.supplier)
             metrics.observe("fetch.chunk.bytes", len(res.data))
+        if hedged:
+            metrics.add("fetch.hedged.bytes", len(res.data),
+                        supplier=self.supplier)
         return last
 
     def _try_recover(self, cause: Exception) -> bool:
@@ -1180,6 +1202,9 @@ class Segment:
             self._spec = None
             self._attempt_hosts.clear()
             self._epoch_settled = True
+            hedge, self._hedge = self._hedge, None
+        if hedge is not None:
+            hedge.stop(error=type(exc).__name__)
         if open_attempts:
             # settle the abandoned attempts' on-air accounting (their
             # own completions, if they ever land, see a stale epoch and

@@ -201,6 +201,14 @@ def _add_served(tenant: str, n: int) -> None:
         metrics.add("supplier.bytes", n)
 
 
+def _gone(req: ShuffleRequest) -> StorageError:
+    """The error of a read dropped unread because its requester is gone
+    (its connection hung up or closed): counted; no one reads it."""
+    metrics.add("supplier.reads.dropped")
+    return StorageError(f"read of {req.map_id}/{req.reduce_id} at offset "
+                        f"{req.offset} dropped: its requester is gone")
+
+
 def _observe_read(tenant: str, t0: float) -> None:
     """One ``supplier.read.latency_ms`` sample since ``t0``."""
     ms = (time.perf_counter() - t0) * 1e3
@@ -612,9 +620,13 @@ class DataEngine:
                 return rung
         return "pread"
 
-    def submit(self, req: ShuffleRequest) -> Future:
+    def submit(self, req: ShuffleRequest, *, alive=None) -> Future:
         """Async fetch; the Future resolves to a FetchResult. Never
-        blocks; safe to call from completion callbacks."""
+        blocks; safe to call from completion callbacks. ``alive``, when
+        given, is asked once the pool takes the request up: False (the
+        requester is gone, e.g. its connection closed while the read
+        queued) drops the read, and the Future fails with StorageError
+        (``supplier.reads.dropped``)."""
         if self._stopped:
             raise StorageError("DataEngine is stopped")
         want = req.chunk_size or self.chunk_size_default
@@ -628,7 +640,7 @@ class DataEngine:
             # thread's span (net.serve on the wire, fetch.segment in
             # process) becomes the worker's engine.pread parent
             return self._pool.submit(self._pooled, self._serve, req, want,
-                                     metrics.current_span())
+                                     metrics.current_span(), alive)
         except BaseException:  # pool shutdown race: undo the accounting
             self._unadmit(want, req.tenant)
             metrics.gauge_add("supplier.reads.on_air", -1)
@@ -730,13 +742,14 @@ class DataEngine:
             resledger.settle("tenant.admit", key=tenant, amount=want,
                              owner=id(self))
 
-    def submit_serve(self, req: ShuffleRequest) -> Future:
+    def submit_serve(self, req: ShuffleRequest, *, alive=None) -> Future:
         """Like :meth:`submit`, but the Future may resolve to an
         :class:`FdSlice` instead of a FetchResult. The byte path is taken
         whenever the chunk cannot be served straight off the fd: CRC
         stamping is on, or the ``data_engine.pread`` failpoint is armed
         (injected damage must keep mangling real bytes). Callers that
-        receive an FdSlice own its release()."""
+        receive an FdSlice own its release(). ``alive`` drops a byte-path
+        read of a requester that is gone, as in :meth:`submit`."""
         if self._stopped:
             raise StorageError("DataEngine is stopped")
         want = req.chunk_size or self.chunk_size_default
@@ -745,7 +758,7 @@ class DataEngine:
         metrics.gauge_add("supplier.reads.on_air", 1)  # udalint: disable=UDA101 - rides the Future: _serve's finally owns the -1
         try:
             return self._pool.submit(self._pooled, self._serve_plan, req,
-                                     want, metrics.current_span())
+                                     want, metrics.current_span(), alive)
         except BaseException:  # pool shutdown race: undo the accounting
             self._unadmit(want, req.tenant)
             metrics.gauge_add("supplier.reads.on_air", -1)
@@ -762,8 +775,8 @@ class DataEngine:
     # -- the batched host-I/O plane ------------------------------------------
 
     def submit_batch(self, reqs: Sequence[ShuffleRequest],
-                     parent_spans: Optional[Sequence] = None
-                     ) -> List[Future]:
+                     parent_spans: Optional[Sequence] = None, *,
+                     alive=None) -> List[Future]:
         """Batch submission: the whole burst rides one pool handoff; the
         worker groups per fd, coalesces adjacent and near-adjacent ranges
         (``uda.tpu.read.coalesce.gap.kb``) and issues vectored reads.
@@ -811,7 +824,7 @@ class DataEngine:
         for tenant, n in by_tenant.items():
             metrics.add("io.batch.requests", n, tenant=tenant)
         try:
-            self._pool.submit(self._serve_batch, entries)
+            self._pool.submit(self._serve_batch, entries, alive)
         except BaseException as exc:  # pool shutdown race: undo + fail
             for e in entries:
                 self._settle_batch_entry(e, 0.0, observe=False)
@@ -831,15 +844,21 @@ class DataEngine:
         if observe:
             _observe_read(e.req.tenant, t0)
 
-    def _serve_batch(self, entries: List[_BatchEntry]) -> None:
+    def _serve_batch(self, entries: List[_BatchEntry], alive=None) -> None:
         """Worker-side body of submit_batch, on one pool thread for the
         whole batch: resolve each request, read per the backend rung, then
-        finish every entry (CRC, failpoints, FetchResult)."""
+        finish every entry (CRC, failpoints, FetchResult). A batch whose
+        requester is gone by then (``alive()`` False) reads nothing, and
+        one that goes while its entries finish stops there."""
         t0 = time.perf_counter()
         try:
             with metrics.span("engine.read_batch", n=len(entries),
                               backend=self.io_backend):
-                self._batch_resolve(entries)
+                if alive is not None and not alive():
+                    for e in entries:
+                        e.err = _gone(e.req)
+                else:
+                    self._batch_resolve(entries)
                 live = [e for e in entries if e.err is None]
                 if live:
                     if self.io_backend == "io_uring" \
@@ -847,7 +866,7 @@ class DataEngine:
                         self._read_batch_native(live)
                     else:
                         self._read_batch_runs(live)
-                self._batch_finish(entries)
+                self._batch_finish(entries, alive)
         except BaseException as exc:  # a worker bug must still resolve
             # every future (callers wait on them)
             for e in entries:
@@ -1018,7 +1037,8 @@ class DataEngine:
         for e, lo, _ in spans:
             e.got = max(0, min(got - lo, e.want)) if got > lo else 0
 
-    def _batch_finish(self, entries: List[_BatchEntry]) -> None:
+    def _batch_finish(self, entries: List[_BatchEntry],
+                      alive=None) -> None:
         """Per entry: the short-read check, the CRC from the bytes as read
         (before a failpoint can mangle them), the two injection sites, the
         FetchResult; each under an ``engine.pread`` span adopting its own
@@ -1030,6 +1050,8 @@ class DataEngine:
                 e.err = StorageError(
                     f"short read {e.got}/{e.want} at {e.rec.path}:"
                     f"{e.file_off}")
+            if e.err is None and alive is not None and not alive():
+                e.err = _gone(req)
             if e.err is not None:
                 e.fut.set_exception(e.err)
                 continue
@@ -1082,14 +1104,21 @@ class DataEngine:
             self._unadmit(want_admit, req.tenant)
             raise
 
-    @staticmethod
-    def _pooled(serve, req: ShuffleRequest, admitted: int, parent_span):
+    def _pooled(self, serve, req: ShuffleRequest, admitted: int,
+                parent_span, alive=None):
         """A pool worker's body around ``serve(req, admitted)``: an
         ``engine.pread`` span adopting ``parent_span``, the submitting
-        thread's span (the contextvar does not cross the handoff)."""
+        thread's span (the contextvar does not cross the handoff). A
+        requester that is gone (``alive()`` False) is not served: the
+        request's accounting, which ``serve``'s finally owns otherwise,
+        is settled here."""
         with metrics.use_span(parent_span), \
                 metrics.span("engine.pread", map=req.map_id,
                              reduce=req.reduce_id, offset=req.offset):
+            if alive is not None and not alive():
+                self._unadmit(admitted, req.tenant)
+                metrics.gauge_add("supplier.reads.on_air", -1)
+                raise _gone(req)
             return serve(req, admitted)
 
     def _serve_plan(self, req: ShuffleRequest, admitted: int):

@@ -37,7 +37,10 @@ the engine's byte path (zero-copy off, CRC stamping on, pread failpoint
 armed) accumulate per connection during one recv's frame burst or one
 credit-unpark sweep and go to the engine as one
 ``DataEngine.submit_batch``; slice-eligible requests keep the zero-copy
-plane.
+plane. Each submission carries the connection's ``is_open``: a read
+still queued in the engine when its peer hangs up is dropped unread
+(``supplier.reads.dropped``), so a slow supplier's backlog of answers no
+one waits for ends with the connection.
 
 **Warm restart** (``uda.tpu.net.handoff.path``): a graceful stop writes
 a handoff record (generation + served-offset watermarks); the next start
@@ -335,6 +338,7 @@ class _EvConn:
         self._mask = 0
         self.draining = False
         self.closed = False
+        self.hung_up = False        # the peer's EOF arrived (one-way)
 
     # -- registration / interest (loop thread) -------------------------------
 
@@ -493,11 +497,13 @@ class _EvConn:
                                    t0=time.perf_counter()), frame)
 
     def _eof(self) -> None:
+        self.hung_up = True
         if self._hdr_got or self._payload is not None:
             self._drop(TransportError("connection closed mid-frame"))
             return
-        # clean hangup at a frame boundary: in-flight responses still
-        # flush, then the connection closes itself
+        # clean hangup at a frame boundary: answers already read still
+        # flush (reads still queued are dropped: is_open), then the
+        # connection closes itself
         self.draining = True
         self._drop_parked()
         self.server._sweep()
@@ -742,9 +748,9 @@ class _EvConn:
                     self._batch.append((req_id, req, t0, span))
                     return
                 if server.zero_copy:
-                    fut = server.engine.submit_serve(req)
+                    fut = server.engine.submit_serve(req, alive=self.is_open)
                 else:
-                    fut = server.engine.submit(req)
+                    fut = server.engine.submit(req, alive=self.is_open)
         except Exception as e:  # noqa: BLE001 - sync rejection (stopped
             # engine, admission push-back, bad offset) -> typed ERR
             self._complete(req_id, None, e, t0, span, req)
@@ -766,7 +772,8 @@ class _EvConn:
                     part = entries[i:i + bmax]
                     futs = self.server.engine.submit_batch(
                         [ent[1] for ent in part],
-                        parent_spans=[ent[3] for ent in part])
+                        parent_spans=[ent[3] for ent in part],
+                        alive=self.is_open)
                     for (req_id, req, t0, span), fut in zip(part, futs):
                         fut.add_done_callback(
                             lambda f, req_id=req_id, t0=t0, span=span,
@@ -774,6 +781,13 @@ class _EvConn:
                             self._engine_done(req_id, f, t0, span, req))
         finally:
             self._batch_flushing = False
+
+    def is_open(self) -> bool:
+        """Whether the peer still waits for answers (any thread): not once
+        it hung up or the connection closed. The engine asks before it
+        starts a queued read, so a gone peer's backlog is dropped, not
+        read."""
+        return not (self.closed or self.hung_up)
 
     def _engine_done(self, req_id: int, f, t0: float, span, req) -> None:
         """Engine worker thread (or the loop, when the future was already

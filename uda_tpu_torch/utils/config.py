@@ -190,7 +190,8 @@ _FLAG_LIST = [
     Flag("uda.tpu.fetch.speculate.floor.ms", 50, int,
          "minimum in-flight milliseconds before a fetch may be "
          "speculated, and the whole threshold while the latency "
-         "histogram is empty (stats off or cold start)"),
+         "histogram is empty (cold start; it records with stats off "
+         "too while speculation is on)"),
     Flag("uda.tpu.fetch.resume", False, bool,
          "warm-resume on transport retry: keep the segment's offset "
          "ledger (fetched batches + carry) across a connection loss "

@@ -45,7 +45,8 @@ from uda_tpu_torch.utils.resledger import resledger as _resledger
 
 __all__ = ["Metrics", "Span", "OpenTimer", "metrics", "device_trace",
            "METRICS_REGISTRY", "REGISTRY_PREFIXES", "NAME_RE",
-           "SPAN_REGISTRY", "PortTimer", "PORT_TIMERS", "PARITY_ALIASES",
+           "SPAN_REGISTRY", "PortTimer", "PORT_TIMERS", "PORT_METRICS",
+           "PARITY_ALIASES",
            "stats_enabled_from_env", "percentile_from_summary",
            "active_span_of_thread", "enable_thread_span_registry"]
 
@@ -90,6 +91,11 @@ METRICS_REGISTRY: Dict[str, tuple] = {
                                           "primary beat (the loser's "
                                           "completion is discarded as "
                                           "stale)"),
+    "fetch.hedged.bytes": ("counter", "record bytes ingested from the "
+                                      "source that won a speculation "
+                                      "race, from the winning chunk to "
+                                      "the end of its segment (a port-"
+                                      "only name) [labels: supplier]"),
     "fetch.resumed": ("counter", "transport retries that kept the "
                                  "offset ledger and resumed "
                                  "mid-partition (uda.tpu.fetch.resume) "
@@ -161,6 +167,11 @@ METRICS_REGISTRY: Dict[str, tuple] = {
                                    "UDA_TPU_RESLEDGER=1)"),
     # -- counters: supplier / emit / merge / exchange --------------------
     "supplier.bytes": ("counter", "bytes served by the DataEngine"),
+    "supplier.reads.dropped": ("counter", "DataEngine reads dropped "
+                                          "unread because their requester "
+                                          "was gone when the pool took "
+                                          "them up (a closed connection; "
+                                          "a port-only name)"),
     "emit.bytes": ("counter", "framed bytes handed to the consumer"),
     "merge.records": ("counter", "records through the merge "
                                  "(staged or device-merged)"),
@@ -678,8 +689,8 @@ class PortTimer(NamedTuple):
 # a ``<name>_time`` counter (``metrics.timer``, ``start_timer``,
 # ``add_time``) and, for the first two with spans on, a span of its name.
 # The one table of them: utils/critpath derives PORT_SPAN_BUCKETS and the
-# port rows of buckets_from_counters from it. METRICS_REGISTRY and
-# SPAN_REGISTRY stay the reference's.
+# port rows of buckets_from_counters from it. SPAN_REGISTRY stays the
+# reference's; METRICS_REGISTRY is the reference's and PORT_METRICS.
 PORT_TIMERS: Dict[str, PortTimer] = {
     # the emit (merger/emitter.py, merger/streaming.py): emission, the
     # reference's bucket for "emit"
@@ -736,6 +747,13 @@ PORT_TIMERS: Dict[str, PortTimer] = {
         "reconstruction rung to the decoded partition reaching it: shard "
         "streams and decode (merger/segment.py _try_recover, a "
         "start_timer); a wall, waits included", "fetch", busy=False),
+    # a speculated chunk's race (merger/segment.py)
+    "fetch_hedge": PortTimer(
+        "one speculated chunk's race, from its primary attempt's issue to "
+        "the completion that settles it: the straggler threshold's wait "
+        "and the winner's fetch (merger/segment.py _maybe_speculate, a "
+        "start_timer backdated to the issue); a wall, waits included",
+        "fetch", busy=False),
     "coding_decode": PortTimer(
         "one stripe's Reed-Solomon decode on the host (coding/recovery.py, "
         "coding.rs.decode); nests in net_deliver or the fetch phase",
@@ -759,6 +777,10 @@ PORT_TIMERS: Dict[str, PortTimer] = {
         "net/client.py RemoteFetchClient.stop); the routing client's "
         "ends before its connections' own begin", "fetch"),
 }
+
+# The port's own entries of METRICS_REGISTRY (names the reference does
+# not have).
+PORT_METRICS = ("fetch.hedged.bytes", "supplier.reads.dropped")
 
 # snapshot() aliases for the reference's per-reduce-task aggregate trio
 # (reducer.h:80-90): alias name -> source timer counter.
@@ -940,11 +962,12 @@ class OpenTimer:
 
     __slots__ = ("_metrics", "name", "span", "_t0", "_stopped")
 
-    def __init__(self, metrics_obj: "Metrics", name: str, span) -> None:
+    def __init__(self, metrics_obj: "Metrics", name: str, span,
+                 t0: Optional[float] = None) -> None:
         self._metrics = metrics_obj
         self.name = name
         self.span = span
-        self._t0 = time.perf_counter()
+        self._t0 = time.perf_counter() if t0 is None else t0
         self._stopped = False
 
     def stop(self, **attrs) -> None:
@@ -1011,6 +1034,8 @@ class Metrics:
         self.counters: Dict[str, float] = defaultdict(float)
         self.gauges: Dict[str, float] = {}
         self.histograms: Dict[str, _Hist] = {}
+        # histograms recorded with stats off too (keep_histogram)
+        self._kept: set = set()
         self.spans: list[dict] = []
         # construction-time default, restored by reset(): the global
         # instance takes it from UDA_TPU_STATS so a whole process can be
@@ -1104,9 +1129,13 @@ class Metrics:
 
     def observe(self, name: str, value: float, **labels) -> None:
         """Record one histogram sample. No-op until stats are enabled —
-        the disabled fast path is a single attribute check."""
+        the disabled fast path is a single attribute check — except for
+        a kept histogram (:meth:`keep_histogram`), whose unlabelled
+        series records either way."""
         if not self._hist_enabled:
-            return
+            if name not in self._kept:
+                return
+            labels = {}
         keys = [name]
         if labels:
             keys.append(_series_key(name, labels))
@@ -1116,6 +1145,14 @@ class Metrics:
                 if h is None:
                     h = self.histograms[key] = _Hist()
                 h.observe(value)
+
+    def keep_histogram(self, name: str) -> None:
+        """Record histogram ``name`` (its unlabelled series) while stats
+        are off too, until :meth:`reset`: for a reader that decides on
+        it, as the fetch straggler threshold decides on
+        ``fetch.latency_ms`` (``SpeculationPolicy.threshold_ms``)."""
+        with self._lock:
+            self._kept.add(name)
 
     def histogram(self, name: str, **labels) -> Dict[str, float]:
         """``{"count", "sum", "max"}`` of one histogram series (count 0
@@ -1134,9 +1171,10 @@ class Metrics:
     def percentile(self, name: str, p: float,
                    **labels) -> Optional[float]:
         """A live percentile estimate of one histogram series, or None
-        when the series has no samples (stats disabled, or nothing
-        observed yet) — callers degrade to their own floor. Used by the
-        fetch straggler detector (SpeculationPolicy.threshold_ms)."""
+        when the series has no samples (stats disabled and the series not
+        kept, or nothing observed yet) — callers degrade to their own
+        floor. Used by the fetch straggler detector
+        (SpeculationPolicy.threshold_ms)."""
         key = _series_key(name, labels) if labels else name
         with self._lock:
             h = self.histograms.get(key)
@@ -1273,15 +1311,20 @@ class Metrics:
             with self._lock:
                 self.counters[name + "_time"] += dt
 
-    def start_timer(self, name: str, *,
-                    parent: Optional[Span] = None) -> "OpenTimer":
+    def start_timer(self, name: str, *, parent: Optional[Span] = None,
+                    t0: Optional[float] = None) -> "OpenTimer":
         """The phase timer of work that ends on another thread than the
         one that starts it (a completion-driven chain): ``stop()`` on the
         returned handle accumulates ``<name>_time`` and ends its span
         (when spans are on), started here under ``parent``, by default
         the thread's current span. The span is not made current; adopt
-        it with ``use_span(handle.span)``."""
-        return OpenTimer(self, name, self.start_span(name, parent=parent))
+        it with ``use_span(handle.span)``. ``t0``, an earlier
+        ``time.perf_counter()`` reading, starts the timer and its span
+        there: work whose start is known only once it is under way."""
+        span = self.start_span(name, parent=parent)
+        if t0 is not None and isinstance(span, Span):
+            span.t0 = t0
+        return OpenTimer(self, name, span, t0)
 
     def add_time(self, name: str, seconds: float) -> None:
         """Add ``seconds`` to the ``<name>_time`` counter a timer keeps,
@@ -1328,6 +1371,7 @@ class Metrics:
             self.counters.clear()
             self.gauges.clear()
             self.histograms.clear()
+            self._kept.clear()
             self.spans.clear()
             self._hist_enabled = self._default_stats
             self._spans_enabled = self._default_stats

@@ -28,6 +28,8 @@ from uda_tpu_torch.utils.metrics import metrics
 
 __all__ = ["RetryPolicy", "SpeculationPolicy"]
 
+LATENCY = "fetch.latency_ms"   # the histogram the straggler threshold reads
+
 
 @dataclasses.dataclass(frozen=True)
 class RetryPolicy:
@@ -72,8 +74,10 @@ class SpeculationPolicy:
     ``merger/segment``): an in-flight chunk fetch that outlives
     ``max(floor_ms, pN of the observed fetch.latency_ms histogram)`` gets
     a duplicate issued to an alternate source. ``pn == 0`` (the default)
-    disables speculation; with stats off (no histogram) the floor alone
-    is the threshold."""
+    disables speculation. The histogram records while stats are off too
+    once a speculating segment has asked for it (:meth:`keep_latencies`),
+    so the floor alone is the threshold only until the process has
+    observed a chunk."""
 
     pn: int = 0           # latency percentile (e.g. 95); 0 = off
     floor_ms: float = 50.0
@@ -82,8 +86,14 @@ class SpeculationPolicy:
     def enabled(self) -> bool:
         return self.pn > 0
 
+    def keep_latencies(self) -> None:
+        """Have the hub record the latency histogram the threshold reads,
+        stats on or off (a no-op while speculation is off)."""
+        if self.enabled:
+            metrics.keep_histogram(LATENCY)
+
     def threshold_ms(self) -> float:
-        q = metrics.percentile("fetch.latency_ms", float(self.pn))
+        q = metrics.percentile(LATENCY, float(self.pn))
         return max(self.floor_ms, q or 0.0)
 
     @classmethod
